@@ -1,0 +1,57 @@
+"""Public kernel entry points, and the one place that picks kernel or plain.
+
+A CUDA tensor launches the hand-written kernel (or the wrapper raises); a
+CPU tensor, or a call with ``use_kernels=False``, takes the plain PyTorch
+version.  There is no fallback from the kernel to the plain version.
+``use_kernels`` is the port's counterpart of the JAX package's
+``use_pallas``: ``"auto"`` means "the tensors are on CUDA".
+"""
+from __future__ import annotations
+
+from typing import Dict, Union
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.masked_compact import masked_compact_cuda
+
+_WRAPPERS = {"decode_attention": decode_attention_cuda,
+             "masked_compact": masked_compact_cuda}
+
+
+def resolve_use_kernels(use_kernels: Union[bool, str],
+                        device: torch.device) -> bool:
+    """``"auto"`` -> kernels exactly when ``device`` is a CUDA device."""
+    if use_kernels == "auto":
+        return torch.device(device).type == "cuda"
+    return bool(use_kernels)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
+                     use_kernels: bool = True):
+    """q: [B,1,H,dh]; caches: [B,S,Hkv,dh]; cache_len: [B] or scalar.
+    ``use_kernels=False`` takes the plain version on any device."""
+    if use_kernels and q.is_cuda:
+        return decode_attention_cuda(q.contiguous(), k_cache, v_cache,
+                                     cache_len, window=window)
+    return ref.decode_attention_ref(q, k_cache, v_cache, cache_len,
+                                    window=window)
+
+
+def masked_compact(tokens, mask, capacity: int, *, use_kernels: bool = True):
+    """tokens: [B,S,D]; mask: [B,S] bool -> (out [B,K,D], idx [B,K], count [B]).
+    ``use_kernels=False`` takes the plain version on any device."""
+    if use_kernels and tokens.is_cuda:
+        return masked_compact_cuda(tokens, mask, capacity)
+    return ref.masked_compact_ref(tokens, mask, capacity)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per kernel since the last reset."""
+    return {name: fn.launches for name, fn in _WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _WRAPPERS.values():
+        fn.launches = 0

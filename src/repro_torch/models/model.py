@@ -1,0 +1,106 @@
+"""Top-level model: init / cache / forward (dense decoders in this port).
+
+Public API (the JAX package's ``repro/models/model.py`` counterpart)
+------------------------------------------------------------------
+init_params(cfg, seed, device=None)          -> params (dict of tensors)
+init_cache(cfg, batch, seq_len, dtype, device) -> {"self": {"k","v"}}
+forward(params, cfg, batch, mode=...)        -> ModelOutputs
+
+``batch`` is a dict:
+  prefill: {"tokens": [B,S]}
+  decode:  {"token": [B,1], "cache": ..., "cache_index": scalar or [B]}
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import embed_apply, norm_apply, norm_init, unembed_apply
+
+
+@dataclass
+class ModelOutputs:
+    logits: Any           # [B,S,V] (prefill: the last position only, S = 1)
+    cache: Any = None     # decode/prefill caches
+
+
+def _kind(cfg) -> str:
+    if cfg.family != "dense" or cfg.num_experts or cfg.frontend \
+            or cfg.encoder_layers:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    return "dense"
+
+
+def init_params(cfg, seed: int = 0, *, device: DeviceLike = None) -> Dict[str, Any]:
+    """Random params from ``seed`` at the JAX package's init scales (the
+    numbers differ from JAX's: a test hands JAX params over with
+    ``repro_torch.convert``).  Runs on the card unless ``device`` says
+    otherwise."""
+    dev = resolve_device(device)
+    kind = _kind(cfg)
+    dtype = cfg.torch_dtype
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    table = (torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                         device=dev) * 0.02).to(dtype)
+    params: Dict[str, Any] = {
+        "embed": {"table": table},
+        "final_norm": norm_init(cfg, cfg.d_model, dev),
+        "blocks": tfm.init_stack(gen, cfg, dtype, dev, kind, cfg.num_layers),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"table": (torch.randn(
+            (cfg.vocab_size, cfg.d_model), generator=gen, device=dev) * 0.02
+        ).to(dtype)}
+    return params
+
+
+def init_cache(cfg, batch: int, seq_len: int, dtype=None, *, device) -> Any:
+    """Decode caches sized for seq_len positions: [L,B,S,Hkv,dh] K and V."""
+    _kind(cfg)
+    if cfg.kv_quant:
+        raise NotImplementedError("the int8 KV cache is not ported yet")
+    shape = (cfg.num_layers, batch, seq_len, cfg.num_kv_heads, cfg.head_dim)
+    dtype = dtype or cfg.torch_dtype
+    return {"self": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                     "v": torch.zeros(shape, dtype=dtype, device=device)}}
+
+
+def _logits(params, cfg, x):
+    x = norm_apply(params["final_norm"], x, cfg)
+    return unembed_apply(
+        params.get("lm_head"), x,
+        tied_table=params["embed"]["table"] if cfg.tie_embeddings else None)
+
+
+def forward(params, cfg, batch, *, mode: str = "prefill",
+            use_kernels: bool = False) -> ModelOutputs:
+    kind = _kind(cfg)
+    if mode == "prefill":
+        tokens = batch["tokens"]
+        x = embed_apply(params["embed"], tokens)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x, caches = tfm.stack_apply(params["blocks"], x, cfg, kind=kind,
+                                    mode="prefill", positions=positions,
+                                    use_kernels=use_kernels)
+        # only the last position's logits are needed
+        return ModelOutputs(logits=_logits(params, cfg, x[:, -1:]), cache=caches)
+
+    if mode != "decode":
+        raise NotImplementedError(f"forward mode {mode!r} is not ported yet")
+    token, cache, idx = batch["token"], batch["cache"], batch["cache_index"]
+    x = embed_apply(params["embed"], token)
+    if torch.is_tensor(idx) and idx.dim():   # per-slot cache indices [B]
+        positions = idx.to(torch.int32)[:, None]
+    else:
+        positions = torch.as_tensor(idx, dtype=torch.int32,
+                                    device=token.device).reshape(1)
+    x, caches = tfm.stack_apply(params["blocks"], x, cfg, kind=kind,
+                                mode="decode", positions=positions,
+                                caches=cache, cache_index=idx,
+                                use_kernels=use_kernels)
+    return ModelOutputs(logits=_logits(params, cfg, x), cache=caches)

@@ -1,0 +1,127 @@
+"""The port's kernel entry points (CPU path) against the JAX package's
+Pallas kernels (interpret mode, as tests/test_kernels.py runs them) and its
+jnp oracles.  Inputs are drawn with numpy from the suite seed."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
+from repro_torch.kernels.masked_compact import masked_compact_cuda  # noqa: E402
+
+
+def _decode_inputs(rng, B, S, H, Hkv, dh):
+    q = rng.standard_normal((B, 1, H, dh)).astype(np.float32)
+    k = rng.standard_normal((B, S, Hkv, dh)).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, dh)).astype(np.float32)
+    cl = np.linspace(S // 4, S, B).astype(np.int32)
+    cl[0] = 1                        # a one-row window
+    return q, k, v, cl
+
+
+# subset of tests/test_kernels.py's decode shapes (f32, cache_len >= 1)
+@pytest.mark.parametrize("B,S,H,Hkv,dh,win", [
+    (2, 512, 8, 2, 64, 0), (2, 512, 16, 4, 64, 128), (2, 256, 4, 1, 128, 0),
+])
+def test_decode_attention_matches_jax(B, S, H, Hkv, dh, win, test_seed):
+    rng = np.random.default_rng(test_seed)
+    q, k, v, cl = _decode_inputs(rng, B, S, H, Hkv, dh)
+    mine = ops.decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), torch.from_numpy(cl),
+                                window=win).numpy()
+    pallas = np.asarray(jops.decode_attention(q, k, v, cl, window=win))
+    oracle = np.asarray(jref.decode_attention_ref(q, k, v, cl, window=win))
+    np.testing.assert_allclose(mine, pallas, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(mine, oracle, rtol=2e-5, atol=2e-5)
+
+
+def test_decode_attention_scalar_len_and_bf16(test_seed):
+    """A scalar cache_len broadcasts like a [B] one; bf16 inputs give a bf16
+    output within the JAX suite's bf16 tolerance."""
+    rng = np.random.default_rng(test_seed)
+    q, k, v, _ = _decode_inputs(rng, 2, 256, 8, 2, 64)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    scalar = ops.decode_attention(tq, tk, tv, 100)
+    vector = ops.decode_attention(tq, tk, tv, torch.tensor([100, 100]))
+    assert torch.equal(scalar, vector)
+    bf = ops.decode_attention(tq.bfloat16(), tk.bfloat16(), tv.bfloat16(), 100)
+    assert bf.dtype == torch.bfloat16
+    want = np.asarray(jref.decode_attention_ref(
+        jnp.asarray(q, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16),
+        jnp.asarray(v, jnp.bfloat16), 100), np.float32)
+    np.testing.assert_allclose(bf.float().numpy(), want, rtol=3e-2, atol=3e-2)
+
+
+def test_decode_attention_empty_window_is_zero(test_seed):
+    """The kernels' semantics: no valid position -> 0 (not the NaN of a
+    softmax over -inf)."""
+    rng = np.random.default_rng(test_seed)
+    q, k, v, _ = _decode_inputs(rng, 2, 64, 4, 2, 64)
+    out = ref.decode_attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                                   torch.from_numpy(v), torch.tensor([0, 10]))
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    assert torch.isfinite(out).all()
+
+
+# subset of tests/test_kernels.py's compaction shapes
+@pytest.mark.parametrize("B,S,D,K", [(2, 256, 128, 64), (2, 384, 64, 96),
+                                     (1, 256, 128, 8)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_masked_compact_matches_jax(B, S, D, K, dtype, test_seed):
+    rng = np.random.default_rng(test_seed)
+    toks = rng.standard_normal((B, S, D)).astype(np.float32)
+    mask = rng.random((B, S)) < 0.35
+    jtoks = jnp.asarray(toks, getattr(jnp, dtype))
+    t = torch.from_numpy(toks).to(getattr(torch, dtype))
+    out, idx, cnt = ops.masked_compact(t, torch.from_numpy(mask), K)
+    for fn in (jops.masked_compact, jref.masked_compact_ref):
+        o, i, c = fn(jtoks, jnp.asarray(mask), K)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(i))
+        np.testing.assert_array_equal(cnt.numpy(), np.asarray(c))
+        np.testing.assert_allclose(out.float().numpy(),
+                                   np.asarray(o, np.float32), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("kept,K", [(0, 16), (16, 16), (40, 16)],
+                         ids=["zero-kept", "capacity-equals-kept", "overflow"])
+def test_masked_compact_edges_and_roundtrip(kept, K, test_seed):
+    """Zero kept, capacity == kept and overflow past K against the JAX
+    oracle; compact -> scatter restores the kept rows exactly."""
+    rng = np.random.default_rng(test_seed)
+    B, S, D = 2, 64, 32
+    toks = rng.standard_normal((B, S, D)).astype(np.float32)
+    mask = np.zeros((B, S), bool)
+    for b in range(B):
+        mask[b, rng.choice(S, kept, replace=False)] = True
+    out, idx, cnt = ops.masked_compact(torch.from_numpy(toks),
+                                       torch.from_numpy(mask), K)
+    o, i, c = jref.masked_compact_ref(toks, mask, K)
+    assert torch.equal(out, torch.from_numpy(np.array(o)))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(i))
+    np.testing.assert_array_equal(cnt.numpy(), np.minimum(mask.sum(1), K))
+    back = ref.masked_scatter_ref(out, idx, S).numpy()
+    want = np.asarray(jref.masked_scatter_ref(o, i, S))
+    np.testing.assert_array_equal(back, want)
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """A wrapper launches its kernel or raises: never the plain version."""
+    q = torch.zeros(1, 1, 4, 64)
+    kv = torch.zeros(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        decode_attention_cuda(q, kv, kv, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        masked_compact_cuda(torch.zeros(1, 8, 4), torch.ones(1, 8, dtype=torch.bool), 4)
+    assert ops.launch_counts() == {"decode_attention": 0, "masked_compact": 0}
+
+
+def test_kernel_library_names_missing_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the CPU-only refusal")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _build.load()
