@@ -36,9 +36,37 @@ each; any failure exits non-zero before the result line:
            included), "device_ms" from the profiler's kernel durations; the
            loop cycles through more input sets than L2 holds
 
+Then llama3.2-1b's params are freed and the MoE path runs:
+
+  moe slice    the launcher in-process: moonshot-v1-16b-a3b at full width
+           (48 layers, d 2048, 64 experts top-6 + 2 shared, vocab 163840,
+           bf16, random weights from seed 0, 57.8 GB), the same 16 requests
+           x 128 prompt tokens, 32 new tokens, --split auto; checks
+           grouped_ffn launches == layers x (decode steps + prefills) and
+           decode_attention launches == layers x decode steps; reports peak
+           device memory
+  moe kernels  grouped_ffn against its plain version at every (E, C, D, F)
+           the slice ran (prefill and decode capacity of the probe and of
+           each group) and at ragged shapes (C 1 and 13, F 13 and 88, D 70,
+           72 and 80), zero rows and empty experts exactly zero, bf16 within
+           5e-2 and f32 within 2e-4; decode_attention at moonshot's shape
+           (G=1, dh=128: the > 48 KB shared-memory launch)
+  moe parity   a 2-layer float32 cut of the slice's weights at full width:
+           kernel vs plain path logits over 8 teacher-forced decode steps
+           within 1e-3 (a larger gap is excused only where a routing choice
+           flipped at a top-k margin below 1e-6), the smallest router
+           margin; macro_steps=8 and 0 streams identical (bf16, full depth)
+  moe trace    one group's generate() under torch.profiler
+  moe timing   grouped_ffn at decode (C=8) and at the auxiliary group's
+           prefill capacity, cycling through the slice's 48 layers of
+           expert weights; beside it the plain version and the bf16
+           composition of three torch.bmm calls and silu*mul
+           (composition_ms; no single PyTorch call computes this function,
+           so library_ms is null); decode_attention at moonshot's shape
+
 Then the per-kernel summary line, the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``.  Float32 matmuls run in full float32
-(TF32 off).
+``{"ok": true, "device": {...}}``.  Every phase also prints its seconds.
+Float32 matmuls run in full float32 (TF32 off).
 """
 from __future__ import annotations
 
@@ -58,8 +86,10 @@ SRC = ROOT / "src"
 L2_BYTES = 50e6                  # H100 L2 cache
 
 ARCH = "llama3.2-1b"
+MOE_ARCH = "moonshot-v1-16b-a3b"
 REQUESTS, PROMPT_LEN, MAX_NEW, MACRO = 16, 128, 32, 8
 S_MAIN = PROMPT_LEN + MAX_NEW + 8   # the engines' cache length
+FFN_TOL = {"bfloat16": 5e-2, "float32": 2e-4}   # tests/test_kernels.py:129
 
 # nvidia-smi's name + power limit, stamped on every line after env so each
 # number stands beside the card it came from
@@ -118,22 +148,22 @@ def _decode_case(torch, gen, B, S, H, Hkv, dh, dtype, cache_len, dev):
     return q, k, v, cl
 
 
-def phase_kernel_checks(torch, dev, slice_summary):
-    """Each kernel against its plain version at the shapes the slice gave
-    it (the probe's and each group's batch) and at edge cases; returns the
-    largest main-path error of each kernel."""
+def _batch_sizes(slice_summary):
+    """The batch sizes the slice's engines ran: the probe's and each group's."""
+    from repro_torch.launch.serve import PROBE_REQUESTS
+    return sorted({PROBE_REQUESTS, *(n for n in slice_summary["n_group"] if n)})
+
+
+def _check_decode_attention(torch, dev, gen, main_bs, H, Hkv, dh, phase):
+    """decode_attention against its plain version at [B,1,H,dh] for every
+    batch size the slice ran (per-slot lengths that include 1 and S), a
+    scalar length, ragged long caches with and without a window, and an
+    empty window; returns the largest main-path error (bf16)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_cuda
-    from repro_torch.kernels.masked_compact import masked_compact_cuda
-    from repro_torch.launch.serve import PROBE_REQUESTS
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
     tol = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
     results, main_err = [], 0.0
-    H, Hkv, dh = 32, 8, 64
-    groups = dict(zip(slice_summary["group_names"], slice_summary["n_group"]))
-    main_bs = sorted({PROBE_REQUESTS, *(n for n in groups.values() if n)})
     cases = []
     for B in main_bs:
         lens = torch.randint(1, S_MAIN + 1, (B,), generator=gen, device=dev)
@@ -152,15 +182,32 @@ def phase_kernel_checks(torch, dev, slice_summary):
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
             require(got.dtype == dtype and bool(torch.isfinite(got).all()),
-                    f"decode_attention B={B} S={S} {dtype}: bad output")
-            require(err <= tol[dtype], f"decode_attention B={B} S={S} "
-                    f"window={win} {dtype}: max_abs_err {err} > {tol[dtype]}")
+                    f"decode_attention B={B} S={S} H={H} Hkv={Hkv} dh={dh} "
+                    f"{dtype}: bad output")
+            require(err <= tol[dtype], f"decode_attention B={B} S={S} H={H} "
+                    f"Hkv={Hkv} dh={dh} window={win} {dtype}: max_abs_err "
+                    f"{err} > {tol[dtype]}")
             if main and dtype == torch.bfloat16:
                 main_err = max(main_err, err)
-            results.append({"B": B, "S": S, "window": win,
-                            "dtype": str(dtype)[6:], "max_abs_err": err})
-    emit({"phase": "kernels", "kernel": "decode_attention",
+            results.append({"B": B, "S": S, "window": win, "H": H, "Hkv": Hkv,
+                            "dh": dh, "dtype": str(dtype)[6:], "max_abs_err": err})
+    emit({"phase": phase, "kernel": "decode_attention",
           "tolerance": {"bfloat16": 3e-2, "float32": 1e-4}, "cases": results})
+    return main_err
+
+
+def phase_kernel_checks(torch, dev, slice_summary):
+    """Each kernel against its plain version at the shapes the slice gave
+    it (the probe's and each group's batch) and at edge cases; returns the
+    largest main-path error of each kernel."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.masked_compact import masked_compact_cuda
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    groups = dict(zip(slice_summary["group_names"], slice_summary["n_group"]))
+    main_err = _check_decode_attention(torch, dev, gen, _batch_sizes(slice_summary),
+                                       32, 8, 64, "kernels")
 
     results, mc_err = [], 0.0
     d_main = 2048
@@ -196,40 +243,52 @@ def phase_kernel_checks(torch, dev, slice_summary):
 
 
 # ---------------------------------------------------------------------------
-def phase_slice(torch):
+def phase_slice(torch, arch=ARCH):
+    """The port's launcher in-process on ``arch``; the launch counts are
+    set to 0 just before and read just after.  Returns (summary, counts)."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
-    cfg = get_config(ARCH)
-    argv = ["--arch", ARCH, "--requests", str(REQUESTS), "--prompt-len",
+    cfg = get_config(arch)
+    argv = ["--arch", arch, "--requests", str(REQUESTS), "--prompt-len",
             str(PROMPT_LEN), "--max-new", str(MAX_NEW), "--macro-steps",
             str(MACRO), "--split", "auto", "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     s = serve.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
     toks = s["tokens"]
     require(toks.shape == (REQUESTS, MAX_NEW), f"tokens shape {toks.shape}")
     require(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
             "token ids out of range")
-    want = cfg.num_layers * s["decode_steps"]
+    L = cfg.num_layers
+    want = L * s["decode_steps"]
     require(counts["decode_attention"] == want,
             f"decode_attention launched {counts['decode_attention']} times, "
-            f"expected {cfg.num_layers} layers x {s['decode_steps']} steps")
+            f"expected {L} layers x {s['decode_steps']} steps")
+    want = L * (s["decode_steps"] + s["prefills"]) if cfg.num_experts else 0
+    require(counts["grouped_ffn"] == want,
+            f"grouped_ffn launched {counts['grouped_ffn']} times, expected "
+            f"{want} ({L} layers x ({s['decode_steps']} decode steps + "
+            f"{s['prefills']} prefills) for an MoE model, 0 for a dense one)")
     require(counts["masked_compact"] > 0, "masked_compact never launched")
     comp = s["compression"]
     require(comp["kept_tokens_compacted"] == comp["kept_tokens"],
             "masked_compact's count disagrees with the mask")
-    emit({"phase": "slice", "argv": argv, "r_star": s["r_star"], "r": s["r"],
+    emit({"phase": "slice", "arch": arch, "argv": argv, "r_star": s["r_star"],
+          "r": s["r"],
           "groups": dict(zip(s["group_names"], s["n_group"])),
           "t_group_s": s["t_group_s"], "t_parallel_s": s["t_parallel_s"],
           "t_serial_s": s["t_serial_s"], "t_offload_s": s["t_offload_s"],
           "probe_s": s["probe_s"], "tokens_per_s": s["tokens_per_s"],
           "serve_wall_s": s["wall_s"], "main_wall_s": wall,
-          "decode_steps": s["decode_steps"], "launches": counts,
+          "decode_steps": s["decode_steps"], "prefills": s["prefills"],
+          "launches": counts, "peak_memory_bytes": peak,
           "payload_bytes_per_item": s["payload_bytes_per_item"],
           "compression": comp})
     return s, counts
@@ -239,7 +298,6 @@ def phase_slice(torch):
 def phase_parity(torch, dev):
     from repro_torch.configs.base import get_config
     from repro_torch.core.offload import tree_map
-    from repro_torch.data.pipeline import request_stream
     from repro_torch.models import model as M
     from repro_torch.serving.engine import (ServingEngine, make_prefill_step,
                                             make_serve_step, seed_cache)
@@ -248,10 +306,7 @@ def phase_parity(torch, dev):
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params = M.init_params(cfg, 0, device=dev)           # the slice's weights
     params32 = tree_map(lambda t: t.float(), params)
-    reqs = request_stream(cfg.vocab_size, n=REQUESTS, mean_prompt=PROMPT_LEN, seed=0)
-    prompts = np.stack([np.pad(r.prompt[:PROMPT_LEN],
-                               (0, max(0, PROMPT_LEN - len(r.prompt))))
-                        for r in reqs]).astype(np.int32)
+    prompts = _prompts(cfg)
     B = 4
     tokens = torch.as_tensor(prompts[:B], device=dev)
     with torch.no_grad():
@@ -314,6 +369,16 @@ def phase_parity(torch, dev):
     return cfg, params, prompts
 
 
+def _prompts(cfg):
+    """The launcher's prompts: request_stream(seed=0), padded or cut to
+    PROMPT_LEN tokens."""
+    from repro_torch.data.pipeline import request_stream
+    reqs = request_stream(cfg.vocab_size, n=REQUESTS, mean_prompt=PROMPT_LEN, seed=0)
+    return np.stack([np.pad(r.prompt[:PROMPT_LEN],
+                            (0, max(0, PROMPT_LEN - len(r.prompt))))
+                     for r in reqs]).astype(np.int32)
+
+
 def _check_offload_streams(torch, dev, cfg, params, prompts):
     """OffloadEngine's dispatch-all-then-await path (jit=True: one CUDA
     stream per group, completion polled with Event.query) merges to the
@@ -351,11 +416,13 @@ def phase_trace(torch, dev, cfg, params, prompts, B):
 
     eng = ServingEngine(cfg, params, max_len=S_MAIN, macro_steps=MACRO, device=dev)
     warm = eng.generate(prompts[:B], MAX_NEW)
+    steps0 = eng.decode_steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.generate(prompts[:B], MAX_NEW)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    steps = eng.decode_steps - steps0
     per_kernel = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -363,13 +430,16 @@ def phase_trace(torch, dev, cfg, params, prompts, B):
             per_kernel[e.name] = (us + e.device_time_total, n + 1)
     busy_s = sum(us for us, _ in per_kernel.values()) / 1e6
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
-    emit({"phase": "trace", "B": B, "prompt_len": PROMPT_LEN, "max_new": MAX_NEW,
+    launches = sum(n for _, n in per_kernel.values())
+    emit({"phase": "trace", "arch": cfg.name, "B": B, "prompt_len": PROMPT_LEN,
+          "max_new": MAX_NEW,
           "macro_steps": MACRO, "untraced_prefill_s": warm.prefill_s,
           "untraced_decode_s": warm.decode_s,
           "untraced_ms_per_decode_step": 1e3 * warm.t_per_macro_step_s / MACRO,
           "traced_wall_s": wall, "device_busy_s": busy_s,
           "device_idle_share": 1.0 - busy_s / wall if busy_s else None,
-          "device_launches": sum(n for _, n in per_kernel.values()),
+          "device_launches": launches, "decode_steps": steps,
+          "device_launches_per_decode_step_prefill_included": launches / steps,
           "top_kernels": [{"name": name[:90], "device_ms": us / 1e3, "calls": n}
                           for name, (us, n) in top]})
 
@@ -417,58 +487,68 @@ def _sets_for(bytes_per_set: float) -> int:
     return max(2, math.ceil(4 * L2_BYTES / max(bytes_per_set, 1.0)))
 
 
-def phase_timing(torch, dev, slice_summary):
-    import torch.nn.functional as F
+def _bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the larger of bytes over the H100's memory rate
+    and operations over its bf16 tensor-core peak."""
     from repro_torch.core.profiler import H100_HBM_BW, H100_PEAK_FLOPS_BF16
+    t_bytes, t_ops = n_bytes / H100_HBM_BW, n_ops / H100_PEAK_FLOPS_BF16
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _time_decode_attention(torch, dev, gen, gname, B, H, Hkv, dh):
+    """decode_attention, its plain version and SDPA at [B,1,H,dh] against a
+    bf16 cache of S_MAIN rows, halfway through decode."""
+    import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_cuda
+
+    S, esize = S_MAIN, 2
+    cl_mid = PROMPT_LEN + MAX_NEW // 2 + 1   # cache_len halfway through decode
+    per_set = 2 * B * S * Hkv * dh * esize
+    sets = [_decode_case(torch, gen, B, S, H, Hkv, dh, torch.bfloat16,
+                         [cl_mid] * B, dev) for _ in range(_sets_for(per_set))]
+
+    def sdpa(q, k, v, cl):
+        mask = (torch.arange(S, device=dev)[None] < cl[:, None])[:, None, None]
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True).transpose(1, 2)
+
+    q, k, v, cl = sets[0]
+    lib_err = float((sdpa(q, k, v, cl).float()
+                     - ref.decode_attention_ref(q, k, v, cl).float()).abs().max())
+    require(lib_err <= 3e-2, f"library attention disagrees by {lib_err}")
+    fns = {"": lambda *a: decode_attention_cuda(*a),
+           "plain_": lambda *a: ref.decode_attention_ref(*a),
+           "library_": sdpa}
+    times = {f"{p}ms": _time_ms(torch, fn, sets) for p, fn in fns.items()}
+    times.update({f"{p}device_ms": _device_ms(torch, fn, sets)
+                  for p, fn in fns.items()})
+    n_bytes = (2 * B * cl_mid * Hkv * dh * esize    # K and V rows read
+               + 2 * B * H * dh * esize             # q read, out written
+               + 4 * B)                             # cache_len
+    n_ops = 4 * B * H * cl_mid * dh                 # q.k and p.v
+    bound_ms, bound_by = _bound(n_bytes, n_ops)
+    return {"kernel": "decode_attention", "group": gname, "B": B, "S": S,
+            "cache_len": cl_mid, "dtype": "bfloat16", "H": H, "Hkv": Hkv,
+            "dh": dh, "G": H // Hkv, **times,
+            "library": "scaled_dot_product_attention(enable_gqa=True, "
+                       "bool length mask)",
+            "bytes": n_bytes, "operations": n_ops, "bound_ms": bound_ms,
+            "bound_by": bound_by, "sets": len(sets)}
+
+
+def phase_timing(torch, dev, slice_summary):
+    from repro_torch.core.profiler import H100_HBM_BW
+    from repro_torch.kernels import ref
     from repro_torch.kernels.masked_compact import masked_compact_cuda
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    H, Hkv, dh, S = 32, 8, 64, S_MAIN
-    G = H // Hkv
     esize = 2
-    cl_mid = PROMPT_LEN + MAX_NEW // 2 + 1   # cache_len halfway through decode
     groups = dict(zip(slice_summary["group_names"], slice_summary["n_group"]))
-    rows = []
-    for gname, B in groups.items():
-        if not B:
-            continue
-        per_set = 2 * B * S * Hkv * dh * esize
-        sets = [_decode_case(torch, gen, B, S, H, Hkv, dh, torch.bfloat16,
-                             [cl_mid] * B, dev) for _ in range(_sets_for(per_set))]
-
-        def sdpa(q, k, v, cl):
-            mask = (torch.arange(S, device=dev)[None] < cl[:, None])[:, None, None]
-            return F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                attn_mask=mask, enable_gqa=True).transpose(1, 2)
-
-        q, k, v, cl = sets[0]
-        lib_err = float((sdpa(q, k, v, cl).float()
-                         - ref.decode_attention_ref(q, k, v, cl).float()).abs().max())
-        require(lib_err <= 3e-2, f"library attention disagrees by {lib_err}")
-        fns = {"": lambda *a: decode_attention_cuda(*a),
-               "plain_": lambda *a: ref.decode_attention_ref(*a),
-               "library_": sdpa}
-        times = {f"{p}ms": _time_ms(torch, fn, sets) for p, fn in fns.items()}
-        times.update({f"{p}device_ms": _device_ms(torch, fn, sets)
-                      for p, fn in fns.items()})
-        n_bytes = (2 * B * cl_mid * Hkv * dh * esize    # K and V rows read
-                   + 2 * B * H * dh * esize             # q read, out written
-                   + 4 * B)                             # cache_len
-        n_ops = 4 * B * H * cl_mid * dh                 # q.k and p.v
-        t_bytes, t_ops = n_bytes / H100_HBM_BW, n_ops / H100_PEAK_FLOPS_BF16
-        rows.append({"kernel": "decode_attention", "group": gname, "B": B,
-                     "S": S, "cache_len": cl_mid, "dtype": "bfloat16", "G": G,
-                     **times,
-                     "library": "scaled_dot_product_attention(enable_gqa=True, "
-                                "bool length mask)",
-                     "bytes": n_bytes, "operations": n_ops,
-                     "bound_ms": 1e3 * max(t_bytes, t_ops),
-                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                     "sets": len(sets)})
+    rows = [_time_decode_attention(torch, dev, gen, gname, B, 32, 8, 64)
+            for gname, B in groups.items() if B]
 
     B = groups.get("auxiliary") or max(groups.values())
     D = 2048
@@ -501,6 +581,207 @@ def phase_timing(torch, dev, slice_summary):
 
 
 # ---------------------------------------------------------------------------
+# The MoE path: moonshot-v1-16b-a3b
+# ---------------------------------------------------------------------------
+def _ffn_case(torch, gen, E, C, D, F, dtype, dev):
+    """buf ~ N(0, 1), like the normed activations the MoE layer scatters,
+    and expert weights at moe_init's scales."""
+    def normal(shape, scale):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+    return (normal((E, C, D), 1.0), normal((E, D, F), D ** -0.5),
+            normal((E, D, F), D ** -0.5), normal((E, F, D), F ** -0.5))
+
+
+def phase_moe_kernel_checks(torch, dev, cfg, slice_summary):
+    """grouped_ffn against its plain version at every capacity the slice
+    ran and at edge cases; decode_attention's checks at moonshot's head
+    shape (G=1, dh=128).
+    Returns the largest main-path error of each kernel (bf16)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.grouped_ffn import grouped_ffn_cuda
+    from repro_torch.models.moe import _capacity
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    E, D, F = cfg.num_experts, cfg.d_model, cfg.d_ff
+    bs = _batch_sizes(slice_summary)
+    caps = sorted({_capacity(n * PROMPT_LEN, cfg) for n in bs}      # prefill
+                  | {_capacity(n, cfg) for n in bs})                # decode
+    cases = [("main-path", E, C, D, F) for C in caps]
+    cases += [("ragged", 3, 1, 72, 88), ("ragged", 3, 13, 72, 88),
+              ("ragged", 3, 1, 80, 88), ("ragged", 3, 13, 80, 88),
+              ("ragged-scalar-loads", 2, 13, 70, 13),
+              ("zero-rows", 8, 16, D, F), ("all-empty", E, caps[0], D, F)]
+    results, ffn_err = [], 0.0
+    for name, e, C, d, f in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype)[6:]
+            buf, wg, wu, wd = _ffn_case(torch, gen, e, C, d, f, dtype, dev)
+            if name == "zero-rows":
+                buf[:, 5:] = 0          # empty capacity slots
+                buf[2] = 0              # an expert that received no row
+            elif name == "all-empty":
+                buf.zero_()
+            got = grouped_ffn_cuda(buf, wg, wu, wd)
+            want = ref.grouped_ffn_ref(buf, wg, wu, wd)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            tag = f"grouped_ffn {name} E={e} C={C} D={d} F={f} {dname}"
+            require(got.dtype == dtype and got.shape == buf.shape
+                    and bool(torch.isfinite(got).all()), f"{tag}: bad output")
+            require(err <= FFN_TOL[dname],
+                    f"{tag}: max_abs_err {err} > {FFN_TOL[dname]}")
+            row = {"case": name, "E": e, "C": C, "D": d, "F": f, "dtype": dname,
+                   "max_abs_err": err,
+                   "out_mean_abs": float(got.float().abs().mean())}
+            empty = (buf == 0).all(dim=-1)
+            if bool(empty.any()):
+                exact = bool((got[empty] == 0).all())
+                require(exact, f"{tag}: zero rows of buf gave non-zero rows")
+                row["zero_rows"] = int(empty.sum())
+                row["zero_rows_exact"] = exact
+            if name == "main-path" and dtype == torch.bfloat16:
+                ffn_err = max(ffn_err, err)
+            results.append(row)
+            del buf, wg, wu, wd, got, want
+    emit({"phase": "moe_kernels", "kernel": "grouped_ffn", "tolerance": FFN_TOL,
+          "cases": results})
+
+    att_err = _check_decode_attention(torch, dev, gen, bs, cfg.num_heads,
+                                      cfg.num_kv_heads, cfg.head_dim,
+                                      "moe_kernels")
+    return {"grouped_ffn": ffn_err, "decode_attention": att_err}
+
+
+def phase_moe_parity(torch, dev, cfg, params, prompts):
+    """A 2-layer float32 cut of the slice's weights at full width: kernel
+    path against plain path over 8 teacher-forced decode steps, with the
+    router's top-k margins recorded; then macro_steps 8 and 0 at full depth
+    in bf16 give identical streams."""
+    from repro_torch.core.offload import tree_map
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serving.engine import (ServingEngine, make_prefill_step,
+                                            make_serve_step, seed_cache)
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    p32 = {k: tree_map(lambda t: t.float(), v) for k, v in params.items()
+           if k != "blocks"}
+    p32["blocks"] = tree_map(lambda t: t[:2].float(), params["blocks"])
+    B, K = 4, cfg.experts_per_token
+    tokens = torch.as_tensor(prompts[:B], device=dev)
+    log = []                         # (sorted expert ids [T,K], min margin)
+    orig = moe_mod.moe_apply
+
+    def spy(p, x, c, **kw):          # records each MoE call's routing
+        _, ids, _, probs = moe_mod.route(x.reshape(-1, x.shape[-1]), p["router"], c)
+        top = torch.topk(probs, K + 1, dim=-1).values
+        log.append((ids.sort(dim=-1).values, float((top[:, -2] - top[:, -1]).min())))
+        return orig(p, x, c, **kw)
+
+    errs, margins, flips = [], [], []
+    with torch.no_grad():
+        last, pre = make_prefill_step(cfg2, use_kernels=False)(p32, {"tokens": tokens})
+        caches = [seed_cache(cfg2, M.init_cache(cfg2, B, S_MAIN, device=dev),
+                             pre, PROMPT_LEN) for _ in range(2)]
+        del pre
+        plain = make_serve_step(cfg2, use_kernels=False)
+        kern = make_serve_step(cfg2, use_kernels=True)
+        tok = last.argmax(dim=-1).to(torch.int32)
+        moe_mod.moe_apply = spy
+        try:
+            for i in range(8):
+                lengths = torch.full((B,), PROMPT_LEN + i, dtype=torch.int32,
+                                     device=dev)
+                log.clear()
+                lp, _ = plain(p32, caches[0], tok[:, None], lengths)
+                plain_log = list(log)
+                log.clear()
+                lk, _ = kern(p32, caches[1], tok[:, None], lengths)
+                errs.append(float((lk - lp).abs().max()))
+                margins += [m for _, m in plain_log + log]
+                flips += [{"step": i, "layer": j, "margin": min(a[1], b[1])}
+                          for j, (a, b) in enumerate(zip(plain_log, log))
+                          if not torch.equal(a[0], b[0])]
+                tok = lp.argmax(dim=-1).to(torch.int32)
+        finally:
+            moe_mod.moe_apply = orig
+        del caches, p32
+    for i, err in enumerate(errs):
+        excused = any(f["step"] <= i and f["margin"] < 1e-6 for f in flips)
+        require(err <= 1e-3 or excused,
+                f"MoE teacher-forced step {i}: logits differ by {err} > 1e-3 "
+                f"between kernel and plain paths with no routing flip at a "
+                f"margin below 1e-6 (flips: {flips})")
+
+    streams = {}
+    for k in (MACRO, 0):
+        eng = ServingEngine(cfg, params, max_len=S_MAIN, macro_steps=k, device=dev)
+        streams[k] = eng.generate(prompts[:B], MAX_NEW).tokens
+    same = bool((streams[MACRO] == streams[0]).all())
+    require(same, "moonshot: macro_steps=8 and macro_steps=0 streams differ")
+    emit({"phase": "moe_parity", "arch": cfg.name, "layers": 2,
+          "dtype": "float32", "requests": B, "teacher_forced_max_abs": errs,
+          "tolerance": 1e-3, "min_router_margin": min(margins),
+          "routing_flips": flips, "macro_8_equals_0": same,
+          "macro_check_dtype": "bfloat16", "macro_check_layers": cfg.num_layers})
+
+
+def phase_moe_timing(torch, dev, cfg, params, slice_summary):
+    """grouped_ffn at decode and at the auxiliary group's prefill capacity,
+    cycling through the slice's per-layer expert weights (1.1 GB a layer,
+    far past L2); decode_attention at moonshot's head shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.grouped_ffn import grouped_ffn_cuda
+    from repro_torch.models.moe import _capacity
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    E, D, Fd = cfg.num_experts, cfg.d_model, cfg.d_ff
+    experts = params["blocks"]["moe"]
+    groups = dict(zip(slice_summary["group_names"], slice_summary["n_group"]))
+    B = groups.get("auxiliary") or max(groups.values())
+
+    def composition(buf, wg, wu, wd):
+        return torch.bmm(F.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu), wd)
+
+    rows = []
+    for step, C in (("decode", _capacity(B, cfg)),
+                    ("prefill", _capacity(B * PROMPT_LEN, cfg))):
+        bufs = [torch.randn((E, C, D), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(4)]
+        sets = [(bufs[i % len(bufs)], experts["w_gate"][i], experts["w_up"][i],
+                 experts["w_down"][i]) for i in range(cfg.num_layers)]
+        comp_err = float((composition(*sets[0]).float()
+                          - ref.grouped_ffn_ref(*sets[0]).float()).abs().max())
+        fns = {"": grouped_ffn_cuda, "plain_": ref.grouped_ffn_ref,
+               "composition_": composition}
+        times = {f"{p}ms": _time_ms(torch, fn, sets, iters=96, warmup=4)
+                 for p, fn in fns.items()}
+        times.update({f"{p}device_ms": _device_ms(torch, fn, sets, iters=24)
+                      for p, fn in fns.items()})
+        n_bytes = 2 * (2 * E * C * D + 3 * E * D * Fd)   # buf, out, weights (bf16)
+        n_ops = 6 * E * C * D * Fd                      # three products
+        bound_ms, bound_by = _bound(n_bytes, n_ops)
+        rows.append({"kernel": "grouped_ffn", "step": step, "group": "auxiliary",
+                     "B": B, "E": E, "C": C, "D": D, "F": Fd, "dtype": "bfloat16",
+                     **times, "library_ms": None,
+                     "library": "none: no single PyTorch call computes this function",
+                     "composition": "torch.bmm x3 + silu*mul, bf16",
+                     "composition_max_abs_err": comp_err,
+                     "bytes": n_bytes, "operations": n_ops, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "sets": len(sets)})
+        del bufs, sets
+    rows.append(_time_decode_attention(torch, dev, gen, "auxiliary", B,
+                                       cfg.num_heads, cfg.num_kv_heads,
+                                       cfg.head_dim))
+    for row in rows:
+        emit({"phase": "moe_timing", "arch": cfg.name, **row})
+    return rows
+
+
+# ---------------------------------------------------------------------------
 KERNEL_META = {
     "decode_attention": {
         "route": "cuda", "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -508,7 +789,45 @@ KERNEL_META = {
     "masked_compact": {
         "route": "cuda", "source": "src/repro_torch/csrc/masked_compact.cu",
         "replaces": "src/repro/kernels/masked_compact.py:70"},
+    "grouped_ffn": {
+        "route": "cuda", "source": "src/repro_torch/csrc/grouped_ffn.cu",
+        "replaces": "src/repro/kernels/grouped_ffn.py:47"},
 }
+
+
+def kernels_line(rows, moe_rows, counts, moe_counts, errs, moe_errs):
+    """One entry per kernel: decode_attention and masked_compact timed at
+    llama's auxiliary group, grouped_ffn at moonshot's auxiliary group's
+    decode; launches summed over both main paths (and listed per path);
+    max_abs_err the largest main-path error of either."""
+    pick = {}
+    for row in rows:
+        if row["kernel"] not in pick or row.get("group") == "auxiliary":
+            pick[row["kernel"]] = row
+    pick["grouped_ffn"] = next(r for r in moe_rows if r["kernel"] == "grouped_ffn"
+                               and r["step"] == "decode")
+    kernels = []
+    for kname, meta in KERNEL_META.items():
+        row = pick[kname]
+        by_path = {ARCH: counts[kname], MOE_ARCH: moe_counts[kname]}
+        entry = {"name": kname, **meta, "launches": sum(by_path.values()),
+                 "launches_by_path": by_path,
+                 "max_abs_err": max(errs.get(kname, 0.0), moe_errs.get(kname, 0.0)),
+                 "ms": row["ms"], "device_ms": row["device_ms"],
+                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                 "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+        if "composition_ms" in row:
+            entry["composition_ms"] = row["composition_ms"]
+        kernels.append(entry)
+    return kernels
+
+
+def timed(label, fn, *args):
+    """Run one phase and print its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    emit({"phase": "seconds", "of": label, "seconds": time.perf_counter() - t0})
+    return out
 
 
 def main() -> None:
@@ -525,28 +844,38 @@ def main() -> None:
     torch.cuda.set_device(dev)
 
     name, card = phase_env(torch)
-    phase_build()
-    slice_summary, counts = phase_slice(torch)
-    errs = phase_kernel_checks(torch, dev, slice_summary)
-    cfg, params, prompts = phase_parity(torch, dev)
-    groups = dict(zip(slice_summary["group_names"], slice_summary["n_group"]))
-    phase_trace(torch, dev, cfg, params, prompts, groups["auxiliary"] or REQUESTS)
-    del params
-    rows = phase_timing(torch, dev, slice_summary)
+    timed("build", phase_build)
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
 
-    # one row per kernel: decode_attention at the auxiliary group's shape
-    pick = {}
-    for row in rows:
-        if row["kernel"] not in pick or row.get("group") == "auxiliary":
-            pick[row["kernel"]] = row
-    kernels = []
-    for kname, meta in KERNEL_META.items():
-        row = pick[kname]
-        kernels.append({"name": kname, **meta, "launches": counts[kname],
-                        "max_abs_err": errs[kname], "ms": row["ms"],
-                        "device_ms": row["device_ms"],
-                        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                        "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    # the dense path: llama3.2-1b
+    slice_summary, counts = timed("slice", phase_slice, torch)
+    errs = timed("kernels", phase_kernel_checks, torch, dev, slice_summary)
+    cfg, params, prompts = timed("parity", phase_parity, torch, dev)
+    groups = dict(zip(slice_summary["group_names"], slice_summary["n_group"]))
+    timed("trace", phase_trace, torch, dev, cfg, params, prompts,
+          groups["auxiliary"] or REQUESTS)
+    del params
+    rows = timed("timing", phase_timing, torch, dev, slice_summary)
+    torch.cuda.empty_cache()
+
+    # the MoE path: moonshot-v1-16b-a3b at full width
+    moe_cfg = get_config(MOE_ARCH)
+    moe_summary, moe_counts = timed("moe_slice", phase_slice, torch, MOE_ARCH)
+    moe_errs = timed("moe_kernels", phase_moe_kernel_checks, torch, dev,
+                     moe_cfg, moe_summary)
+    torch.cuda.empty_cache()
+    params = M.init_params(moe_cfg, 0, device=dev)      # the slice's weights
+    prompts = _prompts(moe_cfg)
+    timed("moe_parity", phase_moe_parity, torch, dev, moe_cfg, params, prompts)
+    groups = dict(zip(moe_summary["group_names"], moe_summary["n_group"]))
+    timed("moe_trace", phase_trace, torch, dev, moe_cfg, params, prompts,
+          groups["auxiliary"] or REQUESTS)
+    moe_rows = timed("moe_timing", phase_moe_timing, torch, dev, moe_cfg,
+                     params, moe_summary)
+    del params
+
+    kernels = kernels_line(rows, moe_rows, counts, moe_counts, errs, moe_errs)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

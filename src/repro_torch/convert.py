@@ -36,13 +36,36 @@ def tree_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
 def params_from_numpy(tree: Any, cfg, device: DeviceLike = None) -> Any:
     """JAX params (as numpy) -> the port's params, checked against ``cfg``."""
     params = tree_from_numpy(tree, device)
-    table = params["embed"]["table"]
-    wq = params["blocks"]["attn"]["wq"]
-    want = (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.head_dim)
-    if tuple(table.shape) != (cfg.vocab_size, cfg.d_model) or tuple(wq.shape) != want:
-        raise ValueError(f"params do not match {cfg.name}: embed "
-                         f"{tuple(table.shape)}, wq {tuple(wq.shape)} (want "
-                         f"{(cfg.vocab_size, cfg.d_model)}, {want})")
+    L, d, f, E = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.num_experts
+    blocks = params["blocks"]
+    want = {"embed": (params["embed"]["table"], (cfg.vocab_size, d)),
+            "wq": (blocks["attn"]["wq"], (L, d, cfg.num_heads, cfg.head_dim))}
+    if E:
+        moe = blocks.get("moe")
+        if moe is None:
+            raise ValueError(f"params do not match {cfg.name}: no MoE blocks")
+        want.update(router=(moe["router"], (L, d, E)),
+                    w_gate=(moe["w_gate"], (L, E, d, f)),
+                    w_up=(moe["w_up"], (L, E, d, f)),
+                    w_down=(moe["w_down"], (L, E, f, d)))
+        if moe["router"].dtype != torch.float32:
+            raise ValueError(f"params do not match {cfg.name}: router dtype "
+                             f"{moe['router'].dtype}, expected float32")
+        if ("shared" in moe) != bool(cfg.num_shared_experts):
+            raise ValueError(f"params do not match {cfg.name}: shared expert "
+                             f"{'present' if 'shared' in moe else 'missing'} "
+                             f"with num_shared_experts={cfg.num_shared_experts}")
+        if cfg.num_shared_experts:
+            fs = f * cfg.num_shared_experts
+            want.update(shared_w_gate=(moe["shared"]["w_gate"], (L, d, fs)),
+                        shared_w_up=(moe["shared"]["w_up"], (L, d, fs)),
+                        shared_w_down=(moe["shared"]["w_down"], (L, fs, d)))
+    bad = {k: (tuple(t.shape), shape) for k, (t, shape) in want.items()
+           if tuple(t.shape) != shape}
+    if bad:
+        raise ValueError(f"params do not match {cfg.name}: "
+                         + ", ".join(f"{k} {got} (want {w})"
+                                     for k, (got, w) in bad.items()))
     return params
 
 

@@ -35,6 +35,8 @@ SIGNATURES = {
     "repro_decode_attention": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     # tokens, mask, out, idx, count, B, S, row_bytes, K, stream
     "repro_masked_compact": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    # buf, wg, wu, wd, h (f32 workspace), out, E, C, D, F, is_bf16, stream
+    "repro_grouped_ffn": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

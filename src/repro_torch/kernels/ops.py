@@ -14,10 +14,12 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.grouped_ffn import grouped_ffn_cuda
 from repro_torch.kernels.masked_compact import masked_compact_cuda
 
 _WRAPPERS = {"decode_attention": decode_attention_cuda,
-             "masked_compact": masked_compact_cuda}
+             "masked_compact": masked_compact_cuda,
+             "grouped_ffn": grouped_ffn_cuda}
 
 
 def resolve_use_kernels(use_kernels: Union[bool, str],
@@ -45,6 +47,14 @@ def masked_compact(tokens, mask, capacity: int, *, use_kernels: bool = True):
     if use_kernels and tokens.is_cuda:
         return masked_compact_cuda(tokens, mask, capacity)
     return ref.masked_compact_ref(tokens, mask, capacity)
+
+
+def grouped_ffn(buf, wg, wu, wd, *, use_kernels: bool = True):
+    """buf: [E,C,D]; wg/wu: [E,D,F]; wd: [E,F,D] -> [E,C,D] in buf's dtype.
+    ``use_kernels=False`` takes the plain version on any device."""
+    if use_kernels and buf.is_cuda:
+        return grouped_ffn_cuda(buf, wg, wu, wd)
+    return ref.grouped_ffn_ref(buf, wg, wu, wd)
 
 
 def launch_counts() -> Dict[str, int]:

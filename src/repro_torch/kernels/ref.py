@@ -78,3 +78,17 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
     out = out / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-20)
     return out.reshape(B, 1, H, dh).to(v_cache.dtype)
+
+
+# ---------------------------------------------------------------------------
+# grouped_ffn: per-expert SwiGLU FFN over the MoE capacity buffer
+# ---------------------------------------------------------------------------
+def grouped_ffn_ref(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                    wd: torch.Tensor) -> torch.Tensor:
+    """buf: [E,C,D]; wg/wu: [E,D,F]; wd: [E,F,D] -> [E,C,D] in buf's dtype.
+    Computed in f32 from the inputs; the hidden ``h`` stays f32."""
+    xf = buf.float()
+    g = torch.bmm(xf, wg.float())
+    u = torch.bmm(xf, wu.float())
+    h = torch.nn.functional.silu(g) * u
+    return torch.bmm(h, wd.float()).to(buf.dtype)

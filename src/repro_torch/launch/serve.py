@@ -117,8 +117,9 @@ def serve_static(cfg, params, reqs, *, prompt_len: int, max_new: int,
                  macro_steps: int, split: str,
                  device: torch.device) -> Dict[str, Any]:
     """Serve ``reqs`` as one static batch through the HeteroEdge split;
-    returns a summary (tokens, r*, timings, per-group counts and the
-    number of decode steps every engine of the run took)."""
+    returns a summary (tokens, r*, timings, per-group counts, and the
+    decode steps and prefills, one per ``generate()`` call, that every
+    engine of the run took)."""
     P = prompt_len
     prompts = np.stack([np.pad(r.prompt[:P], (0, max(0, P - len(r.prompt))))
                         for r in reqs]).astype(np.int32)
@@ -143,7 +144,8 @@ def serve_static(cfg, params, reqs, *, prompt_len: int, max_new: int,
               f"({B * max_new / wall:.1f} tok/s)")
         summary.update(tokens=toks, r=0.0, wall_s=wall,
                        tokens_per_s=B * max_new / wall,
-                       decode_steps=sum(e.decode_steps for e in engines))
+                       decode_steps=sum(e.decode_steps for e in engines),
+                       prefills=len(engines))
         return summary
 
     r_star = None
@@ -192,7 +194,8 @@ def serve_static(cfg, params, reqs, *, prompt_len: int, max_new: int,
         t_serial_s=rep.t_serial, t_offload_s=rep.t_offload_s,
         payload_bytes_per_item=payload, wall_s=wall,
         tokens_per_s=B * max_new / wall,
-        decode_steps=sum(e.decode_steps for e in engines))
+        decode_steps=sum(e.decode_steps for e in engines),
+        prefills=len(engines))
     return summary
 
 

@@ -14,7 +14,7 @@ import math
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, norm_apply
+from repro_torch.models.layers import apply_rope, norm_apply, normal_stack
 
 
 def attn_init(gen: torch.Generator, cfg, dtype, device, n_layers: int) -> dict:
@@ -23,7 +23,7 @@ def attn_init(gen: torch.Generator, cfg, dtype, device, n_layers: int) -> dict:
                         cfg.head_dim, n_layers)
 
     def normal(shape, scale):
-        return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+        return normal_stack(gen, shape, scale, dtype, device)
 
     s = 1.0 / math.sqrt(d)
     p = {"wq": normal((L, d, h, dh), s),

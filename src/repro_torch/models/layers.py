@@ -10,6 +10,21 @@ import torch.nn.functional as F
 
 
 # ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+def normal_stack(gen: torch.Generator, shape, scale: float, dtype,
+                 device) -> torch.Tensor:
+    """N(0, scale**2) draws of ``shape`` in ``dtype``, made one slice of the
+    leading (layer) axis at a time into a preallocated tensor, so the f32
+    transient is one layer's and not the whole stack's (moonshot's
+    [48,64,2048,1408] expert stacks would need 35 GB each in f32)."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for i in range(shape[0]):
+        out[i] = torch.randn(shape[1:], generator=gen, device=device) * scale
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
 def norm_init(cfg, d: int, device) -> dict:

@@ -1,4 +1,4 @@
-"""Top-level model: init / cache / forward (dense decoders in this port).
+"""Top-level model: init / cache / forward (dense and MoE decoders).
 
 Public API (the JAX package's ``repro/models/model.py`` counterpart)
 ------------------------------------------------------------------
@@ -25,13 +25,16 @@ from repro_torch.models.layers import embed_apply, norm_apply, norm_init, unembe
 @dataclass
 class ModelOutputs:
     logits: Any           # [B,S,V] (prefill: the last position only, S = 1)
+    aux_loss: Any         # scalar router aux (0 for a dense model)
     cache: Any = None     # decode/prefill caches
 
 
 def _kind(cfg) -> str:
-    if cfg.family != "dense" or cfg.num_experts or cfg.frontend \
+    if cfg.family in ("ssm", "hybrid", "audio", "vlm") or cfg.frontend \
             or cfg.encoder_layers:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    if cfg.family == "moe" or cfg.num_experts:
+        return "moe"
     return "dense"
 
 
@@ -84,11 +87,12 @@ def forward(params, cfg, batch, *, mode: str = "prefill",
         tokens = batch["tokens"]
         x = embed_apply(params["embed"], tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        x, caches = tfm.stack_apply(params["blocks"], x, cfg, kind=kind,
-                                    mode="prefill", positions=positions,
-                                    use_kernels=use_kernels)
+        x, caches, aux = tfm.stack_apply(params["blocks"], x, cfg, kind=kind,
+                                         mode="prefill", positions=positions,
+                                         use_kernels=use_kernels)
         # only the last position's logits are needed
-        return ModelOutputs(logits=_logits(params, cfg, x[:, -1:]), cache=caches)
+        return ModelOutputs(logits=_logits(params, cfg, x[:, -1:]),
+                            aux_loss=aux, cache=caches)
 
     if mode != "decode":
         raise NotImplementedError(f"forward mode {mode!r} is not ported yet")
@@ -99,8 +103,9 @@ def forward(params, cfg, batch, *, mode: str = "prefill",
     else:
         positions = torch.as_tensor(idx, dtype=torch.int32,
                                     device=token.device).reshape(1)
-    x, caches = tfm.stack_apply(params["blocks"], x, cfg, kind=kind,
-                                mode="decode", positions=positions,
-                                caches=cache, cache_index=idx,
-                                use_kernels=use_kernels)
-    return ModelOutputs(logits=_logits(params, cfg, x), cache=caches)
+    x, caches, aux = tfm.stack_apply(params["blocks"], x, cfg, kind=kind,
+                                     mode="decode", positions=positions,
+                                     caches=cache, cache_index=idx,
+                                     use_kernels=use_kernels)
+    return ModelOutputs(logits=_logits(params, cfg, x), aux_loss=aux,
+                        cache=caches)

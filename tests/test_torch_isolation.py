@@ -81,4 +81,7 @@ def test_cpu_tensors_never_count_as_launches():
     kv = torch.randn(2, 16, 2, 64)
     ops.decode_attention(q, kv, kv, torch.tensor([3, 16]))
     ops.masked_compact(torch.randn(2, 16, 8), torch.rand(2, 16) < 0.5, 8)
-    assert ops.launch_counts() == {"decode_attention": 0, "masked_compact": 0}
+    w = torch.randn(2, 8, 16)
+    ops.grouped_ffn(torch.randn(2, 4, 8), w, w, torch.randn(2, 16, 8))
+    assert ops.launch_counts() == {"decode_attention": 0, "masked_compact": 0,
+                                   "grouped_ffn": 0}

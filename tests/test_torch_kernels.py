@@ -12,6 +12,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
+from repro_torch.kernels.grouped_ffn import grouped_ffn_cuda  # noqa: E402
 from repro_torch.kernels.masked_compact import masked_compact_cuda  # noqa: E402
 
 
@@ -117,7 +118,11 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         decode_attention_cuda(q, kv, kv, 3)
     with pytest.raises(ValueError, match="CUDA"):
         masked_compact_cuda(torch.zeros(1, 8, 4), torch.ones(1, 8, dtype=torch.bool), 4)
-    assert ops.launch_counts() == {"decode_attention": 0, "masked_compact": 0}
+    w = torch.zeros(2, 8, 16)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        grouped_ffn_cuda(torch.zeros(2, 4, 8), w, w, torch.zeros(2, 16, 8))
+    assert ops.launch_counts() == {"decode_attention": 0, "masked_compact": 0,
+                                   "grouped_ffn": 0}
 
 
 def test_kernel_library_names_missing_card():
@@ -125,3 +130,75 @@ def test_kernel_library_names_missing_card():
         pytest.skip("a CUDA device is present; this checks the CPU-only refusal")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _build.load()
+
+
+def _ffn_inputs(rng, E, C, D, F):
+    """buf and weights at the MoE init scales (tests/test_kernels.py's)."""
+    buf = (rng.standard_normal((E, C, D)) * 0.3).astype(np.float32)
+    wg = (rng.standard_normal((E, D, F)) / np.sqrt(D)).astype(np.float32)
+    wu = (rng.standard_normal((E, D, F)) / np.sqrt(D)).astype(np.float32)
+    wd = (rng.standard_normal((E, F, D)) / np.sqrt(F)).astype(np.float32)
+    return buf, wg, wu, wd
+
+
+FFN_TOL = {"float32": 2e-4, "bfloat16": 5e-2}     # tests/test_kernels.py:129
+
+
+# tests/test_kernels.py's grouped_ffn shapes
+@pytest.mark.parametrize("E,C,D,F", [(4, 256, 128, 512), (2, 128, 256, 1024),
+                                     (8, 128, 64, 512)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_ffn_matches_jax(E, C, D, F, dtype, test_seed):
+    """The plain version against the Pallas kernel (interpret mode) and the
+    JAX oracle; bf16 inputs round identically in both packages."""
+    rng = np.random.default_rng(test_seed)
+    arrs = _ffn_inputs(rng, E, C, D, F)
+    mine = ops.grouped_ffn(*(torch.from_numpy(a).to(getattr(torch, dtype))
+                             for a in arrs))
+    assert mine.dtype == getattr(torch, dtype) and mine.shape == (E, C, D)
+    jarrs = [jnp.asarray(a, getattr(jnp, dtype)) for a in arrs]
+    tol = FFN_TOL[dtype]
+    for fn in (jops.grouped_ffn, jref.grouped_ffn_ref):
+        np.testing.assert_allclose(mine.float().numpy(),
+                                   np.asarray(fn(*jarrs), np.float32),
+                                   rtol=tol, atol=tol)
+
+
+# ragged shapes the Pallas kernel refuses (C % 128, F % 512) and the CUDA
+# kernel takes: moonshot-like F = 1408 % 512 != 0 in miniature
+@pytest.mark.parametrize("E,C,D,F", [(3, 12, 64, 88), (2, 1, 72, 13),
+                                     (5, 13, 80, 88), (64, 8, 48, 1408)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_ffn_ragged_matches_jax_oracle(E, C, D, F, dtype, test_seed):
+    rng = np.random.default_rng(test_seed)
+    arrs = _ffn_inputs(rng, E, C, D, F)
+    mine = ops.grouped_ffn(*(torch.from_numpy(a).to(getattr(torch, dtype))
+                             for a in arrs))
+    want = jref.grouped_ffn_ref(*[jnp.asarray(a, getattr(jnp, dtype)) for a in arrs])
+    tol = FFN_TOL[dtype]
+    np.testing.assert_allclose(mine.float().numpy(), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_ffn_zero_rows_and_empty_experts(dtype, test_seed):
+    """Empty capacity slots (zero rows) and experts that received no row
+    give exactly zero output rows: the MoE combine relies on it."""
+    rng = np.random.default_rng(test_seed)
+    buf, wg, wu, wd = (torch.from_numpy(a).to(getattr(torch, dtype))
+                       for a in _ffn_inputs(rng, 4, 16, 64, 88))
+    buf[:, 5:] = 0
+    buf[2] = 0                                     # an expert with no rows
+    out = ops.grouped_ffn(buf, wg, wu, wd)
+    assert torch.equal(out[:, 5:], torch.zeros_like(out[:, 5:]))
+    assert torch.equal(out[2], torch.zeros_like(out[2]))
+    assert out[[0, 1, 3], :5].abs().amin(dim=-1).gt(0).any()
+
+
+def test_grouped_ffn_cpu_calls_count_no_launch():
+    ops.reset_launch_counts()
+    w = torch.randn(2, 8, 16)
+    out = ops.grouped_ffn(torch.randn(2, 4, 8), w, w, torch.randn(2, 16, 8))
+    assert out.shape == (2, 4, 8)
+    assert ops.launch_counts()["grouped_ffn"] == 0
+    assert grouped_ffn_cuda.launches == 0
