@@ -64,6 +64,37 @@ Then llama3.2-1b's params are freed and the MoE path runs:
            (composition_ms; no single PyTorch call computes this function,
            so library_ms is null); decode_attention at moonshot's shape
 
+Then moonshot's params are freed and the SSM path runs:
+
+  ssm_slice    the launcher in-process: falcon-mamba-7b at full width and
+           depth (64 Mamba-1 layers, d 4096, d_inner 8192, N 16, vocab
+           65024, bf16, random weights from seed 0, 14.0 GB), the same 16
+           requests x 128 prompt tokens, 32 new tokens, --split auto;
+           checks ssm_scan launches == layers x prefills x ceil(S/256),
+           decode_attention launches == 0 and masked_compact launches > 0;
+           reports r*, t_parallel / t_serial, tokens/s, peak memory
+  ssm_kernels  ssm_scan against its plain version at every (B, S, di, N)
+           the slice ran, at ragged shapes (S 1 and 300, di 100 and 101,
+           N 3) and the pure-decay case, h0 non-zero, f32 within 1e-5 of
+           max|h| (both run the recurrence in one order)
+  ssm_parity   a 2-layer float32 cut of the slice's weights at full width:
+           kernel vs plain path prefill logits and states and 8
+           teacher-forced decode steps' logits within 1e-3; macro_steps=8
+           and 0 streams identical (bf16, full depth)
+  ssm_trace    one group's generate() under torch.profiler
+  ssm_timing   ssm_scan and its plain version at the auxiliary group's
+           prefill shape ([11,128,8192,16] f32), beside the bytes bound;
+           the kernel's device_ms from CUDA events around one call with
+           the stream held busy (the profiler loop lost its events after
+           earlier traces); no single PyTorch call computes the recurrence
+           (library_ms null)
+  hybrid   zamba2-2.7b at full width (54 Mamba-2 layers, d 2560, the
+           shared attention block every 6 layers, H=Hkv=32, dh 80, bf16,
+           4.85 GB), 4 requests x 128 prompt tokens, 16 new tokens, --split
+           none; checks decode_attention launches == 9 x decode steps;
+           decode_attention against its plain version at dh=80 (bf16 within
+           3e-2, f32 within 1e-4); macro_steps=8 and 0 streams identical
+
 Then the per-kernel summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Every phase also prints its seconds.
 Float32 matmuls run in full float32 (TF32 off).
@@ -85,11 +116,17 @@ SRC = ROOT / "src"
 
 L2_BYTES = 50e6                  # H100 L2 cache
 
+H100_PEAK_FLOPS_F32 = 67e12      # f32 outside the tensor cores (data sheet)
+
 ARCH = "llama3.2-1b"
 MOE_ARCH = "moonshot-v1-16b-a3b"
+SSM_ARCH = "falcon-mamba-7b"
+HYBRID_ARCH = "zamba2-2.7b"
 REQUESTS, PROMPT_LEN, MAX_NEW, MACRO = 16, 128, 32, 8
+HYBRID_REQUESTS, HYBRID_MAX_NEW = 4, 16
 S_MAIN = PROMPT_LEN + MAX_NEW + 8   # the engines' cache length
 FFN_TOL = {"bfloat16": 5e-2, "float32": 2e-4}   # tests/test_kernels.py:129
+SCAN_TOL = 1e-5     # relative to max|h|: both versions sum in one order
 
 # nvidia-smi's name + power limit, stamped on every line after env so each
 # number stands beside the card it came from
@@ -243,17 +280,33 @@ def phase_kernel_checks(torch, dev, slice_summary):
 
 
 # ---------------------------------------------------------------------------
-def phase_slice(torch, arch=ARCH):
+def _expected_launches(cfg, s, prompt_len):
+    """Kernel launches the slice summary ``s`` implies for ``cfg``: decode
+    attention in every attention layer of every decode step (the hybrid's
+    shared block once per block of Mamba layers), grouped_ffn in every MoE
+    layer of every prefill and decode step, ssm_scan in every Mamba-1 layer
+    of every prefill, once per 256-token chunk."""
+    L, steps, prefills = cfg.num_layers, s["decode_steps"], s["prefills"]
+    attn_layers = {"ssm": 0, "hybrid": L // max(cfg.hybrid_attn_every, 1)}
+    scan = cfg.family == "ssm" and cfg.mamba_version == 1
+    return {"decode_attention": attn_layers.get(cfg.family, L) * steps,
+            "grouped_ffn": L * (steps + prefills) if cfg.num_experts else 0,
+            "ssm_scan": L * prefills * -(-prompt_len // 256) if scan else 0}
+
+
+def phase_slice(torch, arch=ARCH, *, phase="slice", split="auto",
+                requests=REQUESTS, max_new=MAX_NEW):
     """The port's launcher in-process on ``arch``; the launch counts are
-    set to 0 just before and read just after.  Returns (summary, counts)."""
+    set to 0 just before and read just after, and held against what the
+    run's layers, steps and prefills imply.  Returns (summary, counts)."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
     cfg = get_config(arch)
-    argv = ["--arch", arch, "--requests", str(REQUESTS), "--prompt-len",
-            str(PROMPT_LEN), "--max-new", str(MAX_NEW), "--macro-steps",
-            str(MACRO), "--split", "auto", "--device", "cuda"]
+    argv = ["--arch", arch, "--requests", str(requests), "--prompt-len",
+            str(PROMPT_LEN), "--max-new", str(max_new), "--macro-steps",
+            str(MACRO), "--split", split, "--device", "cuda"]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -263,38 +316,50 @@ def phase_slice(torch, arch=ARCH):
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     toks = s["tokens"]
-    require(toks.shape == (REQUESTS, MAX_NEW), f"tokens shape {toks.shape}")
+    require(toks.shape == (requests, max_new), f"tokens shape {toks.shape}")
     require(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
             "token ids out of range")
-    L = cfg.num_layers
-    want = L * s["decode_steps"]
-    require(counts["decode_attention"] == want,
-            f"decode_attention launched {counts['decode_attention']} times, "
-            f"expected {L} layers x {s['decode_steps']} steps")
-    want = L * (s["decode_steps"] + s["prefills"]) if cfg.num_experts else 0
-    require(counts["grouped_ffn"] == want,
-            f"grouped_ffn launched {counts['grouped_ffn']} times, expected "
-            f"{want} ({L} layers x ({s['decode_steps']} decode steps + "
-            f"{s['prefills']} prefills) for an MoE model, 0 for a dense one)")
-    require(counts["masked_compact"] > 0, "masked_compact never launched")
-    comp = s["compression"]
-    require(comp["kept_tokens_compacted"] == comp["kept_tokens"],
-            "masked_compact's count disagrees with the mask")
-    emit({"phase": "slice", "arch": arch, "argv": argv, "r_star": s["r_star"],
-          "r": s["r"],
-          "groups": dict(zip(s["group_names"], s["n_group"])),
-          "t_group_s": s["t_group_s"], "t_parallel_s": s["t_parallel_s"],
-          "t_serial_s": s["t_serial_s"], "t_offload_s": s["t_offload_s"],
-          "probe_s": s["probe_s"], "tokens_per_s": s["tokens_per_s"],
+    want = _expected_launches(cfg, s, PROMPT_LEN)
+    for kname, n in want.items():
+        require(counts[kname] == n,
+                f"{arch}: {kname} launched {counts[kname]} times, expected "
+                f"{n} ({cfg.num_layers} layers, {s['decode_steps']} decode "
+                f"steps, {s['prefills']} prefills)")
+    comp = s.get("compression")
+    if split != "none":
+        require(counts["masked_compact"] > 0, "masked_compact never launched")
+        require(comp["kept_tokens_compacted"] == comp["kept_tokens"],
+                "masked_compact's count disagrees with the mask")
+    groups = dict(zip(s["group_names"], s["n_group"])) if "n_group" in s else None
+    emit({"phase": phase, "arch": arch, "argv": argv, "r_star": s.get("r_star"),
+          "r": s["r"], "groups": groups, "t_group_s": s.get("t_group_s"),
+          "t_parallel_s": s.get("t_parallel_s"),
+          "t_serial_s": s.get("t_serial_s"), "t_offload_s": s.get("t_offload_s"),
+          "probe_s": s.get("probe_s"), "tokens_per_s": s["tokens_per_s"],
           "serve_wall_s": s["wall_s"], "main_wall_s": wall,
           "decode_steps": s["decode_steps"], "prefills": s["prefills"],
-          "launches": counts, "peak_memory_bytes": peak,
-          "payload_bytes_per_item": s["payload_bytes_per_item"],
+          "launches": counts, "expected_launches": want,
+          "peak_memory_bytes": peak,
+          "payload_bytes_per_item": s.get("payload_bytes_per_item"),
           "compression": comp})
     return s, counts
 
 
 # ---------------------------------------------------------------------------
+def _macro_streams_equal(torch, dev, cfg, params, prompts, max_new):
+    """macro_steps=8 and 0 give identical greedy streams (kernels on)."""
+    from repro_torch.serving.engine import ServingEngine
+
+    streams = {}
+    for k in (MACRO, 0):
+        eng = ServingEngine(cfg, params, max_len=PROMPT_LEN + max_new + 8,
+                            macro_steps=k, device=dev)
+        streams[k] = eng.generate(prompts, max_new).tokens
+    same = bool((streams[MACRO] == streams[0]).all())
+    require(same, f"{cfg.name}: macro_steps=8 and macro_steps=0 streams differ")
+    return same
+
+
 def phase_parity(torch, dev):
     from repro_torch.configs.base import get_config
     from repro_torch.core.offload import tree_map
@@ -354,12 +419,7 @@ def phase_parity(torch, dev):
     overlap = _check_offload_streams(torch, dev, cfg32, params32, prompts)
     del params32
 
-    streams = {}
-    for K in (MACRO, 0):
-        e = ServingEngine(cfg, params, max_len=S_MAIN, macro_steps=K, device=dev)
-        streams[K] = e.generate(prompts, MAX_NEW).tokens
-    same = bool((streams[MACRO] == streams[0]).all())
-    require(same, "macro_steps=8 and macro_steps=0 streams differ")
+    same = _macro_streams_equal(torch, dev, cfg, params, prompts, MAX_NEW)
     emit({"phase": "parity", "dtype": "float32", "requests": B,
           "teacher_forced_max_abs": tf_err, "tolerance": 1e-3,
           "first_mismatch": first_mismatch, "first_top2_gap_below_1e-3": first_low_gap,
@@ -483,15 +543,35 @@ def _device_ms(torch, fn, arg_sets, iters=50):
     return us / 1e3 / iters if us > 0 else None
 
 
+def _alone_ms(torch, fn, arg_sets, iters=10):
+    """Median ms of one call's device work alone: a device-side sleep keeps
+    the stream busy while the host prepares the call, so the CUDA events
+    around it time the kernels and not the host."""
+    times = []
+    for i in range(iters):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)          # about 1 ms at the SM clock
+        start.record()
+        fn(*arg_sets[i % len(arg_sets)])
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
 def _sets_for(bytes_per_set: float) -> int:
     return max(2, math.ceil(4 * L2_BYTES / max(bytes_per_set, 1.0)))
 
 
-def _bound(n_bytes, n_ops):
+def _bound(n_bytes, n_ops, peak_flops=None):
     """(bound_ms, bound_by): the larger of bytes over the H100's memory rate
-    and operations over its bf16 tensor-core peak."""
+    and operations over ``peak_flops`` (default: the bf16 tensor-core
+    peak)."""
     from repro_torch.core.profiler import H100_HBM_BW, H100_PEAK_FLOPS_BF16
-    t_bytes, t_ops = n_bytes / H100_HBM_BW, n_ops / H100_PEAK_FLOPS_BF16
+    t_bytes = n_bytes / H100_HBM_BW
+    t_ops = n_ops / (peak_flops or H100_PEAK_FLOPS_BF16)
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -568,7 +648,8 @@ def phase_timing(torch, dev, slice_summary):
                + kept * D * esize                  # kept rows read
                + B * PROMPT_LEN * D * esize        # out written
                + B * PROMPT_LEN * 4 + B * 4)       # idx, count
-    rows.append({"kernel": "masked_compact", "B": B, "S": PROMPT_LEN, "D": D,
+    rows.append({"kernel": "masked_compact", "group": "auxiliary", "B": B,
+                 "S": PROMPT_LEN, "D": D,
                  "K": PROMPT_LEN, "dtype": "bfloat16", "kept_rows": kept,
                  **times, "library_ms": None,
                  "library": "none: no single PyTorch call compacts rows",
@@ -661,8 +742,8 @@ def phase_moe_parity(torch, dev, cfg, params, prompts):
     from repro_torch.core.offload import tree_map
     from repro_torch.models import model as M
     from repro_torch.models import moe as moe_mod
-    from repro_torch.serving.engine import (ServingEngine, make_prefill_step,
-                                            make_serve_step, seed_cache)
+    from repro_torch.serving.engine import (make_prefill_step, make_serve_step,
+                                            seed_cache)
 
     cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
     p32 = {k: tree_map(lambda t: t.float(), v) for k, v in params.items()
@@ -714,12 +795,7 @@ def phase_moe_parity(torch, dev, cfg, params, prompts):
                 f"between kernel and plain paths with no routing flip at a "
                 f"margin below 1e-6 (flips: {flips})")
 
-    streams = {}
-    for k in (MACRO, 0):
-        eng = ServingEngine(cfg, params, max_len=S_MAIN, macro_steps=k, device=dev)
-        streams[k] = eng.generate(prompts[:B], MAX_NEW).tokens
-    same = bool((streams[MACRO] == streams[0]).all())
-    require(same, "moonshot: macro_steps=8 and macro_steps=0 streams differ")
+    same = _macro_streams_equal(torch, dev, cfg, params, prompts[:B], MAX_NEW)
     emit({"phase": "moe_parity", "arch": cfg.name, "layers": 2,
           "dtype": "float32", "requests": B, "teacher_forced_max_abs": errs,
           "tolerance": 1e-3, "min_router_margin": min(margins),
@@ -782,6 +858,187 @@ def phase_moe_timing(torch, dev, cfg, params, slice_summary):
 
 
 # ---------------------------------------------------------------------------
+# The SSM path: falcon-mamba-7b; then the hybrid zamba2-2.7b
+# ---------------------------------------------------------------------------
+def _scan_case(torch, gen, B, S, di, N, dev, pure_decay=False):
+    """decay in [0.5, 0.999), bx ~ N(0, 0.1^2), h0 ~ N(0, 1) (the JAX
+    suite's draws); ``pure_decay``: decay 0.99, bx 0, h0 1."""
+    if pure_decay:
+        decay = torch.full((B, S, di, N), 0.99, device=dev)
+        return decay, torch.zeros_like(decay), torch.ones((B, di, N), device=dev)
+    decay = torch.rand((B, S, di, N), generator=gen, device=dev) * 0.499 + 0.5
+    bx = torch.randn((B, S, di, N), generator=gen, device=dev) * 0.1
+    return decay, bx, torch.randn((B, di, N), generator=gen, device=dev)
+
+
+def phase_ssm_kernel_checks(torch, dev, cfg, slice_summary):
+    """ssm_scan against its plain version at every (B, S, di, N) the slice
+    ran, at ragged shapes (S 1 and 300, di 100 and 101, N 3: the float4 and
+    the scalar path) and the pure-decay case, h0 non-zero, f32 within 1e-5
+    of the largest |h| (both sum in the same order, so they should agree
+    bit for bit).  Returns the largest main-path abs error."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    di, N = cfg.d_inner, cfg.ssm_state
+    cases = [("main-path", B, PROMPT_LEN, di, N) for B in _batch_sizes(slice_summary)]
+    cases += [("ragged", 3, 1, 100, 3), ("ragged", 2, 300, 100, 3),
+              ("ragged-scalar", 2, 300, 101, 3), ("pure-decay", 1, 128, 256, 8)]
+    results, main_err = [], 0.0
+    for name, B, S, d, n in cases:
+        decay, bx, h0 = _scan_case(torch, gen, B, S, d, n, dev,
+                                   pure_decay=name == "pure-decay")
+        got = ssm_scan_cuda(decay, bx, h0)
+        want = ref.ssm_scan_ref(decay, bx, h0)
+        torch.cuda.synchronize()
+        tag = f"ssm_scan {name} B={B} S={S} di={d} N={n}"
+        require(all(g.shape == w.shape and g.dtype == torch.float32
+                    and bool(torch.isfinite(g).all()) for g, w in zip(got, want)),
+                f"{tag}: bad output")
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        scale = float(want[0].abs().max())
+        require(err <= SCAN_TOL * max(scale, 1e-30),
+                f"{tag}: max_abs_err {err} > {SCAN_TOL} x max|h| {scale}")
+        row = {"case": name, "B": B, "S": S, "di": d, "N": n,
+               "max_abs_err": err, "max_abs_h": scale,
+               "exact": all(torch.equal(g, w) for g, w in zip(got, want))}
+        if name == "pure-decay":
+            decay_err = float((got[1] - 0.99 ** S).abs().max())
+            require(decay_err <= 1e-3 * 0.99 ** S,
+                    f"{tag}: h_last differs from 0.99^S by {decay_err}")
+            row["pure_decay_err"] = decay_err
+        if name == "main-path":
+            main_err = max(main_err, err)
+        results.append(row)
+        del decay, bx, h0, got, want
+    emit({"phase": "ssm_kernels", "kernel": "ssm_scan", "dtype": "float32",
+          "tolerance": f"{SCAN_TOL} x max|h|", "cases": results})
+    return {"ssm_scan": main_err}
+
+
+def phase_ssm_parity(torch, dev, cfg, params, prompts):
+    """A 2-layer float32 cut of the slice's weights at full width: the
+    kernel path against the plain path, prefill logits and states and 8
+    teacher-forced decode steps' logits within 1e-3 (the prefill states
+    come from ssm_scan or its plain version; decode steps them with
+    mamba1_step on both paths); then macro_steps 8 and 0 at full depth in
+    bf16 give identical streams."""
+    from repro_torch.core.offload import tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import (make_prefill_step, make_serve_step,
+                                            seed_cache)
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    p32 = {k: tree_map(lambda t: t.float(), v) for k, v in params.items()
+           if k != "blocks"}
+    p32["blocks"] = tree_map(lambda t: t[:2].float(), params["blocks"])
+    B = 4
+    tokens = torch.as_tensor(prompts[:B], device=dev)
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        lk, pre_k = make_prefill_step(cfg2, use_kernels=True)(p32, {"tokens": tokens})
+        launched = ops.launch_counts()["ssm_scan"]
+        lp, pre_p = make_prefill_step(cfg2, use_kernels=False)(p32, {"tokens": tokens})
+        require(launched == 2 and ops.launch_counts()["ssm_scan"] == 2,
+                f"the kernel prefill launched ssm_scan {launched} times, the "
+                "plain one must launch none (2-layer cut: expected 2)")
+        errs = [float((lk - lp).abs().max())]
+        state_err = max(float((a.float() - b.float()).abs().max())
+                        for a, b in zip(pre_k, pre_p))
+        caches = [seed_cache(cfg2, M.init_cache(cfg2, B, S_MAIN, device=dev),
+                             pre, PROMPT_LEN) for pre in (pre_p, pre_k)]
+        del pre_k, pre_p
+        plain = make_serve_step(cfg2, use_kernels=False)
+        kern = make_serve_step(cfg2, use_kernels=True)
+        tok = lp.argmax(dim=-1).to(torch.int32)
+        for i in range(8):
+            lengths = torch.full((B,), PROMPT_LEN + i, dtype=torch.int32, device=dev)
+            lp, _ = plain(p32, caches[0], tok[:, None], lengths)
+            lk, _ = kern(p32, caches[1], tok[:, None], lengths)
+            errs.append(float((lk - lp).abs().max()))
+            tok = lp.argmax(dim=-1).to(torch.int32)
+        del caches, p32
+    require(max(errs) <= 1e-3 and state_err <= 1e-3,
+            f"{cfg.name}: kernel and plain paths differ: logits {errs}, "
+            f"prefill states {state_err} (tolerance 1e-3)")
+    same = _macro_streams_equal(torch, dev, cfg, params, prompts[:B], MAX_NEW)
+    emit({"phase": "ssm_parity", "arch": cfg.name, "layers": 2,
+          "dtype": "float32", "requests": B,
+          "prefill_and_teacher_forced_max_abs": errs,
+          "prefill_state_max_abs": state_err, "tolerance": 1e-3,
+          "macro_8_equals_0": same, "macro_check_dtype": "bfloat16",
+          "macro_check_layers": cfg.num_layers})
+
+
+def phase_ssm_timing(torch, dev, cfg, slice_summary):
+    """ssm_scan and its plain version at the auxiliary group's prefill
+    shape (B=11: [11,128,8192,16] f32, 1.48 GB of inputs a call), cycling
+    through more input sets than L2 holds.  The kernel's ``device_ms`` is
+    ``_alone_ms``: after the earlier traces of this process the profiler
+    loop held none of its events in some runs (``profiler_device_ms``
+    None)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    groups = dict(zip(slice_summary["group_names"], slice_summary["n_group"]))
+    B = groups.get("auxiliary") or max(groups.values())
+    S, di, N = PROMPT_LEN, cfg.d_inner, cfg.ssm_state
+    C = di * N
+    sets = [_scan_case(torch, gen, B, S, di, N, dev)
+            for _ in range(_sets_for(4 * B * C * (2 * S + 1)))]
+    fns = {"": ssm_scan_cuda, "plain_": ref.ssm_scan_ref}
+    times = {f"{p}ms": _time_ms(torch, fn, sets, iters=40, warmup=4)
+             for p, fn in fns.items()}
+    times["device_ms"] = _alone_ms(torch, ssm_scan_cuda, sets)
+    times["profiler_device_ms"] = _device_ms(torch, ssm_scan_cuda, sets, iters=10)
+    times["plain_device_ms"] = _device_ms(torch, ref.ssm_scan_ref, sets, iters=10)
+    n_bytes = 4 * B * C * (3 * S + 2)     # decay, bx, h_all; h0, h_last (f32)
+    n_ops = 2 * B * S * C                 # a multiply and an add per element
+    bound_ms, bound_by = _bound(n_bytes, n_ops, H100_PEAK_FLOPS_F32)
+    row = {"kernel": "ssm_scan", "step": "prefill", "group": "auxiliary",
+           "B": B, "S": S, "di": di, "N": N, "dtype": "float32", **times,
+           "library_ms": None,
+           "library": "none: no single PyTorch call computes this recurrence",
+           "bytes": n_bytes, "operations": n_ops, "bound_ms": bound_ms,
+           "bound_by": bound_by, "sets": len(sets)}
+    emit({"phase": "ssm_timing", "arch": cfg.name, **row})
+    return [row]
+
+
+def phase_hybrid(torch, dev):
+    """zamba2-2.7b at full width through the launcher (--split none), its
+    decode_attention launches held to 9 shared-block calls a decode step;
+    decode_attention against its plain version at zamba2's head shape
+    (H=Hkv=32, dh=80); macro_steps 8 and 0 give identical bf16 streams.
+    Returns (launch counts, {kernel: main-path error})."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config(HYBRID_ARCH)
+    summary, counts = phase_slice(torch, HYBRID_ARCH, phase="hybrid_slice",
+                                  split="none", requests=HYBRID_REQUESTS,
+                                  max_new=HYBRID_MAX_NEW)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    err = _check_decode_attention(torch, dev, gen, [HYBRID_REQUESTS],
+                                  cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                                  "hybrid_kernels")
+    params = M.init_params(cfg, 0, device=dev)          # the slice's weights
+    prompts = _prompts(cfg)[:HYBRID_REQUESTS]
+    same = _macro_streams_equal(torch, dev, cfg, params, prompts, HYBRID_MAX_NEW)
+    emit({"phase": "hybrid_parity", "arch": cfg.name, "requests": HYBRID_REQUESTS,
+          "macro_8_equals_0": same, "dtype": "bfloat16",
+          "layers": cfg.num_layers})
+    del params
+    return counts, {"decode_attention": err}
+
+
+# ---------------------------------------------------------------------------
 KERNEL_META = {
     "decode_attention": {
         "route": "cuda", "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -792,27 +1049,29 @@ KERNEL_META = {
     "grouped_ffn": {
         "route": "cuda", "source": "src/repro_torch/csrc/grouped_ffn.cu",
         "replaces": "src/repro/kernels/grouped_ffn.py:47"},
+    "ssm_scan": {
+        "route": "cuda", "source": "src/repro_torch/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan.py:51"},
 }
 
 
-def kernels_line(rows, moe_rows, counts, moe_counts, errs, moe_errs):
+def kernels_line(rows, counts_by_path, errs):
     """One entry per kernel: decode_attention and masked_compact timed at
     llama's auxiliary group, grouped_ffn at moonshot's auxiliary group's
-    decode; launches summed over both main paths (and listed per path);
-    max_abs_err the largest main-path error of either."""
-    pick = {}
+    decode, ssm_scan at falcon-mamba's auxiliary group's prefill; launches
+    summed over every main path (and listed per path); max_abs_err the
+    largest main-path error of any path."""
+    pick = {}           # each kernel's first row timed at an auxiliary group
     for row in rows:
-        if row["kernel"] not in pick or row.get("group") == "auxiliary":
-            pick[row["kernel"]] = row
-    pick["grouped_ffn"] = next(r for r in moe_rows if r["kernel"] == "grouped_ffn"
-                               and r["step"] == "decode")
+        if row["group"] == "auxiliary":
+            pick.setdefault(row["kernel"], row)
     kernels = []
     for kname, meta in KERNEL_META.items():
         row = pick[kname]
-        by_path = {ARCH: counts[kname], MOE_ARCH: moe_counts[kname]}
+        by_path = {arch: c[kname] for arch, c in counts_by_path.items()}
         entry = {"name": kname, **meta, "launches": sum(by_path.values()),
                  "launches_by_path": by_path,
-                 "max_abs_err": max(errs.get(kname, 0.0), moe_errs.get(kname, 0.0)),
+                 "max_abs_err": max(e.get(kname, 0.0) for e in errs),
                  "ms": row["ms"], "device_ms": row["device_ms"],
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
@@ -822,10 +1081,10 @@ def kernels_line(rows, moe_rows, counts, moe_counts, errs, moe_errs):
     return kernels
 
 
-def timed(label, fn, *args):
+def timed(label, fn, *args, **kw):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
-    out = fn(*args)
+    out = fn(*args, **kw)
     emit({"phase": "seconds", "of": label, "seconds": time.perf_counter() - t0})
     return out
 
@@ -874,8 +1133,35 @@ def main() -> None:
     moe_rows = timed("moe_timing", phase_moe_timing, torch, dev, moe_cfg,
                      params, moe_summary)
     del params
+    torch.cuda.empty_cache()
 
-    kernels = kernels_line(rows, moe_rows, counts, moe_counts, errs, moe_errs)
+    # the SSM path: falcon-mamba-7b at full width
+    ssm_cfg = get_config(SSM_ARCH)
+    ssm_summary, ssm_counts = timed("ssm_slice", phase_slice, torch, SSM_ARCH,
+                                    phase="ssm_slice")
+    ssm_errs = timed("ssm_kernels", phase_ssm_kernel_checks, torch, dev,
+                     ssm_cfg, ssm_summary)
+    torch.cuda.empty_cache()
+    params = M.init_params(ssm_cfg, 0, device=dev)      # the slice's weights
+    prompts = _prompts(ssm_cfg)
+    timed("ssm_parity", phase_ssm_parity, torch, dev, ssm_cfg, params, prompts)
+    groups = dict(zip(ssm_summary["group_names"], ssm_summary["n_group"]))
+    timed("ssm_trace", phase_trace, torch, dev, ssm_cfg, params, prompts,
+          groups["auxiliary"] or REQUESTS)
+    del params
+    torch.cuda.empty_cache()
+    ssm_rows = timed("ssm_timing", phase_ssm_timing, torch, dev, ssm_cfg,
+                     ssm_summary)
+    torch.cuda.empty_cache()
+
+    # the hybrid path: zamba2-2.7b at full width, decode_attention at dh=80
+    hyb_counts, hyb_errs = timed("hybrid", phase_hybrid, torch, dev)
+
+    kernels = kernels_line(
+        rows + moe_rows + ssm_rows,
+        {ARCH: counts, MOE_ARCH: moe_counts, SSM_ARCH: ssm_counts,
+         HYBRID_ARCH: hyb_counts},
+        [errs, moe_errs, ssm_errs, hyb_errs])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -4,7 +4,8 @@ The caller turns a JAX pytree into numpy first
 (``jax.tree.map(np.asarray, tree)``), so this module never sees JAX.  Keys
 and layouts are the same in both packages (L-stacked leaves such as
 ``blocks.attn.wq [L,d,H,dh]``; caches ``{"self": {"k","v"}}`` as
-``[L,B,S,Hkv,dh]``).  bf16 leaves arrive as ``ml_dtypes.bfloat16``, which
+``[L,B,S,Hkv,dh]``; an SSM cache is the tuple ``(conv, ssm)``, which stays a
+tuple).  bf16 leaves arrive as ``ml_dtypes.bfloat16``, which
 torch cannot read, so they go through float32 and are cast back: exact,
 since every bf16 value is a float32 value.
 """
@@ -30,7 +31,37 @@ def tree_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: tree_from_numpy(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(tree_from_numpy(v, dev) for v in tree)
     return _leaf(tree, dev)
+
+
+def _mamba_want(m, cfg, L: int) -> dict:
+    """(tensor, expected shape) of the L-stacked Mamba leaves; raises if a
+    leaf that JAX keeps in f32 is not f32."""
+    d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    want = {"in_proj": (m["in_proj"], (L, d, 2 * di)),
+            "conv_w": (m["conv_w"], (L, cfg.ssm_conv, di)),
+            "out_proj": (m["out_proj"], (L, di, d))}
+    if cfg.mamba_version == 1:
+        r = cfg.ssm_dt_rank
+        want.update(x_proj=(m["x_proj"], (L, di, r + 2 * n)),
+                    dt_proj=(m["dt_proj"], (L, r, di)),
+                    A_log=(m["A_log"], (L, di, n)),
+                    D=(m["D"], (L, di)),
+                    dt_bias=(m["dt_bias"], (L, di)))
+    else:
+        H = di // cfg.ssm_head_dim
+        want.update(bc_proj=(m["bc_proj"], (L, di, 2 * n)),
+                    dt_proj=(m["dt_proj"], (L, di, H)),
+                    A_log=(m["A_log"], (L, H)),
+                    D=(m["D"], (L, H)),
+                    dt_bias=(m["dt_bias"], (L, H)))
+    for name in ("A_log", "D", "dt_bias"):
+        if m[name].dtype != torch.float32:
+            raise ValueError(f"params do not match {cfg.name}: {name} dtype "
+                             f"{m[name].dtype}, expected float32")
+    return want
 
 
 def params_from_numpy(tree: Any, cfg, device: DeviceLike = None) -> Any:
@@ -38,8 +69,24 @@ def params_from_numpy(tree: Any, cfg, device: DeviceLike = None) -> Any:
     params = tree_from_numpy(tree, device)
     L, d, f, E = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.num_experts
     blocks = params["blocks"]
-    want = {"embed": (params["embed"]["table"], (cfg.vocab_size, d)),
-            "wq": (blocks["attn"]["wq"], (L, d, cfg.num_heads, cfg.head_dim))}
+    want = {"embed": (params["embed"]["table"], (cfg.vocab_size, d))}
+    if cfg.family in ("ssm", "hybrid"):
+        hybrid = cfg.family == "hybrid"
+        if hybrid != ("shared" in blocks and "backbone" in blocks):
+            raise ValueError(f"params do not match {cfg.name}: a hybrid stack "
+                             "has a backbone and a shared block, an SSM stack "
+                             "neither")
+        backbone = blocks["backbone"] if hybrid else blocks
+        if "mamba" not in backbone:
+            raise ValueError(f"params do not match {cfg.name}: no Mamba blocks")
+        want.update(_mamba_want(backbone["mamba"], cfg, L))
+        if cfg.family == "hybrid":
+            attn, mlp = blocks["shared"]["attn"], blocks["shared"]["mlp"]
+            want.update(shared_wq=(attn["wq"], (d, cfg.num_heads, cfg.head_dim)),
+                        shared_w_up=(mlp["w_up"], (d, f)),
+                        shared_w_down=(mlp["w_down"], (f, d)))
+    else:
+        want["wq"] = (blocks["attn"]["wq"], (L, d, cfg.num_heads, cfg.head_dim))
     if E:
         moe = blocks.get("moe")
         if moe is None:

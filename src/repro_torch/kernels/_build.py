@@ -37,6 +37,8 @@ SIGNATURES = {
     "repro_masked_compact": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     # buf, wg, wu, wd, h (f32 workspace), out, E, C, D, F, is_bf16, stream
     "repro_grouped_ffn": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    # decay, bx, h0, h_all, h_last, B, S, channels (= di * N), stream
+    "repro_ssm_scan": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -16,10 +16,12 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.grouped_ffn import grouped_ffn_cuda
 from repro_torch.kernels.masked_compact import masked_compact_cuda
+from repro_torch.kernels.ssm_scan import ssm_scan_cuda
 
 _WRAPPERS = {"decode_attention": decode_attention_cuda,
              "masked_compact": masked_compact_cuda,
-             "grouped_ffn": grouped_ffn_cuda}
+             "grouped_ffn": grouped_ffn_cuda,
+             "ssm_scan": ssm_scan_cuda}
 
 
 def resolve_use_kernels(use_kernels: Union[bool, str],
@@ -55,6 +57,15 @@ def grouped_ffn(buf, wg, wu, wd, *, use_kernels: bool = True):
     if use_kernels and buf.is_cuda:
         return grouped_ffn_cuda(buf, wg, wu, wd)
     return ref.grouped_ffn_ref(buf, wg, wu, wd)
+
+
+def ssm_scan(decay, bx, h0, *, use_kernels: bool = True):
+    """decay/bx: [B,S,di,N] f32; h0: [B,di,N] f32 -> (h_all [B,S,di,N],
+    h_last [B,di,N]), both f32.  ``use_kernels=False`` takes the plain
+    version on any device."""
+    if use_kernels and decay.is_cuda:
+        return ssm_scan_cuda(decay, bx, h0)
+    return ref.ssm_scan_ref(decay, bx, h0)
 
 
 def launch_counts() -> Dict[str, int]:

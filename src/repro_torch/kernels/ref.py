@@ -92,3 +92,17 @@ def grouped_ffn_ref(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     u = torch.bmm(xf, wu.float())
     h = torch.nn.functional.silu(g) * u
     return torch.bmm(h, wd.float()).to(buf.dtype)
+
+
+# ---------------------------------------------------------------------------
+# ssm_scan: the Mamba-1 diagonal recurrence over the sequence axis
+# ---------------------------------------------------------------------------
+def ssm_scan_ref(decay: torch.Tensor, bx: torch.Tensor, h0: torch.Tensor):
+    """decay/bx: [B,S,di,N] f32; h0: [B,di,N].  Sequential oracle:
+    ``h_t = decay_t * h_{t-1} + bx_t``.  Returns (h_all [B,S,di,N], h_last)."""
+    h_all = torch.empty_like(decay)
+    h = h0
+    for s in range(decay.shape[1]):
+        h = decay[:, s] * h + bx[:, s]
+        h_all[:, s] = h
+    return h_all, h

@@ -57,11 +57,15 @@ def norm_apply(params, x: torch.Tensor, cfg, eps: float = 1e-5) -> torch.Tensor:
 # MLP
 # ---------------------------------------------------------------------------
 def mlp_apply(params, x: torch.Tensor, cfg) -> torch.Tensor:
-    if cfg.mlp_type != "swiglu":
-        raise NotImplementedError(f"mlp_type {cfg.mlp_type!r} is not ported yet")
-    g = x @ params["w_gate"]
-    u = x @ params["w_up"]
-    return (F.silu(g) * u) @ params["w_down"]
+    """SwiGLU, or the plain 2-matrix gelu MLP (``jax.nn.gelu``'s default tanh
+    approximation)."""
+    if cfg.mlp_type == "swiglu":
+        g = x @ params["w_gate"]
+        u = x @ params["w_up"]
+        return (F.silu(g) * u) @ params["w_down"]
+    if cfg.mlp_type == "gelu":
+        return F.gelu(x @ params["w_up"], approximate="tanh") @ params["w_down"]
+    raise NotImplementedError(f"mlp_type {cfg.mlp_type!r} is not ported yet")
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.core.offload import tree_map
 from repro_torch.device import DeviceLike, resolve_device, synchronize
 from repro_torch.kernels.ops import resolve_use_kernels
 from repro_torch.models import model as M
@@ -88,11 +89,13 @@ def make_decode_loop(cfg, *, macro_steps: int, eos_id: Optional[int] = None,
 
 # ---------------------------------------------------------------------------
 def seed_cache(cfg, big_cache, prefill_cache, prefill_len: int):
-    """Copy the prefill caches (length-P buffers) into the full-size decode
-    buffers at sequence offset 0 (axis 2), in place."""
-    for name, dst in big_cache["self"].items():
-        src = prefill_cache["self"][name]
-        dst[:, :, :src.shape[2]].copy_(src)
+    """Copy the prefill caches into the full-size decode buffers, in place,
+    leaf by leaf over every cache family (dicts of K/V, tuples of SSM
+    states): each prefill leaf is written at offset 0 of axis 2.  For the
+    length-P K/V buffers that is the first P positions; for same-shape
+    leaves (the conv and SSM states) it replaces the whole leaf."""
+    tree_map(lambda dst, src: dst[:, :, :src.shape[2]].copy_(src),
+             big_cache, prefill_cache)
     return big_cache
 
 

@@ -41,6 +41,9 @@ def test_importing_every_module_loads_no_jax():
     mods = [".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
             for p in sorted(PKG.rglob("*.py"))]
     mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m for m in mods]
+    assert {"repro_torch.models.ssm", "repro_torch.kernels.ssm_scan",
+            "repro_torch.configs.falcon_mamba_7b",
+            "repro_torch.configs.zamba2_2_7b"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -83,5 +86,6 @@ def test_cpu_tensors_never_count_as_launches():
     ops.masked_compact(torch.randn(2, 16, 8), torch.rand(2, 16) < 0.5, 8)
     w = torch.randn(2, 8, 16)
     ops.grouped_ffn(torch.randn(2, 4, 8), w, w, torch.randn(2, 16, 8))
+    ops.ssm_scan(torch.rand(1, 4, 8, 2), torch.randn(1, 4, 8, 2), torch.randn(1, 8, 2))
     assert ops.launch_counts() == {"decode_attention": 0, "masked_compact": 0,
-                                   "grouped_ffn": 0}
+                                   "grouped_ffn": 0, "ssm_scan": 0}

@@ -14,6 +14,7 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
 from repro_torch.kernels.grouped_ffn import grouped_ffn_cuda  # noqa: E402
 from repro_torch.kernels.masked_compact import masked_compact_cuda  # noqa: E402
+from repro_torch.kernels.ssm_scan import ssm_scan_cuda  # noqa: E402
 
 
 def _decode_inputs(rng, B, S, H, Hkv, dh):
@@ -121,8 +122,11 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     w = torch.zeros(2, 8, 16)
     with pytest.raises(ValueError, match="not a CUDA device"):
         grouped_ffn_cuda(torch.zeros(2, 4, 8), w, w, torch.zeros(2, 16, 8))
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        ssm_scan_cuda(torch.zeros(1, 4, 8, 2), torch.zeros(1, 4, 8, 2),
+                      torch.zeros(1, 8, 2))
     assert ops.launch_counts() == {"decode_attention": 0, "masked_compact": 0,
-                                   "grouped_ffn": 0}
+                                   "grouped_ffn": 0, "ssm_scan": 0}
 
 
 def test_kernel_library_names_missing_card():
@@ -202,3 +206,52 @@ def test_grouped_ffn_cpu_calls_count_no_launch():
     assert out.shape == (2, 4, 8)
     assert ops.launch_counts()["grouped_ffn"] == 0
     assert grouped_ffn_cuda.launches == 0
+
+
+def _scan_inputs(rng, B, S, di, N):
+    """tests/test_kernels.py's ssm_scan inputs: decay in [0.5, 0.999),
+    bx ~ N(0, 0.1^2), h0 ~ N(0, 1)."""
+    decay = rng.uniform(0.5, 0.999, (B, S, di, N)).astype(np.float32)
+    bx = (rng.standard_normal((B, S, di, N)) * 0.1).astype(np.float32)
+    h0 = rng.standard_normal((B, di, N)).astype(np.float32)
+    return decay, bx, h0
+
+
+# tests/test_kernels.py's shapes, and a ragged one (S, di and N that the
+# Pallas kernel's 128 / 256 blocks do not divide; the CUDA kernel masks)
+@pytest.mark.parametrize("B,S,di,N", [(2, 256, 512, 16), (1, 128, 256, 8),
+                                      (1, 3, 100, 3)])
+def test_ssm_scan_matches_jax(B, S, di, N, test_seed):
+    """The plain version against the JAX oracle and the Pallas kernel
+    (interpret mode) within the JAX suite's 2e-4."""
+    rng = np.random.default_rng(test_seed)
+    arrs = _scan_inputs(rng, B, S, di, N)
+    h_all, h_last = ops.ssm_scan(*map(torch.from_numpy, arrs))
+    assert h_all.dtype == h_last.dtype == torch.float32
+    assert h_all.shape == (B, S, di, N) and h_last.shape == (B, di, N)
+    for fn in (jref.ssm_scan_ref, jops.ssm_scan):
+        w_all, w_last = fn(*map(jnp.asarray, arrs))
+        np.testing.assert_allclose(h_all.numpy(), np.asarray(w_all),
+                                   rtol=2e-4, atol=2e-4)
+        np.testing.assert_allclose(h_last.numpy(), np.asarray(w_last),
+                                   rtol=2e-4, atol=2e-4)
+
+
+def test_ssm_scan_decay_property():
+    """With bx=0 the scan is a pure decay: h_T = h0 * prod(decay)."""
+    B, S, di, N = 1, 128, 256, 8
+    decay = torch.full((B, S, di, N), 0.99)
+    _, h_last = ops.ssm_scan(decay, torch.zeros_like(decay), torch.ones(B, di, N))
+    np.testing.assert_allclose(h_last.numpy(), 0.99 ** S, rtol=1e-3)
+
+
+def test_ssm_scan_cpu_calls_count_no_launch():
+    """A CPU tensor takes the plain version, with kernels asked for or not,
+    and counts no launch."""
+    ops.reset_launch_counts()
+    decay = torch.rand(1, 5, 8, 4)
+    h0 = torch.randn(1, 8, 4)
+    for use in (True, False):
+        h_all, h_last = ops.ssm_scan(decay, decay, h0, use_kernels=use)
+        assert torch.equal(h_all[:, -1], h_last)
+    assert ops.launch_counts()["ssm_scan"] == 0 == ssm_scan_cuda.launches

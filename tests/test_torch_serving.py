@@ -110,7 +110,7 @@ def test_launcher_static_split_on_cpu(capsys):
     comp = s["compression"]
     assert comp["kept_tokens_compacted"] == comp["kept_tokens"] > 0
     assert ops.launch_counts() == {"decode_attention": 0, "masked_compact": 0,
-                                   "grouped_ffn": 0}
+                                   "grouped_ffn": 0, "ssm_scan": 0}
     assert "solver: r* =" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         serve.main(["--reduced", "--device", "cpu", "--continuous"])
