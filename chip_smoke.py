@@ -20,8 +20,11 @@ each; any failure exits non-zero before the result line:
   kernels  every kernel of the main path against its plain PyTorch version
            on the card, at the batch sizes the slice ran (the probe and
            each group; S=168, H=32, Hkv=8, dh=64) plus a scalar length,
-           ragged long caches (S=4100, window 0 and 128) and an empty
-           window, bf16 within 3e-2 and f32 within 1e-4; masked_compact at
+           cache_len 0 (exactly 0), lengths either side of each split
+           boundary, a window smaller than one split, ragged long caches
+           (S=4100, window 0 and 128) and an empty window, and a sweep over
+           dh 64/80/128 x G 1/4/8; every call twice, bit-equal; bf16 within
+           3e-2 and f32 within 1e-4; masked_compact at
            the offloaded slice's shape and at capacity == kept, zero kept,
            overflow past K and odd row widths, bf16 and f32, bit for bit
   parity   a float32 copy of the same weights: kernel path vs plain path
@@ -33,8 +36,10 @@ each; any failure exits non-zero before the result line:
   timing   each kernel, its plain version and the PyTorch library call at
            the main path's shapes, beside the bound: "ms" from CUDA events
            around a loop of calls (what a caller pays per call, host work
-           included), "device_ms" from the profiler's kernel durations; the
-           loop cycles through more input sets than L2 holds
+           included), "device_ms" from CUDA events around a loop the host
+           enqueues while a device-side sleep holds the stream (the device
+           work alone, back to back); loops cycle through more input sets
+           than L2 holds
 
 Then llama3.2-1b's params are freed and the MoE path runs:
 
@@ -47,22 +52,29 @@ Then llama3.2-1b's params are freed and the MoE path runs:
            device memory
   moe kernels  grouped_ffn against its plain version at every (E, C, D, F)
            the slice ran (prefill and decode capacity of the probe and of
-           each group) and at ragged shapes (C 1 and 13, F 13 and 88, D 70,
-           72 and 80), zero rows and empty experts exactly zero, bf16 within
-           5e-2 and f32 within 2e-4; decode_attention at moonshot's shape
-           (G=1, dh=128: the > 48 KB shared-memory launch)
+           each group), at ragged shapes (C 1 and 13, F 13 and 88, D 70,
+           72 and 80) and with counts (0, C, ragged; rows past a count are
+           exactly zero though buf's rows there are not), zero rows and
+           empty experts exactly zero, every call twice, bit-equal, bf16
+           within 5e-2 and f32 within 2e-4; decode_attention at moonshot's
+           shape (G=1, dh=128)
   moe parity   a 2-layer float32 cut of the slice's weights at full width:
            kernel vs plain path logits over 8 teacher-forced decode steps
            within 1e-3 (a larger gap is excused only where a routing choice
            flipped at a top-k margin below 1e-6), the smallest router
            margin; macro_steps=8 and 0 streams identical (bf16, full depth)
-  moe trace    one group's generate() under torch.profiler
+  moe trace    one group's generate() of 16 new tokens under torch.profiler
   moe timing   grouped_ffn at decode (C=8) and at the auxiliary group's
-           prefill capacity, cycling through the slice's 48 layers of
-           expert weights; beside it the plain version and the bf16
-           composition of three torch.bmm calls and silu*mul
-           (composition_ms; no single PyTorch call computes this function,
-           so library_ms is null); decode_attention at moonshot's shape
+           prefill capacity, each of the slice's 48 layers with a buffer and
+           counts made by routing random tokens through its router; beside
+           it the plain version and the bf16 composition of three torch.bmm
+           calls and silu*mul (composition_ms; no single PyTorch call
+           computes this function, so library_ms is null), and the bound
+           over every expert and over the routed experts and rows;
+           decode_attention at moonshot's shape
+  long cache   with no weights held: decode_attention, its plain version and
+           SDPA at llama's heads over a full 32768-row cache and moonshot's
+           over 8192 rows, as a share of the bytes bound
 
 Then moonshot's params are freed and the SSM path runs:
 
@@ -84,10 +96,7 @@ Then moonshot's params are freed and the SSM path runs:
   ssm_trace    one group's generate() under torch.profiler
   ssm_timing   ssm_scan and its plain version at the auxiliary group's
            prefill shape ([11,128,8192,16] f32), beside the bytes bound;
-           the kernel's device_ms from CUDA events around one call with
-           the stream held busy (the profiler loop lost its events after
-           earlier traces); no single PyTorch call computes the recurrence
-           (library_ms null)
+           no single PyTorch call computes the recurrence (library_ms null)
   hybrid   zamba2-2.7b at full width (54 Mamba-2 layers, d 2560, the
            shared attention block every 6 layers, H=Hkv=32, dh 80, bf16,
            4.85 GB), 4 requests x 128 prompt tokens, 16 new tokens, --split
@@ -124,7 +133,9 @@ SSM_ARCH = "falcon-mamba-7b"
 HYBRID_ARCH = "zamba2-2.7b"
 REQUESTS, PROMPT_LEN, MAX_NEW, MACRO = 16, 128, 32, 8
 HYBRID_REQUESTS, HYBRID_MAX_NEW = 4, 16
+MOE_TRACE_NEW = 16                  # moonshot's traced generate(): new tokens
 S_MAIN = PROMPT_LEN + MAX_NEW + 8   # the engines' cache length
+S_SPLIT = 2000                      # a cache that decode_attention splits
 FFN_TOL = {"bfloat16": 5e-2, "float32": 2e-4}   # tests/test_kernels.py:129
 SCAN_TOL = 1e-5     # relative to max|h|: both versions sum in one order
 
@@ -191,13 +202,24 @@ def _batch_sizes(slice_summary):
     return sorted({PROBE_REQUESTS, *(n for n in slice_summary["n_group"] if n)})
 
 
+def _split_boundary_lens(S, rows, B):
+    """Cache lengths one row either side of each split boundary (and S), B
+    of them: the ragged ends of the split-K grid."""
+    lens = sorted({min(max(r + d, 1), S) for r in range(rows, S + rows, rows)
+                   for d in (-1, 0, 1)})
+    return (lens * B)[:B] if len(lens) < B else lens[:B - 1] + [S]
+
+
 def _check_decode_attention(torch, dev, gen, main_bs, H, Hkv, dh, phase):
     """decode_attention against its plain version at [B,1,H,dh] for every
     batch size the slice ran (per-slot lengths that include 1 and S), a
-    scalar length, ragged long caches with and without a window, and an
-    empty window; returns the largest main-path error (bf16)."""
+    scalar length, cache_len 0 (exactly 0 out), lengths either side of the
+    split boundaries, a window smaller than one split, ragged long caches
+    with and without a window, and an empty window; every case twice,
+    bit-equal.  Returns the largest main-path error (bf16)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                      num_splits)
 
     tol = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
     results, main_err = [], 0.0
@@ -206,31 +228,77 @@ def _check_decode_attention(torch, dev, gen, main_bs, H, Hkv, dh, phase):
         lens = torch.randint(1, S_MAIN + 1, (B,), generator=gen, device=dev)
         lens[0], lens[-1] = 1, S_MAIN
         cases.append((B, S_MAIN, 0, lens, True))
-    cases.append((max(main_bs), S_MAIN, 0, PROMPT_LEN + 1, True))  # scalar len
+    Bm = max(main_bs)
+    cases.append((Bm, S_MAIN, 0, PROMPT_LEN + 1, True))             # scalar len
+    cases.append((Bm, S_MAIN, 0, [0] * Bm, False))                  # cache_len 0
+    _, rows = num_splits(4, Hkv, S_SPLIT, H // Hkv)                 # several splits
+    cases.append((4, S_SPLIT, 0, _split_boundary_lens(S_SPLIT, rows, 4), False))
+    cases.append((8, S_SPLIT, 0, _split_boundary_lens(S_SPLIT, rows, 8), False))
+    cases.append((8, S_SPLIT, max(1, rows // 2 - 1),                # window < split
+                  _split_boundary_lens(S_SPLIT, rows, 8), False))
+    _, rows_long = num_splits(4, Hkv, 4100, H // Hkv)
     cases.append((4, 4100, 0, [1, 777, 4099, 4100], False))       # ragged long
     cases.append((4, 4100, 128, [1, 777, 4099, 4100], False))
+    cases.append((4, 4100, 0, [rows_long - 1, rows_long + 1, 3 * rows_long, 4100],
+                  False))
     cases.append((3, 300, 16, [0, 5, 300], False))                # empty window
     for B, S, win, lens, main in cases:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, cl = _decode_case(torch, gen, B, S, H, Hkv, dh, dtype,
                                        lens, dev)
             got = decode_attention_cuda(q, k, v, cl, window=win)
+            again = decode_attention_cuda(q, k, v, cl, window=win)
             want = ref.decode_attention_ref(q, k, v, cl, window=win)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
+            tag = (f"decode_attention B={B} S={S} H={H} Hkv={Hkv} dh={dh} "
+                   f"window={win} {dtype}")
             require(got.dtype == dtype and bool(torch.isfinite(got).all()),
-                    f"decode_attention B={B} S={S} H={H} Hkv={Hkv} dh={dh} "
-                    f"{dtype}: bad output")
-            require(err <= tol[dtype], f"decode_attention B={B} S={S} H={H} "
-                    f"Hkv={Hkv} dh={dh} window={win} {dtype}: max_abs_err "
-                    f"{err} > {tol[dtype]}")
+                    f"{tag}: bad output")
+            require(err <= tol[dtype], f"{tag}: max_abs_err {err} > {tol[dtype]}")
+            require(torch.equal(got, again), f"{tag}: two calls differ")
+            empty = cl.reshape(-1).expand(B) <= 0
+            require(not bool(got[empty].any()), f"{tag}: cache_len 0 gave non-zero")
             if main and dtype == torch.bfloat16:
                 main_err = max(main_err, err)
             results.append({"B": B, "S": S, "window": win, "H": H, "Hkv": Hkv,
-                            "dh": dh, "dtype": str(dtype)[6:], "max_abs_err": err})
+                            "dh": dh, "splits": num_splits(B, Hkv, S, H // Hkv),
+                            "dtype": str(dtype)[6:], "max_abs_err": err,
+                            "bit_equal_twice": True})
     emit({"phase": phase, "kernel": "decode_attention",
           "tolerance": {"bfloat16": 3e-2, "float32": 1e-4}, "cases": results})
     return main_err
+
+
+def _sweep_decode_attention(torch, dev, gen):
+    """decode_attention against its plain version at every head width the
+    port's configs use (dh 64, 80, 128) and G 1, 4 and 8, with and without
+    a window, bf16 and f32, twice each, bit-equal."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+
+    tol = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
+    worst = {}
+    for dh in (64, 80, 128):
+        for G in (1, 4, 8):
+            for win in (0, 40):
+                for dtype in (torch.bfloat16, torch.float32):
+                    q, k, v, cl = _decode_case(torch, gen, 3, 300, 4 * G, 4, dh,
+                                               dtype, [0, 150, 300], dev)
+                    got = decode_attention_cuda(q, k, v, cl, window=win)
+                    again = decode_attention_cuda(q, k, v, cl, window=win)
+                    want = ref.decode_attention_ref(q, k, v, cl, window=win)
+                    torch.cuda.synchronize()
+                    err = float((got.float() - want.float()).abs().max())
+                    tag = f"decode_attention sweep dh={dh} G={G} window={win} {dtype}"
+                    require(err <= tol[dtype], f"{tag}: max_abs_err {err}")
+                    require(torch.equal(got, again), f"{tag}: two calls differ")
+                    require(not bool(got[0].any()), f"{tag}: cache_len 0 gave non-zero")
+                    key = f"dh{dh}_G{G}_{str(dtype)[6:]}"
+                    worst[key] = max(worst.get(key, 0.0), err)
+    emit({"phase": "kernels", "kernel": "decode_attention", "sweep": "dh x G",
+          "B": 3, "S": 300, "Hkv": 4, "lens": [0, 150, 300], "windows": [0, 40],
+          "max_abs_err": worst})
 
 
 def phase_kernel_checks(torch, dev, slice_summary):
@@ -245,6 +313,7 @@ def phase_kernel_checks(torch, dev, slice_summary):
     groups = dict(zip(slice_summary["group_names"], slice_summary["n_group"]))
     main_err = _check_decode_attention(torch, dev, gen, _batch_sizes(slice_summary),
                                        32, 8, 64, "kernels")
+    _sweep_decode_attention(torch, dev, gen)
 
     results, mc_err = [], 0.0
     d_main = 2048
@@ -467,19 +536,20 @@ def _check_offload_streams(torch, dev, cfg, params, prompts):
             "t_parallel_s": rep.t_parallel_s, "max_abs_err": err}
 
 
-def phase_trace(torch, dev, cfg, params, prompts, B):
+def phase_trace(torch, dev, cfg, params, prompts, B, max_new=MAX_NEW):
     """Where one group's generate() spends its time: device busy share and
-    the kernels that take it, from a torch.profiler trace of a warm run."""
+    the kernels that take it, from a torch.profiler trace of a warm run of
+    ``max_new`` new tokens."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.engine import ServingEngine
 
     eng = ServingEngine(cfg, params, max_len=S_MAIN, macro_steps=MACRO, device=dev)
-    warm = eng.generate(prompts[:B], MAX_NEW)
+    warm = eng.generate(prompts[:B], max_new)
     steps0 = eng.decode_steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.generate(prompts[:B], MAX_NEW)
+        eng.generate(prompts[:B], max_new)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     steps = eng.decode_steps - steps0
@@ -492,7 +562,7 @@ def phase_trace(torch, dev, cfg, params, prompts, B):
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
     launches = sum(n for _, n in per_kernel.values())
     emit({"phase": "trace", "arch": cfg.name, "B": B, "prompt_len": PROMPT_LEN,
-          "max_new": MAX_NEW,
+          "max_new": max_new,
           "macro_steps": MACRO, "untraced_prefill_s": warm.prefill_s,
           "untraced_decode_s": warm.decode_s,
           "untraced_ms_per_decode_step": 1e3 * warm.t_per_macro_step_s / MACRO,
@@ -527,38 +597,39 @@ def _time_ms(torch, fn, arg_sets, iters=200, warmup=10):
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(torch, fn, arg_sets, iters=50):
-    """Mean device time per call: the summed duration of every kernel and
-    copy the calls ran, from a torch.profiler (CUPTI) trace; None when the
-    trace holds no device events."""
-    from torch.profiler import ProfilerActivity, profile
+def _device_ms(torch, fn, arg_sets, iters=50, need_ahead=True):
+    """Mean device ms per call: CUDA events around ``iters`` calls that the
+    host enqueues while a device-side sleep holds the stream, so the events
+    bracket the calls' device work back to back and not the host's launch
+    cost.  The host was ahead when the start event had not fired by the
+    time the last call was enqueued; otherwise the sleep grows and the loop
+    runs again.  Every kernel's ``device_ms`` comes from here (the profiler
+    lost the events of the ctypes-launched kernels after earlier traces).
+    Returns None where the host never got ahead and ``need_ahead`` is
+    false (a plain version whose launches fill the launch queue)."""
     fn(*arg_sets[0])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(*arg_sets[i % len(arg_sets)])
-        torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / iters if us > 0 else None
-
-
-def _alone_ms(torch, fn, arg_sets, iters=10):
-    """Median ms of one call's device work alone: a device-side sleep keeps
-    the stream busy while the host prepares the call, so the CUDA events
-    around it time the kernels and not the host."""
-    times = []
-    for i in range(iters):
-        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(3):
+        fn(*arg_sets[i % len(arg_sets)])
+    per_call_s = (time.perf_counter() - t0) / 3      # host enqueue cost, or more
+    torch.cuda.synchronize()
+    cycles = int(2e9 * (2.0 * iters * per_call_s + 1e-3))   # ~2e9 SM cycles a second
+    for _ in range(3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)          # about 1 ms at the SM clock
+        torch.cuda._sleep(cycles)
         start.record()
-        fn(*arg_sets[i % len(arg_sets)])
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
         end.record()
+        ahead = not start.query()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[len(times) // 2]
+        if ahead:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    require(not need_ahead, "_device_ms: the host never got ahead of the device")
+    return None
 
 
 def _sets_for(bytes_per_set: float) -> int:
@@ -575,15 +646,18 @@ def _bound(n_bytes, n_ops, peak_flops=None):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _time_decode_attention(torch, dev, gen, gname, B, H, Hkv, dh):
+def _time_decode_attention(torch, dev, gen, gname, B, H, Hkv, dh, S=S_MAIN,
+                           cache_len=None):
     """decode_attention, its plain version and SDPA at [B,1,H,dh] against a
-    bf16 cache of S_MAIN rows, halfway through decode."""
+    bf16 cache of S rows, by default the slice's, halfway through decode."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                      num_splits)
 
-    S, esize = S_MAIN, 2
-    cl_mid = PROMPT_LEN + MAX_NEW // 2 + 1   # cache_len halfway through decode
+    esize = 2
+    # cache_len halfway through the slice's decode unless given
+    cl_mid = cache_len or PROMPT_LEN + MAX_NEW // 2 + 1
     per_set = 2 * B * S * Hkv * dh * esize
     sets = [_decode_case(torch, gen, B, S, H, Hkv, dh, torch.bfloat16,
                          [cl_mid] * B, dev) for _ in range(_sets_for(per_set))]
@@ -602,7 +676,9 @@ def _time_decode_attention(torch, dev, gen, gname, B, H, Hkv, dh):
            "plain_": lambda *a: ref.decode_attention_ref(*a),
            "library_": sdpa}
     times = {f"{p}ms": _time_ms(torch, fn, sets) for p, fn in fns.items()}
-    times.update({f"{p}device_ms": _device_ms(torch, fn, sets)
+    iters = {"": 100, "plain_": 10, "library_": 50}   # a few hundred launches
+    times.update({f"{p}device_ms": _device_ms(torch, fn, sets, iters=iters[p],
+                                              need_ahead=not p)
                   for p, fn in fns.items()})
     n_bytes = (2 * B * cl_mid * Hkv * dh * esize    # K and V rows read
                + 2 * B * H * dh * esize             # q read, out written
@@ -611,7 +687,8 @@ def _time_decode_attention(torch, dev, gen, gname, B, H, Hkv, dh):
     bound_ms, bound_by = _bound(n_bytes, n_ops)
     return {"kernel": "decode_attention", "group": gname, "B": B, "S": S,
             "cache_len": cl_mid, "dtype": "bfloat16", "H": H, "Hkv": Hkv,
-            "dh": dh, "G": H // Hkv, **times,
+            "dh": dh, "G": H // Hkv, "splits": num_splits(B, Hkv, S, H // Hkv),
+            **times,
             "library": "scaled_dot_product_attention(enable_gqa=True, "
                        "bool length mask)",
             "bytes": n_bytes, "operations": n_ops, "bound_ms": bound_ms,
@@ -641,7 +718,8 @@ def phase_timing(torch, dev, slice_summary):
     fns = {"": lambda *a: masked_compact_cuda(*a),
            "plain_": lambda *a: ref.masked_compact_ref(*a)}
     times = {f"{p}ms": _time_ms(torch, fn, sets) for p, fn in fns.items()}
-    times.update({f"{p}device_ms": _device_ms(torch, fn, sets)
+    times.update({f"{p}device_ms": _device_ms(torch, fn, sets, iters=50 if not p else 20,
+                                              need_ahead=not p)
                   for p, fn in fns.items()})
     kept = int(sets[0][1].sum())
     n_bytes = (B * PROMPT_LEN                      # mask
@@ -673,13 +751,31 @@ def _ffn_case(torch, gen, E, C, D, F, dtype, dev):
             normal((E, D, F), D ** -0.5), normal((E, F, D), F ** -0.5))
 
 
+def _ffn_counts(torch, gen, kind, E, C, dev):
+    """counts [E] int32: None, all zero, all C, or ragged in [0, C] with an
+    expert at 0 (its buf rows stay non-zero: its output must be 0 all the
+    same), one at C and one at 1."""
+    if kind is None:
+        return None
+    if kind == "zero":
+        return torch.zeros((E,), dtype=torch.int32, device=dev)
+    if kind == "full":
+        return torch.full((E,), C, dtype=torch.int32, device=dev)
+    c = torch.randint(0, C + 1, (E,), generator=gen, device=dev, dtype=torch.int32)
+    c[0], c[-1] = 0, C
+    if E > 2:
+        c[1] = 1
+    return c
+
+
 def phase_moe_kernel_checks(torch, dev, cfg, slice_summary):
     """grouped_ffn against its plain version at every capacity the slice
-    ran and at edge cases; decode_attention's checks at moonshot's head
-    shape (G=1, dh=128).
-    Returns the largest main-path error of each kernel (bf16)."""
+    ran, at edge cases and with counts (0, C, ragged: rows at or past a
+    count are exactly 0, though buf's rows there are not), twice each,
+    bit-equal; decode_attention's checks at moonshot's head shape (G=1,
+    dh=128).  Returns the largest main-path error of each kernel (bf16)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.grouped_ffn import grouped_ffn_cuda
+    from repro_torch.kernels.grouped_ffn import grouped_ffn_cuda, tensor_core_path
     from repro_torch.models.moe import _capacity
 
     gen = torch.Generator(device=dev)
@@ -688,13 +784,20 @@ def phase_moe_kernel_checks(torch, dev, cfg, slice_summary):
     bs = _batch_sizes(slice_summary)
     caps = sorted({_capacity(n * PROMPT_LEN, cfg) for n in bs}      # prefill
                   | {_capacity(n, cfg) for n in bs})                # decode
-    cases = [("main-path", E, C, D, F) for C in caps]
-    cases += [("ragged", 3, 1, 72, 88), ("ragged", 3, 13, 72, 88),
-              ("ragged", 3, 1, 80, 88), ("ragged", 3, 13, 80, 88),
-              ("ragged-scalar-loads", 2, 13, 70, 13),
-              ("zero-rows", 8, 16, D, F), ("all-empty", E, caps[0], D, F)]
+    cases = [("main-path", E, C, D, F, None) for C in caps]
+    cases += [("ragged", 3, 1, 72, 88, None), ("ragged", 3, 13, 72, 88, None),
+              ("ragged", 3, 1, 80, 88, None), ("ragged", 3, 13, 80, 88, None),
+              ("ragged-scalar-loads", 2, 13, 70, 13, None),
+              ("zero-rows", 8, 16, D, F, None), ("all-empty", E, caps[0], D, F, None),
+              ("counts-zero", E, caps[0], D, F, "zero"),
+              ("counts-full", E, caps[-1], D, F, "full"),
+              ("counts-ragged", E, caps[0], D, F, "ragged"),
+              ("counts-ragged", E, caps[-1], D, F, "ragged"),
+              ("counts-ragged", 3, 13, 72, 88, "ragged"),
+              ("counts-ragged", 4, 300, 64, 136, "ragged"),
+              ("counts-ragged-scalar-loads", 2, 13, 70, 13, "ragged")]
     results, ffn_err = [], 0.0
-    for name, e, C, d, f in cases:
+    for name, e, C, d, f, kind in cases:
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype)[6:]
             buf, wg, wu, wd = _ffn_case(torch, gen, e, C, d, f, dtype, dev)
@@ -703,8 +806,10 @@ def phase_moe_kernel_checks(torch, dev, cfg, slice_summary):
                 buf[2] = 0              # an expert that received no row
             elif name == "all-empty":
                 buf.zero_()
-            got = grouped_ffn_cuda(buf, wg, wu, wd)
-            want = ref.grouped_ffn_ref(buf, wg, wu, wd)
+            counts = _ffn_counts(torch, gen, kind, e, C, dev)
+            got = grouped_ffn_cuda(buf, wg, wu, wd, counts)
+            again = grouped_ffn_cuda(buf, wg, wu, wd, counts)
+            want = ref.grouped_ffn_ref(buf, wg, wu, wd, counts)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
             tag = f"grouped_ffn {name} E={e} C={C} D={d} F={f} {dname}"
@@ -712,19 +817,26 @@ def phase_moe_kernel_checks(torch, dev, cfg, slice_summary):
                     and bool(torch.isfinite(got).all()), f"{tag}: bad output")
             require(err <= FFN_TOL[dname],
                     f"{tag}: max_abs_err {err} > {FFN_TOL[dname]}")
+            require(torch.equal(got, again), f"{tag}: two calls differ")
             row = {"case": name, "E": e, "C": C, "D": d, "F": f, "dtype": dname,
-                   "max_abs_err": err,
-                   "out_mean_abs": float(got.float().abs().mean())}
+                   "path": "tensor_cores" if tensor_core_path(dtype, d, f)
+                   else "cuda_cores", "max_abs_err": err,
+                   "out_mean_abs": float(got.float().abs().mean()),
+                   "bit_equal_twice": True}
             empty = (buf == 0).all(dim=-1)
+            if counts is not None:
+                empty |= torch.arange(C, device=dev)[None, :] >= counts[:, None]
+                row["counts"] = counts.tolist()[:8]
             if bool(empty.any()):
                 exact = bool((got[empty] == 0).all())
-                require(exact, f"{tag}: zero rows of buf gave non-zero rows")
+                require(exact, f"{tag}: zero rows or rows past the count gave "
+                        "non-zero rows")
                 row["zero_rows"] = int(empty.sum())
                 row["zero_rows_exact"] = exact
             if name == "main-path" and dtype == torch.bfloat16:
                 ffn_err = max(ffn_err, err)
             results.append(row)
-            del buf, wg, wu, wd, got, want
+            del buf, wg, wu, wd, got, again, want
     emit({"phase": "moe_kernels", "kernel": "grouped_ffn", "tolerance": FFN_TOL,
           "cases": results})
 
@@ -803,14 +915,33 @@ def phase_moe_parity(torch, dev, cfg, params, prompts):
           "macro_check_dtype": "bfloat16", "macro_check_layers": cfg.num_layers})
 
 
+def _routed_buffer(torch, moe_mod, cfg, router, T, C, gen, dev, dtype):
+    """(buf [E,C,D] in dtype, counts [E] int32): T random tokens (unit normal,
+    like the normed activations the layer routes) through a layer's real
+    router and moe_apply's dispatch, so the rows and experts in use are the
+    ones such a batch routes."""
+    E, D = cfg.num_experts, cfg.d_model
+    xt = torch.randn((T, D), generator=gen, device=dev).to(dtype)
+    _, ids, _, _ = moe_mod.route(xt, router, cfg)
+    _, sorted_ids, pos, keep, src, counts = moe_mod.dispatch(ids, E, C)
+    buf = torch.zeros((E, C, D), dtype=dtype, device=dev)
+    buf.index_put_((sorted_ids, torch.where(keep, pos, 0)),
+                   xt[src].masked_fill(~keep[:, None], 0), accumulate=True)
+    return buf, counts.clamp(max=C).to(torch.int32)
+
+
 def phase_moe_timing(torch, dev, cfg, params, slice_summary):
-    """grouped_ffn at decode and at the auxiliary group's prefill capacity,
-    cycling through the slice's per-layer expert weights (1.1 GB a layer,
-    far past L2); decode_attention at moonshot's head shape."""
+    """grouped_ffn at decode (B tokens) and at the auxiliary group's prefill
+    (B x 128 tokens), each layer's buffer and counts made by routing random
+    tokens through that layer's router, cycling through the slice's 48
+    layers (1.1 GB of experts a layer, far past L2).  Beside the kernel:
+    its plain version and the bf16 composition of three torch.bmm calls and
+    silu*mul over every row; two bounds, one over every expert's weights
+    and one over the experts and rows these inputs route (``bound_ms``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.grouped_ffn import grouped_ffn_cuda
-    from repro_torch.models.moe import _capacity
+    from repro_torch.models import moe as moe_mod
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
@@ -819,41 +950,77 @@ def phase_moe_timing(torch, dev, cfg, params, slice_summary):
     groups = dict(zip(slice_summary["group_names"], slice_summary["n_group"]))
     B = groups.get("auxiliary") or max(groups.values())
 
-    def composition(buf, wg, wu, wd):
+    def composition(buf, wg, wu, wd, counts=None):
         return torch.bmm(F.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu), wd)
 
     rows = []
-    for step, C in (("decode", _capacity(B, cfg)),
-                    ("prefill", _capacity(B * PROMPT_LEN, cfg))):
-        bufs = [torch.randn((E, C, D), generator=gen, device=dev).to(torch.bfloat16)
-                for _ in range(4)]
-        sets = [(bufs[i % len(bufs)], experts["w_gate"][i], experts["w_up"][i],
-                 experts["w_down"][i]) for i in range(cfg.num_layers)]
-        comp_err = float((composition(*sets[0]).float()
-                          - ref.grouped_ffn_ref(*sets[0]).float()).abs().max())
+    for step, T in (("decode", B), ("prefill", B * PROMPT_LEN)):
+        C = moe_mod._capacity(T, cfg)
+        sets = []
+        with torch.no_grad():
+            for i in range(cfg.num_layers):
+                buf, counts = _routed_buffer(torch, moe_mod, cfg,
+                                             experts["router"][i], T, C, gen, dev,
+                                             experts["w_gate"].dtype)
+                sets.append((buf, experts["w_gate"][i], experts["w_up"][i],
+                             experts["w_down"][i], counts))
+        got, want = grouped_ffn_cuda(*sets[0]), ref.grouped_ffn_ref(*sets[0])
+        err = float((got.float() - want.float()).abs().max())
+        require(err <= FFN_TOL["bfloat16"], f"grouped_ffn {step} on routed "
+                f"buffers: max_abs_err {err} > {FFN_TOL['bfloat16']}")
+        comp_err = float((composition(*sets[0]).float() - want.float()).abs().max())
+        used = sum(int((c > 0).sum()) for *_, c in sets) / len(sets)
+        routed_rows = sum(int(c.sum()) for *_, c in sets) / len(sets)
         fns = {"": grouped_ffn_cuda, "plain_": ref.grouped_ffn_ref,
                "composition_": composition}
         times = {f"{p}ms": _time_ms(torch, fn, sets, iters=96, warmup=4)
                  for p, fn in fns.items()}
-        times.update({f"{p}device_ms": _device_ms(torch, fn, sets, iters=24)
+        iters = {"": 48, "plain_": 12, "composition_": 48}
+        times.update({f"{p}device_ms": _device_ms(torch, fn, sets, iters=iters[p],
+                                                  need_ahead=not p)
                       for p, fn in fns.items()})
-        n_bytes = 2 * (2 * E * C * D + 3 * E * D * Fd)   # buf, out, weights (bf16)
-        n_ops = 6 * E * C * D * Fd                      # three products
+        w_bytes = 3 * D * Fd * 2                          # one expert, bf16
+        all_bytes = 2 * (2 * E * C * D) + E * w_bytes     # buf, out, every expert
+        all_ms, all_by = _bound(all_bytes, 6 * E * C * D * Fd)
+        n_bytes = (2 * routed_rows * D + 2 * E * C * D    # routed rows read, out
+                   + used * w_bytes + 4 * E)              # routed experts, counts
+        n_ops = 6 * routed_rows * D * Fd                  # three products
         bound_ms, bound_by = _bound(n_bytes, n_ops)
         rows.append({"kernel": "grouped_ffn", "step": step, "group": "auxiliary",
-                     "B": B, "E": E, "C": C, "D": D, "F": Fd, "dtype": "bfloat16",
-                     **times, "library_ms": None,
+                     "B": B, "tokens": T, "E": E, "C": C, "D": D, "F": Fd,
+                     "dtype": "bfloat16", "experts_used_mean": used,
+                     "routed_rows_mean": routed_rows, "max_abs_err": err, **times,
+                     "library_ms": None,
                      "library": "none: no single PyTorch call computes this function",
-                     "composition": "torch.bmm x3 + silu*mul, bf16",
+                     "composition": "torch.bmm x3 + silu*mul over all rows, bf16",
                      "composition_max_abs_err": comp_err,
                      "bytes": n_bytes, "operations": n_ops, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "sets": len(sets)})
-        del bufs, sets
+                     "bound_by": bound_by, "bound_counts": "routed experts and rows",
+                     "bound_all_experts_ms": all_ms, "bound_all_experts_by": all_by,
+                     "sets": len(sets)})
+        del sets, got, want
     rows.append(_time_decode_attention(torch, dev, gen, "auxiliary", B,
                                        cfg.num_heads, cfg.num_kv_heads,
                                        cfg.head_dim))
     for row in rows:
         emit({"phase": "moe_timing", "arch": cfg.name, **row})
+    return rows
+
+
+def phase_long_cache_timing(torch, dev, B, heads):
+    """decode_attention, its plain version and SDPA at a long full cache,
+    while no model's weights are held: ``heads`` maps a config's name to
+    (H, Hkv, dh, cache length)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    rows = []
+    for arch, (H, Hkv, dh, S) in heads.items():
+        row = _time_decode_attention(torch, dev, gen, "long-cache", B, H, Hkv,
+                                     dh, S=S, cache_len=S)
+        row["heads_of"] = arch
+        rows.append(row)
+        emit({"phase": "long_cache_timing", **row,
+              "share_of_bound": row["bound_ms"] / row["device_ms"]})
     return rows
 
 
@@ -976,10 +1143,8 @@ def phase_ssm_parity(torch, dev, cfg, params, prompts):
 def phase_ssm_timing(torch, dev, cfg, slice_summary):
     """ssm_scan and its plain version at the auxiliary group's prefill
     shape (B=11: [11,128,8192,16] f32, 1.48 GB of inputs a call), cycling
-    through more input sets than L2 holds.  The kernel's ``device_ms`` is
-    ``_alone_ms``: after the earlier traces of this process the profiler
-    loop held none of its events in some runs (``profiler_device_ms``
-    None)."""
+    through more input sets than L2 holds; ``device_ms`` from ``_device_ms``
+    (the plain version's 384 launches a call allow one call a loop)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssm_scan import ssm_scan_cuda
 
@@ -994,9 +1159,9 @@ def phase_ssm_timing(torch, dev, cfg, slice_summary):
     fns = {"": ssm_scan_cuda, "plain_": ref.ssm_scan_ref}
     times = {f"{p}ms": _time_ms(torch, fn, sets, iters=40, warmup=4)
              for p, fn in fns.items()}
-    times["device_ms"] = _alone_ms(torch, ssm_scan_cuda, sets)
-    times["profiler_device_ms"] = _device_ms(torch, ssm_scan_cuda, sets, iters=10)
-    times["plain_device_ms"] = _device_ms(torch, ref.ssm_scan_ref, sets, iters=10)
+    times["device_ms"] = _device_ms(torch, ssm_scan_cuda, sets, iters=10)
+    times["plain_device_ms"] = _device_ms(torch, ref.ssm_scan_ref, sets, iters=1,
+                                          need_ahead=False)
     n_bytes = 4 * B * C * (3 * S + 2)     # decay, bx, h_all; h0, h_last (f32)
     n_ops = 2 * B * S * C                 # a multiply and an add per element
     bound_ms, bound_by = _bound(n_bytes, n_ops, H100_PEAK_FLOPS_F32)
@@ -1075,8 +1240,9 @@ def kernels_line(rows, counts_by_path, errs):
                  "ms": row["ms"], "device_ms": row["device_ms"],
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
-        if "composition_ms" in row:
-            entry["composition_ms"] = row["composition_ms"]
+        for key in ("composition_ms", "bound_counts", "bound_all_experts_ms"):
+            if key in row:
+                entry[key] = row[key]
         kernels.append(entry)
     return kernels
 
@@ -1129,10 +1295,17 @@ def main() -> None:
     timed("moe_parity", phase_moe_parity, torch, dev, moe_cfg, params, prompts)
     groups = dict(zip(moe_summary["group_names"], moe_summary["n_group"]))
     timed("moe_trace", phase_trace, torch, dev, moe_cfg, params, prompts,
-          groups["auxiliary"] or REQUESTS)
+          groups["auxiliary"] or REQUESTS, max_new=MOE_TRACE_NEW)
     moe_rows = timed("moe_timing", phase_moe_timing, torch, dev, moe_cfg,
                      params, moe_summary)
     del params
+    torch.cuda.empty_cache()
+    # decode_attention at long caches, no weights held: llama's and moonshot's heads
+    long_rows = timed("long_cache_timing", phase_long_cache_timing, torch, dev,
+                      groups["auxiliary"] or REQUESTS,
+                      {ARCH: (32, 8, 64, 32768),
+                       MOE_ARCH: (moe_cfg.num_heads, moe_cfg.num_kv_heads,
+                                  moe_cfg.head_dim, 8192)})
     torch.cuda.empty_cache()
 
     # the SSM path: falcon-mamba-7b at full width
@@ -1158,7 +1331,7 @@ def main() -> None:
     hyb_counts, hyb_errs = timed("hybrid", phase_hybrid, torch, dev)
 
     kernels = kernels_line(
-        rows + moe_rows + ssm_rows,
+        rows + moe_rows + ssm_rows + long_rows,
         {ARCH: counts, MOE_ARCH: moe_counts, SSM_ARCH: ssm_counts,
          HYBRID_ARCH: hyb_counts},
         [errs, moe_errs, ssm_errs, hyb_errs])

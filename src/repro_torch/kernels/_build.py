@@ -31,12 +31,14 @@ _I = ctypes.c_int
 # exported C functions: name -> (argtypes, restype); the launch functions
 # return the cudaError_t of their launch as an int
 SIGNATURES = {
-    # q, k, v, cache_len, out, B, S, H, Hkv, dh, window, is_bf16, stream
-    "repro_decode_attention": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+    # q, k, v, cache_len, out, part, tickets, B, S, H, Hkv, dh, window,
+    # splits, rows_per_split, is_bf16, stream
+    "repro_decode_attention": ([_P] * 7 + [_I] * 9 + [_P], _I),
     # tokens, mask, out, idx, count, B, S, row_bytes, K, stream
     "repro_masked_compact": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-    # buf, wg, wu, wd, h (f32 workspace), out, E, C, D, F, is_bf16, stream
-    "repro_grouped_ffn": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    # buf, wg, wu, wd, h (4-byte workspace [E,C,F]), out, counts (or NULL),
+    # E, C, D, F, is_bf16, stream
+    "repro_grouped_ffn": ([_P] * 7 + [_I] * 5 + [_P], _I),
     # decay, bx, h0, h_all, h_last, B, S, channels (= di * N), stream
     "repro_ssm_scan": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),

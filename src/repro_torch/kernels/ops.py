@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_cuda
-from repro_torch.kernels.grouped_ffn import grouped_ffn_cuda
+from repro_torch.kernels.grouped_ffn import check_counts, grouped_ffn_cuda
 from repro_torch.kernels.masked_compact import masked_compact_cuda
 from repro_torch.kernels.ssm_scan import ssm_scan_cuda
 
@@ -51,12 +51,15 @@ def masked_compact(tokens, mask, capacity: int, *, use_kernels: bool = True):
     return ref.masked_compact_ref(tokens, mask, capacity)
 
 
-def grouped_ffn(buf, wg, wu, wd, *, use_kernels: bool = True):
+def grouped_ffn(buf, wg, wu, wd, *, counts=None, use_kernels: bool = True):
     """buf: [E,C,D]; wg/wu: [E,D,F]; wd: [E,F,D] -> [E,C,D] in buf's dtype.
+    ``counts``: None or int32 [E] on buf's device, the leading rows of each
+    ``buf[e]`` in use (the rest are taken as zeros and give zero rows).
     ``use_kernels=False`` takes the plain version on any device."""
+    check_counts(counts, buf.shape[0], buf.device)
     if use_kernels and buf.is_cuda:
-        return grouped_ffn_cuda(buf, wg, wu, wd)
-    return ref.grouped_ffn_ref(buf, wg, wu, wd)
+        return grouped_ffn_cuda(buf, wg, wu, wd, counts)
+    return ref.grouped_ffn_ref(buf, wg, wu, wd, counts)
 
 
 def ssm_scan(decay, bx, h0, *, use_kernels: bool = True):

@@ -84,10 +84,15 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
 # grouped_ffn: per-expert SwiGLU FFN over the MoE capacity buffer
 # ---------------------------------------------------------------------------
 def grouped_ffn_ref(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
-                    wd: torch.Tensor) -> torch.Tensor:
+                    wd: torch.Tensor, counts=None) -> torch.Tensor:
     """buf: [E,C,D]; wg/wu: [E,D,F]; wd: [E,F,D] -> [E,C,D] in buf's dtype.
-    Computed in f32 from the inputs; the hidden ``h`` stays f32."""
+    Computed in f32 from the inputs; the hidden ``h`` stays f32.  ``counts``
+    ([E] ints, or None for C): rows of ``buf[e]`` at or past ``counts[e]``
+    are taken as zeros, so their output rows are exactly zero."""
     xf = buf.float()
+    if counts is not None:
+        rows = torch.arange(buf.shape[1], device=buf.device)
+        xf = torch.where((rows[None, :] < counts[:, None])[..., None], xf, 0.0)
     g = torch.bmm(xf, wg.float())
     u = torch.bmm(xf, wu.float())
     h = torch.nn.functional.silu(g) * u

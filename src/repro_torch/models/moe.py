@@ -69,7 +69,8 @@ def route(xt: torch.Tensor, router: torch.Tensor, cfg):
 
 def dispatch(expert_ids: torch.Tensor, E: int, C: int):
     """Sort-based dispatch of the [T,K] choices into E buckets of capacity C.
-    Returns (sort_idx, sorted_ids, pos, keep, src_token), each [T*K]."""
+    Returns (sort_idx, sorted_ids, pos, keep, src_token), each [T*K], and
+    the per-expert choice counts [E] (kept or not)."""
     K = expert_ids.shape[1]
     flat_ids = expert_ids.reshape(-1)
     # jnp.argsort is stable; torch.argsort is not unless asked.  The order
@@ -83,7 +84,7 @@ def dispatch(expert_ids: torch.Tensor, E: int, C: int):
     pos = torch.arange(flat_ids.numel(), device=flat_ids.device) - offsets[sorted_ids]
     keep = pos < C
     src_token = sort_idx // K
-    return sort_idx, sorted_ids, pos, keep, src_token
+    return sort_idx, sorted_ids, pos, keep, src_token, counts
 
 
 def moe_apply(params, x: torch.Tensor, cfg, *, use_kernels: bool = False):
@@ -94,17 +95,20 @@ def moe_apply(params, x: torch.Tensor, cfg, *, use_kernels: bool = False):
     C = _capacity(T, cfg)
     xt = x.reshape(T, D)
     gate_vals, expert_ids, aux, _ = route(xt, params["router"], cfg)
-    sort_idx, sorted_ids, pos, keep, src_token = dispatch(expert_ids, E, C)
+    sort_idx, sorted_ids, pos, keep, src_token, counts = dispatch(expert_ids, E, C)
     slot = torch.where(keep, pos, 0)
 
-    # a dropped choice adds zeros into slot 0 of its expert, as in JAX
+    # a dropped choice adds zeros into slot 0 of its expert, as in JAX; rows
+    # at or past min(count, C) stay zero, so the FFN may skip them
     buf = torch.zeros((E, C, D), dtype=x.dtype, device=x.device)
     buf.index_put_((sorted_ids, slot),
                    xt[src_token].masked_fill(~keep[:, None], 0),
                    accumulate=True)
 
     out_buf = ops.grouped_ffn(buf, params["w_gate"], params["w_up"],
-                              params["w_down"], use_kernels=use_kernels)
+                              params["w_down"],
+                              counts=counts.clamp(max=C).to(torch.int32),
+                              use_kernels=use_kernels)
 
     # combine: gather back, unsort, weight by the gates, sum over K
     gathered = out_buf[sorted_ids, slot].masked_fill(~keep[:, None], 0)

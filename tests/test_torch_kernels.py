@@ -11,8 +11,10 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
-from repro_torch.kernels.decode_attention import decode_attention_cuda  # noqa: E402
-from repro_torch.kernels.grouped_ffn import grouped_ffn_cuda  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    MIN_SPLIT_ROWS, SMEM_LIMIT, SPLIT_ROWS, TARGET_BLOCKS, TC_HEAD_DIMS, decode_attention_cuda,
+    num_splits, smem_bytes, stages, tensor_core_path)
+from repro_torch.kernels.grouped_ffn import check_counts, grouped_ffn_cuda  # noqa: E402
 from repro_torch.kernels.masked_compact import masked_compact_cuda  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan_cuda  # noqa: E402
 
@@ -255,3 +257,85 @@ def test_ssm_scan_cpu_calls_count_no_launch():
         h_all, h_last = ops.ssm_scan(decay, decay, h0, use_kernels=use)
         assert torch.equal(h_all[:, -1], h_last)
     assert ops.launch_counts()["ssm_scan"] == 0 == ssm_scan_cuda.launches
+
+
+# the rows of each expert's buffer in use: none, all and ragged
+@pytest.mark.parametrize("counts", [[0, 0, 0], [12, 12, 12], [0, 5, 12]],
+                         ids=["zero", "full", "ragged"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_ffn_counts_match_jax_on_zeroed_rows(counts, dtype, test_seed):
+    """With ``counts`` the plain version equals JAX's oracle on buf with the
+    rows at or past ``counts[e]`` zeroed, and those output rows are exactly
+    zero though buf's rows there are not."""
+    E, C, D, F = 3, 12, 64, 88
+    rng = np.random.default_rng(test_seed)
+    arrs = _ffn_inputs(rng, E, C, D, F)
+    tdt = getattr(torch, dtype)
+    mine = ops.grouped_ffn(*(torch.from_numpy(a).to(tdt) for a in arrs),
+                           counts=torch.tensor(counts, dtype=torch.int32))
+    zeroed = arrs[0].copy()
+    for e, n in enumerate(counts):
+        zeroed[e, n:] = 0
+    want = jref.grouped_ffn_ref(*[jnp.asarray(a, getattr(jnp, dtype))
+                                  for a in (zeroed, *arrs[1:])])
+    tol = FFN_TOL[dtype]
+    np.testing.assert_allclose(mine.float().numpy(), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+    for e, n in enumerate(counts):
+        assert torch.equal(mine[e, n:], torch.zeros_like(mine[e, n:]))
+        assert n == 0 or bool(mine[e, :n].abs().amax(dim=-1).gt(0).all())
+
+
+@pytest.mark.parametrize("bad,exc,match", [
+    (torch.zeros(3, dtype=torch.int32), ValueError, "shape"),
+    (torch.zeros(2, 1, dtype=torch.int32), ValueError, "shape"),
+    (torch.zeros(2, dtype=torch.int64), TypeError, "dtype"),
+    (torch.zeros(2, dtype=torch.int32, device="meta"), ValueError, "meta"),
+    ([1, 2], TypeError, "tensor"),
+], ids=["length", "rank", "dtype", "device", "list"])
+def test_grouped_ffn_refuses_bad_counts(bad, exc, match):
+    """Both paths refuse a counts of the wrong shape, dtype or device; the
+    CUDA wrapper's check holds it to buf's device."""
+    w = torch.zeros(2, 8, 16)
+    with pytest.raises(exc, match=match):
+        ops.grouped_ffn(torch.zeros(2, 4, 8), w, w, torch.zeros(2, 16, 8),
+                        counts=bad)
+    with pytest.raises(exc, match=match):
+        check_counts(bad, 2, torch.device("cpu"))
+    with pytest.raises(ValueError, match="counts is on cpu"):
+        check_counts(torch.zeros(2, dtype=torch.int32), 2, torch.device("cuda", 0))
+
+
+@pytest.mark.parametrize("B,Hkv,G", [(1, 1, 1), (11, 8, 4), (11, 16, 1),
+                                     (4, 32, 1), (2, 8, 16), (64, 8, 8)])
+def test_num_splits_cover_every_row(B, Hkv, G):
+    """The host-side split choice covers rows [0, S) at every S and leaves
+    no split empty; a cache of at most MIN_SPLIT_ROWS rows is one split,
+    and the splits fill the grid up to TARGET_BLOCKS blocks."""
+    for S in [*range(1, 300), 511, 512, 513, 1025, 4099, 4100, 8192, 32768, 32769]:
+        splits, rows = num_splits(B, Hkv, S, G)
+        assert rows >= MIN_SPLIT_ROWS and rows % SPLIT_ROWS == 0
+        assert splits == 1 or S > MIN_SPLIT_ROWS
+        assert splits >= 1
+        assert splits * rows >= S            # every row lies in a split
+        assert (splits - 1) * rows < S       # the last split holds a row
+        blocks = B * Hkv * -(-G // 8)
+        assert blocks * (splits - 1) < TARGET_BLOCKS or splits == 1
+
+
+@pytest.mark.parametrize("dh", [8, 64, 80, 128, 256])
+def test_decode_attention_smem_fits_a_block(dh):
+    """Every head width the wrapper takes fits one block's shared memory in
+    both dtypes at the most splits num_splits gives, with at least two ring
+    slots per warp."""
+    most = max(num_splits(1, 1, S)[0] for S in (1, 4096, 32768, 1 << 20))
+    assert most <= TARGET_BLOCKS
+    for esize in (2, 4):
+        if (dh * esize) % 16:
+            continue
+        assert stages(dh, esize) >= 2
+        assert smem_bytes(dh, esize, most) <= SMEM_LIMIT
+    if dh in TC_HEAD_DIMS:
+        assert tensor_core_path(torch.bfloat16, dh)
+        assert not tensor_core_path(torch.float32, dh)
+        assert smem_bytes(dh, 2, most, tensor_cores=True) <= SMEM_LIMIT

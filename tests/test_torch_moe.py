@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from _hypothesis_compat import given, settings, strategies as st  # noqa: E402
 from repro.configs.base import get_config as jget_config  # noqa: E402
 from repro.configs.base import reduced as jreduced  # noqa: E402
 from repro.models import model as jM  # noqa: E402
@@ -130,7 +131,7 @@ def test_moe_apply_matches_moe_global(capacity_factor, test_seed):
     assert C == jmoe._capacity(T, jcfg)
     xt = torch.from_numpy(x.reshape(T, -1))
     _, ids, _, _ = moe.route(xt, tp["router"], cfg)
-    _, sorted_ids, _, keep, src = moe.dispatch(ids, E, C)
+    _, sorted_ids, _, keep, src, _ = moe.dispatch(ids, E, C)
     mine = set(zip(src[keep].tolist(), sorted_ids[keep].tolist()))
     want = _jax_kept_pairs(x.reshape(T, -1), jp["router"], jcfg, C)
     assert mine == want
@@ -211,3 +212,48 @@ def test_launcher_moonshot_static_split_on_cpu():
     assert s["prefills"] == engines
     assert s["decode_steps"] == engines * 4
     assert set(ops.launch_counts().values()) == {0}
+
+
+@settings(max_examples=8, deadline=None)
+@given(seed=st.integers(0, 10**6), capacity_factor=st.floats(0.25, 2.0))
+def test_moe_apply_counts_bound_buffer_rows(moonshot, seed, capacity_factor):
+    """Over random routings, overflow included: the counts moe_apply hands
+    the expert FFN are min(choices, C) per expert and bound the non-zero
+    rows of its buffer, the output is bit for bit the one without counts,
+    and it matches JAX's _moe_global."""
+    jcfg, jparams, cfg, params = moonshot
+    jcfg = dataclasses.replace(jcfg, moe_capacity_factor=capacity_factor)
+    cfg = dataclasses.replace(cfg, moe_capacity_factor=capacity_factor)
+    rng = np.random.default_rng(seed)
+    B, S = 2, 16
+    x = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    jp = jax.tree.map(lambda a: a[0], jparams["blocks"]["moe"])
+    tp = layer_slice(params["blocks"]["moe"], 0)
+    seen, ffn = [], ops.grouped_ffn
+
+    def spy(buf, wg, wu, wd, *, counts=None, use_kernels=True):
+        seen.append((buf, counts))
+        return ffn(buf, wg, wu, wd, counts=counts, use_kernels=use_kernels)
+
+    def no_counts(buf, wg, wu, wd, *, counts=None, use_kernels=True):
+        return ffn(buf, wg, wu, wd, use_kernels=use_kernels)
+
+    try:
+        ops.grouped_ffn = spy
+        y, _ = moe.moe_apply(tp, torch.from_numpy(x), cfg)
+        ops.grouped_ffn = no_counts
+        y_all, _ = moe.moe_apply(tp, torch.from_numpy(x), cfg)
+    finally:
+        ops.grouped_ffn = ffn
+    (buf, counts), = seen
+    E, C = buf.shape[:2]
+    assert counts.dtype == torch.int32 and tuple(counts.shape) == (E,)
+    _, ids, _, _ = moe.route(torch.from_numpy(x.reshape(B * S, -1)),
+                             tp["router"], cfg)
+    choices = torch.bincount(ids.reshape(-1), minlength=E)
+    assert torch.equal(counts.long(), choices.clamp(max=C))
+    past = torch.arange(C)[None, :] >= counts[:, None]
+    assert not bool(buf[past].any())
+    assert torch.equal(y, y_all)
+    jy, _ = jmoe._moe_global(jp, jnp.asarray(x), jcfg)
+    np.testing.assert_allclose(_np(y), np.asarray(jy), rtol=1e-5, atol=1e-5)
