@@ -24,9 +24,13 @@ each; any failure exits non-zero before the result line:
            boundary, a window smaller than one split, ragged long caches
            (S=4100, window 0 and 128) and an empty window, and a sweep over
            dh 64/80/128 x G 1/4/8; every call twice, bit-equal; bf16 within
-           3e-2 and f32 within 1e-4; masked_compact at
-           the offloaded slice's shape and at capacity == kept, zero kept,
-           overflow past K and odd row widths, bf16 and f32, bit for bit
+           3e-2 and f32 within 1e-4; masked_compact bit for bit, bf16 and
+           f32, at every slice's payload (d 2048 and 4096), S one tile -1,
+           one tile and one tile +1, K > S, K = 0, B = S = 1, capacity ==
+           kept, zero kept, overflow past K, an odd row width, long rows
+           (S 32768 and 131072), both KV-hop shapes and views at storage
+           offset 1 (the narrower copy paths); each call twice, bit-equal,
+           and once more through the other base-finding branch
   parity   a float32 copy of the same weights: kernel path vs plain path
            logits over 8 teacher-forced decode steps within 1e-3; greedy
            streams agree up to the plain path's first top-2 gap < 1e-3;
@@ -39,7 +43,9 @@ each; any failure exits non-zero before the result line:
            included), "device_ms" from CUDA events around a loop the host
            enqueues while a device-side sleep holds the stream (the device
            work alone, back to back); loops cycle through more input sets
-           than L2 holds
+           than L2 holds; masked_compact also at llama3.2-1b's
+           prefill->decode KV hop ([16,2048,512] bf16, lossless and top 72%),
+           with the device ms of each base-finding branch
 
 Then llama3.2-1b's params are freed and the MoE path runs:
 
@@ -136,6 +142,8 @@ HYBRID_REQUESTS, HYBRID_MAX_NEW = 4, 16
 MOE_TRACE_NEW = 16                  # moonshot's traced generate(): new tokens
 S_MAIN = PROMPT_LEN + MAX_NEW + 8   # the engines' cache length
 S_SPLIT = 2000                      # a cache that decode_attention splits
+KV_HOP = (16, 2048, 512)            # llama3.2-1b's K (or V) tail of one
+                                    # prefill->decode hop: [layers, Rt, Hkv*dh]
 FFN_TOL = {"bfloat16": 5e-2, "float32": 2e-4}   # tests/test_kernels.py:129
 SCAN_TOL = 1e-5     # relative to max|h|: both versions sum in one order
 
@@ -301,13 +309,86 @@ def _sweep_decode_attention(torch, dev, gen):
           "max_abs_err": worst})
 
 
+def _mc_cases(B_main, tile):
+    """masked_compact's checked cases: (name, B, S, D, K, mask kind, kept or
+    None): the §VI payload of every slice (llama and moonshot d 2048,
+    falcon-mamba d 4096), S one tile -1, one tile and one tile +1 of the
+    plan's tile at the payload, K > S, K = 0, B = S = 1, capacity == kept,
+    zero kept, overflow past K, an odd row width, long rows (S 32768; S
+    131072, where the plan takes the count pass) and both KV-hop shapes."""
+    return [("main-path", B_main, PROMPT_LEN, 2048, PROMPT_LEN, "keep72", None),
+            ("payload-d4096", B_main, PROMPT_LEN, 4096, PROMPT_LEN, "keep72", None),
+            ("tile-1", 3, tile - 1, 2048, tile - 1, "keep72", None),
+            ("tile", 3, tile, 2048, tile, "keep72", None),
+            ("tile+1", 3, tile + 1, 2048, tile + 1, "keep72", None),
+            ("K>S", 3, 100, 64, 300, "keep72", None),
+            ("K=0", 3, PROMPT_LEN, 2048, 0, "keep72", None),
+            ("B=S=1", 1, 1, 2048, 1, "all", None),
+            ("capacity-equals-kept", 5, PROMPT_LEN, 2048, 92, None, 92),
+            ("zero-kept", 5, PROMPT_LEN, 2048, PROMPT_LEN, None, 0),
+            ("overflow", 5, PROMPT_LEN, 2048, 32, None, 92),
+            ("long-odd-width", 3, 1000, 5, 300, "keep72", None),
+            ("long-row", 2, 32768, 64, 20000, "keep72", None),
+            ("longest-row", 1, 131072, 64, 60000, "keep72", None),
+            ("kv-hop-lossless", *KV_HOP, KV_HOP[1], "all", None),
+            ("kv-hop-lossy", *KV_HOP, None, "make_mask", None)]
+
+
+def _check_masked_compact(torch, dev, gen, B_main):
+    """masked_compact against its plain version at every case of
+    ``_mc_cases`` and on views at storage offset 1 (tokens and mask not
+    16-byte aligned: the uint16, uint32 and uint8 copy paths), bf16 and f32;
+    each with the plan's branch twice (bit-equal) and the other base-finding
+    branch once, all bit for bit.  Returns the main path's largest error."""
+    from repro_torch.kernels import masked_compact as mc
+    from repro_torch.kernels import ref
+
+    tile = mc.masked_compact_plan(B_main, PROMPT_LEN, 2048 * 2, PROMPT_LEN).tile
+    cases = [(*c, dtype, 0) for c in _mc_cases(B_main, tile)
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases += [("offset-1", 3, 130, 2048, PROMPT_LEN, "keep72", None, dtype, 1)
+              for dtype in (torch.bfloat16, torch.float32, torch.uint8)]
+    results, main_err = [], 0.0
+    for name, B, S, D, K, kind, kept, dtype, offset in cases:
+        toks, mask, k = _mc_case(torch, gen, dev, B, S, D, kind or "all", dtype)
+        K = k if K is None else K
+        if kind is None:           # exactly ``kept`` rows of each batch row
+            order = torch.rand((B, S), generator=gen, device=dev).argsort(dim=1)
+            mask = order < kept
+        if offset:                 # the same values at storage offset 1
+            toks = torch.cat([toks.new_zeros(1), toks.flatten()])[1:].view(B, S, D)
+            mask = torch.cat([mask.new_zeros(1), mask.flatten()])[1:].view(B, S)
+        esize = toks.element_size()
+        plan = mc.masked_compact_plan(B, S, D * esize, K)
+        other = mc.masked_compact_plan(B, S, D * esize, K, long_rows=not plan.long_rows)
+        got = mc.masked_compact_cuda(toks, mask, K)
+        again = mc.masked_compact_cuda(toks, mask, K)
+        branch = mc.masked_compact_cuda(toks, mask, K, plan=other)
+        want = ref.masked_compact_ref(toks, mask, K)
+        torch.cuda.synchronize()
+        tag = f"masked_compact {name} B={B} S={S} D={D} K={K} {dtype}"
+        err = float((got[0].float() - want[0].float()).abs().max()) if got[0].numel() else 0.0
+        for what, res in (("plan", got), ("second call", again), ("other branch", branch)):
+            require(all(torch.equal(a, b) for a, b in zip(res, want)),
+                    f"{tag}: {what} differs from the plain version "
+                    f"(out max_abs_err {err})")
+        if name == "main-path":
+            main_err = max(main_err, err)
+        results.append({"case": name, "B": B, "S": S, "D": D, "K": K,
+                        "dtype": str(dtype)[6:], "offset": offset,
+                        "kept": int(mask.sum()), "plan": dataclasses.asdict(plan),
+                        "exact": True, "bit_equal_twice": True,
+                        "other_branch_exact": True, "max_abs_err": err})
+        del toks, mask, got, again, branch, want
+    emit({"phase": "kernels", "kernel": "masked_compact", "tolerance": "exact",
+          "cases": results})
+    return main_err
+
+
 def phase_kernel_checks(torch, dev, slice_summary):
     """Each kernel against its plain version at the shapes the slice gave
     it (the probe's and each group's batch) and at edge cases; returns the
     largest main-path error of each kernel."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.masked_compact import masked_compact_cuda
-
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     groups = dict(zip(slice_summary["group_names"], slice_summary["n_group"]))
@@ -315,36 +396,7 @@ def phase_kernel_checks(torch, dev, slice_summary):
                                        32, 8, 64, "kernels")
     _sweep_decode_attention(torch, dev, gen)
 
-    results, mc_err = [], 0.0
-    d_main = 2048
-    for dtype in (torch.bfloat16, torch.float32):
-        for name, B, S, D, K, kept in (
-                ("main-path", groups["auxiliary"], PROMPT_LEN, d_main,
-                 PROMPT_LEN, None),
-                ("capacity-equals-kept", 5, PROMPT_LEN, d_main, 92, 92),
-                ("zero-kept", 5, PROMPT_LEN, d_main, PROMPT_LEN, 0),
-                ("overflow", 5, PROMPT_LEN, d_main, 32, 92),
-                ("long-odd-width", 3, 1000, 5, 300, None)):
-            toks = torch.randn((B, S, D), generator=gen, device=dev).to(dtype)
-            if kept is None:
-                mask = torch.rand((B, S), generator=gen, device=dev) < 0.72
-            else:
-                order = torch.rand((B, S), generator=gen, device=dev).argsort(dim=1)
-                mask = order < kept
-            got = masked_compact_cuda(toks, mask, K)
-            want = ref.masked_compact_ref(toks, mask, K)
-            torch.cuda.synchronize()
-            same = all(torch.equal(a, b) for a, b in zip(got, want))
-            err = float((got[0].float() - want[0].float()).abs().max())
-            require(same, f"masked_compact {name} {dtype}: differs from the "
-                    f"plain version (out max_abs_err {err})")
-            if name == "main-path":
-                mc_err = max(mc_err, err)
-            results.append({"case": name, "B": B, "S": S, "D": D, "K": K,
-                            "dtype": str(dtype)[6:], "exact": same,
-                            "max_abs_err": err})
-    emit({"phase": "kernels", "kernel": "masked_compact", "tolerance": "exact",
-          "cases": results})
+    mc_err = _check_masked_compact(torch, dev, gen, groups["auxiliary"])
     return {"decode_attention": main_err, "masked_compact": mc_err}
 
 
@@ -695,45 +747,80 @@ def _time_decode_attention(torch, dev, gen, gname, B, H, Hkv, dh, S=S_MAIN,
             "bound_by": bound_by, "sets": len(sets)}
 
 
-def phase_timing(torch, dev, slice_summary):
+def _mc_case(torch, gen, dev, B, S, D, kind, dtype=None):
+    """(tokens [B,S,D], mask [B,S] bool, K): ``kind`` "keep72" keeps a
+    random 72% of the rows with K = S (the §VI payload), "all" keeps every
+    row with K = S (the lossless KV hop), "make_mask" keeps the top 72% by
+    row norm with K = round(0.72 S) (the lossy KV hop)."""
+    from repro_torch.core.masking import make_mask, norm_scores
+    from repro_torch.launch.serve import KEEP_RATE as KEEP
+    dtype = dtype or torch.bfloat16
+    if dtype.is_floating_point:
+        toks = torch.randn((B, S, D), generator=gen, device=dev).to(dtype)
+    else:
+        toks = torch.randint(0, 128, (B, S, D), generator=gen, device=dev).to(dtype)
+    if kind == "all":
+        return toks, torch.ones((B, S), dtype=torch.bool, device=dev), S
+    if kind == "make_mask":
+        return toks, make_mask(norm_scores(toks), KEEP), max(1, round(KEEP * S))
+    return toks, torch.rand((B, S), generator=gen, device=dev) < KEEP, S
+
+
+def _time_masked_compact(torch, dev, gen, gname, B, S, D, kind):
+    """masked_compact and its plain version on bf16 [B,S,D] inputs of
+    ``kind`` (see ``_mc_case``), beside the bytes bound; where the wrapper
+    takes a plan, the device time of each base-finding branch (short rows:
+    every block counts the mask before its tile; long rows: a count pass
+    into a workspace first) is timed too."""
     from repro_torch.core.profiler import H100_HBM_BW
+    from repro_torch.kernels import masked_compact as mc
     from repro_torch.kernels import ref
-    from repro_torch.kernels.masked_compact import masked_compact_cuda
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
     esize = 2
-    groups = dict(zip(slice_summary["group_names"], slice_summary["n_group"]))
-    rows = [_time_decode_attention(torch, dev, gen, gname, B, 32, 8, 64)
-            for gname, B in groups.items() if B]
-
-    B = groups.get("auxiliary") or max(groups.values())
-    D = 2048
-    per_set = B * PROMPT_LEN * D * esize
-    sets = []
-    for _ in range(_sets_for(per_set)):
-        toks = torch.randn((B, PROMPT_LEN, D), generator=gen, device=dev).to(torch.bfloat16)
-        mask = torch.rand((B, PROMPT_LEN), generator=gen, device=dev) < 0.72
-        sets.append((toks, mask, PROMPT_LEN))
-    fns = {"": lambda *a: masked_compact_cuda(*a),
+    sets = [_mc_case(torch, gen, dev, B, S, D, kind)
+            for _ in range(_sets_for(B * S * D * esize))]
+    fns = {"": lambda *a: mc.masked_compact_cuda(*a),
            "plain_": lambda *a: ref.masked_compact_ref(*a)}
     times = {f"{p}ms": _time_ms(torch, fn, sets) for p, fn in fns.items()}
     times.update({f"{p}device_ms": _device_ms(torch, fn, sets, iters=50 if not p else 20,
                                               need_ahead=not p)
                   for p, fn in fns.items()})
-    kept = int(sets[0][1].sum())
-    n_bytes = (B * PROMPT_LEN                      # mask
+    K = sets[0][2]
+    plan = None
+    if hasattr(mc, "masked_compact_plan"):
+        plan = mc.masked_compact_plan(B, S, D * esize, K)
+        for branch in (False, True):
+            forced = mc.masked_compact_plan(B, S, D * esize, K, long_rows=branch)
+            times[f"device_ms_{'long' if branch else 'short'}_rows"] = _device_ms(
+                torch, lambda *a: mc.masked_compact_cuda(*a, plan=forced), sets, iters=50)
+        plan = dataclasses.asdict(plan)
+    kept = int(torch.clamp(sets[0][1].sum(dim=1), max=K).sum())
+    n_bytes = (B * S                               # mask
                + kept * D * esize                  # kept rows read
-               + B * PROMPT_LEN * D * esize        # out written
-               + B * PROMPT_LEN * 4 + B * 4)       # idx, count
-    rows.append({"kernel": "masked_compact", "group": "auxiliary", "B": B,
-                 "S": PROMPT_LEN, "D": D,
-                 "K": PROMPT_LEN, "dtype": "bfloat16", "kept_rows": kept,
-                 **times, "library_ms": None,
-                 "library": "none: no single PyTorch call compacts rows",
-                 "bytes": n_bytes, "operations": 0,
-                 "bound_ms": 1e3 * n_bytes / H100_HBM_BW, "bound_by": "bytes",
-                 "sets": len(sets)})
+               + B * K * D * esize                 # out written
+               + B * K * 4 + B * 4)                # idx, count
+    return {"kernel": "masked_compact", "group": gname, "B": B, "S": S, "D": D,
+            "K": K, "dtype": "bfloat16", "mask": kind, "kept_rows": kept,
+            "plan": plan, **times, "library_ms": None,
+            "library": "none: no single PyTorch call compacts rows",
+            "bytes": n_bytes, "operations": 0,
+            "bound_ms": 1e3 * n_bytes / H100_HBM_BW, "bound_by": "bytes",
+            "share_of_bound": 1e3 * n_bytes / H100_HBM_BW / times["device_ms"],
+            "sets": len(sets)}
+
+
+def phase_timing(torch, dev, slice_summary):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    groups = dict(zip(slice_summary["group_names"], slice_summary["n_group"]))
+    rows = [_time_decode_attention(torch, dev, gen, gname, B, 32, 8, 64)
+            for gname, B in groups.items() if B]
+
+    B = groups.get("auxiliary") or max(groups.values())
+    rows.append(_time_masked_compact(torch, dev, gen, "auxiliary", B,
+                                     PROMPT_LEN, 2048, "keep72"))
+    for gname, kind in (("kv_hop_lossless", "all"), ("kv_hop_lossy", "make_mask")):
+        rows.append(_time_masked_compact(torch, dev, gen, gname, *KV_HOP, kind))
     for row in rows:
         emit({"phase": "timing", **row})
     return rows

@@ -34,8 +34,9 @@ SIGNATURES = {
     # q, k, v, cache_len, out, part, tickets, B, S, H, Hkv, dh, window,
     # splits, rows_per_split, is_bf16, stream
     "repro_decode_attention": ([_P] * 7 + [_I] * 9 + [_P], _I),
-    # tokens, mask, out, idx, count, B, S, row_bytes, K, stream
-    "repro_masked_compact": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    # tokens, mask, out, idx, count, ws (or NULL), B, S, row_bytes, K, tile,
+    # n_tiles, chunks, stream
+    "repro_masked_compact": ([_P] * 6 + [_I] * 7 + [_P], _I),
     # buf, wg, wu, wd, h (4-byte workspace [E,C,F]), out, counts (or NULL),
     # E, C, D, F, is_bf16, stream
     "repro_grouped_ffn": ([_P] * 7 + [_I] * 5 + [_P], _I),
