@@ -30,7 +30,9 @@ each; any failure exits non-zero before the result line:
            kept, zero kept, overflow past K, an odd row width, long rows
            (S 32768 and 131072), both KV-hop shapes and views at storage
            offset 1 (the narrower copy paths); each call twice, bit-equal,
-           and once more through the other base-finding branch
+           and once more through the other base-finding branch; the
+           decode_attention sweep also covers G 6 (nemotron), 7 (internvl2)
+           and 16 (two head groups)
   parity   a float32 copy of the same weights: kernel path vs plain path
            logits over 8 teacher-forced decode steps within 1e-3; greedy
            streams agree up to the plain path's first top-2 gap < 1e-3;
@@ -46,6 +48,32 @@ each; any failure exits non-zero before the result line:
            than L2 holds; masked_compact also at llama3.2-1b's
            prefill->decode KV hop ([16,2048,512] bf16, lossless and top 72%),
            with the device ms of each base-finding branch
+  continuous  with llama's params still loaded: ContinuousServingEngine
+           (slots 8, max_len 512, K=8) over 24 requests (4 shared 64-token
+           prefixes x 6 suffixes from request_stream(seed=0), prompts of
+           72-256 tokens padded to 256, one exact duplicate, max_new 1-48)
+           in seven modes: per-step, boundary, overlapped, overlapped with
+           wave_steps=2, + PrefixCache(block 8, budget 256), + a
+           PrefillWorker on the card (lossless hop), + kv_keep_rate 0.72
+           (lossy); checks modes 1-6 stream-identical, decode_attention ==
+           layers x model decode steps in each mode, masked_compact == 2 x
+           the hops that shipped a KV tail; reports tokens/s, the dispatch,
+           await and overlap walls, stalls, hits, hop bytes, peak memory
+  continuous_checks  a lossless KV hop at llama's real tail restores the
+           prefill cache bit for bit; the resumed prefill against the cold
+           one (bf16, reported); decode_attention at the slot width over
+           512 rows and masked_compact at the hop's [16,192,512] against
+           their plain versions; the tail's .contiguous() copy timed; a
+           float32 2-layer cut: continuous streams equal the plain static
+           path's up to its first top-2 gap < 1e-3
+  dense_slices  the launcher on olmo-1b (16 layers, d 2048, 16/16 heads of
+           128) and nemotron-4-15b (32 layers, d 6144, 48/8 heads of 128,
+           squared-ReLU MLP, 31 GB) at full width and depth, 16 x 128
+           tokens, 32 new, --split auto, one after the other; launches held
+           as in the slice; then, no model held, decode_attention at each
+           group's batch with their heads and masked_compact at their §VI
+           payloads ([B,128,2048] and [B,128,6144]) against the plain
+           versions
 
 Then llama3.2-1b's params are freed and the MoE path runs:
 
@@ -70,6 +98,10 @@ Then llama3.2-1b's params are freed and the MoE path runs:
            flipped at a top-k margin below 1e-6), the smallest router
            margin; macro_steps=8 and 0 streams identical (bf16, full depth)
   moe trace    one group's generate() of 16 new tokens under torch.profiler
+  moe continuous  ContinuousServingEngine on moonshot's loaded params
+           (slots 4, 6 requests x 128 tokens, max_new <= 8) per-step,
+           boundary and overlapped: streams identical, grouped_ffn ==
+           layers x (model decode steps + 6 B=1 prefills)
   moe timing   grouped_ffn at decode (C=8) and at the auxiliary group's
            prefill capacity, each of the slice's 48 layers with a buffer and
            counts made by routing random tokens through its router; beside
@@ -100,6 +132,8 @@ Then moonshot's params are freed and the SSM path runs:
            teacher-forced decode steps' logits within 1e-3; macro_steps=8
            and 0 streams identical (bf16, full depth)
   ssm_trace    one group's generate() under torch.profiler
+  ssm_continuous  the same short continuous run on falcon-mamba's params:
+           ssm_scan == layers x 6 B=1 prefills
   ssm_timing   ssm_scan and its plain version at the auxiliary group's
            prefill shape ([11,128,8192,16] f32), beside the bytes bound;
            no single PyTorch call computes the recurrence (library_ms null)
@@ -134,6 +168,7 @@ L2_BYTES = 50e6                  # H100 L2 cache
 H100_PEAK_FLOPS_F32 = 67e12      # f32 outside the tensor cores (data sheet)
 
 ARCH = "llama3.2-1b"
+DENSE_ARCHS = ("olmo-1b", "nemotron-4-15b")
 MOE_ARCH = "moonshot-v1-16b-a3b"
 SSM_ARCH = "falcon-mamba-7b"
 HYBRID_ARCH = "zamba2-2.7b"
@@ -144,6 +179,12 @@ S_MAIN = PROMPT_LEN + MAX_NEW + 8   # the engines' cache length
 S_SPLIT = 2000                      # a cache that decode_attention splits
 KV_HOP = (16, 2048, 512)            # llama3.2-1b's K (or V) tail of one
                                     # prefill->decode hop: [layers, Rt, Hkv*dh]
+# the continuous path: llama3.2-1b's traffic (slots, cache rows, requests,
+# the shared prefix, the padded prompt, the shortest prompt, the most new
+# tokens) and the short MoE / SSM runs (slots, requests, most new tokens)
+CONT_SLOTS, CONT_MAX_LEN, CONT_REQUESTS = 8, 512, 24
+CONT_PREFIX, CONT_P, CONT_MIN_PROMPT, CONT_MAX_NEW = 64, 256, 72, 48
+SIDE_SLOTS, SIDE_REQUESTS, SIDE_MAX_NEW = 4, 6, 8
 FFN_TOL = {"bfloat16": 5e-2, "float32": 2e-4}   # tests/test_kernels.py:129
 SCAN_TOL = 1e-5     # relative to max|h|: both versions sum in one order
 
@@ -218,13 +259,15 @@ def _split_boundary_lens(S, rows, B):
     return (lens * B)[:B] if len(lens) < B else lens[:B - 1] + [S]
 
 
-def _check_decode_attention(torch, dev, gen, main_bs, H, Hkv, dh, phase):
+def _check_decode_attention(torch, dev, gen, main_bs, H, Hkv, dh, phase,
+                            S_main=S_MAIN, edge_cases=True):
     """decode_attention against its plain version at [B,1,H,dh] for every
-    batch size the slice ran (per-slot lengths that include 1 and S), a
-    scalar length, cache_len 0 (exactly 0 out), lengths either side of the
-    split boundaries, a window smaller than one split, ragged long caches
-    with and without a window, and an empty window; every case twice,
-    bit-equal.  Returns the largest main-path error (bf16)."""
+    batch size the path ran, over a cache of ``S_main`` rows (per-slot
+    lengths that include 1 and S); with ``edge_cases`` also a scalar length,
+    cache_len 0 (exactly 0 out), lengths either side of the split
+    boundaries, a window smaller than one split, ragged long caches with
+    and without a window, and an empty window; every case twice, bit-equal.
+    Returns the largest main-path error (bf16)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                       num_splits)
@@ -233,23 +276,12 @@ def _check_decode_attention(torch, dev, gen, main_bs, H, Hkv, dh, phase):
     results, main_err = [], 0.0
     cases = []
     for B in main_bs:
-        lens = torch.randint(1, S_MAIN + 1, (B,), generator=gen, device=dev)
-        lens[0], lens[-1] = 1, S_MAIN
-        cases.append((B, S_MAIN, 0, lens, True))
+        lens = torch.randint(1, S_main + 1, (B,), generator=gen, device=dev)
+        lens[0], lens[-1] = 1, S_main
+        cases.append((B, S_main, 0, lens, True))
     Bm = max(main_bs)
-    cases.append((Bm, S_MAIN, 0, PROMPT_LEN + 1, True))             # scalar len
-    cases.append((Bm, S_MAIN, 0, [0] * Bm, False))                  # cache_len 0
-    _, rows = num_splits(4, Hkv, S_SPLIT, H // Hkv)                 # several splits
-    cases.append((4, S_SPLIT, 0, _split_boundary_lens(S_SPLIT, rows, 4), False))
-    cases.append((8, S_SPLIT, 0, _split_boundary_lens(S_SPLIT, rows, 8), False))
-    cases.append((8, S_SPLIT, max(1, rows // 2 - 1),                # window < split
-                  _split_boundary_lens(S_SPLIT, rows, 8), False))
-    _, rows_long = num_splits(4, Hkv, 4100, H // Hkv)
-    cases.append((4, 4100, 0, [1, 777, 4099, 4100], False))       # ragged long
-    cases.append((4, 4100, 128, [1, 777, 4099, 4100], False))
-    cases.append((4, 4100, 0, [rows_long - 1, rows_long + 1, 3 * rows_long, 4100],
-                  False))
-    cases.append((3, 300, 16, [0, 5, 300], False))                # empty window
+    if edge_cases:
+        cases += _decode_edge_cases(Bm, H, Hkv)
     for B, S, win, lens, main in cases:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, cl = _decode_case(torch, gen, B, S, H, Hkv, dh, dtype,
@@ -278,17 +310,39 @@ def _check_decode_attention(torch, dev, gen, main_bs, H, Hkv, dh, phase):
     return main_err
 
 
+def _decode_edge_cases(Bm, H, Hkv):
+    """(B, S, window, lengths, main) of the edge cases: a scalar length,
+    cache_len 0, lengths either side of the split boundaries, a window
+    smaller than one split, ragged long caches and an empty window."""
+    from repro_torch.kernels.decode_attention import num_splits
+    cases = [(Bm, S_MAIN, 0, PROMPT_LEN + 1, True),                 # scalar len
+             (Bm, S_MAIN, 0, [0] * Bm, False)]                      # cache_len 0
+    _, rows = num_splits(4, Hkv, S_SPLIT, H // Hkv)                 # several splits
+    cases.append((4, S_SPLIT, 0, _split_boundary_lens(S_SPLIT, rows, 4), False))
+    cases.append((8, S_SPLIT, 0, _split_boundary_lens(S_SPLIT, rows, 8), False))
+    cases.append((8, S_SPLIT, max(1, rows // 2 - 1),                # window < split
+                  _split_boundary_lens(S_SPLIT, rows, 8), False))
+    _, rows_long = num_splits(4, Hkv, 4100, H // Hkv)
+    cases.append((4, 4100, 0, [1, 777, 4099, 4100], False))       # ragged long
+    cases.append((4, 4100, 128, [1, 777, 4099, 4100], False))
+    cases.append((4, 4100, 0, [rows_long - 1, rows_long + 1, 3 * rows_long, 4100],
+                  False))
+    cases.append((3, 300, 16, [0, 5, 300], False))                # empty window
+    return cases
+
+
 def _sweep_decode_attention(torch, dev, gen):
     """decode_attention against its plain version at every head width the
-    port's configs use (dh 64, 80, 128) and G 1, 4 and 8, with and without
-    a window, bf16 and f32, twice each, bit-equal."""
+    port's configs use (dh 64, 80, 128) and G 1, 4, 6 (nemotron), 7
+    (internvl2), 8 and 16 (two head groups of MAX_G), with and without a
+    window, bf16 and f32, twice each, bit-equal."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_cuda
 
     tol = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
     worst = {}
     for dh in (64, 80, 128):
-        for G in (1, 4, 8):
+        for G in (1, 4, 6, 7, 8, 16):
             for win in (0, 40):
                 for dtype in (torch.bfloat16, torch.float32):
                     q, k, v, cl = _decode_case(torch, gen, 3, 300, 4 * G, 4, dh,
@@ -305,8 +359,8 @@ def _sweep_decode_attention(torch, dev, gen):
                     key = f"dh{dh}_G{G}_{str(dtype)[6:]}"
                     worst[key] = max(worst.get(key, 0.0), err)
     emit({"phase": "kernels", "kernel": "decode_attention", "sweep": "dh x G",
-          "B": 3, "S": 300, "Hkv": 4, "lens": [0, 150, 300], "windows": [0, 40],
-          "max_abs_err": worst})
+          "B": 3, "S": 300, "Hkv": 4, "G": [1, 4, 6, 7, 8, 16],
+          "lens": [0, 150, 300], "windows": [0, 40], "max_abs_err": worst})
 
 
 def _mc_cases(B_main, tile):
@@ -459,6 +513,7 @@ def phase_slice(torch, arch=ARCH, *, phase="slice", split="auto",
           "probe_s": s.get("probe_s"), "tokens_per_s": s["tokens_per_s"],
           "serve_wall_s": s["wall_s"], "main_wall_s": wall,
           "decode_steps": s["decode_steps"], "prefills": s["prefills"],
+          "ms_per_decode_step_by_engine": s["ms_per_decode_step"],
           "launches": counts, "expected_launches": want,
           "peak_memory_bytes": peak,
           "payload_bytes_per_item": s.get("payload_bytes_per_item"),
@@ -857,7 +912,7 @@ def _ffn_counts(torch, gen, kind, E, C, dev):
 
 def phase_moe_kernel_checks(torch, dev, cfg, slice_summary):
     """grouped_ffn against its plain version at every capacity the slice
-    ran, at edge cases and with counts (0, C, ragged: rows at or past a
+    and the continuous path ran, at edge cases and with counts (0, C, ragged: rows at or past a
     count are exactly 0, though buf's rows there are not), twice each,
     bit-equal; decode_attention's checks at moonshot's head shape (G=1,
     dh=128).  Returns the largest main-path error of each kernel (bf16)."""
@@ -869,8 +924,10 @@ def phase_moe_kernel_checks(torch, dev, cfg, slice_summary):
     gen.manual_seed(2)
     E, D, F = cfg.num_experts, cfg.d_model, cfg.d_ff
     bs = _batch_sizes(slice_summary)
-    caps = sorted({_capacity(n * PROMPT_LEN, cfg) for n in bs}      # prefill
-                  | {_capacity(n, cfg) for n in bs})                # decode
+    # the slice's prefill and decode, and the continuous path's B=1
+    # admission prefill and its decode at the slot width
+    caps = sorted({_capacity(n * PROMPT_LEN, cfg) for n in bs + [1]}
+                  | {_capacity(n, cfg) for n in bs + [SIDE_SLOTS]})
     cases = [("main-path", E, C, D, F, None) for C in caps]
     cases += [("ragged", 3, 1, 72, 88, None), ("ragged", 3, 13, 72, 88, None),
               ("ragged", 3, 1, 80, 88, None), ("ragged", 3, 13, 80, 88, None),
@@ -1127,7 +1184,7 @@ def _scan_case(torch, gen, B, S, di, N, dev, pure_decay=False):
 
 def phase_ssm_kernel_checks(torch, dev, cfg, slice_summary):
     """ssm_scan against its plain version at every (B, S, di, N) the slice
-    ran, at ragged shapes (S 1 and 300, di 100 and 101, N 3: the float4 and
+    and the continuous path's B=1 admission prefills ran, at ragged shapes (S 1 and 300, di 100 and 101, N 3: the float4 and
     the scalar path) and the pure-decay case, h0 non-zero, f32 within 1e-5
     of the largest |h| (both sum in the same order, so they should agree
     bit for bit).  Returns the largest main-path abs error."""
@@ -1137,7 +1194,8 @@ def phase_ssm_kernel_checks(torch, dev, cfg, slice_summary):
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
     di, N = cfg.d_inner, cfg.ssm_state
-    cases = [("main-path", B, PROMPT_LEN, di, N) for B in _batch_sizes(slice_summary)]
+    cases = [("main-path", B, PROMPT_LEN, di, N)      # slice; B=1: admission
+             for B in _batch_sizes(slice_summary) + [1]]
     cases += [("ragged", 3, 1, 100, 3), ("ragged", 2, 300, 100, 3),
               ("ragged-scalar", 2, 300, 101, 3), ("pure-decay", 1, 128, 256, 8)]
     results, main_err = [], 0.0
@@ -1291,6 +1349,430 @@ def phase_hybrid(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# Continuous serving: llama3.2-1b with the prefix cache and disaggregated
+# prefill; then short continuous runs on the MoE and SSM paths
+# ---------------------------------------------------------------------------
+def _continuous_requests(cfg):
+    """llama's continuous traffic from request_stream(seed=0): 4 shared
+    64-token prefixes (the first 4 prompts, tiled), each followed by 6
+    distinct suffixes (the next 24 prompts, cut to 8-192 tokens), so the
+    prompts run 72-256 tokens, right-padded with 0 to 256 (the engine takes
+    one prompt length); the last request repeats the one before it exactly
+    (a full hit: the 256-block budget has evicted the earliest prompts'
+    tails by then); max_new from default_rng(0) over 1-48, with both
+    ends."""
+    from repro_torch.data.pipeline import request_stream
+    from repro_torch.serving.engine import ServeRequest
+    stream = request_stream(cfg.vocab_size, n=4 + CONT_REQUESTS,
+                            mean_prompt=PROMPT_LEN, seed=0)
+    prompts = []
+    for i in range(CONT_REQUESTS):
+        body = stream[4 + i].prompt
+        n = int(np.clip(len(body), CONT_MIN_PROMPT - CONT_PREFIX,
+                        CONT_P - CONT_PREFIX))
+        prompts.append(np.concatenate([np.resize(stream[i % 4].prompt, CONT_PREFIX),
+                                       np.resize(body, n)]))
+    prompts[-1] = prompts[-2].copy()
+    max_news = np.random.default_rng(0).integers(1, CONT_MAX_NEW + 1, CONT_REQUESTS)
+    max_news[1], max_news[2] = 1, CONT_MAX_NEW
+    return [ServeRequest(uid=i, max_new=int(m), prompt=np.pad(
+        p, (0, CONT_P - len(p))).astype(np.int32))
+        for i, (p, m) in enumerate(zip(prompts, max_news))]
+
+
+def _run_engine(torch, dev, cfg, params, reqs, **kw):
+    """One ContinuousServingEngine run, its launch counts set to 0 just
+    before and read just after.  Returns (outputs, stats, counts, wall,
+    peak memory)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import ContinuousServingEngine
+    eng = ContinuousServingEngine(cfg, params, device=dev, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs, stats = eng.run(reqs)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    return outs, stats, counts, wall, torch.cuda.max_memory_allocated()
+
+
+def _model_decode_steps(stats, K):
+    """Model decode steps an engine ran: K per fused macro-step (frozen
+    slots included), one per per-step iteration."""
+    return stats.macro_dispatches * K if K else stats.decode_steps
+
+
+def _first_diff(a, b):
+    """The first position where two token streams differ (None: equal)."""
+    n = min(len(a), len(b))
+    diff = np.nonzero(a[:n] != b[:n])[0]
+    if diff.size:
+        return int(diff[0])
+    return None if len(a) == len(b) else n
+
+
+def _stats_row(stats, wall, peak, counts, K):
+    keys = ("total_tokens", "decode_steps", "tokens_per_s", "prefill_s",
+            "decode_s", "t_dispatch_s", "t_await_s", "t_prefill_overlap_s",
+            "t_splice_s", "t_slot_write_s", "t_kv_transfer_s", "host_syncs",
+            "macro_dispatches", "wave_launches", "admission_stalls",
+            "shadow_prefills", "prefill_offloaded", "prefill_fallbacks",
+            "prefix_hits", "prefix_blocks_reused", "prefill_flops_avoided",
+            "prefill_flops_total", "kv_hop_bytes_raw", "kv_hop_bytes_wire",
+            "occupancy")
+    return {**{k: getattr(stats, k) for k in keys}, "wall_s": wall,
+            "peak_memory_bytes": peak, "launches": counts,
+            "model_decode_steps": _model_decode_steps(stats, K)}
+
+
+CONT_MODES = [("per-step", dict(macro_steps=0), None),
+              ("boundary", dict(overlap_admission=False), None),
+              ("overlapped", {}, None),
+              ("overlapped-wave2", dict(wave_steps=2), None),
+              ("prefix-cache", {}, "cache"),
+              ("disaggregated", {}, "worker"),
+              ("disaggregated-lossy", {}, "lossy")]
+
+
+def phase_continuous(torch, dev, cfg, params):
+    """llama3.2-1b at full width and depth through ContinuousServingEngine
+    (slots 8, max_len 512, K=8) in seven modes on the same 24 requests:
+    per-step, boundary, overlapped, overlapped with wave_steps=2, overlapped
+    with a PrefixCache(block_size=8, budget_blocks=256), the same with a
+    PrefillWorker on the card (disaggregated, lossless hop) and with
+    kv_keep_rate=0.72 (lossy).  Checks: the streams of modes 1-6 identical
+    request by request; decode_attention launched layers x model decode
+    steps in every mode; masked_compact 2 x the remote partial hits in the
+    disaggregated modes (0 elsewhere), counted as the hops that shipped a
+    KV tail.  Returns {mode: launch counts}."""
+    import repro_torch.core as C
+    from repro_torch.serving.prefill import PrefillWorker
+    from repro_torch.serving.prefix_cache import PrefixCache
+
+    class HopCountingWorker(PrefillWorker):
+        """Counts the fetches that ship a resumed prefill's KV tail (each
+        compacts K and V with masked_compact)."""
+        hops = 0
+
+        def fetch(self, logits, cache=None, *, target=None, prefix=None):
+            if prefix is not None and cache is not None:
+                self.hops += 1
+            return super().fetch(logits, cache, target=target, prefix=prefix)
+
+    reqs = _continuous_requests(cfg)
+    K, L = MACRO, cfg.num_layers
+    base = dict(slots=CONT_SLOTS, max_len=CONT_MAX_LEN, macro_steps=K)
+    ref, counts_by_mode = None, {}
+    for name, kw, extra in CONT_MODES:
+        pc = worker = None
+        if extra:
+            pc = PrefixCache(cfg, block_size=8, budget_blocks=256, device=dev)
+        if extra in ("worker", "lossy"):
+            worker = HopCountingWorker(
+                cfg, params, device=dev, link=C.ICI_LINK,
+                kv_keep_rate=0.72 if extra == "lossy" else None)
+            require(worker.params["embed"]["table"] is params["embed"]["table"],
+                    "the prefill worker copied the params")
+        outs, stats, counts, wall, peak = _run_engine(
+            torch, dev, cfg, params, reqs, **{**base, **kw}, prefix_cache=pc,
+            prefill_worker=worker)
+        k = kw.get("macro_steps", K)
+        steps = _model_decode_steps(stats, k)
+        require(stats.requests == len(reqs) and stats.total_tokens
+                == sum(r.max_new for r in reqs), f"continuous {name}: "
+                f"{stats.requests} requests, {stats.total_tokens} tokens")
+        require(all(0 <= int(t) < cfg.vocab_size for o in outs for t in o.tokens),
+                f"continuous {name}: token ids out of range")
+        require(counts["decode_attention"] == L * steps,
+                f"continuous {name}: decode_attention launched "
+                f"{counts['decode_attention']} times, expected {L} x {steps}")
+        hops = worker.hops if worker is not None else 0
+        require(counts["masked_compact"] == 2 * hops,
+                f"continuous {name}: masked_compact launched "
+                f"{counts['masked_compact']} times, expected 2 x {hops} remote "
+                "partial hits that shipped a KV tail")
+        require(counts["grouped_ffn"] == counts["ssm_scan"] == 0,
+                f"continuous {name}: MoE/SSM kernels launched: {counts}")
+        if pc is not None:
+            # with local prefill every request but the 4 first of a prefix
+            # hits, the duplicate in full; remote blocks are indexed only
+            # when fetched, so the disaggregated modes hit less
+            require(stats.prefix_hits > 0 and (worker is not None or (
+                stats.prefix_hits == CONT_REQUESTS - 4 and pc.full_hits == 1)),
+                f"continuous {name}: {stats.prefix_hits} prefix hits, "
+                f"{pc.full_hits} full")
+            pc.check_invariants()
+        if worker is not None:
+            require(hops > 0 and stats.prefill_fallbacks == 0
+                    and stats.prefill_offloaded > 0
+                    and 0 < stats.kv_hop_bytes_wire < stats.kv_hop_bytes_raw,
+                    f"continuous {name}: offloaded {stats.prefill_offloaded}, "
+                    f"fallbacks {stats.prefill_fallbacks}, hop bytes "
+                    f"{stats.kv_hop_bytes_wire} of {stats.kv_hop_bytes_raw}")
+        streams = {o.uid: o.tokens for o in outs}
+        row = {"phase": "continuous", "mode": name, "arch": cfg.name,
+               "slots": CONT_SLOTS, "max_len": CONT_MAX_LEN, "macro_steps": k,
+               "requests": len(reqs), **_stats_row(stats, wall, peak, counts, k),
+               "prefix_cache": pc.stats() if pc is not None else None,
+               "remote_partial_hits_shipped": hops}
+        if ref is None:
+            ref = streams
+        else:
+            diffs = {uid: _first_diff(ref[uid], streams[uid]) for uid in ref}
+            diffs = {uid: d for uid, d in diffs.items() if d is not None}
+            row["requests_differing_from_per_step"] = len(diffs)
+            row["first_differences"] = dict(list(diffs.items())[:8])
+            if extra != "lossy":
+                require(not diffs, f"continuous {name}: streams differ from "
+                        f"the per-step mode at {diffs}")
+        emit(row)
+        counts_by_mode[name] = counts
+        del outs, pc, worker
+        torch.cuda.empty_cache()
+    return counts_by_mode
+
+
+def phase_continuous_checks(torch, dev, cfg, params):
+    """Around the continuous path: one lossless compact_kv_hop ->
+    restore_kv_hop at llama's real tail gives the prefill cache back bit
+    for bit; the resumed prefill against the cold one (bf16, reported);
+    decode_attention at the slot width over the 512-row cache and
+    masked_compact at the hop's [16, 192, 512] shape against their plain
+    versions; the tail's .contiguous() copy timed; a float32 2-layer cut's
+    continuous streams equal to the plain static path's up to the first
+    top-2 gap < 1e-3.  Returns {kernel: max error}."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import make_prefill_step
+    from repro_torch.serving.prefix_cache import compact_kv_hop, restore_kv_hop
+
+    reqs = _continuous_requests(cfg)
+    req = reqs[4]                         # a partial hit on prefix 0
+    tokens = torch.as_tensor(req.prompt[None], device=dev)
+    with torch.no_grad():
+        logits, cache = make_prefill_step(cfg)(params, {"tokens": tokens})
+        prefix = {"self": {n: t[:, :, :CONT_PREFIX].clone()
+                           for n, t in cache["self"].items()}}
+        packed, wire = compact_kv_hop(cache, CONT_PREFIX)
+        restored = restore_kv_hop(packed, prefix)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(restored["self"][n], cache["self"][n])
+                    for n in ("k", "v"))
+        require(exact, "the lossless KV hop did not restore the prefill cache "
+                "bit for bit")
+        resumed = M.forward(params, cfg, {"tokens": tokens, "prefix": prefix},
+                            mode="prefill", use_kernels=True)
+        rl = resumed.logits[:, -1]
+        tail = slice(CONT_PREFIX, None)
+        cache_diff = max(float((resumed.cache["self"][n][:, :, tail].float()
+                                - cache["self"][n][:, :, tail].float()).abs().max())
+                         for n in ("k", "v"))
+        resume = {"logits_max_abs": float((rl.float() - logits.float()).abs().max()),
+                  "logits_equal": bool(torch.equal(rl, logits)),
+                  "argmax_equal": bool(rl.argmax() == logits.argmax()),
+                  "tail_kv_max_abs": cache_diff,
+                  "tail_kv_equal": cache_diff == 0.0,
+                  "top2_gap": float(_top2_gap(torch, logits)[0])}
+        raw = sum(t.numel() * t.element_size() for t in cache["self"].values())
+        del resumed, restored, packed, cache
+    emit({"phase": "continuous_checks", "check": "kv_hop", "arch": cfg.name,
+          "q_rows": CONT_PREFIX, "rows": CONT_P, "lossless_bit_exact": exact,
+          "wire_bytes": wire, "raw_kv_bytes": raw, "resume_vs_cold_bf16": resume})
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    att_err = _check_decode_attention(torch, dev, gen, [CONT_SLOTS],
+                                      cfg.num_heads, cfg.num_kv_heads,
+                                      cfg.head_dim, "continuous_kernels",
+                                      S_main=CONT_MAX_LEN, edge_cases=False)
+    D = cfg.num_kv_heads * cfg.head_dim
+    hop = (cfg.num_layers, CONT_P - CONT_PREFIX, D)
+    mc = [_check_mc_at(torch, dev, gen, f"kv-hop-{kind}", *hop, kind)
+          for kind in ("all", "make_mask")]
+    emit({"phase": "continuous_kernels", "kernel": "masked_compact",
+          "tolerance": "exact", "cases": mc})
+    emit({"phase": "continuous_timing", **_time_tail_copy(torch, dev, gen, cfg)})
+    parity = _continuous_parity(torch, dev, cfg, params, reqs)
+    emit({"phase": "continuous_parity", **parity})
+    return {"decode_attention": att_err, "masked_compact": 0.0}
+
+
+def _check_mc_at(torch, dev, gen, name, B, S, D, kind):
+    """masked_compact at [B,S,D] bf16 (mask ``kind`` of ``_mc_case``) against
+    its plain version, bit for bit, twice."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.masked_compact import masked_compact_cuda
+    toks, mask, K = _mc_case(torch, gen, dev, B, S, D, kind)
+    got = masked_compact_cuda(toks, mask, K)
+    again = masked_compact_cuda(toks, mask, K)
+    want = ref.masked_compact_ref(toks, mask, K)
+    torch.cuda.synchronize()
+    for what, res in (("first call", got), ("second call", again)):
+        require(all(torch.equal(a, b) for a, b in zip(res, want)),
+                f"masked_compact {name} [{B},{S},{D}] K={K}: {what} differs "
+                "from the plain version")
+    return {"case": name, "B": B, "S": S, "D": D, "K": K, "dtype": "bfloat16",
+            "kept": int(mask.sum()), "exact": True, "bit_equal_twice": True}
+
+
+def _time_tail_copy(torch, dev, gen, cfg):
+    """The KV hop's tail of a [L,1,S,Hkv,dh] bf16 cache is a strided view;
+    compact_kv_hop copies it contiguous for masked_compact.  That copy at
+    llama's timed hop (q 64 rows, Rt 2048: ``KV_HOP``), beside the bytes
+    bound."""
+    from repro_torch.core.profiler import H100_HBM_BW
+    L, Rt, D = cfg.num_layers, KV_HOP[1], cfg.num_kv_heads * cfg.head_dim
+    S = CONT_PREFIX + Rt
+    per_set = L * S * D * 2
+    sets = [(torch.randn((L, 1, S, cfg.num_kv_heads, cfg.head_dim), generator=gen,
+                         device=dev).to(torch.bfloat16),)
+            for _ in range(_sets_for(per_set))]
+
+    def copy(leaf):
+        return leaf[:, 0, CONT_PREFIX:].reshape(L, Rt, D).contiguous()
+
+    n_bytes = 2 * L * Rt * D * 2                  # the tail read, the copy written
+    times = {"ms": _time_ms(torch, copy, sets),
+             "device_ms": _device_ms(torch, copy, sets, iters=50)}
+    return {"kernel": "kv_hop_tail_copy", "group": "kv_hop_lossless",
+            "shape": [L, Rt, D], "q_rows": CONT_PREFIX, "dtype": "bfloat16",
+            **times, "bytes": n_bytes, "bound_ms": 1e3 * n_bytes / H100_HBM_BW,
+            "bound_by": "bytes", "sets": len(sets)}
+
+
+def _continuous_parity(torch, dev, cfg, params, reqs):
+    """A float32 2-layer cut of the weights: the plain static path (one
+    batch, kernels off, per-token steps, each step's top-2 gap recorded)
+    against the overlapped continuous engine (kernels on): each request's
+    stream equal up to the first top-2 gap < 1e-3."""
+    from repro_torch.core.offload import tree_map
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import make_prefill_step, make_serve_step, seed_cache
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    p32 = {k: tree_map(lambda t: t.float(), v) for k, v in params.items()
+           if k != "blocks"}
+    p32["blocks"] = tree_map(lambda t: t[:2].float(), params["blocks"])
+    B, max_new = len(reqs), max(r.max_new for r in reqs)
+    tokens = torch.as_tensor(np.stack([r.prompt for r in reqs]), device=dev)
+    with torch.no_grad():
+        last, pre = make_prefill_step(cfg2, use_kernels=False)(p32, {"tokens": tokens})
+        cache = seed_cache(cfg2, M.init_cache(cfg2, B, CONT_MAX_LEN, device=dev),
+                           pre, CONT_P)
+        del pre
+        step = make_serve_step(cfg2, use_kernels=False)
+        tok = last.argmax(dim=-1).to(torch.int32)
+        stream, gaps = [tok], [_top2_gap(torch, last)]
+        for i in range(max_new - 1):
+            lengths = torch.full((B,), CONT_P + i, dtype=torch.int32, device=dev)
+            lp, cache = step(p32, cache, tok[:, None], lengths)
+            tok = lp.argmax(dim=-1).to(torch.int32)
+            stream.append(tok)
+            gaps.append(_top2_gap(torch, lp))
+        plain = torch.stack(stream, dim=1).cpu().numpy()
+        gaps = torch.stack(gaps, dim=1).cpu().numpy()
+        del cache
+    outs, stats, counts, _, _ = _run_engine(
+        torch, dev, cfg2, p32, reqs, slots=CONT_SLOTS, max_len=CONT_MAX_LEN,
+        macro_steps=MACRO, use_kernels=True)
+    require(counts["decode_attention"] == 2 * _model_decode_steps(stats, MACRO),
+            f"continuous parity: decode_attention launched {counts}")
+    first_mismatch, first_low_gap = {}, {}
+    for o in outs:
+        n = len(o.tokens)
+        diff = np.nonzero(o.tokens != plain[o.uid, :n])[0]
+        low = np.nonzero(gaps[o.uid, :n] < 1e-3)[0]
+        m = int(diff[0]) if diff.size else None
+        g = int(low[0]) if low.size else None
+        first_mismatch[o.uid], first_low_gap[o.uid] = m, g
+        require(m is None or (g is not None and m >= g),
+                f"continuous parity, request {o.uid}: the continuous stream "
+                f"leaves the static one at {m} before any top-2 gap < 1e-3 "
+                f"(first at {g})")
+    del p32
+    return {"arch": cfg.name, "layers": 2, "dtype": "float32",
+            "requests": B, "mismatching_requests":
+            sum(m is not None for m in first_mismatch.values()),
+            "first_mismatch": first_mismatch,
+            "first_top2_gap_below_1e-3": first_low_gap,
+            "min_top2_gap": float(gaps.min())}
+
+
+def phase_side_continuous(torch, dev, cfg, params, phase):
+    """A short continuous run on a path whose params are loaded (moonshot:
+    MoE, falcon-mamba: SSM): slots 4, 6 requests of 128 prompt tokens,
+    max_new <= 8, in per-step, boundary and overlapped modes.  Checks the
+    streams identical across modes and the launches: grouped_ffn in every
+    MoE layer of each B=1 admission prefill and each model decode step,
+    ssm_scan in every Mamba-1 layer of each B=1 prefill.  Returns {mode:
+    launch counts}."""
+    from repro_torch.serving.engine import ServeRequest
+
+    prompts = _prompts(cfg)[:SIDE_REQUESTS]
+    max_news = [SIDE_MAX_NEW, 3, 1, 6, SIDE_MAX_NEW, 5]
+    reqs = [ServeRequest(uid=i, prompt=prompts[i], max_new=m)
+            for i, m in enumerate(max_news)]
+    ref, counts_by_mode = None, {}
+    for name, kw, _ in CONT_MODES[:3]:
+        kw = {"macro_steps": MACRO, **kw}
+        outs, stats, counts, wall, peak = _run_engine(
+            torch, dev, cfg, params, reqs, slots=SIDE_SLOTS,
+            max_len=PROMPT_LEN + SIDE_MAX_NEW + 8, **kw)
+        steps = _model_decode_steps(stats, kw["macro_steps"])
+        want = _expected_launches(cfg, {"decode_steps": steps,
+                                        "prefills": len(reqs)}, PROMPT_LEN)
+        for kname, n in want.items():
+            require(counts[kname] == n, f"{phase} {name}: {kname} launched "
+                    f"{counts[kname]} times, expected {n} ({cfg.num_layers} "
+                    f"layers, {steps} decode steps, {len(reqs)} prefills)")
+        require(stats.total_tokens == sum(max_news),
+                f"{phase} {name}: {stats.total_tokens} tokens")
+        streams = {o.uid: o.tokens for o in outs}
+        if ref is None:
+            ref = streams
+        require(all(np.array_equal(ref[u], streams[u]) for u in ref),
+                f"{phase} {name}: streams differ from the per-step mode")
+        emit({"phase": phase, "mode": name, "arch": cfg.name,
+              "slots": SIDE_SLOTS, "requests": len(reqs), "max_news": max_news,
+              **_stats_row(stats, wall, peak, counts, kw["macro_steps"]),
+              "expected_launches": want, "streams_equal_per_step": True})
+        counts_by_mode[name] = counts
+    return counts_by_mode
+
+
+def phase_dense_slices(torch, dev):
+    """olmo-1b and nemotron-4-15b at full width and depth through the
+    launcher (the same 16 requests x 128 tokens, 32 new, --split auto), one
+    after the other, each model's params freed before the next loads; then,
+    with no model held, decode_attention against its plain version at each
+    group's batch with the model's heads (olmo G=1, nemotron G=6; dh 128)
+    and masked_compact bit for bit at the model's §VI payload.  Returns
+    ({arch: launch counts}, {kernel: max main-path error})."""
+    from repro_torch.configs.base import get_config
+
+    counts_by_arch, errs = {}, {"decode_attention": 0.0, "masked_compact": 0.0}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    for arch in DENSE_ARCHS:
+        cfg = get_config(arch)
+        summary, counts = phase_slice(torch, arch, phase="dense_slice")
+        counts_by_arch[arch] = counts
+        torch.cuda.empty_cache()
+        err = _check_decode_attention(torch, dev, gen, _batch_sizes(summary),
+                                      cfg.num_heads, cfg.num_kv_heads,
+                                      cfg.head_dim, "dense_kernels")
+        errs["decode_attention"] = max(errs["decode_attention"], err)
+        groups = dict(zip(summary["group_names"], summary["n_group"]))
+        B = groups.get("auxiliary") or max(groups.values())
+        mc = _check_mc_at(torch, dev, gen, f"payload-{arch}", B, PROMPT_LEN,
+                          cfg.d_model, "keep72")
+        emit({"phase": "dense_kernels", "arch": arch, "kernel": "masked_compact",
+              "tolerance": "exact", "cases": [mc]})
+        torch.cuda.empty_cache()
+    return counts_by_arch, errs
+
+
+# ---------------------------------------------------------------------------
 KERNEL_META = {
     "decode_attention": {
         "route": "cuda", "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -1311,8 +1793,9 @@ def kernels_line(rows, counts_by_path, errs):
     """One entry per kernel: decode_attention and masked_compact timed at
     llama's auxiliary group, grouped_ffn at moonshot's auxiliary group's
     decode, ssm_scan at falcon-mamba's auxiliary group's prefill; launches
-    summed over every main path (and listed per path); max_abs_err the
-    largest main-path error of any path."""
+    summed over every main path (and listed per path: each static slice and
+    each continuous mode); max_abs_err the largest main-path error of any
+    path."""
     pick = {}           # each kernel's first row timed at an auxiliary group
     for row in rows:
         if row["group"] == "auxiliary":
@@ -1360,16 +1843,21 @@ def main() -> None:
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M
 
-    # the dense path: llama3.2-1b
+    # the dense path: llama3.2-1b, static then continuous
     slice_summary, counts = timed("slice", phase_slice, torch)
     errs = timed("kernels", phase_kernel_checks, torch, dev, slice_summary)
     cfg, params, prompts = timed("parity", phase_parity, torch, dev)
     groups = dict(zip(slice_summary["group_names"], slice_summary["n_group"]))
     timed("trace", phase_trace, torch, dev, cfg, params, prompts,
           groups["auxiliary"] or REQUESTS)
-    del params
     rows = timed("timing", phase_timing, torch, dev, slice_summary)
+    cont_counts = timed("continuous", phase_continuous, torch, dev, cfg, params)
+    cont_errs = timed("continuous_checks", phase_continuous_checks, torch, dev,
+                      cfg, params)
+    del params
     torch.cuda.empty_cache()
+    # the main path's other dense configs: olmo-1b, nemotron-4-15b
+    dense_counts, dense_errs = timed("dense_slices", phase_dense_slices, torch, dev)
 
     # the MoE path: moonshot-v1-16b-a3b at full width
     moe_cfg = get_config(MOE_ARCH)
@@ -1385,6 +1873,8 @@ def main() -> None:
           groups["auxiliary"] or REQUESTS, max_new=MOE_TRACE_NEW)
     moe_rows = timed("moe_timing", phase_moe_timing, torch, dev, moe_cfg,
                      params, moe_summary)
+    moe_cont_counts = timed("moe_continuous", phase_side_continuous, torch, dev,
+                            moe_cfg, params, "moe_continuous")
     del params
     torch.cuda.empty_cache()
     # decode_attention at long caches, no weights held: llama's and moonshot's heads
@@ -1408,6 +1898,8 @@ def main() -> None:
     groups = dict(zip(ssm_summary["group_names"], ssm_summary["n_group"]))
     timed("ssm_trace", phase_trace, torch, dev, ssm_cfg, params, prompts,
           groups["auxiliary"] or REQUESTS)
+    ssm_cont_counts = timed("ssm_continuous", phase_side_continuous, torch, dev,
+                            ssm_cfg, params, "ssm_continuous")
     del params
     torch.cuda.empty_cache()
     ssm_rows = timed("ssm_timing", phase_ssm_timing, torch, dev, ssm_cfg,
@@ -1417,11 +1909,19 @@ def main() -> None:
     # the hybrid path: zamba2-2.7b at full width, decode_attention at dh=80
     hyb_counts, hyb_errs = timed("hybrid", phase_hybrid, torch, dev)
 
-    kernels = kernels_line(
-        rows + moe_rows + ssm_rows + long_rows,
-        {ARCH: counts, MOE_ARCH: moe_counts, SSM_ARCH: ssm_counts,
-         HYBRID_ARCH: hyb_counts},
-        [errs, moe_errs, ssm_errs, hyb_errs])
+    by_path = {ARCH: counts}
+    by_path.update({f"{ARCH} continuous {m}": c for m, c in cont_counts.items()})
+    by_path.update(dense_counts)
+    by_path[MOE_ARCH] = moe_counts
+    by_path.update({f"{MOE_ARCH} continuous {m}": c
+                    for m, c in moe_cont_counts.items()})
+    by_path[SSM_ARCH] = ssm_counts
+    by_path.update({f"{SSM_ARCH} continuous {m}": c
+                    for m, c in ssm_cont_counts.items()})
+    by_path[HYBRID_ARCH] = hyb_counts
+    kernels = kernels_line(rows + moe_rows + ssm_rows + long_rows, by_path,
+                           [errs, cont_errs, dense_errs, moe_errs, ssm_errs,
+                            hyb_errs])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

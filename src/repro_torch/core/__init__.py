@@ -10,9 +10,10 @@ topology   node groups + links (the 2-node pair so far)
 """
 from repro_torch.core.curvefit import FittedModels, PolyFit, fit_profiles, polyfit
 from repro_torch.core.masking import (CompressionReport, compress_tokens,
-                                      compression_report, make_mask,
-                                      norm_scores)
-from repro_torch.core.network import (WIFI_2_4GHZ, WIFI_5GHZ, LinkModel,
+                                      compression_report, image_mask_savings,
+                                      make_mask, norm_scores)
+from repro_torch.core.network import (DCN_LINK, ICI_LINK, WIFI_2_4GHZ,
+                                      WIFI_5GHZ, LinkModel,
                                       data_rate, offload_energy,
                                       offload_latency)
 from repro_torch.core.offload import (GroupHealth, GroupTimeoutError,

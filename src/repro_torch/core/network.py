@@ -53,3 +53,5 @@ def offload_energy(link: LinkModel, payload_bytes, distance_m=1.0) -> float:
 # Reference links used in benchmarks -----------------------------------------
 WIFI_2_4GHZ = LinkModel(bandwidth_hz=20e6, tx_power=0.1, noise_power=3e-9)
 WIFI_5GHZ = LinkModel(bandwidth_hz=80e6, tx_power=0.1, noise_power=3e-9)
+ICI_LINK = LinkModel(bandwidth_hz=50e9, is_ici=True)             # 50 GB/s
+DCN_LINK = LinkModel(bandwidth_hz=6.25e9, is_ici=True)           # cross-pod

@@ -198,11 +198,11 @@ def split_counts(fractions: Sequence[float], batch: int) -> Tuple[int, ...]:
 
 
 # --- trees of tensors / arrays (dicts, lists, tuples) -------------------------
-def _leaves(tree) -> List[Any]:
+def tree_leaves(tree) -> List[Any]:
     if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
+        return [x for v in tree.values() for x in tree_leaves(v)]
     if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
+        return [x for v in tree for x in tree_leaves(v)]
     return [tree]
 
 
@@ -224,7 +224,7 @@ def _concat_on(device: torch.device):
 
 
 def _block_until_ready(tree) -> None:
-    devs = {x.device for x in _leaves(tree)
+    devs = {x.device for x in tree_leaves(tree)
             if torch.is_tensor(x) and x.is_cuda}
     for dev in devs:
         torch.cuda.synchronize(dev)
@@ -342,7 +342,7 @@ class OffloadEngine:
         links = self.topology.links
         G = len(groups)
         fracs = _as_fractions(split, G)
-        B = _leaves(batch)[0].shape[0]
+        B = tree_leaves(batch)[0].shape[0]
         counts = split_counts(fracs, B)
         d = float(self.distance_fn())
 

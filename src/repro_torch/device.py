@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -32,3 +33,14 @@ def synchronize(device: torch.device) -> None:
     """Wait for the device's queued work (a no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def upload(array, device: torch.device) -> torch.Tensor:
+    """A host (numpy) array as a tensor on ``device``.  On CUDA the copy is
+    queued from pinned memory without waiting on the stream: a plain
+    pageable upload would block the host until the stream's queued work
+    (a decode macro-step in flight) had finished."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device, copy=True)

@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Optional
@@ -47,6 +48,9 @@ SIGNATURES = {
 
 _lib: Optional[ctypes.CDLL] = None
 build_info: Dict[str, object] = {}
+# one build and one load at a time: the continuous engine's decode-launch
+# thread and the main thread may both make a first launch
+_lock = threading.RLock()
 
 
 def find_nvcc() -> str:
@@ -95,6 +99,11 @@ def _run_all(cmds):
 def build() -> Path:
     """Compile the sources into ``BUILD_DIR/libkernels.so`` unless the stamp
     says the library is current.  Returns the library's path."""
+    with _lock:
+        return _build()
+
+
+def _build() -> Path:
     sources = _sources()
     stamp = _stamp(sources)
     lib_path = BUILD_DIR / LIB_NAME
@@ -124,16 +133,19 @@ def load() -> ctypes.CDLL:
     """The loaded kernel library, built on first use.  Raises, naming the
     cause, when there is no CUDA device or no ``nvcc``."""
     global _lib
-    if _lib is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("cannot launch the repro_torch CUDA kernels: "
-                               "no CUDA device is available")
-        lib = ctypes.CDLL(str(build()))
-        for name, (argtypes, restype) in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = restype
-        _lib = lib
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("cannot launch the repro_torch CUDA "
+                                   "kernels: no CUDA device is available")
+            lib = ctypes.CDLL(str(build()))
+            for name, (argtypes, restype) in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _lib = lib
     return _lib
 
 

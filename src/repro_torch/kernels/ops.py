@@ -5,6 +5,11 @@ CPU tensor, or a call with ``use_kernels=False``, takes the plain PyTorch
 version.  There is no fallback from the kernel to the plain version.
 ``use_kernels`` is the port's counterpart of the JAX package's
 ``use_pallas``: ``"auto"`` means "the tensors are on CUDA".
+
+``admit_state`` / ``admit_slots`` and ``splice_blocks`` are the continuous
+engine's admission ops.  In the JAX package they are XLA scatters, not
+Pallas kernels; here they are plain in-place index writes on the tensors
+the caller hands in (where JAX donates them).
 """
 from __future__ import annotations
 
@@ -69,6 +74,47 @@ def ssm_scan(decay, bx, h0, *, use_kernels: bool = True):
     if use_kernels and decay.is_cuda:
         return ssm_scan_cuda(decay, bx, h0)
     return ref.ssm_scan_ref(decay, bx, h0)
+
+
+def admit_state(cur_tok, lengths, remaining, done, slot_ids, last_logits,
+                prompt_lens, max_news, *, eos_id: int = -1):
+    """Splice newly admitted requests into the decode-state vectors, in
+    place: the [M] ``slot_ids`` being filled get the greedy first token of
+    their prefill logits [M, V], their prompt length, their budget
+    ``max_new - 1`` and ``done`` where the budget is spent or the first
+    token is ``eos_id``.  Callers may pad the M entries to a fixed width by
+    repeating the last real one: duplicate indices then carry identical
+    values, so the writes are idempotent (on CUDA too).  Returns the four
+    vectors and ``first`` [M], a tensor of its own (its host fetch may be
+    deferred past later in-place updates of ``cur_tok``)."""
+    first = last_logits.argmax(dim=-1).to(torch.int32)
+    ids = slot_ids.long()
+    cur_tok[ids] = first
+    lengths[ids] = prompt_lens.to(lengths.dtype)
+    remaining[ids] = (max_news - 1).to(remaining.dtype)
+    done[ids] = (max_news <= 1) | (first == eos_id)
+    return cur_tok, lengths, remaining, done, first
+
+
+def admit_slots(cur_tok, lengths, remaining, done, slot_ids, last_logits,
+                prompt_lens, max_news, *, eos_id: int = -1):
+    """One admission phase's state scatter (the JAX package's donated
+    standalone program); see :func:`admit_state`."""
+    return admit_state(cur_tok, lengths, remaining, done, slot_ids,
+                       last_logits, prompt_lens, max_news, eos_id=eos_id)
+
+
+def splice_blocks(dst, src, slot_ids):
+    """Write M stacked prefill-cache blocks into M slots of a decode-cache
+    leaf, in place.  ``dst`` is ``[L, B, ...]``; ``src`` is ``[L, M, ...]``
+    whose trailing extents are at most dst's: each block lands at offset 0
+    of every trailing axis (``[L, M, P, Hkv, dh]`` K/V rows fill the first
+    P positions; same-shape leaves such as SSM states are replaced
+    whole).  ``slot_ids`` [M] may repeat an index with identical blocks
+    (the padding contract of :func:`admit_state`).  Returns ``dst``."""
+    region = tuple(slice(0, n) for n in src.shape[2:])
+    dst[(slice(None), slot_ids.long()) + region] = src.to(dst.dtype)
+    return dst
 
 
 def launch_counts() -> Dict[str, int]:

@@ -12,8 +12,11 @@ split the batch between the primary and the auxiliary node group.  With
 one card both groups share it; the decision logic and accounting are the
 same.  Runs on the card unless ``--device cpu``.
 
-The continuous-batching runtime, the star topology and the int8 KV cache
-are not ported yet: their flags exit with "not ported yet".
+The continuous-batching engine is ported (``serving.engine.
+ContinuousServingEngine``, with ``serving.prefix_cache`` and
+``serving.prefill``), but the launcher's continuous mode runs it through
+the multi-task runtime, which is not; that runtime's flags, the star
+topology and the int8 KV cache exit with "not ported yet".
 """
 from __future__ import annotations
 
@@ -117,21 +120,25 @@ def serve_static(cfg, params, reqs, *, prompt_len: int, max_new: int,
                  macro_steps: int, split: str,
                  device: torch.device) -> Dict[str, Any]:
     """Serve ``reqs`` as one static batch through the HeteroEdge split;
-    returns a summary (tokens, r*, timings, per-group counts, and the
-    decode steps and prefills, one per ``generate()`` call, that every
-    engine of the run took)."""
+    returns a summary (tokens, r*, timings, per-group counts, the decode
+    steps and prefills, one per ``generate()`` call, that every engine of
+    the run took, and each engine's decode wall per step, in ms, in the
+    order the engines ran)."""
     P = prompt_len
     prompts = np.stack([np.pad(r.prompt[:P], (0, max(0, P - len(r.prompt))))
                         for r in reqs]).astype(np.int32)
     B = prompts.shape[0]
     batch = {"tokens": prompts}
     engines: List[ServingEngine] = []
+    ms_per_step: List[float] = []
 
     def serve_task(b):
         eng = ServingEngine(cfg, params, max_len=P + max_new + 8,
                             macro_steps=macro_steps, device=device)
         engines.append(eng)
-        return eng.generate(np.asarray(b["tokens"]), max_new=max_new).tokens
+        res = eng.generate(np.asarray(b["tokens"]), max_new=max_new)
+        ms_per_step.append(1e3 * res.decode_s / max(eng.decode_steps, 1))
+        return res.tokens
 
     summary: Dict[str, Any] = {"arch": cfg.name, "requests": B,
                                "prompt_len": P, "max_new": max_new}
@@ -145,7 +152,7 @@ def serve_static(cfg, params, reqs, *, prompt_len: int, max_new: int,
         summary.update(tokens=toks, r=0.0, wall_s=wall,
                        tokens_per_s=B * max_new / wall,
                        decode_steps=sum(e.decode_steps for e in engines),
-                       prefills=len(engines))
+                       prefills=len(engines), ms_per_decode_step=ms_per_step)
         return summary
 
     r_star = None
@@ -195,7 +202,7 @@ def serve_static(cfg, params, reqs, *, prompt_len: int, max_new: int,
         payload_bytes_per_item=payload, wall_s=wall,
         tokens_per_s=B * max_new / wall,
         decode_steps=sum(e.decode_steps for e in engines),
-        prefills=len(engines))
+        prefills=len(engines), ms_per_decode_step=ms_per_step)
     return summary
 
 

@@ -4,8 +4,8 @@ Prefill uses the chunked online-softmax formulation of the JAX package
 (plain tensor code, the same masks and padding sentinels).  Decode is one
 query token against the cache: with kernels on it goes through the
 hand-written CUDA ``decode_attention`` kernel, else through its plain
-version.  Cross-attention, the int8 KV cache and prefix resume are not
-ported yet.
+version.  A prefill can resume from cached post-RoPE prefix K/V.
+Cross-attention and the int8 KV cache are not ported yet.
 """
 from __future__ import annotations
 
@@ -147,20 +147,29 @@ def attn_apply(params, x, cfg, *, positions, mode: str, causal: bool = True,
                cache=None, cache_index=None, use_kernels: bool = False,
                kv_x=None, prefix_kv=None):
     """mode "full":   self-attention over x (prefill); returns (out, (k, v)).
+                   ``prefix_kv=(k_pre, v_pre)`` resumes a prefill from
+                   cached post-RoPE K/V of positions [0, q): x holds only
+                   the tail rows (``positions`` are their global indices),
+                   the queries attend over prefix + tail keys, and the
+                   returned k/v are the full-length concatenation, laid out
+                   like a cold prefill's.
     mode "decode": x is [B,1,D]; cache = {"k","v"} [B,S,Hkv,dh], updated in
                    place at ``cache_index`` (scalar or [B]); returns
                    (out, cache).
-    ``kv_x`` (cross-attention) and ``prefix_kv`` (prefix resume) are not
-    ported yet."""
+    ``kv_x`` (cross-attention) is not ported yet."""
     if kv_x is not None:
         raise NotImplementedError("cross-attention is not ported yet")
-    if prefix_kv is not None:
-        raise NotImplementedError("prefix resume is not ported yet")
     if mode == "full":
         q, k, v = _qkv(params, x, x, cfg, positions, positions, rope=True)
+        kv_positions = positions
+        if prefix_kv is not None:
+            pk, pv = prefix_kv
+            k = torch.cat([pk.to(k.dtype), k], dim=1)
+            v = torch.cat([pv.to(v.dtype), v], dim=1)
+            kv_positions = torch.arange(k.shape[1], device=k.device)
         out = chunked_attention(q, k, v, causal=causal,
                                 window=cfg.sliding_window,
-                                q_positions=positions, kv_positions=positions)
+                                q_positions=positions, kv_positions=kv_positions)
         return _out_proj(out.to(x.dtype), params["wo"]), (k, v)
 
     if mode != "decode":

@@ -57,15 +57,17 @@ def norm_apply(params, x: torch.Tensor, cfg, eps: float = 1e-5) -> torch.Tensor:
 # MLP
 # ---------------------------------------------------------------------------
 def mlp_apply(params, x: torch.Tensor, cfg) -> torch.Tensor:
-    """SwiGLU, or the plain 2-matrix gelu MLP (``jax.nn.gelu``'s default tanh
-    approximation)."""
+    """SwiGLU, or a plain 2-matrix MLP: squared ReLU (nemotron) or gelu
+    (``jax.nn.gelu``'s default tanh approximation)."""
     if cfg.mlp_type == "swiglu":
         g = x @ params["w_gate"]
         u = x @ params["w_up"]
         return (F.silu(g) * u) @ params["w_down"]
+    if cfg.mlp_type == "squared_relu":
+        return torch.square(F.relu(x @ params["w_up"])) @ params["w_down"]
     if cfg.mlp_type == "gelu":
         return F.gelu(x @ params["w_up"], approximate="tanh") @ params["w_down"]
-    raise NotImplementedError(f"mlp_type {cfg.mlp_type!r} is not ported yet")
+    raise ValueError(f"unknown mlp_type {cfg.mlp_type!r}")
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,10 @@ init_cache(cfg, batch, seq_len, dtype, device) -> the JAX cache layout
 forward(params, cfg, batch, mode=...)        -> ModelOutputs
 
 ``batch`` is a dict:
-  prefill: {"tokens": [B,S]}
+  prefill: {"tokens": [B,S]}, optionally "prefix": an L-stacked cache
+           {"self": {"k","v"}} of [L,B,q,Hkv,dh] post-RoPE K/V for rows
+           [0, q) (dense stacks): only the tail rows run, the returned
+           cache is full-length
   decode:  {"token": [B,1], "cache": ..., "cache_index": scalar or [B]}
 """
 from __future__ import annotations
@@ -123,9 +126,20 @@ def forward(params, cfg, batch, *, mode: str = "prefill",
         tokens = batch["tokens"]
         x = embed_apply(params["embed"], tokens)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        x, caches, aux = _stack(kind)(params["blocks"], x, cfg, mode="prefill",
-                                      positions=positions,
-                                      use_kernels=use_kernels)
+        prefix = batch.get("prefix")
+        if prefix is not None:
+            if kind != "dense":
+                raise ValueError("prefix resume only supports dense stacks, "
+                                 f"not {kind!r}")
+            q_rows = prefix["self"]["k"].shape[2]
+            x, caches, aux = tfm.stack_apply(
+                params["blocks"], x[:, q_rows:], cfg, kind=kind, mode="resume",
+                positions=positions[q_rows:], caches=prefix,
+                use_kernels=use_kernels)
+        else:
+            x, caches, aux = _stack(kind)(params["blocks"], x, cfg,
+                                          mode="prefill", positions=positions,
+                                          use_kernels=use_kernels)
         # only the last position's logits are needed
         return ModelOutputs(logits=_logits(params, cfg, x[:, -1:]),
                             aux_loss=aux, cache=caches)
@@ -144,3 +158,45 @@ def forward(params, cfg, batch, *, mode: str = "prefill",
                                   cache_index=idx, use_kernels=use_kernels)
     return ModelOutputs(logits=_logits(params, cfg, x), aux_loss=aux,
                         cache=caches)
+
+
+# ---------------------------------------------------------------------------
+def count_params_analytic(cfg, active_only: bool = False) -> int:
+    """Parameter count from the config alone (the JAX package's formula);
+    ``active_only`` counts the routed experts a token uses."""
+    d, f, dh = cfg.d_model, cfg.d_ff, cfg.head_dim
+    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    attn_p = d * h * dh * 2 + d * hkv * dh * 2 if h else 0
+
+    def mlp_p(width):
+        return (3 if cfg.mlp_type == "swiglu" else 2) * d * width
+
+    di, n = cfg.d_inner, cfg.ssm_state
+    mamba_p = 0
+    if cfg.ssm_state:
+        mamba_p = d * 2 * di + cfg.ssm_conv * di + di + di * d + di
+        if cfg.mamba_version == 1:
+            r = cfg.ssm_dt_rank
+            mamba_p += di * (r + 2 * n) + r * di + di + di * n
+        else:
+            hs = di // cfg.ssm_head_dim
+            mamba_p += di * 2 * n + di * hs + 3 * hs
+
+    if cfg.family == "ssm":
+        total = cfg.num_layers * mamba_p
+    elif cfg.family == "hybrid":
+        total = cfg.num_layers * mamba_p + (attn_p + mlp_p(f))  # shared once
+    elif cfg.num_experts:
+        e_frac = (cfg.experts_per_token / cfg.num_experts) if active_only else 1.0
+        expert = 3 * d * f * cfg.num_experts * e_frac
+        shared = mlp_p(f * cfg.num_shared_experts) if cfg.num_shared_experts else 0
+        total = cfg.num_layers * (attn_p + d * cfg.num_experts + expert + shared)
+    else:
+        total = cfg.num_layers * (attn_p + mlp_p(f))
+        if cfg.encoder_layers:
+            total += cfg.num_layers * attn_p
+            total += cfg.encoder_layers * (attn_p + mlp_p(f))
+    total += cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    if cfg.frontend:
+        total += (cfg.frontend_dim or d) * d
+    return int(total)

@@ -35,15 +35,13 @@ def init_stack(gen: torch.Generator, cfg, dtype, device, kind: str,
                 "mamba": ssm_mod.mamba_init(gen, cfg, dtype, device, L)}
     if kind not in ("dense", "moe"):
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-    if cfg.mlp_type not in ("swiglu", "gelu"):
-        raise NotImplementedError(f"mlp_type {cfg.mlp_type!r} is not ported yet")
     stack = {"ln1": _stacked_norm(cfg, d, L, device),
              "attn": attn.attn_init(gen, cfg, dtype, device, L),
              "ln2": _stacked_norm(cfg, d, L, device)}
     if kind == "moe":
         stack["moe"] = moe_mod.moe_init(gen, cfg, dtype, device, L)
         return stack
-    mlp = {}                  # gelu: the plain 2-matrix MLP, no gate
+    mlp = {}                  # squared_relu / gelu: 2 matrices, no gate
     if cfg.mlp_type == "swiglu":
         mlp["w_gate"] = normal_stack(gen, (L, d, f), 1.0 / math.sqrt(d), dtype, device)
     mlp["w_up"] = normal_stack(gen, (L, d, f), 1.0 / math.sqrt(d), dtype, device)
@@ -71,6 +69,9 @@ def block_apply(params, x, cfg, *, kind: str, mode: str, positions,
     the decode loop a launch per layer).  In decode the layer's cache slice
     is updated in place."""
     if kind == "ssm":
+        if mode == "resume":
+            raise ValueError("SSM states fold the whole prefix; resume is "
+                             "attention-only")
         h = norm_apply(params["ln1"], x, cfg)
         y, new_state = ssm_mod.mamba_apply(
             params["mamba"], h, cfg, state=cache,
@@ -90,8 +91,13 @@ def block_apply(params, x, cfg, *, kind: str, mode: str, positions,
                                     cache_index=cache_index,
                                     use_kernels=use_kernels)
     else:
+        # mode "resume": x holds only the tail rows and cache["self"] the
+        # cached prefix K/V they attend over; the returned K/V are
+        # full-length (the cold-prefill layout)
+        prefix = (cache["self"]["k"], cache["self"]["v"]) \
+            if mode == "resume" else None
         y, kv = attn.attn_apply(params["attn"], h, cfg, positions=positions,
-                                mode="full", causal=causal)
+                                mode="full", causal=causal, prefix_kv=prefix)
         new_kv = {"k": kv[0], "v": kv[1]}
     x = x + y
     h = norm_apply(params["ln2"], x, cfg)
@@ -107,11 +113,12 @@ def stack_apply(stacked, x, cfg, *, kind: str, mode: str, positions,
                 use_kernels: bool = False):
     """Returns (x, caches, aux summed over the layers).  Mode "decode"
     updates the L-stacked ``caches`` in place and returns them; mode
-    "prefill" returns freshly stacked [L, ...] caches."""
+    "prefill" returns freshly stacked [L, ...] caches, and so does mode
+    "resume", whose ``caches`` hold the cached prefix rows."""
     collected = []
     aux = 0.0              # a tensor once an MoE block adds its term
     for i in range(_num_layers(stacked)):
-        lcache = layer_slice(caches, i) if mode == "decode" else None
+        lcache = layer_slice(caches, i) if mode in ("decode", "resume") else None
         x, new_cache, a = block_apply(
             layer_slice(stacked, i), x, cfg, kind=kind, mode=mode,
             positions=positions, cache=lcache, cache_index=cache_index,

@@ -1,6 +1,6 @@
 """Serving engine: prefill + decode steps, batched greedy generation.
 
-The static part of the JAX package's ``repro/serving/engine.py``.
+The JAX package's ``repro/serving/engine.py`` on PyTorch.
 ``make_decode_loop`` is the fused hot path: K decode steps per dispatch with
 greedy sampling, per-slot lengths and eos detection all on the device; the
 host fetches one ``[K, B]`` token block per macro-step.  The loop runs
@@ -8,18 +8,34 @@ eagerly: where JAX donates the cache and the decode-state vectors, the port
 updates those tensors in place.  The per-slot ``lengths`` are the decode
 ``cache_index``, so on the fused path the decode-attention kernel is always
 fed per-slot lengths.
+
+``ServingEngine`` decodes one static batch.  ``ContinuousServingEngine`` is
+the slot-based continuous-batching runtime: a request queue feeds a fixed
+number of cache slots, every macro-step advances all slots with per-slot
+cache indices, and finished requests are evicted and their slots refilled
+at macro-step boundaries.  Its three schedules (per-step, boundary and
+overlapped admission) emit the same token streams.  The overlapped one
+prefills queued requests speculatively into shadow slots on a side CUDA
+stream while the decode macro-step runs, launched from one worker thread;
+with a ``prefill_worker`` those prefills go to the prefill group
+(disaggregated prefill), and with a ``prefix_cache`` every admission reuses
+cached prefix blocks.
 """
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
-from typing import Optional, Union
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
 
-from repro_torch.core.offload import tree_map
-from repro_torch.device import DeviceLike, resolve_device, synchronize
+from repro_torch.core.offload import tree_leaves, tree_map
+from repro_torch.device import DeviceLike, resolve_device, synchronize, upload
+from repro_torch.kernels import ops
 from repro_torch.kernels.ops import resolve_use_kernels
 from repro_torch.models import model as M
 
@@ -85,6 +101,75 @@ def make_decode_loop(cfg, *, macro_steps: int, eos_id: Optional[int] = None,
         return toks, cache, cur_tok, lengths, remaining, done
 
     return decode_loop
+
+
+def make_wave_driver(cfg, *, macro_steps: int, wave_steps: int,
+                     eos_id: Optional[int] = None,
+                     use_kernels: Union[bool, str] = "auto"):
+    """M fused K-token macro-steps per call, one token block for all:
+
+    ``(params, cache, cur_tok, lengths, remaining, done)
+    -> (tokens [M, K, B], cache, cur_tok, lengths, remaining, done)``
+
+    Slots that finish mid-wave freeze exactly as they do mid-macro-step,
+    so the streams equal the single-step driver's.  Updates its arguments
+    in place like :func:`make_decode_loop`."""
+    loop = make_decode_loop(cfg, macro_steps=macro_steps, eos_id=eos_id,
+                            use_kernels=use_kernels)
+
+    def wave_driver(params, cache, cur_tok, lengths, remaining, done):
+        toks = torch.empty((wave_steps, macro_steps, cur_tok.shape[0]),
+                           dtype=torch.int32, device=cur_tok.device)
+        for m in range(wave_steps):
+            toks[m], cache, cur_tok, lengths, remaining, done = loop(
+                params, cache, cur_tok, lengths, remaining, done)
+        return toks, cache, cur_tok, lengths, remaining, done
+
+    return wave_driver
+
+
+class _DecodeLauncher:
+    """One background thread that launches the fused decode programs.
+
+    ``submit`` returns a future at once, so ``t_dispatch_s`` is the submit
+    cost and the macro-step's launch and device work land in ``t_await_s``
+    at ``Future.result()``, while the caller's thread queues shadow
+    prefills behind it.  The first submit of each program runs inline on
+    the caller's thread and returns the bare result (callers treat a
+    future-less return as complete), as in the JAX engine.
+
+    PyTorch keeps the current device, the current stream and grad mode per
+    thread: the worker sets the engine's device once and launches each
+    program under ``no_grad`` on the stream that was current on the
+    submitting thread, so every decode step of the engine (and every
+    decode_attention split ticket, keyed by device and stream) stays on
+    the one decode stream."""
+
+    def __init__(self, device: torch.device):
+        self._device = device
+        self._pool: Optional[ThreadPoolExecutor] = None
+        self._warm: set = set()
+
+    def _enter_device(self) -> None:
+        if self._device.type == "cuda":
+            torch.cuda.set_device(self._device)
+
+    @staticmethod
+    def _launch(stream, fn, args):
+        with torch.no_grad(), torch.cuda.stream(stream):
+            return fn(*args)
+
+    def submit(self, fn, *args):
+        if id(fn) not in self._warm:
+            self._warm.add(id(fn))
+            return fn(*args)
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="decode-launch",
+                initializer=self._enter_device)
+        stream = torch.cuda.current_stream(self._device) \
+            if self._device.type == "cuda" else None
+        return self._pool.submit(self._launch, stream, fn, args)
 
 
 # ---------------------------------------------------------------------------
@@ -210,3 +295,857 @@ class ServingEngine:
             tokens=toks, prefill_s=t_prefill, decode_s=t_decode,
             tokens_per_s=toks.size / max(t_decode + t_prefill, 1e-9),
             host_syncs=host_syncs)
+
+
+# ---------------------------------------------------------------------------
+# Continuous batching
+# ---------------------------------------------------------------------------
+def _merge_cache(cfg, big_cache, prefill_cache, upd):
+    """Walk the decode-cache tree, applying ``upd(dst_leaf, src_leaf)`` at
+    every leaf: dense and MoE ``{"self": kv}``, SSM ``(conv, ssm)`` tuples
+    and the hybrid ``{"backbone", "shared"}``.  Shared by the per-slot
+    write and the fused splice -- only the leaf update differs."""
+    def copy_kv(dst, src):
+        if "self" in dst:            # unwrap {"self": ...} wrappers
+            return {key: copy_kv(dst[key], src[key]) for key in dst}
+        if "k_scale" in dst:
+            raise NotImplementedError("the int8 KV cache is not ported yet")
+        return tree_map(upd, dst, src)
+
+    kind = M._kind(cfg)
+    if kind == "ssm":
+        return tree_map(upd, big_cache, prefill_cache)
+    if kind == "hybrid":
+        return {"backbone": tree_map(upd, big_cache["backbone"],
+                                     prefill_cache["backbone"]),
+                "shared": copy_kv(big_cache["shared"], prefill_cache["shared"])}
+    return {"self": copy_kv(big_cache["self"], prefill_cache["self"])}
+
+
+def write_slot_cache(cfg, big_cache, prefill_cache, slot):
+    """Write a B=1 prefill cache into slot ``slot`` of the big decode cache,
+    in place.  Every leaf is ``[L, B, ...]`` and the prefill leaf ``[L, 1,
+    P, ...]`` (or ``[L, 1, ...]`` for SSM states); positions past the
+    prompt keep the slot's previous occupant's bytes, which the per-slot
+    length masks hide.  Routes through ``ops.splice_blocks`` with a
+    one-element slot vector, as the JAX engine does."""
+    dev = tree_leaves(big_cache)[0].device
+    ids = torch.full((1,), int(slot), dtype=torch.int32, device=dev)
+    return _merge_cache(cfg, big_cache, prefill_cache,
+                        lambda d, s: ops.splice_blocks(d, s, ids))
+
+
+def stack_prefill_blocks(caches):
+    """Stack M B=1 prefill caches on the slot axis (axis 1, after the
+    layer axis) into the ``blocks`` tree :func:`splice_slot_caches` takes."""
+    return tree_map(lambda *xs: torch.cat(xs, dim=1), *caches)
+
+
+def splice_slot_caches(cfg, big_cache, blocks, slot_ids):
+    """Write M B=1 prefill caches (a list, or a tree stacked on axis 1)
+    into slots ``slot_ids`` [M] of the big decode cache in one pass over
+    its leaves, in place: the cross-group splice of disaggregated
+    prefill."""
+    if isinstance(blocks, (list, tuple)):
+        blocks = stack_prefill_blocks(blocks)
+    return _merge_cache(cfg, big_cache, blocks,
+                        lambda d, s: ops.splice_blocks(d, s, slot_ids))
+
+
+def admit_boundary(cfg, big_cache, blocks, slot_ids, cur_tok, lengths,
+                   remaining, done, last_logits, prompt_lens, max_news,
+                   *, eos_id: int = -1):
+    """A whole admission boundary: splice the admitted blocks into the big
+    cache (:func:`splice_slot_caches`) and scatter the four decode-state
+    vectors (``ops.admit_state``), all in place.  Every vector and the
+    block list are padded to the slot width by repeating the last real
+    entry (identical duplicate writes).  Returns ``(cache, cur_tok,
+    lengths, remaining, done, first)``."""
+    cache = splice_slot_caches(cfg, big_cache, blocks, slot_ids)
+    cur_tok, lengths, remaining, done, first = ops.admit_state(
+        cur_tok, lengths, remaining, done, slot_ids, last_logits,
+        prompt_lens, max_news, eos_id=eos_id)
+    return cache, cur_tok, lengths, remaining, done, first
+
+
+@dataclass
+class ServeRequest:
+    """One unit of work for the continuous-batching queue."""
+    uid: int
+    prompt: np.ndarray                 # [P] int32 (padded to the engine's P)
+    max_new: int
+    frontend: Optional[np.ndarray] = None
+    task: str = ""                     # HeteroRuntime registry key ("" =
+                                       # sole registered task)
+
+
+@dataclass
+class RequestOutput:
+    uid: int
+    tokens: np.ndarray                 # [n_generated] int32
+    admitted_step: int
+    finished_step: int
+
+
+@dataclass
+class ContinuousStats:
+    requests: int
+    total_tokens: int
+    decode_steps: int
+    prefill_s: float
+    decode_s: float
+    tokens_per_s: float
+    occupancy: float                   # mean fraction of busy slots per step
+    host_syncs: int = 0                # device->host reads (one per macro-
+                                       # step + one per admission phase;
+                                       # per token when macro_steps=0)
+    macro_dispatches: int = 0          # fused K-token macro-steps executed
+                                       # (wave launches count M each)
+    wave_launches: int = 0             # launches of the fused decode driver
+    t_per_macro_step_s: float = 0.0    # decode wall per fused dispatch
+    t_prefill_overlap_s: float = 0.0   # host wall dispatching shadow
+                                       # prefills behind the in-flight
+                                       # macro-step (off the critical path)
+    admission_stalls: int = 0          # boundaries where live slots waited
+                                       # on a prefill
+    shadow_prefills: int = 0           # speculative prefills dispatched
+    prefill_offloaded: int = 0         # shadows sent to the prefill group
+    t_kv_transfer_s: float = 0.0       # priced KV-transfer hop total
+    prefill_fallbacks: int = 0         # prefill-group failures recovered
+                                       # by local shadow prefill
+    # on the fused paths decode_s == t_dispatch_s + t_await_s exactly; all
+    # four stay 0.0 on the per-step path
+    t_splice_s: float = 0.0            # wall of the fused cross-group
+                                       # splice (disaggregated boundaries)
+    t_slot_write_s: float = 0.0        # wall of the per-slot cache writes
+    t_dispatch_s: float = 0.0          # wall submitting decode macro-steps
+    t_await_s: float = 0.0             # wall blocked on the token block
+    prefix_hits: int = 0               # requests that reused >= 1 cached
+                                       # prefix block (full hits included)
+    prefix_blocks_reused: int = 0      # cached KV blocks reused
+    prefill_flops_avoided: float = 0.0  # analytic prefill FLOPs skipped
+    prefill_flops_total: float = 0.0   # ... and what no cache would cost
+    kv_hop_bytes_raw: float = 0.0      # prefill->decode KV bytes before
+                                       # sender-side compaction
+    kv_hop_bytes_wire: float = 0.0     # ... and what crossed the link
+
+
+@dataclass
+class _Shadow:
+    """One in-flight speculative prefill (shadow slot)."""
+    req: ServeRequest
+    logits: Any                        # last-token logits
+    cache: Any                         # B=1 prefill cache; None for
+                                       # single-token requests
+    remote: bool = False               # lives on the prefill group until
+                                       # fetched
+    hit: Any = None                    # PrefixHit behind a resumed remote
+                                       # prefill (its prefix and pins)
+    ready: Any = None                  # CUDA event on the side stream
+                                       # after the shadow's last work
+
+
+@dataclass
+class _Slot:
+    uid: int = -1
+    remaining: int = 0
+    tokens: List[int] = field(default_factory=list)
+    admitted_step: int = 0
+    finished_at: int = -1              # micro-step the last token landed
+                                       # on (eviction may lag)
+
+    @property
+    def busy(self) -> bool:
+        return self.uid >= 0
+
+
+def _fetch(t: torch.Tensor) -> np.ndarray:
+    """One host read (a host sync on the card)."""
+    return t.cpu().numpy()
+
+
+class ContinuousServingEngine:
+    """Slot-based continuous batching with greedy decoding.
+
+    A fixed ``slots``-wide decode batch; requests are admitted into free
+    slots (a B=1 prefill written into the slot's cache rows), every
+    macro-step advances all slots up to ``macro_steps`` tokens with
+    per-slot cache indices, and finished requests are evicted at the next
+    boundary.  Streams equal static batching's and the per-step loop's:
+    each slot attends only to its own positions, so a frozen slot decoding
+    junk until the boundary cannot reach a live one.
+
+    The decode state (``cur_tok`` / ``lengths`` / ``remaining`` /
+    ``done``) stays on the device; the host reads one ``[K, slots]`` token
+    block per macro-step and one first-token block per admission phase.
+    ``macro_steps=0`` keeps the per-token host loop.  ``overlap_admission``
+    (the default on the fused path) runs the speculative shadow-slot
+    schedule; ``wave_steps=M`` runs M macro-steps per launch;
+    ``async_dispatch`` launches them from a worker thread.
+
+    ``prefill_worker`` (a :class:`repro_torch.serving.prefill.PrefillWorker`
+    or pool) takes the shadow prefills on the overlapped path and sends
+    their blocks back over its priced hop; if it fails the engine falls back
+    to local shadow prefill with the same streams.  ``prefix_cache`` (a
+    :class:`repro_torch.serving.prefix_cache.PrefixCache`) is consulted
+    before every prefill: exact full hits skip prefill (and the hop),
+    partial hits resume from the cached blocks.  ``share_from``: a sibling
+    engine over the same cfg whose decode programs this one reuses.  Runs
+    on the card unless ``device`` says otherwise."""
+
+    def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 512,
+                 use_kernels: Union[bool, str] = "auto",
+                 eos_id: Optional[int] = None,
+                 macro_steps: int = 8,
+                 wave_steps: int = 1,
+                 overlap_admission: bool = True,
+                 async_dispatch: bool = True,
+                 prefill_worker: Optional[Any] = None,
+                 prefix_cache: Optional[Any] = None,
+                 share_from: Optional["ContinuousServingEngine"] = None,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.cfg, self.params = cfg, params
+        self.prefix_cache = prefix_cache
+        self.slots, self.max_len, self.eos_id = slots, max_len, eos_id
+        self.macro_steps = int(macro_steps)
+        self.wave_steps = int(wave_steps)
+        if self.wave_steps < 1:
+            raise ValueError(f"wave_steps must be >= 1, got {wave_steps}")
+        if self.wave_steps > 1 and self.macro_steps == 0:
+            raise ValueError("wave_steps > 1 needs the fused decode path "
+                             "(macro_steps > 0)")
+        self.async_dispatch = bool(async_dispatch)
+        self.overlap_admission = bool(overlap_admission)
+        self.prefill_worker = prefill_worker
+        if prefill_worker is not None and (
+                self.macro_steps == 0 or not self.overlap_admission):
+            raise ValueError(
+                "disaggregated prefill (prefill_worker=) requires the "
+                "overlapped fused path: macro_steps > 0 and "
+                "overlap_admission=True")
+        self.prefill_remote = prefill_worker is not None
+        self._use_kernels = resolve_use_kernels(use_kernels, self.device)
+        if share_from is not None and share_from.cfg is cfg:
+            self.prefill = share_from.prefill
+            self.step = share_from.step
+            self._loops = share_from._loops
+            self._waves = share_from._waves
+        else:
+            self.prefill = make_prefill_step(cfg, use_kernels=self._use_kernels)
+            self.step = make_serve_step(cfg, use_kernels=self._use_kernels)
+            self._loops: Dict[Tuple[int, Optional[int]], Any] = {}
+            self._waves: Dict[Tuple[int, int, Optional[int]], Any] = {}
+        self._on_tokens: Optional[Callable[[int, int, List[int]], None]] = None
+        self._launcher = _DecodeLauncher(self.device) \
+            if self.async_dispatch else None
+        # the overlapped schedule's shadow work runs on its own stream
+        self._side = torch.cuda.Stream(self.device) \
+            if self.device.type == "cuda" else None
+
+    def _get_loop(self, K: int):
+        key = (K, self.eos_id)
+        if key not in self._loops:
+            self._loops[key] = make_decode_loop(
+                self.cfg, macro_steps=K, eos_id=self.eos_id,
+                use_kernels=self._use_kernels)
+        return self._loops[key]
+
+    def _get_wave(self, K: int, W: int):
+        key = (K, W, self.eos_id)
+        if key not in self._waves:
+            self._waves[key] = make_wave_driver(
+                self.cfg, macro_steps=K, wave_steps=W, eos_id=self.eos_id,
+                use_kernels=self._use_kernels)
+        return self._waves[key]
+
+    # ------------------------------------------------------------------
+    def _make_batch(self, req: ServeRequest):
+        """The host-side (numpy) batch: the prefill uploads it, and the
+        prefill pool's affinity key hashes the prompt without a device
+        read."""
+        if req.frontend is not None:
+            raise NotImplementedError("frontend (vlm/audio) inputs are not "
+                                      "ported yet")
+        return {"tokens": np.asarray(req.prompt)[None]}
+
+    def _prefill(self, batch):
+        dev_batch = {"tokens": upload(batch["tokens"], self.device)}
+        if "prefix" in batch:
+            dev_batch["prefix"] = batch["prefix"]
+        return self.prefill(self.params, dev_batch)
+
+    def _account_hit(self, hit) -> None:
+        """Fold one PrefixHit (hit or miss) into the run's counters."""
+        if hit.hit:
+            self._pc_hits += 1
+            self._pc_blocks += hit.blocks
+        self._pc_flops_avoided += hit.flops_avoided
+        self._pc_flops_total += hit.flops_total
+
+    def _prefill_via_cache(self, req: ServeRequest):
+        """B=1 local prefill through the prefix cache: an exact full hit
+        skips the prefill, a partial hit resumes from the cached span, and
+        whatever was prefilled is indexed before the caller consumes it."""
+        pc = self.prefix_cache
+        batch = self._make_batch(req)
+        if pc is None:
+            return self._prefill(batch)
+        hit = pc.match(req.prompt, frontend=req.frontend)
+        self._account_hit(hit)
+        if hit.full is not None:
+            return hit.full
+        if hit.prefix is not None:
+            batch = dict(batch, prefix=hit.prefix)
+        logits, cache = self._prefill(batch)
+        pc.insert(req.prompt, logits, cache, frontend=req.frontend)
+        pc.release(hit)
+        return logits, cache
+
+    # ------------------------------------------------------------------
+    def _emit_tokens(self, uid: int, start: int, toks) -> None:
+        """Stream host-landed tokens to the run's ``on_tokens`` hook as
+        ``(uid, absolute position of toks[0], tokens)``."""
+        if self._on_tokens is not None and len(toks):
+            self._on_tokens(uid, start, [int(t) for t in toks])
+
+    def _consume_block(self, block, slot_states, K: int,
+                       step_no: int) -> Tuple[int, float]:
+        """Host bookkeeping for one fetched ``[K, slots]`` token block,
+        mirroring the device's freeze logic: each live slot takes tokens
+        until its budget runs out or eos lands.  Returns (steps used, busy
+        occupancy increment)."""
+        eos = self.eos_id
+        consumed = np.zeros((self.slots,), np.int64)
+        for i, s in enumerate(slot_states):
+            if not s.busy or s.remaining <= 0 or (
+                    eos is not None and s.tokens and s.tokens[-1] == eos):
+                continue
+            col = block[:min(s.remaining, K), i]
+            if eos is not None:
+                hits = np.nonzero(col == eos)[0]
+                if hits.size:
+                    col = col[:hits[0] + 1]
+            s.tokens.extend(int(x) for x in col)
+            self._emit_tokens(s.uid, len(s.tokens) - len(col), col)
+            s.remaining -= len(col)
+            consumed[i] = len(col)
+            if s.remaining <= 0 or (eos is not None and s.tokens[-1] == eos):
+                s.finished_at = step_no + len(col)
+        steps_used = int(consumed.max())
+        busy_inc = sum(float((consumed > j).sum()) / self.slots
+                       for j in range(steps_used))
+        return steps_used, busy_inc
+
+    # ------------------------------------------------------------------
+    def _pad_admit_args(self, entries):
+        """The fixed-width admission vectors for ``entries`` (a list of
+        ``(slot, req, last_logits)``), padded to the slot count by
+        repeating the last real entry.  Returns ``(slot_ids [slots],
+        logits [slots, V], prompt_lens [slots], max_news [slots])``."""
+        pad = self.slots - len(entries)
+        ids = [e[0] for e in entries] + [entries[-1][0]] * pad
+        logits = [e[2] for e in entries] + [entries[-1][2]] * pad
+        plens = [len(e[1].prompt) for e in entries]
+        plens += [plens[-1]] * pad
+        mnews = [e[1].max_new for e in entries]
+        mnews += [mnews[-1]] * pad
+        vec = lambda v: upload(np.asarray(v, np.int32), self.device)  # noqa: E731
+        return vec(ids), torch.cat(logits, dim=0), vec(plens), vec(mnews)
+
+    def _per_step_advance(self, cache, cur_tok, lengths, done):
+        """One ``macro_steps=0`` decode step with the state advance on the
+        device: greedy-argmax the next token, move only the live slots, and
+        read the token vector -- the step's one host sync."""
+        logits, cache = self.step(self.params, cache, cur_tok[:, None], lengths)
+        new_tok = logits.argmax(dim=-1).to(torch.int32)
+        adv = ~done
+        cur_tok = torch.where(adv, new_tok, cur_tok)
+        lengths = lengths + adv.to(lengths.dtype)
+        return cache, cur_tok, lengths, _fetch(new_tok)
+
+    def _admit_free_slots(self, pending, slot_states, cache, cur_tok,
+                          lengths, remaining, done, step_no: int):
+        """Admit queued requests into every free slot: all prefills and
+        slot writes first, then one padded ``admit_slots`` and one read of
+        the admitted slots' first tokens.  Returns the state, the host
+        syncs made and the wall spent in the slot writes."""
+        admitted = []
+        t_write = 0.0
+        for slot, s in enumerate(slot_states):
+            if not s.busy and pending:
+                req = pending.popleft()
+                last_logits, pre_cache = self._prefill_via_cache(req)
+                tw0 = time.perf_counter()
+                cache = write_slot_cache(self.cfg, cache, pre_cache, slot)
+                t_write += time.perf_counter() - tw0
+                admitted.append((slot, req, last_logits))
+        syncs = 0
+        if admitted:
+            ids, logits, plens, mnews = self._pad_admit_args(admitted)
+            cur_tok, lengths, remaining, done, first_dev = ops.admit_slots(
+                cur_tok, lengths, remaining, done, ids, logits, plens, mnews,
+                eos_id=-1 if self.eos_id is None else int(self.eos_id))
+            firsts = _fetch(first_dev)
+            syncs = 1
+            for (slot, req, _), first in zip(admitted, firsts):
+                slot_states[slot] = _Slot(
+                    uid=req.uid, remaining=req.max_new - 1,
+                    tokens=[int(first)], admitted_step=step_no)
+                self._emit_tokens(req.uid, 0, [int(first)])
+        return cache, cur_tok, lengths, remaining, done, syncs, t_write
+
+    def _init_state(self):
+        """Fresh decode state (``done`` marks free slots) and big cache."""
+        dev, n = self.device, self.slots
+        zeros = lambda: torch.zeros((n,), dtype=torch.int32, device=dev)  # noqa: E731
+        lengths, cur_tok, remaining = zeros(), zeros(), zeros()
+        done = torch.ones((n,), dtype=torch.bool, device=dev)
+        cache = M.init_cache(self.cfg, n, self.max_len,
+                             dtype=self.cfg.torch_dtype, device=dev)
+        return cache, cur_tok, lengths, remaining, done
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def run(self, requests: Sequence[ServeRequest],
+            on_tokens: Optional[Callable[[int, int, List[int]], None]] = None
+            ) -> Tuple[List[RequestOutput], ContinuousStats]:
+        self._on_tokens = on_tokens
+        if not requests:
+            return [], ContinuousStats(0, 0, 0, 0.0, 0.0, 0.0, 0.0)
+        P = len(requests[0].prompt)
+        if not all(len(r.prompt) == P for r in requests):
+            raise ValueError("pad prompts to a common length before "
+                             "submission")
+        if not all(r.max_new >= 1 for r in requests):
+            raise ValueError("every request needs max_new >= 1")
+        if P + max(r.max_new for r in requests) > self.max_len:
+            raise ValueError("max_len too small for prompt + generation")
+        # this run's prefix-cache / KV-hop deltas (the cache is shared)
+        self._pc_hits = self._pc_blocks = 0
+        self._pc_flops_avoided = self._pc_flops_total = 0.0
+        self._kv_raw = self._kv_wire = 0.0
+        if self.macro_steps > 0 and self.overlap_admission:
+            return self._run_overlapped(requests)
+        return self._run_boundary(requests)
+
+    def _stats(self, outputs, step_no, busy_acc, t_prefill, t_decode,
+               wall, **kw) -> ContinuousStats:
+        total_tokens = sum(len(o.tokens) for o in outputs)
+        dispatches = kw.get("macro_dispatches", 0)
+        return ContinuousStats(
+            requests=len(outputs), total_tokens=total_tokens,
+            decode_steps=step_no, prefill_s=t_prefill, decode_s=t_decode,
+            tokens_per_s=total_tokens / max(wall, 1e-9),
+            occupancy=busy_acc / max(step_no, 1),
+            t_per_macro_step_s=t_decode / max(dispatches, 1) if dispatches
+            else 0.0,
+            prefix_hits=self._pc_hits,
+            prefix_blocks_reused=self._pc_blocks,
+            prefill_flops_avoided=self._pc_flops_avoided,
+            prefill_flops_total=self._pc_flops_total,
+            kv_hop_bytes_raw=self._kv_raw, kv_hop_bytes_wire=self._kv_wire,
+            **kw)
+
+    # ------------------------------------------------------------------
+    def _run_boundary(self, requests: Sequence[ServeRequest]
+                      ) -> Tuple[List[RequestOutput], ContinuousStats]:
+        """Boundary-blocking admission: every boundary with free slots
+        runs prefill while the live slots wait (the A/B baseline; and the
+        per-step loop when ``macro_steps=0``)."""
+        K = self.macro_steps
+        pending = deque(requests)
+        slot_states: List[_Slot] = [_Slot() for _ in range(self.slots)]
+        cache, cur_tok, lengths, remaining, done = self._init_state()
+        outputs: List[RequestOutput] = []
+        step_no = 0
+        busy_acc = 0.0
+        t_prefill = t_decode = 0.0
+        t_slot_write = t_dispatch = t_await = 0.0
+        host_syncs = dispatches = wave_launches = stalls = 0
+
+        def _finished(s: _Slot) -> bool:
+            return s.busy and (s.remaining <= 0
+                               or (self.eos_id is not None
+                                   and s.tokens[-1] == self.eos_id))
+
+        while pending or any(s.busy for s in slot_states):
+            # --- admit into every free slot ---------------------------
+            t0 = time.perf_counter()
+            live_before = any(s.busy for s in slot_states)
+            cache, cur_tok, lengths, remaining, done, n_sync, tw = \
+                self._admit_free_slots(pending, slot_states, cache, cur_tok,
+                                       lengths, remaining, done, step_no)
+            t_slot_write += tw
+            host_syncs += n_sync
+            if n_sync and live_before:
+                stalls += 1     # live slots sat idle through this prefill
+            t_prefill += time.perf_counter() - t0
+
+            # --- evict completed slots ---------------------------------
+            freed = False
+            for i, s in enumerate(slot_states):
+                if _finished(s):
+                    outputs.append(RequestOutput(
+                        uid=s.uid, tokens=np.asarray(s.tokens, np.int32),
+                        admitted_step=s.admitted_step,
+                        finished_step=s.finished_at if s.finished_at >= 0
+                        else step_no))
+                    slot_states[i] = _Slot()
+                    done[i] = True       # freeze the freed slot
+                    freed = True
+            if freed and pending:
+                continue  # refill freed slots before the next decode step
+            if not any(s.busy for s in slot_states):
+                break
+
+            if K == 0:
+                # --- per-token loop: one step, one sync per token ------
+                t0 = time.perf_counter()
+                cache, cur_tok, lengths, new_tok = self._per_step_advance(
+                    cache, cur_tok, lengths, done)
+                host_syncs += 1
+                t_decode += time.perf_counter() - t0
+                step_no += 1
+                busy_acc += sum(1 for s in slot_states if s.busy) / self.slots
+                for i, s in enumerate(slot_states):
+                    if s.busy:
+                        s.tokens.append(int(new_tok[i]))
+                        self._emit_tokens(s.uid, len(s.tokens) - 1,
+                                          [s.tokens[-1]])
+                        s.remaining -= 1
+                continue
+
+            # --- one fused macro-step (or wave of W) over all slots ----
+            W = self.wave_steps
+            fn = self._get_wave(K, W) if W > 1 else self._get_loop(K)
+            t0 = time.perf_counter()
+            toks, cache, cur_tok, lengths, remaining, done = \
+                fn(self.params, cache, cur_tok, lengths, remaining, done)
+            t1 = time.perf_counter()
+            block = _fetch(toks).reshape(-1, self.slots)   # the one sync
+            t2 = time.perf_counter()
+            t_dispatch += t1 - t0
+            t_await += t2 - t1
+            host_syncs += 1
+            dispatches += W
+            wave_launches += 1
+            steps_used, busy_inc = self._consume_block(
+                block, slot_states, W * K, step_no)
+            busy_acc += busy_inc
+            step_no += steps_used
+
+        synchronize(self.device)
+        if dispatches:
+            # decode_s == t_dispatch_s + t_await_s exactly on the fused path
+            t_decode = t_dispatch + t_await
+        outputs.sort(key=lambda o: o.uid)
+        return outputs, self._stats(
+            outputs, step_no, busy_acc, t_prefill, t_decode,
+            t_prefill + t_decode, host_syncs=host_syncs,
+            macro_dispatches=dispatches, wave_launches=wave_launches,
+            admission_stalls=stalls, t_slot_write_s=t_slot_write,
+            t_dispatch_s=t_dispatch, t_await_s=t_await)
+
+    # ------------------------------------------------------------------
+    def _run_overlapped(self, requests: Sequence[ServeRequest]
+                        ) -> Tuple[List[RequestOutput], ContinuousStats]:
+        """Speculative overlapped admission (the fused-path default).
+
+        Each iteration: (1) splice the ready shadow prefills into the free
+        slots with one :func:`admit_boundary` over slot-width padded
+        vectors (a shadow miss with live slots waiting is an admission
+        stall); (2) launch the macro-step (or wave) for the live slots, on
+        the launcher thread with ``async_dispatch``; (3) top the shadow
+        queue back up to ``slots`` speculative B=1 prefills, which run
+        behind the in-flight macro-step; (4) read its token block (the one
+        host sync), with the spliced slots' first tokens, and evict
+        finished slots.
+
+        On the card the shadow work (prefix-cache lookups, prefills, the
+        prefill group's dispatch and fetch) goes on a side stream; each
+        shadow records an event there, the decode stream waits on it before
+        the splice reads the shadow's tensors, and those tensors are
+        recorded on the decode stream so the allocator cannot hand their
+        memory out while the splice is still queued.
+
+        With a ``prefill_worker`` the shadows are prefilled on the prefill
+        group and their blocks fetched back over its priced hop (only a
+        resumed prefill's compacted tail crosses); a worker failure at
+        dispatch or fetch falls back to local prefill for that request and
+        every later one, counted in ``prefill_fallbacks``."""
+        from repro_torch.core.offload import GroupUnavailableError
+        from repro_torch.serving.prefill import PrefillWorkerError
+
+        worker_errors = (PrefillWorkerError, GroupUnavailableError)
+        dev = self.device
+        K, W, eos = self.macro_steps, self.wave_steps, self.eos_id
+        worker = self.prefill_worker
+        pending = deque(requests)
+        shadows: deque = deque()          # in-flight speculative prefills
+        slot_states: List[_Slot] = [_Slot() for _ in range(self.slots)]
+        cache, cur_tok, lengths, remaining, done = self._init_state()
+        decode_stream, side = None, self._side
+        if side is not None:
+            decode_stream = torch.cuda.current_stream(dev)
+            side.wait_stream(decode_stream)   # params, state, earlier runs
+        outputs: List[RequestOutput] = []
+        step_no = 0
+        busy_acc = 0.0
+        t_prefill = t_overlap = t_kv_transfer = 0.0
+        t_splice = t_slot_write = t_dispatch = t_await = 0.0
+        host_syncs = dispatches = stalls = n_shadow = wave_launches = 0
+        n_offloaded = n_fallbacks = 0
+
+        def _ready():
+            """An event after the side stream's work so far (None on CPU)."""
+            if side is None:
+                return None
+            ev = torch.cuda.Event()
+            ev.record(side)
+            return ev
+
+        def _consume(sh: _Shadow) -> None:
+            """Order the decode stream after the shadow's work and keep its
+            tensors' memory until the decode stream is done with them."""
+            if sh.ready is None:
+                return
+            decode_stream.wait_event(sh.ready)
+            for t in tree_leaves((sh.logits, sh.cache)):
+                if torch.is_tensor(t):
+                    t.record_stream(decode_stream)
+
+        def _use_remote() -> bool:
+            return (worker is not None and self.prefill_remote
+                    and worker.healthy)
+
+        def _dispatch_shadow():
+            req = pending.popleft()
+            with torch.cuda.stream(side):
+                sh = _shadow_prefill(req)
+                sh.ready = _ready()
+            shadows.append(sh)
+
+        def _shadow_prefill(req: ServeRequest) -> _Shadow:
+            nonlocal n_offloaded, n_fallbacks
+            pc = self.prefix_cache
+            hit = None
+            if pc is not None:
+                hit = pc.match(req.prompt, frontend=req.frontend)
+                self._account_hit(hit)
+                if hit.full is not None:
+                    # exact full hit: no prefill anywhere and no KV hop
+                    logits, cache_ = hit.full
+                    return _Shadow(req, logits,
+                                   None if req.max_new <= 1 else cache_)
+            batch = self._make_batch(req)
+            if hit is not None and hit.prefix is not None:
+                batch = dict(batch, prefix=hit.prefix)
+            # a single-token request never takes a slot: park its logits only
+            if _use_remote():
+                try:
+                    last_logits, pre_cache = worker.dispatch(batch)
+                    n_offloaded += 1
+                    return _Shadow(req, last_logits,
+                                   None if req.max_new <= 1 else pre_cache,
+                                   remote=True, hit=hit)
+                except worker_errors:
+                    n_fallbacks += 1    # this and every later shadow local
+            last_logits, pre_cache = self._prefill(batch)
+            if pc is not None:
+                pc.insert(req.prompt, last_logits, pre_cache,
+                          frontend=req.frontend)
+                pc.release(hit)
+            return _Shadow(req, last_logits,
+                           None if req.max_new <= 1 else pre_cache)
+
+        def _localize(sh: _Shadow) -> Tuple[_Shadow, int]:
+            """Bring a remote shadow's block over the priced hop (a resumed
+            prefill ships only its compacted tail); a local shadow passes
+            through.  A fetch failure re-prefills locally, which is exposed
+            prefill: the caller counts it like a shadow miss."""
+            nonlocal t_kv_transfer, n_fallbacks
+            if not sh.remote:
+                return sh, 0
+            pc = self.prefix_cache
+            prefix = sh.hit.prefix if sh.hit is not None else None
+            with torch.cuda.stream(side):
+                try:
+                    logits, blk, t_hop = worker.fetch(
+                        sh.logits, sh.cache, target=dev, prefix=prefix)
+                    t_kv_transfer += t_hop
+                    raw, wire = worker.last_fetch_bytes
+                    self._kv_raw += raw
+                    self._kv_wire += wire
+                    if pc is not None:
+                        if blk is not None:
+                            pc.insert(sh.req.prompt, logits, blk,
+                                      frontend=sh.req.frontend)
+                        pc.release(sh.hit)
+                    return _Shadow(sh.req, logits, blk, ready=_ready()), 0
+                except worker_errors:
+                    n_fallbacks += 1
+                    batch = self._make_batch(sh.req)
+                    if prefix is not None:
+                        batch = dict(batch, prefix=prefix)
+                    logits, pre = self._prefill(batch)
+                    if pc is not None:
+                        pc.insert(sh.req.prompt, logits, pre,
+                                  frontend=sh.req.frontend)
+                        pc.release(sh.hit)
+                    return _Shadow(sh.req, logits,
+                                   None if sh.req.max_new <= 1 else pre,
+                                   ready=_ready()), 1
+
+        def _eos_done(s: _Slot) -> bool:
+            return bool(s.tokens) and eos is not None and s.tokens[-1] == eos
+
+        while pending or shadows or any(s.busy for s in slot_states):
+            # --- 1. splice shadows into free slots (macro boundary) -----
+            t0 = time.perf_counter()
+            boundary_step = step_no
+            live_before = any(s.busy for s in slot_states)
+            inline = 0
+            newly: List[Tuple[int, ServeRequest, Any]] = []
+            blocks: List[Any] = []
+            # singles need no slot: flush every parked one at each boundary
+            singles: List[_Shadow] = [sh for sh in shadows
+                                      if sh.req.max_new <= 1]
+            if singles:
+                fillers = [sh for sh in shadows if sh.req.max_new > 1]
+                shadows.clear()
+                shadows.extend(fillers)
+            free = (i for i, s in enumerate(slot_states) if not s.busy)
+            slot = next(free, None)
+            while slot is not None:
+                if not shadows:
+                    if not pending:
+                        break
+                    _dispatch_shadow()   # shadow miss: prefill exposed
+                    inline += 1
+                sh = shadows.popleft()
+                if sh.req.max_new <= 1:
+                    singles.append(sh)   # completes from its prefill logits
+                    continue
+                sh, exposed = _localize(sh)
+                inline += exposed
+                _consume(sh)
+                newly.append((slot, sh.req, sh.logits))
+                blocks.append(sh.cache)
+                slot = next(free, None)
+            if singles:
+                flushed = []
+                for sh in singles:
+                    sh, exposed = _localize(sh)   # logits-only transfer
+                    inline += exposed
+                    _consume(sh)
+                    flushed.append(sh)
+                singles = flushed
+            if inline and live_before:
+                stalls += 1     # decode waited on an un-overlapped prefill
+            single_dev = None
+            if singles:
+                single_dev = torch.cat([sh.logits for sh in singles],
+                                       dim=0).argmax(dim=-1).to(torch.int32)
+            first_dev = None
+            if newly:
+                # one boundary pass for every admitted block, over vectors
+                # and blocks padded to the slot width; its wall lands in
+                # the splice bucket (disaggregated) or the slot-write one
+                tb0 = time.perf_counter()
+                ids, logits_cat, plens, mnews = self._pad_admit_args(newly)
+                blks = blocks + [blocks[-1]] * (self.slots - len(blocks))
+                cache, cur_tok, lengths, remaining, done, first_dev = \
+                    admit_boundary(self.cfg, cache, blks, ids, cur_tok,
+                                   lengths, remaining, done, logits_cat,
+                                   plens, mnews,
+                                   eos_id=-1 if eos is None else int(eos))
+                if worker is not None:
+                    t_splice += time.perf_counter() - tb0
+                else:
+                    t_slot_write += time.perf_counter() - tb0
+                for slot, req, _ in newly:
+                    slot_states[slot] = _Slot(
+                        uid=req.uid, remaining=req.max_new - 1,
+                        tokens=[], admitted_step=step_no)
+            t_prefill += time.perf_counter() - t0
+
+            # --- 2. launch the macro-step (never waits on prefill) -----
+            # the carried cache and state are handed to the launch and are
+            # not touched until the rebind at step 4
+            t0 = time.perf_counter()
+            launch = None
+            if any(s.busy and s.remaining > 0 and not _eos_done(s)
+                   for s in slot_states):
+                fn = self._get_wave(K, W) if W > 1 else self._get_loop(K)
+                args = (self.params, cache, cur_tok, lengths, remaining, done)
+                launch = self._launcher.submit(fn, *args) \
+                    if self._launcher is not None else fn(*args)
+            t_dispatch += time.perf_counter() - t0
+
+            # --- 3. top up speculative shadow prefills -----------------
+            # depth counts only slot-filling shadows (singles never take a
+            # slot and are flushed every boundary)
+            t0o = time.perf_counter()
+            while pending and sum(1 for sh in shadows
+                                  if sh.req.max_new > 1) < self.slots:
+                _dispatch_shadow()
+                n_shadow += 1
+            t_overlap += time.perf_counter() - t0o
+
+            # --- 4. the one await: token block + the first tokens -------
+            t0a = time.perf_counter()
+            block = None
+            if launch is not None:
+                res = launch.result() if hasattr(launch, "result") else launch
+                toks, cache, cur_tok, lengths, remaining, done = res
+                block = _fetch(toks).reshape(-1, self.slots)
+                host_syncs += 1
+                dispatches += W
+                wave_launches += 1
+            if first_dev is not None:
+                firsts = _fetch(first_dev)     # queued before the launch
+                host_syncs += 1
+                for (slot, req, _), first in zip(newly, firsts):
+                    slot_states[slot].tokens.append(int(first))
+                    self._emit_tokens(req.uid, 0, [int(first)])
+            if single_dev is not None:
+                host_syncs += 1
+                for sh, first in zip(singles, _fetch(single_dev)):
+                    outputs.append(RequestOutput(
+                        uid=sh.req.uid,
+                        tokens=np.asarray([int(first)], np.int32),
+                        admitted_step=boundary_step,
+                        finished_step=boundary_step))
+                    self._emit_tokens(sh.req.uid, 0, [int(first)])
+            t_await += time.perf_counter() - t0a
+
+            if block is not None:
+                steps_used, busy_inc = self._consume_block(
+                    block, slot_states, W * K, step_no)
+                busy_acc += busy_inc
+                step_no += steps_used
+
+            # --- evict finished slots (they resplice at step 1) --------
+            for i, s in enumerate(slot_states):
+                if s.busy and (s.remaining <= 0 or _eos_done(s)):
+                    outputs.append(RequestOutput(
+                        uid=s.uid, tokens=np.asarray(s.tokens, np.int32),
+                        admitted_step=s.admitted_step,
+                        finished_step=s.finished_at if s.finished_at >= 0
+                        else step_no))
+                    slot_states[i] = _Slot()
+
+        synchronize(dev)
+        # decode_s is dispatch + await (step 3's overlap window excluded)
+        t_decode = t_dispatch + t_await
+        outputs.sort(key=lambda o: o.uid)
+        return outputs, self._stats(
+            outputs, step_no, busy_acc, t_prefill, t_decode,
+            t_prefill + t_decode + t_overlap, host_syncs=host_syncs,
+            macro_dispatches=dispatches, wave_launches=wave_launches,
+            t_prefill_overlap_s=t_overlap, admission_stalls=stalls,
+            shadow_prefills=n_shadow, prefill_offloaded=n_offloaded,
+            t_kv_transfer_s=t_kv_transfer, prefill_fallbacks=n_fallbacks,
+            t_splice_s=t_splice, t_slot_write_s=t_slot_write,
+            t_dispatch_s=t_dispatch, t_await_s=t_await)

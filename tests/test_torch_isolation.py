@@ -43,7 +43,10 @@ def test_importing_every_module_loads_no_jax():
     mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m for m in mods]
     assert {"repro_torch.models.ssm", "repro_torch.kernels.ssm_scan",
             "repro_torch.configs.falcon_mamba_7b",
-            "repro_torch.configs.zamba2_2_7b"} <= set(mods)
+            "repro_torch.configs.zamba2_2_7b",
+            "repro_torch.configs.olmo_1b", "repro_torch.configs.nemotron_4_15b",
+            "repro_torch.serving.prefix_cache",
+            "repro_torch.serving.prefill"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -75,6 +78,17 @@ def test_entry_points_refuse_cpu_fallback():
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--reduced", "--requests", "2"])
+    # the continuous engine, the prefill worker (and pool), and the prefix
+    # cache, whose blocks live on its device
+    from repro_torch.serving.engine import ContinuousServingEngine
+    from repro_torch.serving.prefill import PrefillWorker, PrefillWorkerPool
+    from repro_torch.serving.prefix_cache import PrefixCache
+    for make in (lambda: ContinuousServingEngine(cfg, params),
+                 lambda: PrefillWorker(cfg, params),
+                 lambda: PrefillWorkerPool(cfg, params, size=2),
+                 lambda: PrefixCache(cfg)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
 
 
 def test_cpu_tensors_never_count_as_launches():

@@ -22,6 +22,7 @@ from repro_torch.configs.base import get_config, reduced  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 
 TOL = 1e-4
 
@@ -163,3 +164,65 @@ def test_forward_prefill_and_decode_logits(pair, test_seed):
         np.testing.assert_allclose(_np(dec.cache["self"]["k"]),
                                    np.asarray(jdec.cache["self"]["k"]),
                                    rtol=TOL, atol=TOL)
+
+
+# ---------------------------------------------------------------------------
+# the main path's other dense configs: olmo-1b and nemotron-4-15b
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", ["olmo-1b", "nemotron-4-15b"])
+def test_dense_configs_match_field_for_field(arch):
+    full, jfull = get_config(arch), jget_config(arch)
+    assert dataclasses.asdict(full) == dataclasses.asdict(jfull)
+    assert dataclasses.asdict(reduced(full)) == dataclasses.asdict(jreduced(jfull))
+    assert M.count_params_analytic(full) == jM.count_params_analytic(jfull)
+
+
+@pytest.mark.parametrize("mlp_type", ["squared_relu", "gelu", "swiglu"])
+def test_mlp_matches_jax(mlp_type, test_seed):
+    """Every MLP kind within 1e-5 of JAX's, on JAX's own init (squared ReLU
+    and gelu share the 2-matrix init)."""
+    jcfg = dataclasses.replace(jreduced(jget_config("nemotron-4-15b")),
+                               mlp_type=mlp_type)
+    cfg = dataclasses.replace(reduced(get_config("nemotron-4-15b")),
+                              mlp_type=mlp_type)
+    jp = jlayers.mlp_init(jax.random.PRNGKey(test_seed), jcfg, jcfg.d_model,
+                          jcfg.d_ff, jnp.float32)
+    assert set(jp) == ({"w_gate", "w_up", "w_down"} if mlp_type == "swiglu"
+                       else {"w_up", "w_down"})
+    gen = torch.Generator().manual_seed(test_seed)
+    stack = transformer.init_stack(gen, cfg, torch.float32, "cpu", "dense", 1)
+    assert set(stack["mlp"]) == set(jp)
+    x = np.random.default_rng(test_seed).standard_normal(
+        (2, 5, cfg.d_model)).astype(np.float32)
+    mine = layers.mlp_apply({k: torch.from_numpy(np.asarray(v)) for k, v in jp.items()},
+                            torch.from_numpy(x), cfg)
+    want = jlayers.mlp_apply(jp, jnp.asarray(x), jcfg)
+    np.testing.assert_allclose(_np(mine), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "nemotron-4-15b"])
+def test_dense_logits_match_jax(arch, test_seed):
+    """Prefill and a per-slot decode step within 1e-4 (olmo: nonparametric
+    norm, G = 1; nemotron: layernorm, squared-ReLU MLP, untied head)."""
+    jcfg = jreduced(jget_config(arch))
+    jparams = jM.init_params(jcfg, jax.random.PRNGKey(0))
+    cfg = reduced(get_config(arch))
+    params = convert.params_from_numpy(jax.tree.map(np.asarray, jparams), cfg,
+                                       device="cpu")
+    rng = np.random.default_rng(test_seed)
+    B, P, S = 2, 9, 16
+    toks = rng.integers(0, cfg.vocab_size, (B, P)).astype(np.int32)
+    jout = jM.forward(jparams, jcfg, {"tokens": jnp.asarray(toks)}, mode="prefill")
+    out = M.forward(params, cfg, {"tokens": torch.from_numpy(toks)}, mode="prefill")
+    np.testing.assert_allclose(_np(out.logits), np.asarray(jout.logits),
+                               rtol=TOL, atol=TOL)
+    jcache = jseed_cache(jcfg, jM.init_cache(jcfg, B, S), jout.cache, P)
+    nxt = rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32)
+    idx = np.array([P, P - 3], np.int32)
+    jdec = jM.forward(jparams, jcfg, {"token": jnp.asarray(nxt), "cache": jcache,
+                                      "cache_index": jnp.asarray(idx)}, mode="decode")
+    cache = convert.cache_from_numpy(jax.tree.map(np.asarray, jcache), "cpu")
+    dec = M.forward(params, cfg, {"token": torch.from_numpy(nxt), "cache": cache,
+                                  "cache_index": torch.from_numpy(idx)}, mode="decode")
+    np.testing.assert_allclose(_np(dec.logits), np.asarray(jdec.logits),
+                               rtol=TOL, atol=TOL)

@@ -114,3 +114,23 @@ def test_launcher_static_split_on_cpu(capsys):
     assert "solver: r* =" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         serve.main(["--reduced", "--device", "cpu", "--continuous"])
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "nemotron-4-15b"])
+@pytest.mark.parametrize("macro_steps", [0, 8])
+def test_dense_configs_generate_matches_jax(arch, macro_steps, test_seed):
+    """The main path's other dense configs: greedy streams identical to the
+    JAX ServingEngine's."""
+    jcfg = jreduced(jget_config(arch))
+    jparams = jM.init_params(jcfg, jax.random.PRNGKey(0))
+    cfg = reduced(get_config(arch))
+    params = convert.params_from_numpy(jax.tree.map(np.asarray, jparams), cfg,
+                                       device="cpu")
+    rng = np.random.default_rng(test_seed + 3)
+    prompts = rng.integers(0, cfg.vocab_size, (3, 10)).astype(np.int32)
+    want = JServingEngine(jcfg, jparams, max_len=32,
+                          macro_steps=macro_steps).generate(prompts, 11)
+    got = ServingEngine(cfg, params, max_len=32, macro_steps=macro_steps,
+                        device="cpu").generate(prompts, 11)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    assert got.host_syncs == want.host_syncs
