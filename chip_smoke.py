@@ -66,6 +66,40 @@ each; any failure exits non-zero before the result line:
            their plain versions; the tail's .contiguous() copy timed; a
            float32 2-layer cut: continuous streams equal the plain static
            path's up to its first top-2 gap < 1e-3
+  fleet_static  the launcher's static star with llama's params held:
+           --topology star --nodes 3 --split auto, 16 x 128 tokens, 32 new
+           (probe -> fit -> solve_star -> SplitVector -> each spoke's §VI
+           payload -> OffloadEngine); checks decode_attention == layers x
+           decode steps and masked_compact == the spokes that got requests;
+           reports f*, solve_star's host ms, t_parallel / t_serial; then
+           decode_attention at the probe's and each group's batch over 168
+           rows and masked_compact at each spoke's payload [n,128,2048]
+           against their plain versions
+  fleet_reference  one ContinuousServingEngine (slots 4, per-step,
+           max_len 296) over the fleet requests: 64 of the continuous
+           traffic's shape (4 shared 64-token prefixes, prompts padded to
+           256, max_new 1-32, 1,071 tokens): the streams the fleet
+           phases are held to
+  fleet_star / fleet_disagg / fleet_frontend  the launcher's
+           serve_continuous over HeteroRuntime (slots 4 a group, K=8,
+           overlapped admission, the launcher's 256 + 32 + 8 = 296 cache
+           rows, --split auto: the live controller) on
+           those requests: a star of 3 (waves of 16, solve_star re-solves);
+           a star of 4 whose spoke 3 prefills, with a PrefixCache (256
+           blocks of 8) and a 2-worker PrefillWorkerPool (KV hops on
+           masked_compact); the star of 3 behind ServingFrontend (tenants
+           interactive:0:2:0.5 and batch:1:1, queue depth 64).  Checks
+           every uid once with the reference's stream, decode_attention ==
+           layers x the model decode steps of every engine run (warmup
+           included), masked_compact == 2 x the hops that shipped a KV
+           tail, each solve_star result on the simplex (at least one),
+           prefix hits > 0, none refused; reports each wave's split,
+           counts and group walls, tokens/s, host syncs, solve_star's host
+           ms, hop bytes, each tenant's TTFT and ITL p50/p99
+  fleet_kernels  decode_attention at every (slots, cache rows) the fleet
+           engines decoded at, with llama's heads, and masked_compact at
+           every KV-tail shape [16, Rt, 512] the fleet hops shipped, against
+           their plain versions
   dense_slices  the launcher on olmo-1b (16 layers, d 2048, 16/16 heads of
            128) and nemotron-4-15b (32 layers, d 6144, 48/8 heads of 128,
            squared-ReLU MLP, 31 GB) at full width and depth, 16 x 128
@@ -185,6 +219,10 @@ KV_HOP = (16, 2048, 512)            # llama3.2-1b's K (or V) tail of one
 CONT_SLOTS, CONT_MAX_LEN, CONT_REQUESTS = 8, 512, 24
 CONT_PREFIX, CONT_P, CONT_MIN_PROMPT, CONT_MAX_NEW = 64, 256, 72, 48
 SIDE_SLOTS, SIDE_REQUESTS, SIDE_MAX_NEW = 4, 6, 8
+# the fleet paths (HeteroRuntime): slots per group, requests, most new tokens
+FLEET_SLOTS, FLEET_REQUESTS, FLEET_MAX_NEW = 4, 64, 32
+FLEET_MAX_LEN = CONT_P + FLEET_MAX_NEW + 8     # the launcher's cache rows
+FLEET_TENANTS = "interactive:0:2:0.5,batch:1:1"
 FFN_TOL = {"bfloat16": 5e-2, "float32": 2e-4}   # tests/test_kernels.py:129
 SCAN_TOL = 1e-5     # relative to max|h|: both versions sum in one order
 
@@ -470,10 +508,11 @@ def _expected_launches(cfg, s, prompt_len):
 
 
 def phase_slice(torch, arch=ARCH, *, phase="slice", split="auto",
-                requests=REQUESTS, max_new=MAX_NEW):
-    """The port's launcher in-process on ``arch``; the launch counts are
-    set to 0 just before and read just after, and held against what the
-    run's layers, steps and prefills imply.  Returns (summary, counts)."""
+                requests=REQUESTS, max_new=MAX_NEW, extra=()):
+    """The port's launcher in-process on ``arch`` (``extra``: more
+    arguments, e.g. a star topology); the launch counts are set to 0 just
+    before and read just after, and held against what the run's layers,
+    steps and prefills imply.  Returns (summary, counts)."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
@@ -481,7 +520,7 @@ def phase_slice(torch, arch=ARCH, *, phase="slice", split="auto",
     cfg = get_config(arch)
     argv = ["--arch", arch, "--requests", str(requests), "--prompt-len",
             str(PROMPT_LEN), "--max-new", str(max_new), "--macro-steps",
-            str(MACRO), "--split", split, "--device", "cuda"]
+            str(MACRO), "--split", split, "--device", "cuda", *extra]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -507,6 +546,7 @@ def phase_slice(torch, arch=ARCH, *, phase="slice", split="auto",
                 "masked_compact's count disagrees with the mask")
     groups = dict(zip(s["group_names"], s["n_group"])) if "n_group" in s else None
     emit({"phase": phase, "arch": arch, "argv": argv, "r_star": s.get("r_star"),
+          "f_star": s.get("f_star"), "solve_star_ms": s.get("solve_star_ms"),
           "r": s["r"], "groups": groups, "t_group_s": s.get("t_group_s"),
           "t_parallel_s": s.get("t_parallel_s"),
           "t_serial_s": s.get("t_serial_s"), "t_offload_s": s.get("t_offload_s"),
@@ -1352,29 +1392,30 @@ def phase_hybrid(torch, dev):
 # Continuous serving: llama3.2-1b with the prefix cache and disaggregated
 # prefill; then short continuous runs on the MoE and SSM paths
 # ---------------------------------------------------------------------------
-def _continuous_requests(cfg):
+def _continuous_requests(cfg, n_requests=CONT_REQUESTS, most_new=CONT_MAX_NEW):
     """llama's continuous traffic from request_stream(seed=0): 4 shared
-    64-token prefixes (the first 4 prompts, tiled), each followed by 6
-    distinct suffixes (the next 24 prompts, cut to 8-192 tokens), so the
-    prompts run 72-256 tokens, right-padded with 0 to 256 (the engine takes
-    one prompt length); the last request repeats the one before it exactly
-    (a full hit: the 256-block budget has evicted the earliest prompts'
-    tails by then); max_new from default_rng(0) over 1-48, with both
-    ends."""
+    64-token prefixes (the first 4 prompts, tiled), each followed by
+    distinct suffixes (the next ``n_requests`` prompts, cut to 8-192
+    tokens), so the prompts run 72-256 tokens, right-padded with 0 to 256
+    (the engine takes one prompt length); the last request repeats the one
+    before it exactly (a full hit at 24 requests: the 256-block budget has
+    evicted the earliest prompts' tails by then); max_new from
+    default_rng(0) over 1-``most_new``, with both ends (24 requests over
+    1-48 on the continuous path, 64 over 1-32 on the fleet paths)."""
     from repro_torch.data.pipeline import request_stream
     from repro_torch.serving.engine import ServeRequest
-    stream = request_stream(cfg.vocab_size, n=4 + CONT_REQUESTS,
+    stream = request_stream(cfg.vocab_size, n=4 + n_requests,
                             mean_prompt=PROMPT_LEN, seed=0)
     prompts = []
-    for i in range(CONT_REQUESTS):
+    for i in range(n_requests):
         body = stream[4 + i].prompt
         n = int(np.clip(len(body), CONT_MIN_PROMPT - CONT_PREFIX,
                         CONT_P - CONT_PREFIX))
         prompts.append(np.concatenate([np.resize(stream[i % 4].prompt, CONT_PREFIX),
                                        np.resize(body, n)]))
     prompts[-1] = prompts[-2].copy()
-    max_news = np.random.default_rng(0).integers(1, CONT_MAX_NEW + 1, CONT_REQUESTS)
-    max_news[1], max_news[2] = 1, CONT_MAX_NEW
+    max_news = np.random.default_rng(0).integers(1, most_new + 1, n_requests)
+    max_news[1], max_news[2] = 1, most_new
     return [ServeRequest(uid=i, max_new=int(m), prompt=np.pad(
         p, (0, CONT_P - len(p))).astype(np.int32))
         for i, (p, m) in enumerate(zip(prompts, max_news))]
@@ -1740,6 +1781,262 @@ def phase_side_continuous(torch, dev, cfg, params, phase):
     return counts_by_mode
 
 
+# ---------------------------------------------------------------------------
+class _FleetRecorder:
+    """While active: every ContinuousServingEngine.run's stats, K and
+    decode shape (slots, cache rows; the runtime's warmup runs included),
+    the shape of every resumed prefill's KV tail a prefill worker ships
+    (compact_kv_hop compacts its K and V with masked_compact), and the host
+    ms and result of every solve_star call the split controller makes.
+    The wrapped functions are called as they are; the recorder only reads
+    what goes in and out."""
+
+    def __enter__(self):
+        from repro_torch.core import scheduler
+        from repro_torch.serving import engine, prefill
+        self.runs, self.hops, self.solves = [], [], []
+        rec = self
+        self._saved = [(engine.ContinuousServingEngine, "run",
+                        engine.ContinuousServingEngine.run),
+                       (prefill, "compact_kv_hop", prefill.compact_kv_hop),
+                       (scheduler, "solve_star", scheduler.solve_star)]
+        run, hop, solve = (f for _, _, f in self._saved)
+
+        def run_rec(eng, *a, **kw):
+            outs, stats = run(eng, *a, **kw)
+            rec.runs.append((stats, eng.macro_steps, (eng.slots, eng.max_len)))
+            return outs, stats
+
+        def hop_rec(cache, q_rows, *, keep_rate=None):
+            k = cache["self"]["k"]                  # [L, 1, S, Hkv, dh]
+            rec.hops.append((k.shape[0], k.shape[2] - q_rows,
+                             k.shape[3] * k.shape[4]))
+            return hop(cache, q_rows, keep_rate=keep_rate)
+
+        def solve_rec(fn, n, **kw):
+            t0 = time.perf_counter()
+            f, t = solve(fn, n, **kw)
+            rec.solves.append({"host_ms": 1e3 * (time.perf_counter() - t0),
+                               "fractions": [float(x) for x in f]})
+            return f, t
+
+        engine.ContinuousServingEngine.run = run_rec
+        prefill.compact_kv_hop = hop_rec
+        scheduler.solve_star = solve_rec
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+    def model_decode_steps(self) -> int:
+        return sum(_model_decode_steps(st, k) for st, k, _ in self.runs)
+
+
+def _fleet_requests(cfg):
+    """The fleet paths' 64 requests as the launcher takes them (a
+    request_stream-shaped record each; prompts already 256 tokens)."""
+    from repro_torch.data.pipeline import Request
+    return [Request(uid=r.uid, arrival_s=0.0, prompt=r.prompt,
+                    max_new_tokens=r.max_new)
+            for r in _continuous_requests(cfg, FLEET_REQUESTS, FLEET_MAX_NEW)]
+
+
+def phase_fleet_reference(torch, dev, cfg, params):
+    """The fleet paths' reference streams: one ContinuousServingEngine
+    (slots 4, per-step, the launcher's 296 cache rows) over the same 64
+    requests."""
+    from repro_torch.serving.engine import ServeRequest
+    reqs = [ServeRequest(uid=r.uid, prompt=r.prompt, max_new=r.max_new_tokens)
+            for r in _fleet_requests(cfg)]
+    outs, stats, counts, wall, peak = _run_engine(
+        torch, dev, cfg, params, reqs, slots=FLEET_SLOTS,
+        max_len=FLEET_MAX_LEN, macro_steps=0)
+    require(stats.total_tokens == sum(r.max_new for r in reqs),
+            f"fleet reference: {stats.total_tokens} tokens")
+    emit({"phase": "fleet_reference", "arch": cfg.name, "slots": FLEET_SLOTS,
+          "macro_steps": 0, "requests": len(reqs),
+          **_stats_row(stats, wall, peak, counts, 0)})
+    return {o.uid: o.tokens for o in outs}
+
+
+def _check_fleet_streams(name, streams, ref):
+    require(sorted(streams) == sorted(ref),
+            f"{name}: served uids {sorted(streams)} are not each request once")
+    diffs = {uid: _first_diff(ref[uid], np.asarray(streams[uid]))
+             for uid in ref}
+    diffs = {uid: d for uid, d in diffs.items() if d is not None}
+    require(not diffs, f"{name}: streams differ from the per-step engine's "
+            f"(uid: first position) {diffs}")
+
+
+def _check_fleet_launches(name, cfg, counts, rec):
+    steps = rec.model_decode_steps()
+    want = cfg.num_layers * steps
+    require(counts["decode_attention"] == want,
+            f"{name}: decode_attention launched {counts['decode_attention']} "
+            f"times, expected {cfg.num_layers} x {steps} model decode steps "
+            f"over {len(rec.runs)} engine runs")
+    require(counts["masked_compact"] == 2 * len(rec.hops),
+            f"{name}: masked_compact launched {counts['masked_compact']} times, "
+            f"expected 2 x {len(rec.hops)} hops that shipped a KV tail")
+    require(counts["grouped_ffn"] == counts["ssm_scan"] == 0,
+            f"{name}: MoE/SSM kernels launched: {counts}")
+    return steps
+
+
+def _waves_row(tel):
+    return [{"wave": w["wave"], "n": w["n"], "split": w["split"],
+             "counts": w["counts"], "wall_s": w["wall_s"],
+             "tokens": w["tokens"], "host_syncs": w["host_syncs"],
+             "prefill_route": w["prefill_route"],
+             "group_wall_s": {g: pg["wall_s"] for g, pg in w["per_group"].items()}}
+            for w in tel["waves"]]
+
+
+def phase_fleet_static(torch, dev, cfg):
+    """The launcher's static star: --topology star --nodes 3 --split auto
+    (probe -> fit -> solve_star -> SplitVector -> each spoke's §VI payload
+    -> OffloadEngine) on llama3.2-1b, 16 x 128 tokens, 32 new.  Checks
+    decode_attention == layers x decode steps and masked_compact == the
+    spokes that got requests; then decode_attention against its plain
+    version at the probe's and each group's batch over the engines' cache,
+    and masked_compact bit for bit at each spoke's payload [n, 128, d].
+    Returns (the launch counts, {kernel: max main-path error})."""
+    s, counts = phase_slice(torch, ARCH, phase="fleet_static",
+                            extra=("--topology", "star", "--nodes", "3"))
+    spokes = [n for g, n in zip(s["group_names"][1:], s["n_group"][1:]) if n]
+    require(len(s["f_star"]) == 3 and abs(sum(s["split"]) - 1.0) < 1e-6,
+            f"fleet_static: split {s['split']}")
+    require(counts["masked_compact"] == len(spokes) == len(s["compression_by_group"]),
+            f"fleet_static: masked_compact launched {counts['masked_compact']} "
+            f"times for {len(spokes)} spokes with requests")
+    emit({"phase": "fleet_static_split", "f_star": s["f_star"],
+          "solve_star_ms": s["solve_star_ms"], "t_parallel_s": s["t_parallel_s"],
+          "t_serial_s": s["t_serial_s"], "n_group": s["n_group"],
+          "compression_by_group": s["compression_by_group"]})
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    err = _check_decode_attention(torch, dev, gen, _batch_sizes(s),
+                                  cfg.num_heads, cfg.num_kv_heads,
+                                  cfg.head_dim, "fleet_static_kernels",
+                                  edge_cases=False)
+    mc = [_check_mc_at(torch, dev, gen, f"payload-spoke-{n}", n, PROMPT_LEN,
+                       cfg.d_model, "keep72") for n in sorted(set(spokes))]
+    emit({"phase": "fleet_static_kernels", "kernel": "masked_compact",
+          "tolerance": "exact", "cases": mc})
+    return counts, {"decode_attention": err, "masked_compact": 0.0}
+
+
+def phase_fleet(torch, dev, cfg, params, ref, phase):
+    """llama3.2-1b at full width through the launcher's serve_continuous
+    over HeteroRuntime on the card, with split "auto" (the live
+    controller), slots 4 per group, K=8, overlapped admission, 296 cache rows,
+    on the 64 requests; the launch counts set to 0 just before and read
+    just after.  ``phase``: fleet_star (a 3-group star: waves of 16, the
+    controller re-solves with solve_star), fleet_disagg (a 4-group star
+    whose spoke 3 prefills, a PrefixCache of 256 blocks of 8 and a 2-worker
+    PrefillWorkerPool; KV hops on masked_compact) or fleet_frontend (the
+    3-group star behind ServingFrontend, tenants interactive:0:2:0.5 and
+    batch:1:1, queue depth 64).  Checks every uid served once with the
+    per-step reference's stream, decode_attention == layers x the model
+    decode steps of every engine run, masked_compact == 2 x the hops that
+    shipped a tail; per phase, a star re-solve on the simplex, prefix hits,
+    no refusal.  Returns (the launch counts, the shapes the kernels ran at:
+    {"decode": {(slots, cache rows)}, "hops": {(layers, tail rows,
+    width)}})."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    reqs = _fleet_requests(cfg)
+    kw = dict(prompt_len=CONT_P, max_new=FLEET_MAX_NEW, slots=FLEET_SLOTS,
+              split="auto", macro_steps=MACRO, device=dev)
+    if phase == "fleet_disagg":
+        kw.update(topology=serve.build_topology("star", 4, prefill_group=3,
+                                                device=dev),
+                  prefix_cache_blocks=256, prefix_block_size=8, prefill_pool=2)
+    else:
+        kw.update(topology=serve.build_topology("star", 3, device=dev))
+    if phase == "fleet_frontend":
+        kw.update(frontend=True, tenants=serve.parse_tenants(FLEET_TENANTS),
+                  queue_depth=64)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _FleetRecorder() as rec:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = serve.serve_continuous(cfg, params, reqs, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = _check_fleet_launches(phase, cfg, counts, rec)
+    shapes = {"decode": {shape for _, _, shape in rec.runs},
+              "hops": set(rec.hops)}
+    row = {"phase": phase, "arch": cfg.name, "groups": len(kw["topology"]),
+           "slots": FLEET_SLOTS, "macro_steps": MACRO, "requests": len(reqs),
+           "wall_s": wall, "peak_memory_bytes": peak, "launches": counts,
+           "model_decode_steps": steps, "engine_runs": len(rec.runs),
+           "kv_tail_hops": len(rec.hops), "solve_star_calls": rec.solves}
+    if phase == "fleet_frontend":
+        tel = out["frontend"]
+        require(out["refused"] == 0, f"{phase}: {out['refused']} refused")
+        _check_fleet_streams(phase, out["streams"], ref)
+        row.update(waves_served=tel["waves_served"], runtime=tel["runtime"],
+                   tenants={n: {k: t[k] for k in (
+                       "submitted", "completed", "ttft_p50_s", "ttft_p99_s",
+                       "itl_p50_s", "itl_p99_s")} for n, t in tel["tenants"].items()})
+        emit(row)
+        return counts, shapes
+    tel, tot = out.telemetry, out.telemetry["totals"]
+    _check_fleet_streams(phase, {o.uid: o.tokens for o in out.outputs[cfg.name]},
+                         ref)
+    star_solves = [f for f in rec.solves
+                   if min(f["fractions"]) >= 0.0
+                   and abs(sum(f["fractions"]) - 1.0) < 1e-5]
+    require(star_solves and len(star_solves) == len(rec.solves),
+            f"{phase}: solve_star calls {rec.solves} (none, or off the simplex)")
+    for w in tel["waves"]:
+        require(sum(w["counts"]) == w["n"] and min(w["split"]) >= 0.0
+                and abs(sum(w["split"]) - 1.0) < 1e-3,
+                f"{phase}: wave {w['wave']} split {w['split']} counts {w['counts']}")
+    if phase == "fleet_disagg":
+        require(tot["prefix_hits"] > 0 and rec.hops
+                and tot["prefill_offloaded"] > 0 and tot["prefill_fallbacks"] == 0,
+                f"{phase}: hits {tot['prefix_hits']}, hops {len(rec.hops)}, "
+                f"offloaded {tot['prefill_offloaded']}, fallbacks "
+                f"{tot['prefill_fallbacks']}")
+    row.update({k: tot[k] for k in (
+        "tokens", "wall_s", "tok_per_s", "host_syncs", "host_syncs_per_token",
+        "admission_stalls", "final_split", "prefill_offloaded",
+        "t_kv_transfer_s", "prefix_hits", "prefix_blocks_reused",
+        "prefill_flops_avoided_frac", "kv_hop_bytes_raw", "kv_hop_bytes_wire",
+        "t_dispatch_s", "t_await_s")}, waves=_waves_row(tel))
+    emit(row)
+    return counts, shapes
+
+
+def phase_fleet_kernels(torch, dev, cfg, shapes):
+    """With no fleet run in flight: decode_attention against its plain
+    version at every (slots, cache rows) the fleet engines decoded at, with
+    llama's heads, and masked_compact bit for bit at every KV-tail shape
+    [layers, tail rows, Hkv*dh] a fleet hop shipped (all kept, as the
+    fleet phases' lossless hops keep them).  Returns {kernel: max
+    main-path error}."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    err = 0.0
+    for slots, rows in sorted(shapes["decode"]):
+        err = max(err, _check_decode_attention(
+            torch, dev, gen, [slots], cfg.num_heads, cfg.num_kv_heads,
+            cfg.head_dim, "fleet_kernels", S_main=rows, edge_cases=False))
+    mc = [_check_mc_at(torch, dev, gen, "fleet-kv-hop", L, Rt, D, "all")
+          for L, Rt, D in sorted(shapes["hops"])]
+    emit({"phase": "fleet_kernels", "kernel": "masked_compact",
+          "tolerance": "exact", "cases": mc})
+    return {"decode_attention": err, "masked_compact": 0.0}
+
+
 def phase_dense_slices(torch, dev):
     """olmo-1b and nemotron-4-15b at full width and depth through the
     launcher (the same 16 requests x 128 tokens, 32 new, --split auto), one
@@ -1854,6 +2151,20 @@ def main() -> None:
     cont_counts = timed("continuous", phase_continuous, torch, dev, cfg, params)
     cont_errs = timed("continuous_checks", phase_continuous_checks, torch, dev,
                       cfg, params)
+    # the fleet runtime: a static star, then HeteroRuntime three ways
+    fleet_counts, fleet_static_errs = timed("fleet_static", phase_fleet_static,
+                                            torch, dev, cfg)
+    fleet_counts = {"fleet_static": fleet_counts}
+    fleet_ref = timed("fleet_reference", phase_fleet_reference, torch, dev, cfg,
+                      params)
+    fleet_shapes = {"decode": set(), "hops": set()}
+    for fleet in ("fleet_star", "fleet_disagg", "fleet_frontend"):
+        fleet_counts[fleet], shapes = timed(fleet, phase_fleet, torch, dev, cfg,
+                                            params, fleet_ref, fleet)
+        for key in fleet_shapes:
+            fleet_shapes[key] |= shapes[key]
+    fleet_errs = timed("fleet_kernels", phase_fleet_kernels, torch, dev, cfg,
+                       fleet_shapes)
     del params
     torch.cuda.empty_cache()
     # the main path's other dense configs: olmo-1b, nemotron-4-15b
@@ -1911,6 +2222,7 @@ def main() -> None:
 
     by_path = {ARCH: counts}
     by_path.update({f"{ARCH} continuous {m}": c for m, c in cont_counts.items()})
+    by_path.update({f"{ARCH} {f}": c for f, c in fleet_counts.items()})
     by_path.update(dense_counts)
     by_path[MOE_ARCH] = moe_counts
     by_path.update({f"{MOE_ARCH} continuous {m}": c
@@ -1920,8 +2232,8 @@ def main() -> None:
                     for m, c in ssm_cont_counts.items()})
     by_path[HYBRID_ARCH] = hyb_counts
     kernels = kernels_line(rows + moe_rows + ssm_rows + long_rows, by_path,
-                           [errs, cont_errs, dense_errs, moe_errs, ssm_errs,
-                            hyb_errs])
+                           [errs, cont_errs, fleet_static_errs, fleet_errs,
+                            dense_errs, moe_errs, ssm_errs, hyb_errs])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

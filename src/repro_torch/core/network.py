@@ -9,6 +9,7 @@ derating) instead of a radio channel.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -23,6 +24,12 @@ class LinkModel:
     path_loss_exp: float = 2.0   # u  (0 => lossless medium)
     is_ici: bool = False         # deterministic interconnect mode
     congestion: float = 0.0      # fractional derating for the interconnect
+
+
+def with_bandwidth(link: LinkModel, bandwidth_hz: float) -> LinkModel:
+    """A copy of ``link`` at another live bandwidth (the mobility trace's
+    per-wave update); powers, path loss and mode are kept."""
+    return dataclasses.replace(link, bandwidth_hz=float(bandwidth_hz))
 
 
 def data_rate(link: LinkModel, distance_m=1.0) -> torch.Tensor:

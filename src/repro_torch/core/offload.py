@@ -126,7 +126,43 @@ class OffloadReport:
     n_group: Tuple[int, ...] = ()
     t_group_s: Tuple[float, ...] = ()   # per-group completion since dispatch
     t_link_s: Tuple[float, ...] = ()    # per-edge link latency (hub entry 0.0)
-    host_syncs: int = 0         # one await per dispatched group
+    host_syncs: int = 0         # device->host reads: one await per
+                                # dispatched group here; the serving
+                                # engines report one per macro-step + one
+                                # per admission phase
+    # --- continuous serving (filled by HeteroRuntime.serve per wave) -------
+    admission_stalls: int = 0   # macro boundaries where live decode slots
+                                # waited on a prefill
+    t_prefill_overlap_s: float = 0.0  # shadow-prefill dispatch wall hidden
+                                      # behind in-flight decode macro-steps
+    prefill_offloaded: int = 0  # shadow prefills sent to the prefill group
+    t_kv_transfer_s: float = 0.0  # priced KV-transfer hop total
+    prefill_fallbacks: int = 0  # prefill-group failures recovered by local
+                                # shadow prefill (streams unchanged)
+    prefix_hits: int = 0        # admissions that matched the radix trie
+    prefix_blocks_reused: int = 0  # trie blocks spliced into resumed
+                                   # prefills instead of recomputed
+    prefill_flops_avoided: float = 0.0  # analytic prefill FLOPs skipped
+    prefill_flops_total: float = 0.0    # ...of this analytic total
+    kv_hop_bytes_raw: float = 0.0   # uncompacted block bytes of the hops
+    kv_hop_bytes_wire: float = 0.0  # bytes that crossed (compacted tails)
+    group_alive: Tuple[bool, ...] = ()  # liveness per decode group this
+                                        # wave (ordered like group_names)
+    wave_requeued: int = 0      # requests re-queued onto survivors after a
+                                # mid-wave group failure
+    wave_retries: int = 0       # re-queued requests completing this wave
+    link_bw_hz: Tuple[float, ...] = ()  # live traced rate per decode edge
+                                        # (hub entry 0.0)
+    mobility_latched: int = 0   # edges forced local this wave by the
+                                # β-threshold mobility latch (§V-A.5)
+    admission_hot: Tuple[bool, ...] = ()   # per-decode-group hot flag
+    admission_rerouted: int = 0  # requests the hot mask re-routed this wave
+    power_headroom_w: Tuple[float, ...] = ()   # P_available − threshold
+    mem_headroom_frac: Tuple[float, ...] = ()  # λ − kv_bytes/(chips·memory)
+    t_splice_s: float = 0.0     # wall of the fused cross-group splices
+    t_slot_write_s: float = 0.0  # wall of the per-slot cache writes
+    t_dispatch_s: float = 0.0   # wall submitting decode macro-steps
+    t_await_s: float = 0.0      # wall blocked on the token blocks
 
     @property
     def t_parallel(self) -> float:

@@ -9,14 +9,17 @@
 The paper uses GEKKO+IPOPT; like the JAX package this is an exact dense
 scan over the (1-D, smooth, low-order-polynomial) objective with an
 exterior penalty for the constraints, then golden-section refinement in
-the best bracket: the same 1025-point grid and 60 iterations.
+the best bracket: the same 1025-point grid and 60 iterations.  For the
+star topology (paper §VIII future work) ``solve_star`` descends on the
+simplex of per-group fractions with ``torch.autograd``.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Callable, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.curvefit import FittedModels
@@ -78,6 +81,14 @@ def constraint_violations(models: FittedModels, cons: SolverConstraints, r):
                        f(cons.beta), f(cons.r_min))
 
 
+def penalized(models: FittedModels, cons: SolverConstraints, r,
+              penalty: float = 1e4) -> torch.Tensor:
+    """Objective plus an exterior penalty and a feasibility bias."""
+    v = constraint_violations(models, cons, r)
+    return objective(models, r) + penalty * torch.sum(v ** 2) \
+        + penalty * torch.sum(v > 0)
+
+
 def _golden_section(f, lo, hi, iters: int = 60):
     gr = torch.tensor((math.sqrt(5.0) - 1.0) / 2.0, dtype=_F32)
     a, b = lo, hi
@@ -124,3 +135,71 @@ def solve_split_ratio(models: FittedModels, cons: SolverConstraints) -> SolverRe
         feasible=bool(torch.all(v <= 1e-6)), t_baseline=t_base,
         improvement=1.0 - float(t_opt) / max(t_base, 1e-9),
         diagnostics={"violations": v.tolist()})
+
+
+# ---------------------------------------------------------------------------
+# Compression-aware joint solve: co-optimize the split ratio r AND the
+# masking keep-rate k (the paper treats them separately).
+# ---------------------------------------------------------------------------
+def solve_joint(models: FittedModels, cons: SolverConstraints, *,
+                accuracy_per_drop: float = 0.08, max_accuracy_loss: float = 0.02,
+                compute_scaling: float = 0.45) -> Tuple[float, float, float]:
+    """min_{r,k}  T(r,k) = r·(T1(r)·s(k) + T3(r)·k) + (1−r)·T2(r)·s(k)
+
+    where k ∈ (0,1] is the token keep-rate, s(k) = 1 − compute_scaling·(1−k)
+    is the §VI downstream-compute scaling, offload bytes scale ∝ k, and an
+    accuracy constraint bounds (1−k): paper §VI measured ~2 % accuracy loss
+    at ~28 % bandwidth saving, i.e. accuracy_per_drop ≈ 0.07.
+
+    Returns (r_opt, k_opt, t_opt) from a dense 257 x 65 scan (the surface
+    is smooth and low-order)."""
+    k_min = max(1e-3, 1.0 - max_accuracy_loss / max(accuracy_per_drop, 1e-9))
+    rs = torch.linspace(0.0, 1.0, 257, dtype=_F32)
+    ks = torch.linspace(k_min, 1.0, 65, dtype=_F32)
+    r, k = rs[:, None], ks[None, :]
+    s = 1.0 - compute_scaling * (1.0 - k)
+    T = r * (models.T1(r) * s + models.T3(r) * k) + (1.0 - r) * models.T2(r) * s
+    v = constraint_violations(models, cons, rs)           # [7, 257]
+    grid = T + 1e4 * torch.sum(v ** 2, dim=0)[:, None]
+    i = int(torch.argmin(grid))
+    return (float(rs[i // ks.shape[0]]), float(ks[i % ks.shape[0]]),
+            float(grid.reshape(-1)[i]))
+
+
+# ---------------------------------------------------------------------------
+# Star topology (paper §VIII future work): one hub, G spokes.
+# ---------------------------------------------------------------------------
+def solve_star(group_time_fn: Callable[[torch.Tensor], torch.Tensor],
+               n_groups: int, *, iters: int = 800,
+               lr: float = 0.1) -> Tuple[np.ndarray, float]:
+    """Minimize the parallel completion time  max_g T_g(f)  over the simplex
+    f ≥ 0, Σf = 1 (one fraction per group, hub first).
+
+    ``group_time_fn``: f [G] float32 tensor -> per-group total times [G]
+    (exec + offload), differentiable in torch.  A softmax parametrization
+    and an annealed smooth max (temperature ``max(0.5·0.995^i, 1e-3)``,
+    logsumexp) give a gradient at every step; ``iters`` steps of plain
+    descent at ``lr`` run on the host in float32.
+
+    The objective is normalized by its value at the uniform split first:
+    raw gradients scale with the workload's absolute seconds, and on
+    paper-magnitude profiles (tens of seconds) an unnormalized lr=0.1 step
+    saturates the softmax in one iteration."""
+    with torch.no_grad():
+        uniform = torch.full((n_groups,), 1.0 / n_groups, dtype=_F32)
+        scale = torch.clamp(torch.mean(group_time_fn(uniform)), min=1e-9)
+        temps = torch.clamp(0.5 * torch.pow(
+            torch.tensor(0.995, dtype=_F32), torch.arange(iters, dtype=_F32)),
+            min=1e-3)
+    theta = torch.zeros((n_groups,), dtype=_F32)
+    with torch.enable_grad():
+        for i in range(iters):
+            th = theta.detach().requires_grad_(True)
+            t = group_time_fn(torch.softmax(th, dim=0)) / scale
+            total = temps[i] * torch.logsumexp(t / temps[i], dim=0)
+            (g,) = torch.autograd.grad(total, th)
+            theta = th.detach() - lr * g
+    with torch.no_grad():
+        f_opt = torch.softmax(theta, dim=0)
+        t_opt = float(torch.max(group_time_fn(f_opt)))
+    return f_opt.numpy(), t_opt

@@ -1,26 +1,42 @@
-"""Serving launcher with HeteroEdge collaborative offloading (static batches).
+"""Serving launcher with HeteroEdge collaborative offloading.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --requests 16 --prompt-len 128 --max-new 32 [--reduced] \
-        [--split auto|none|<r>] [--macro-steps 8] [--device cuda|cpu]
+        [--split auto|none|<r>] [--macro-steps 8] [--device cuda|cpu] \
+        [--topology pair|star] [--nodes N] \
+        [--continuous] [--slots 4] [--wave-steps 1] \
+        [--no-overlap-admission] [--prefill-group G] \
+        [--prefix-cache-blocks N] [--prefix-block-size T] \
+        [--prefill-pool W] [--kv-keep-rate R] \
+        [--link-trace 4,12,28,12,4 [--mobility-beta 10]] \
+        [--power-budget-wh WH [--power-threshold-w W]] \
+        [--frontend [--tenants SPEC] [--queue-depth N] [--shed-depth N]] \
+        [--telemetry-json out.json]
 
-Serves a Poisson request stream as one static batch.  ``--split auto``
-runs the HeteroEdge loop: time a probe slice, fit the Eq. 1-3 polynomials,
-solve Eq. 4 for r*, price the offloaded slice's payload (its prompt
-embeddings compacted by the ``masked_compact`` kernel, paper §VI), then
-split the batch between the primary and the auxiliary node group.  With
-one card both groups share it; the decision logic and accounting are the
-same.  Runs on the card unless ``--device cpu``.
+Serves a Poisson request stream.  ``--split auto`` runs the HeteroEdge
+loop: time a probe slice, fit the Eq. 1-3 polynomials, solve for the split
+(Eq. 4 on a pair, ``solve_star`` over the groups of a star), price each
+spoke's offloaded slice (its prompt embeddings compacted by the
+``masked_compact`` kernel, paper §VI), then divide the batch across the
+topology's node groups.  With one card every group shares it; the decision
+logic and accounting are the same.  Runs on the card unless ``--device
+cpu``.
 
-The continuous-batching engine is ported (``serving.engine.
-ContinuousServingEngine``, with ``serving.prefix_cache`` and
-``serving.prefill``), but the launcher's continuous mode runs it through
-the multi-task runtime, which is not; that runtime's flags, the star
-topology and the int8 KV cache exit with "not ported yet".
+``--continuous`` serves through the
+:class:`~repro_torch.core.topology.HeteroRuntime` session: requests stream
+through fixed KV-cache slots on each node group, waves are apportioned by
+the live split from ``SplitRatioController`` (EWMA-smoothed measured
+timings re-solved every few waves), with the prefill spoke, prefix cache,
+mobility trace and power envelope flags; ``--frontend`` puts the asyncio
+multi-tenant ingress in front of it.  The int8 KV cache (``--kv-int8``)
+exits with "not ported yet".
 """
 from __future__ import annotations
 
 import argparse
+import asyncio
+import dataclasses
+import json
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -30,26 +46,37 @@ import torch
 import repro_torch.core as C
 from repro_torch.configs.base import get_config, list_configs, reduced
 from repro_torch.data.pipeline import request_stream
-from repro_torch.device import resolve_device
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.ops import resolve_use_kernels
 from repro_torch.models import model as M
 from repro_torch.models.layers import embed_apply
-from repro_torch.serving.engine import ServingEngine
-
-# flags of the JAX launcher whose paths this port does not have yet
-_NOT_PORTED_SWITCHES = ("--continuous", "--kv-int8", "--frontend")
-_NOT_PORTED_VALUES = ("--slots", "--wave-steps", "--prefill-group",
-                      "--prefix-cache-blocks", "--prefix-block-size",
-                      "--prefill-pool", "--kv-keep-rate", "--link-trace",
-                      "--mobility-beta", "--telemetry-json", "--tenants",
-                      "--queue-depth", "--shed-depth", "--power-budget-wh",
-                      "--power-threshold-w")
+from repro_torch.serving.engine import ServeRequest, ServingEngine
 
 # share of the offloaded slice's prompt tokens the §VI masking keeps when it
 # prices the link payload (the value examples/serve_offload.py uses)
 KEEP_RATE = 0.72
-# requests in the slice that ``--split auto`` times before it solves Eq. 4
+# requests in the slice that ``--split auto`` times before it solves
 PROBE_REQUESTS = 2
+
+
+def parse_tenants(spec: str) -> Dict[str, C.TenantClass]:
+    """``--tenants`` parser: a comma list of
+    ``name[:priority[:weight[:deadline_s]]]`` classes, e.g. the default
+    ``interactive:0:2:0.5,batch:1:1`` — priority 0 preempts the admission
+    queue (tightest TTFT deadline class), weight sets the weighted-deficit
+    fair share, deadline_s the class's TTFT target."""
+    tenants: Dict[str, C.TenantClass] = {}
+    for part in spec.split(","):
+        bits = [b.strip() for b in part.strip().split(":")]
+        if not bits[0]:
+            raise argparse.ArgumentTypeError(
+                f"--tenants entry {part!r} has no name")
+        tenants[bits[0]] = C.TenantClass(
+            bits[0],
+            priority=int(bits[1]) if len(bits) > 1 else 1,
+            weight=float(bits[2]) if len(bits) > 2 else 1.0,
+            deadline_s=float(bits[3]) if len(bits) > 3 else float("inf"))
+    return tenants
 
 
 def parse_split(value: str) -> Tuple[str, Optional[float]]:
@@ -82,17 +109,40 @@ def partition_devices(devs: list, nodes: int) -> list:
     return slices
 
 
-def build_topology(device: torch.device) -> C.Topology:
-    """The paper's pair: hub gets the Nano-class profile, the spoke the
-    Xavier-class one (the testbed's asymmetry)."""
+def build_topology(kind: str = "pair", nodes: int = 2,
+                   prefill_group: Optional[int] = None,
+                   device: DeviceLike = None) -> C.Topology:
+    """Partition the cards (all of them for ``device`` "cuda" without an
+    index, else the one device) into ``nodes`` groups; with fewer cards
+    than groups they share the first.  The hub gets the Nano-class
+    profile, spokes the Xavier-class one (the paper's testbed asymmetry).
+
+    ``prefill_group`` (a spoke's group index, 1..nodes-1) dedicates that
+    spoke to disaggregated prefill: it takes no decode waves, shadow
+    prefills ship there and their KV blocks splice back over the edge's
+    link.  On a pair this is pure disaggregation: the hub does all
+    decoding."""
+    if nodes < 2:
+        raise ValueError("--nodes must be >= 2 (hub + at least one spoke)")
+    if kind == "pair" and nodes != 2:
+        raise ValueError("--topology pair implies --nodes 2")
+    device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
         devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     else:
         devs = [device]
-    slices = partition_devices(devs, 2)
-    return C.Topology.pair(C.NodeGroup("primary", slices[0], C.JETSON_NANO),
-                           C.NodeGroup("auxiliary", slices[1], C.JETSON_XAVIER),
-                           C.WIFI_5GHZ)
+    slices = partition_devices(devs, nodes)
+    hub = C.NodeGroup("primary", slices[0], C.JETSON_NANO)
+    spokes = [C.NodeGroup(f"auxiliary{g}" if nodes > 2 else "auxiliary",
+                          slices[g], C.JETSON_XAVIER)
+              for g in range(1, nodes)]
+    if kind == "pair":
+        topo = C.Topology.pair(hub, spokes[0], C.WIFI_5GHZ)
+        if prefill_group is not None:
+            topo = dataclasses.replace(topo, prefill_spoke=prefill_group)
+        return topo
+    return C.Topology.star(hub, spokes, C.WIFI_5GHZ,
+                           prefill_spoke=prefill_group)
 
 
 def price_payload(params, cfg, prompts: np.ndarray, *,
@@ -117,13 +167,16 @@ def price_payload(params, cfg, prompts: np.ndarray, *,
 
 
 def serve_static(cfg, params, reqs, *, prompt_len: int, max_new: int,
-                 macro_steps: int, split: str,
-                 device: torch.device) -> Dict[str, Any]:
-    """Serve ``reqs`` as one static batch through the HeteroEdge split;
-    returns a summary (tokens, r*, timings, per-group counts, the decode
+                 macro_steps: int, split: str, device: torch.device,
+                 topology: Optional[C.Topology] = None) -> Dict[str, Any]:
+    """Serve ``reqs`` as one static batch through the HeteroEdge split
+    across ``topology`` (default: the pair); returns a summary (tokens, the
+    split, timings, per-group counts, each spoke's §VI payload, the decode
     steps and prefills, one per ``generate()`` call, that every engine of
     the run took, and each engine's decode wall per step, in ms, in the
     order the engines ran)."""
+    topology = topology or build_topology("pair", 2, device=device)
+    G = len(topology)
     P = prompt_len
     prompts = np.stack([np.pad(r.prompt[:P], (0, max(0, P - len(r.prompt))))
                         for r in reqs]).astype(np.int32)
@@ -141,7 +194,8 @@ def serve_static(cfg, params, reqs, *, prompt_len: int, max_new: int,
         return res.tokens
 
     summary: Dict[str, Any] = {"arch": cfg.name, "requests": B,
-                               "prompt_len": P, "max_new": max_new}
+                               "prompt_len": P, "max_new": max_new,
+                               "topology": topology.kind, "groups": G}
     mode, fixed_r = parse_split(split)
     if mode == "none":
         t0 = time.perf_counter()
@@ -155,7 +209,6 @@ def serve_static(cfg, params, reqs, *, prompt_len: int, max_new: int,
                        prefills=len(engines), ms_per_decode_step=ms_per_step)
         return summary
 
-    r_star = None
     if mode == "auto":
         # calibrate on a probe slice, synthesize profiles, solve
         t0 = time.perf_counter()
@@ -166,36 +219,65 @@ def serve_static(cfg, params, reqs, *, prompt_len: int, max_new: int,
             aux_p.add(r, probe * r, 6 * r, 50 * r)
             pri_p.add(r, probe * (1 - r) * 2.2, 5, 60 * (1 - r) + 15)
             off_p.add(r, 0.01 * r * B, 0, 0)
-        res = C.solve_split_ratio(
-            C.fit_profiles(aux_p, pri_p, off_p),
-            C.SolverConstraints(tau=probe * 2.2 * B / 2))
-        r_star = res.r_opt
-        print(f"solver: r* = {res.r_opt:.2f} (predicted T {res.t_opt:.2f}s, "
-              f"probe {probe:.2f}s)")
-        summary.update(probe_s=probe, t_predicted_s=res.t_opt)
-    split_r = r_star if r_star is not None else fixed_r
+        models = C.fit_profiles(aux_p, pri_p, off_p)
+        summary["probe_s"] = probe
+        if G == 2:
+            res = C.solve_split_ratio(
+                models, C.SolverConstraints(tau=probe * 2.2 * B / 2))
+            split_r = res.r_opt
+            split_v = C.SplitVector.from_r(split_r)
+            summary.update(r_star=res.r_opt, t_predicted_s=res.t_opt)
+            print(f"solver: r* = {res.r_opt:.2f} (predicted T "
+                  f"{res.t_opt:.2f}s, probe {probe:.2f}s)")
+        else:
+            fn = C.group_times_from_fits(models.T2,
+                                         [(models.T1, models.T3)] * (G - 1))
+            t0 = time.perf_counter()
+            f_opt, t_opt = C.solve_star(fn, G)
+            summary["solve_star_ms"] = 1e3 * (time.perf_counter() - t0)
+            split_v = C.SplitVector(tuple(f_opt))
+            summary.update(f_star=list(split_v.fractions), r_star=split_v.r,
+                           t_predicted_s=t_opt)
+            print(f"solve_star: f* = {[f'{x:.2f}' for x in split_v.fractions]}"
+                  f" (predicted makespan {t_opt:.2f}s, probe {probe:.2f}s)")
+    else:
+        split_r = fixed_r
+        split_v = C.SplitVector.from_r(fixed_r, G)
 
-    n_off = C.split_sizes(B, split_r)[0]
+    # each spoke's slice (spokes take the front of the batch in topology
+    # order) is priced through the §VI masked payload
+    counts = split_v.counts(B)
     payload = float(P * cfg.d_model * cfg.torch_dtype.itemsize)
-    if n_off:
-        comp = price_payload(params, cfg, prompts[:n_off], device=device)
-        payload = comp["bytes_after"] / n_off
-        summary["compression"] = comp
+    by_group, lo = {}, 0
+    for g in range(1, G):
+        if counts[g]:
+            by_group[topology.groups[g].name] = price_payload(
+                params, cfg, prompts[lo:lo + counts[g]], device=device)
+        lo += counts[g]
+    if by_group:
+        comp = {k: sum(c[k] for c in by_group.values())
+                for k in ("kept_tokens", "total_tokens",
+                          "kept_tokens_compacted", "bytes_before",
+                          "bytes_after")}
+        comp["bandwidth_saving"] = 1.0 - comp["bytes_after"] \
+            / max(comp["bytes_before"], 1.0)
+        payload = comp["bytes_after"] / (B - counts[0])
+        summary.update(compression=comp, compression_by_group=by_group)
         print(f"masking: {comp['kept_tokens']}/{comp['total_tokens']} "
               f"offloaded tokens kept -> {comp['bandwidth_saving']:.0%} "
-              f"bandwidth saved on the offload link")
+              "bandwidth saved on the offload links")
 
-    eng = C.OffloadEngine(serve_task, topology=build_topology(device),
+    eng = C.OffloadEngine(serve_task, topology=topology,
                           payload_bytes_per_item=payload, jit=False)
     t0 = time.perf_counter()
-    rep = eng.run(batch, split_r)
+    rep = eng.run(batch, split_v if G > 2 else split_r)
     wall = time.perf_counter() - t0
     per_group = " ".join(f"{n}={c}" for n, c in zip(rep.group_names, rep.n_group))
     print(f"r={rep.r:.2f} [{per_group}]  T_parallel={rep.t_parallel:.2f}s "
           f"T_serial={rep.t_serial:.2f}s link={rep.t_offload_s * 1e3:.1f}ms "
           f"({B * max_new / wall:.1f} tok/s)")
     summary.update(
-        tokens=rep.outputs, r_star=r_star, r=rep.r,
+        tokens=rep.outputs, r=rep.r, split=list(split_v.fractions),
         group_names=rep.group_names, n_group=rep.n_group,
         t_group_s=rep.t_group_s, t_parallel_s=rep.t_parallel,
         t_serial_s=rep.t_serial, t_offload_s=rep.t_offload_s,
@@ -203,10 +285,170 @@ def serve_static(cfg, params, reqs, *, prompt_len: int, max_new: int,
         tokens_per_s=B * max_new / wall,
         decode_steps=sum(e.decode_steps for e in engines),
         prefills=len(engines), ms_per_decode_step=ms_per_step)
+    summary.setdefault("r_star", None)
     return summary
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+def serve_continuous(cfg, params, reqs, *, prompt_len: int, max_new: int,
+                     slots: int, split: str, macro_steps: int = 8,
+                     wave_steps: int = 1,
+                     overlap_admission: bool = True,
+                     topology: Optional[C.Topology] = None,
+                     link=None, telemetry_path: Optional[str] = None,
+                     prefix_cache_blocks: int = 0,
+                     prefix_block_size: int = 8, prefill_pool: int = 1,
+                     kv_keep_rate: Optional[float] = None,
+                     link_trace: Optional[str] = None,
+                     mobility_beta: Optional[float] = None,
+                     frontend: bool = False,
+                     tenants: Optional[Dict[str, C.TenantClass]] = None,
+                     queue_depth: int = 64,
+                     shed_depth: Optional[int] = None,
+                     power_budget_wh: Optional[float] = None,
+                     power_threshold_w: float = 8.0,
+                     device: DeviceLike = None):
+    """Continuous-batching collaborative serving over a request stream,
+    through the HeteroRuntime session (pair or star topology).
+
+    Requests arrive in waves; each wave is apportioned across the node
+    groups by the live SplitVector, every group's slot engine drains its
+    share, and the measured wave timings feed the online controller that
+    re-solves the split for the next wave.  Each engine's cache holds the
+    prompt, a VLM's frontend tokens, ``max_new`` and 8 spare rows.  Returns
+    the ``ServeResult``; with ``frontend`` the ingress's telemetry with
+    every accepted request's collected stream, keyed by the request's uid,
+    and the refusal count."""
+    topology = topology or build_topology("pair", 2, device=device)
+    if link is not None:
+        topology = dataclasses.replace(
+            topology, links=[None] + [link] * (len(topology) - 1))
+    offset = cfg.frontend_tokens if cfg.family == "vlm" else 0
+    max_len = prompt_len + offset + max_new + 8
+    traces = None
+    if link_trace:
+        # one trace broadcast to every spoke edge: LinkTrace is a pure
+        # function of the wave index, so sharing the object is safe
+        tr = C.LinkTrace.from_spec(link_trace, beta=mobility_beta)
+        traces = {gi: tr for gi in range(1, len(topology))}
+    budgets = None
+    if power_budget_wh is not None:
+        # one battery-style power envelope per decode group: the serving
+        # wall drains it (Eqs. 5-6) and hot groups mask out of the split
+        budgets = {topology.groups[gi].name: C.GroupBudget(
+                       battery=C.BatteryState(capacity_wh=power_budget_wh),
+                       power_threshold_w=power_threshold_w)
+                   for gi in topology.decode_indices()}
+    runtime = C.HeteroRuntime(topology, slots=slots, max_len=max_len,
+                              macro_steps=macro_steps,
+                              wave_steps=wave_steps,
+                              overlap_admission=overlap_admission,
+                              prefix_cache_blocks=prefix_cache_blocks,
+                              prefix_block_size=prefix_block_size,
+                              prefill_pool=prefill_pool,
+                              kv_keep_rate=kv_keep_rate,
+                              link_traces=traces,
+                              group_budgets=budgets)
+    runtime.add_task(cfg.name, cfg, params,
+                     max_new=max_new,
+                     payload_bytes_per_item=prompt_len * cfg.d_model * 2)
+    mode, fixed_r = parse_split(split)
+
+    # each request keeps its own completion length (capped at max_new) —
+    # mixed lengths are exactly what the slot engine absorbs
+    requests = [ServeRequest(uid=r.uid, prompt=np.pad(
+                    r.prompt[:prompt_len],
+                    (0, max(0, prompt_len - len(r.prompt)))).astype(np.int32),
+                    max_new=max(1, min(r.max_new_tokens, max_new)),
+                    frontend=r.frontend, task=cfg.name)
+                for r in reqs]
+    if frontend:
+        # asyncio ingress in front of the same runtime: tenant-fair
+        # admission waves, streamed tokens, power/memory shedding
+        tenants = tenants or parse_tenants("interactive:0:2:0.5,batch:1:1")
+        fe = C.ServingFrontend(runtime, tenants, queue_depth=queue_depth,
+                               shed_depth=shed_depth,
+                               split=None if mode == "auto" else fixed_r)
+        runtime.warmup(requests[:2])
+        tnames = sorted(tenants)
+
+        async def drive():
+            await fe.start()
+            streams, refused = {}, 0
+            for i, req in enumerate(requests):
+                try:
+                    streams[req.uid] = await fe.submit(
+                        req.prompt, req.max_new,
+                        tenant=tnames[i % len(tnames)], task=cfg.name,
+                        frontend=req.frontend)
+                except C.FrontendError:
+                    refused += 1   # typed backpressure/shed refusal
+            tokens = {uid: await s.collect() for uid, s in streams.items()}
+            await fe.stop()
+            return tokens, refused
+
+        tokens, refused = asyncio.run(drive())
+        tel = fe.telemetry()
+        print(f"frontend[{topology.kind}]: {tel['waves_served']} waves, "
+              f"{refused} refused (queue/shed), "
+              f"queue_depth={tel['queue_depth']} "
+              f"shed_depth={tel['shed_depth']}")
+        for name, ts in tel["tenants"].items():
+            print(f"  tenant {name}: {ts['completed']}/{ts['submitted']} "
+                  f"done, shed={ts['shed']} "
+                  f"ttft p50/p99={ts['ttft_p50_s'] * 1e3:.1f}/"
+                  f"{ts['ttft_p99_s'] * 1e3:.1f}ms "
+                  f"itl p50/p99={ts['itl_p50_s'] * 1e3:.2f}/"
+                  f"{ts['itl_p99_s'] * 1e3:.2f}ms")
+        if telemetry_path:
+            with open(telemetry_path, "w") as fh:
+                json.dump({"frontend": tel}, fh, indent=2)
+            print(f"telemetry -> {telemetry_path}")
+        return {"frontend": tel, "streams": tokens, "refused": refused}
+
+    result = runtime.serve(requests, wave=2 * slots * (len(topology) - 1),
+                           split=None if mode == "auto" else fixed_r,
+                           verbose=True)
+    tot = result.telemetry["totals"]
+    print(f"continuous[{topology.kind}]: {tot['requests']} requests, "
+          f"{tot['tokens']} tokens in {tot['wall_s']:.2f}s "
+          f"({tot['tok_per_s']:.1f} tok/s), "
+          f"final split={tot['final_split']}, "
+          f"{tot['host_syncs']} host syncs "
+          f"({tot['host_syncs_per_token']:.3f}/token, K={macro_steps}), "
+          f"{tot['admission_stalls']} admission stalls"
+          f"{' (overlapped)' if overlap_admission else ''}")
+    if result.telemetry.get("prefill_group"):
+        print(f"disaggregated prefill[{result.telemetry['prefill_group']}]: "
+              f"{tot['prefill_offloaded']} offloaded, "
+              f"{tot['t_kv_transfer_s'] * 1e3:.2f}ms kv-transfer, "
+              f"{tot['prefill_fallbacks']} fallbacks")
+    if tot.get("wave_requeued") or tot.get("mobility_latched"):
+        print(f"fault domain: {tot['wave_requeued']} re-queued, "
+              f"{tot['wave_retries']} retried, "
+              f"{tot['mobility_latched']} mobility latches, "
+              f"alive={tot['group_alive']}")
+    if tot.get("admission_rerouted"):
+        print(f"admission: {tot['admission_rerouted']} re-routed off "
+              f"budget-hot groups, hot={tot['admission_hot']}, "
+              f"power headroom={tot['power_headroom_w']}")
+    if prefix_cache_blocks > 0:
+        print(f"prefix cache[{prefix_cache_blocks}x{prefix_block_size}]: "
+              f"{tot['prefix_hits']} hits, "
+              f"{tot['prefix_blocks_reused']} blocks reused, "
+              f"{tot['prefill_flops_avoided_frac']:.1%} prefill flops "
+              f"avoided, kv hop {tot['kv_hop_bytes_raw'] / 1e3:.0f}kB raw "
+              f"-> {tot['kv_hop_bytes_wire'] / 1e3:.0f}kB wire")
+    if telemetry_path:
+        with open(telemetry_path, "w") as fh:
+            fh.write(result.to_json(indent=2))
+        print(f"telemetry -> {telemetry_path}")
+    return result
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    """Parse ``argv`` and serve.  Returns the static path's summary dict,
+    the continuous path's ``ServeResult``, or (``--frontend``) the
+    ingress's telemetry with the collected streams."""
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", choices=list_configs(), default="llama3.2-1b")
@@ -214,42 +456,150 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--kv-int8", action="store_true",
+                    help="int8 KV cache (not ported yet)")
     ap.add_argument("--split", default="auto",
                     help='"auto" (HeteroEdge solver), a float r, or "none"')
+    ap.add_argument("--continuous", action="store_true",
+                    help="slot-based continuous batching runtime")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="KV-cache slots per node group (continuous mode)")
     ap.add_argument("--macro-steps", type=int, default=8,
                     help="fused decode tokens per dispatch (0 = per-token loop)")
-    ap.add_argument("--topology", choices=("pair", "star"), default="pair")
-    ap.add_argument("--nodes", type=int, default=None)
+    ap.add_argument("--wave-steps", type=int, default=1,
+                    help="fused macro-steps per host launch (>1 = the wave "
+                         "driver; requires --macro-steps > 0)")
+    ap.add_argument("--overlap-admission", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="prefill newly admitted requests into shadow slots "
+                         "behind the in-flight decode macro-step "
+                         "(--no-overlap-admission = boundary-blocking "
+                         "admission for A/B)")
+    ap.add_argument("--topology", choices=("pair", "star"), default="pair",
+                    help="2-node pair (paper) or §VIII star")
+    ap.add_argument("--nodes", type=int, default=None,
+                    help="total node groups (default 2 for pair, 3 for star)")
+    ap.add_argument("--prefill-group", type=int, default=None,
+                    metavar="SPOKE",
+                    help="dedicate spoke SPOKE (group index 1..) to "
+                         "disaggregated prefill: shadow prefills ship "
+                         "there and KV blocks splice back over its link "
+                         "(continuous mode; requires --macro-steps > 0)")
+    ap.add_argument("--prefix-cache-blocks", type=int, default=0,
+                    metavar="N",
+                    help="arm the cross-request radix prefix cache with a "
+                         "budget of N KV blocks per task (0 = disabled; "
+                         "continuous mode)")
+    ap.add_argument("--prefix-block-size", type=int, default=8,
+                    metavar="T", help="prefix-cache block size in tokens")
+    ap.add_argument("--prefill-pool", type=int, default=1, metavar="W",
+                    help="prefill workers on the dedicated prefill group "
+                         "(>1 = content-hash affinity pool with failover; "
+                         "requires --prefill-group)")
+    ap.add_argument("--kv-keep-rate", type=float, default=None,
+                    metavar="R",
+                    help="LOSSY prefill->decode KV-hop compression: keep "
+                         "only the top-R salience fraction of shipped tail "
+                         "rows (default off = lossless compaction)")
+    ap.add_argument("--link-trace", default=None, metavar="SPEC",
+                    help="mobility trace replayed per serve wave on every "
+                         "spoke edge: comma-separated distances in meters "
+                         '("4,12,28,12,4") or @path to a JSON file with '
+                         "distances/bandwidths arrays (continuous mode); "
+                         "edges whose fitted latency L(d) crosses beta are "
+                         "latched local until the trace re-opens them")
+    ap.add_argument("--mobility-beta", type=float, default=None,
+                    metavar="B",
+                    help="latency threshold beta (s) for the --link-trace "
+                         "stop-offloading latch (default: MobilityModel's)")
+    ap.add_argument("--telemetry-json", default=None, metavar="PATH",
+                    help="write HeteroRuntime telemetry JSON here")
+    ap.add_argument("--frontend", action="store_true",
+                    help="serve through the asyncio multi-tenant ingress "
+                         "(streamed tokens, tenant-fair admission waves, "
+                         "power/memory shedding; requires --continuous)")
+    ap.add_argument("--tenants", default="interactive:0:2:0.5,batch:1:1",
+                    metavar="SPEC",
+                    help="comma list of name[:priority[:weight"
+                         "[:deadline_s]]] tenant classes; requests round-"
+                         "robin across them (frontend mode)")
+    ap.add_argument("--queue-depth", type=int, default=64, metavar="N",
+                    help="bounded admission queue: submissions beyond N "
+                         "queued requests are refused (backpressure)")
+    ap.add_argument("--shed-depth", type=int, default=None, metavar="N",
+                    help="queued requests admitted while the WHOLE "
+                         "fleet's power/memory budget is hot before the "
+                         "ingress sheds (default: --slots)")
+    ap.add_argument("--power-budget-wh", type=float, default=None,
+                    metavar="WH",
+                    help="arm a battery-style power envelope of WH "
+                         "watt-hours on every decode group (Eqs. 5-6): "
+                         "serving drains it, hot groups re-route via the "
+                         "masked split (continuous mode)")
+    ap.add_argument("--power-threshold-w", type=float, default=8.0,
+                    metavar="W",
+                    help="P_available floor (W) under the power envelope")
     ap.add_argument("--device", default="cuda",
                     help='"cuda" (default; raises without a card) or "cpu"')
-    for flag in _NOT_PORTED_SWITCHES:
-        ap.add_argument(flag, action="store_true", default=None,
-                        help=argparse.SUPPRESS)
-    ap.add_argument("--overlap-admission", default=None,
-                    action=argparse.BooleanOptionalAction,
-                    help=argparse.SUPPRESS)
-    for flag in _NOT_PORTED_VALUES:
-        ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    nodes = args.nodes or (2 if args.topology == "pair" else 3)
 
-    for flag in _NOT_PORTED_SWITCHES + ("--overlap-admission",) + _NOT_PORTED_VALUES:
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            ap.error(f"{flag} is not ported yet")
-    if args.topology != "pair" or args.nodes not in (None, 2):
-        ap.error("--topology star / --nodes > 2 is not ported yet")
+    if args.kv_int8:
+        ap.error("--kv-int8 is not ported yet")
+    if args.prefill_group is not None and not args.continuous:
+        ap.error("--prefill-group requires --continuous (disaggregated "
+                 "prefill rides the continuous overlapped-admission path)")
+    if args.prefix_cache_blocks and not args.continuous:
+        ap.error("--prefix-cache-blocks requires --continuous (the radix "
+                 "cache lives in the slot runtime's admission loop)")
+    if args.prefill_pool > 1 and args.prefill_group is None:
+        ap.error("--prefill-pool > 1 requires --prefill-group (the pool "
+                 "lives on the dedicated prefill spoke)")
+    if (args.link_trace or args.mobility_beta is not None) \
+            and not args.continuous:
+        ap.error("--link-trace/--mobility-beta require --continuous (the "
+                 "trace replays on the HeteroRuntime wave clock)")
+    if args.mobility_beta is not None and not args.link_trace:
+        ap.error("--mobility-beta only applies to a --link-trace")
+    if args.wave_steps > 1 and not args.continuous:
+        ap.error("--wave-steps > 1 requires --continuous (the wave driver "
+                 "is the slot runtime's fused decode launcher)")
+    if args.frontend and not args.continuous:
+        ap.error("--frontend requires --continuous (the ingress feeds the "
+                 "slot runtime at wave boundaries)")
+    if args.power_budget_wh is not None and not args.continuous:
+        ap.error("--power-budget-wh requires --continuous (the envelope "
+                 "drains on the HeteroRuntime wave clock)")
 
     device = resolve_device(args.device)
+    topology = build_topology(args.topology, nodes,
+                              prefill_group=args.prefill_group, device=device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
     params = M.init_params(cfg, 0, device=device)
     print(f"arch={cfg.name}{' (reduced)' if args.reduced else ''} "
-          f"topology=pair/2 device={device}")
+          f"topology={args.topology}/{nodes} device={device}")
     reqs = request_stream(cfg.vocab_size, n=args.requests,
                           mean_prompt=args.prompt_len, seed=0)
+    if args.continuous:
+        return serve_continuous(
+            cfg, params, reqs, prompt_len=args.prompt_len,
+            max_new=args.max_new, slots=args.slots, split=args.split,
+            macro_steps=args.macro_steps, wave_steps=args.wave_steps,
+            overlap_admission=args.overlap_admission, topology=topology,
+            telemetry_path=args.telemetry_json,
+            prefix_cache_blocks=args.prefix_cache_blocks,
+            prefix_block_size=args.prefix_block_size,
+            prefill_pool=args.prefill_pool, kv_keep_rate=args.kv_keep_rate,
+            link_trace=args.link_trace, mobility_beta=args.mobility_beta,
+            frontend=args.frontend, tenants=parse_tenants(args.tenants),
+            queue_depth=args.queue_depth, shed_depth=args.shed_depth,
+            power_budget_wh=args.power_budget_wh,
+            power_threshold_w=args.power_threshold_w, device=device)
     return serve_static(cfg, params, reqs, prompt_len=args.prompt_len,
                         max_new=args.max_new, macro_steps=args.macro_steps,
-                        split=args.split, device=device)
+                        split=args.split, device=device, topology=topology)
 
 
 if __name__ == "__main__":

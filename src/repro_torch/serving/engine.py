@@ -490,7 +490,8 @@ class ContinuousServingEngine:
     :class:`repro_torch.serving.prefix_cache.PrefixCache`) is consulted
     before every prefill: exact full hits skip prefill (and the hop),
     partial hits resume from the cached blocks.  ``share_from``: a sibling
-    engine over the same cfg whose decode programs this one reuses.  Runs
+    engine whose decode programs this one reuses when both have the same
+    cfg, device and kernel setting (else it builds its own).  Runs
     on the card unless ``device`` says otherwise."""
 
     def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 512,
@@ -526,7 +527,9 @@ class ContinuousServingEngine:
                 "overlap_admission=True")
         self.prefill_remote = prefill_worker is not None
         self._use_kernels = resolve_use_kernels(use_kernels, self.device)
-        if share_from is not None and share_from.cfg is cfg:
+        if share_from is not None and share_from.cfg is cfg \
+                and share_from.device == self.device \
+                and share_from._use_kernels == self._use_kernels:
             self.prefill = share_from.prefill
             self.step = share_from.step
             self._loops = share_from._loops

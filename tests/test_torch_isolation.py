@@ -46,7 +46,11 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.configs.zamba2_2_7b",
             "repro_torch.configs.olmo_1b", "repro_torch.configs.nemotron_4_15b",
             "repro_torch.serving.prefix_cache",
-            "repro_torch.serving.prefill"} <= set(mods)
+            "repro_torch.serving.prefill",
+            "repro_torch.core.battery", "repro_torch.core.mobility",
+            "repro_torch.core.scheduler", "repro_torch.core.admission",
+            "repro_torch.core.topology",
+            "repro_torch.serving.frontend"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -86,7 +90,8 @@ def test_entry_points_refuse_cpu_fallback():
     for make in (lambda: ContinuousServingEngine(cfg, params),
                  lambda: PrefillWorker(cfg, params),
                  lambda: PrefillWorkerPool(cfg, params, size=2),
-                 lambda: PrefixCache(cfg)):
+                 lambda: PrefixCache(cfg),
+                 lambda: serve.build_topology("star", 3)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
 

@@ -112,8 +112,8 @@ def test_launcher_static_split_on_cpu(capsys):
     assert ops.launch_counts() == {"decode_attention": 0, "masked_compact": 0,
                                    "grouped_ffn": 0, "ssm_scan": 0}
     assert "solver: r* =" in capsys.readouterr().out
-    with pytest.raises(SystemExit):
-        serve.main(["--reduced", "--device", "cpu", "--continuous"])
+    with pytest.raises(SystemExit):     # the one flag still not ported
+        serve.main(["--reduced", "--device", "cpu", "--kv-int8"])
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "nemotron-4-15b"])
