@@ -178,6 +178,41 @@ Then moonshot's params are freed and the SSM path runs:
            decode_attention against its plain version at dh=80 (bf16 within
            3e-2, f32 within 1e-4); macro_steps=8 and 0 streams identical
 
+Then the vlm and audio families and the int8 KV cache, each model's params
+freed before the next loads:
+
+  vlm_slice / audio_slice / int8_slice  the launcher's static path as in the
+           slice (16 x 128 tokens, 32 new, K=8, --split auto, full width and
+           depth, bf16) on internvl2-1b (24 layers, d 896, 14/2 heads, 256
+           patch rows from request_stream's stubbed frontend ahead of each
+           prompt: 424 cache rows), seamless-m4t-medium (12 encoder layers
+           over 1024 stubbed frame rows, 12 decoder layers with self- and
+           cross-attention, 16/16 heads, vocab 256206, untied head, 1.76
+           GB) and llama3.2-1b with --kv-int8 (int8 K/V with f32 scales,
+           dequantized to f32 for decode_attention); checks decode_attention
+           == attention layers x decode steps (the audio decoder's cross
+           calls counted: 2 x 12 a step), masked_compact == the spokes with
+           requests, every decode_attention launch recorded by shape: f32
+           on the int8 path, the cross calls over 1024 rows with a
+           Python-int length
+  vlm_continuous  internvl2-1b through ContinuousServingEngine (slots 4,
+           256 + 128 + 16 + 8 = 408 cache rows) over 12 requests in 4
+           image groups with shared 64-token prefixes (88 tokens): per-step,
+           per-step with a PrefixCache (block 8, budget 256), overlapped
+           (K=8) with a PrefixCache and a PrefillWorker (lossless KV hop);
+           the three modes' streams identical, decode_attention == layers x
+           model decode steps, masked_compact == 2 x the hops that shipped
+           a KV tail, 8 prefix hits in the local mode (the prologue root
+           included)
+  families_kernels  with no model held: decode_attention against its plain
+           version at every decode shape those paths launched (the vlm's
+           G=7, the audio's self G=1 and its cross over 1024 rows with a
+           Python-int length, the int8 route's f32), bf16 within 3e-2 and
+           f32 within 1e-4; masked_compact bit for bit at each spoke's §VI
+           payload ([n,128,896], [n,128,1024], [n,128,2048]) and every KV
+           tail the vlm's hops shipped; the f32 route and the cross shape
+           timed beside their bound and SDPA
+
 Then the per-kernel summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Every phase also prints its seconds.
 Float32 matmuls run in full float32 (TF32 off).
@@ -185,6 +220,7 @@ Float32 matmuls run in full float32 (TF32 off).
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -206,6 +242,7 @@ DENSE_ARCHS = ("olmo-1b", "nemotron-4-15b")
 MOE_ARCH = "moonshot-v1-16b-a3b"
 SSM_ARCH = "falcon-mamba-7b"
 HYBRID_ARCH = "zamba2-2.7b"
+VLM_ARCH, AUDIO_ARCH = "internvl2-1b", "seamless-m4t-medium"
 REQUESTS, PROMPT_LEN, MAX_NEW, MACRO = 16, 128, 32, 8
 HYBRID_REQUESTS, HYBRID_MAX_NEW = 4, 16
 MOE_TRACE_NEW = 16                  # moonshot's traced generate(): new tokens
@@ -223,6 +260,8 @@ SIDE_SLOTS, SIDE_REQUESTS, SIDE_MAX_NEW = 4, 6, 8
 FLEET_SLOTS, FLEET_REQUESTS, FLEET_MAX_NEW = 4, 64, 32
 FLEET_MAX_LEN = CONT_P + FLEET_MAX_NEW + 8     # the launcher's cache rows
 FLEET_TENANTS = "interactive:0:2:0.5,batch:1:1"
+# the vlm's short continuous run: requests, most new tokens, padded prompt
+VLM_CONT_REQUESTS, VLM_CONT_MAX_NEW, VLM_CONT_P = 12, 16, 128
 FFN_TOL = {"bfloat16": 5e-2, "float32": 2e-4}   # tests/test_kernels.py:129
 SCAN_TOL = 1e-5     # relative to max|h|: both versions sum in one order
 
@@ -298,25 +337,30 @@ def _split_boundary_lens(S, rows, B):
 
 
 def _check_decode_attention(torch, dev, gen, main_bs, H, Hkv, dh, phase,
-                            S_main=S_MAIN, edge_cases=True):
+                            S_main=S_MAIN, edge_cases=True, main_dtype=None,
+                            int_len=False):
     """decode_attention against its plain version at [B,1,H,dh] for every
     batch size the path ran, over a cache of ``S_main`` rows (per-slot
-    lengths that include 1 and S); with ``edge_cases`` also a scalar length,
+    lengths that include 1 and S; with ``int_len`` every row, the length
+    handed to the kernel as a Python int, as the audio decoder's
+    cross-attention hands it); with ``edge_cases`` also a scalar length,
     cache_len 0 (exactly 0 out), lengths either side of the split
     boundaries, a window smaller than one split, ragged long caches with
     and without a window, and an empty window; every case twice, bit-equal.
-    Returns the largest main-path error (bf16)."""
+    Returns the largest main-path error in ``main_dtype`` (default bf16:
+    f32 for the int8 cache's route)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                       num_splits)
 
     tol = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
+    main_dtype = main_dtype or torch.bfloat16
     results, main_err = [], 0.0
     cases = []
     for B in main_bs:
         lens = torch.randint(1, S_main + 1, (B,), generator=gen, device=dev)
         lens[0], lens[-1] = 1, S_main
-        cases.append((B, S_main, 0, lens, True))
+        cases.append((B, S_main, 0, S_main if int_len else lens, True))
     Bm = max(main_bs)
     if edge_cases:
         cases += _decode_edge_cases(Bm, H, Hkv)
@@ -324,8 +368,9 @@ def _check_decode_attention(torch, dev, gen, main_bs, H, Hkv, dh, phase,
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, cl = _decode_case(torch, gen, B, S, H, Hkv, dh, dtype,
                                        lens, dev)
-            got = decode_attention_cuda(q, k, v, cl, window=win)
-            again = decode_attention_cuda(q, k, v, cl, window=win)
+            arg = lens if int_len and main else cl
+            got = decode_attention_cuda(q, k, v, arg, window=win)
+            again = decode_attention_cuda(q, k, v, arg, window=win)
             want = ref.decode_attention_ref(q, k, v, cl, window=win)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
@@ -337,12 +382,12 @@ def _check_decode_attention(torch, dev, gen, main_bs, H, Hkv, dh, phase,
             require(torch.equal(got, again), f"{tag}: two calls differ")
             empty = cl.reshape(-1).expand(B) <= 0
             require(not bool(got[empty].any()), f"{tag}: cache_len 0 gave non-zero")
-            if main and dtype == torch.bfloat16:
+            if main and dtype == main_dtype:
                 main_err = max(main_err, err)
             results.append({"B": B, "S": S, "window": win, "H": H, "Hkv": Hkv,
                             "dh": dh, "splits": num_splits(B, Hkv, S, H // Hkv),
-                            "dtype": str(dtype)[6:], "max_abs_err": err,
-                            "bit_equal_twice": True})
+                            "dtype": str(dtype)[6:], "int_len": isinstance(arg, int),
+                            "max_abs_err": err, "bit_equal_twice": True})
     emit({"phase": phase, "kernel": "decode_attention",
           "tolerance": {"bfloat16": 3e-2, "float32": 1e-4}, "cases": results})
     return main_err
@@ -496,11 +541,13 @@ def phase_kernel_checks(torch, dev, slice_summary):
 def _expected_launches(cfg, s, prompt_len):
     """Kernel launches the slice summary ``s`` implies for ``cfg``: decode
     attention in every attention layer of every decode step (the hybrid's
-    shared block once per block of Mamba layers), grouped_ffn in every MoE
-    layer of every prefill and decode step, ssm_scan in every Mamba-1 layer
-    of every prefill, once per 256-token chunk."""
+    shared block once per block of Mamba layers, the audio decoder's self-
+    and cross-attention both), grouped_ffn in every MoE layer of every
+    prefill and decode step, ssm_scan in every Mamba-1 layer of every
+    prefill, once per 256-token chunk."""
     L, steps, prefills = cfg.num_layers, s["decode_steps"], s["prefills"]
-    attn_layers = {"ssm": 0, "hybrid": L // max(cfg.hybrid_attn_every, 1)}
+    attn_layers = {"ssm": 0, "hybrid": L // max(cfg.hybrid_attn_every, 1),
+                   "audio": 2 * L}
     scan = cfg.family == "ssm" and cfg.mamba_version == 1
     return {"decode_attention": attn_layers.get(cfg.family, L) * steps,
             "grouped_ffn": L * (steps + prefills) if cfg.num_experts else 0,
@@ -522,6 +569,7 @@ def phase_slice(torch, arch=ARCH, *, phase="slice", split="auto",
             str(PROMPT_LEN), "--max-new", str(max_new), "--macro-steps",
             str(MACRO), "--split", split, "--device", "cuda", *extra]
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     s = serve.main(argv)
@@ -555,7 +603,7 @@ def phase_slice(torch, arch=ARCH, *, phase="slice", split="auto",
           "decode_steps": s["decode_steps"], "prefills": s["prefills"],
           "ms_per_decode_step_by_engine": s["ms_per_decode_step"],
           "launches": counts, "expected_launches": want,
-          "peak_memory_bytes": peak,
+          "peak_memory_bytes": peak, "allocated_before_bytes": before,
           "payload_bytes_per_item": s.get("payload_bytes_per_item"),
           "compression": comp})
     return s, counts
@@ -794,19 +842,24 @@ def _bound(n_bytes, n_ops, peak_flops=None):
 
 
 def _time_decode_attention(torch, dev, gen, gname, B, H, Hkv, dh, S=S_MAIN,
-                           cache_len=None):
+                           cache_len=None, dtype=None, int_len=False):
     """decode_attention, its plain version and SDPA at [B,1,H,dh] against a
-    bf16 cache of S rows, by default the slice's, halfway through decode."""
+    cache of S rows (bf16 unless ``dtype``; f32 is the int8 cache's
+    dequantized route), by default the slice's, halfway through decode;
+    ``int_len``: the kernel is handed cache_len as a Python int, as the
+    audio decoder's cross-attention hands it."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                       num_splits)
 
-    esize = 2
+    dtype = dtype or torch.bfloat16
+    esize = torch.empty((), dtype=dtype).element_size()
+    tol = {torch.bfloat16: 3e-2, torch.float32: 1e-4}[dtype]
     # cache_len halfway through the slice's decode unless given
     cl_mid = cache_len or PROMPT_LEN + MAX_NEW // 2 + 1
     per_set = 2 * B * S * Hkv * dh * esize
-    sets = [_decode_case(torch, gen, B, S, H, Hkv, dh, torch.bfloat16,
+    sets = [_decode_case(torch, gen, B, S, H, Hkv, dh, dtype,
                          [cl_mid] * B, dev) for _ in range(_sets_for(per_set))]
 
     def sdpa(q, k, v, cl):
@@ -818,8 +871,13 @@ def _time_decode_attention(torch, dev, gen, gname, B, H, Hkv, dh, S=S_MAIN,
     q, k, v, cl = sets[0]
     lib_err = float((sdpa(q, k, v, cl).float()
                      - ref.decode_attention_ref(q, k, v, cl).float()).abs().max())
-    require(lib_err <= 3e-2, f"library attention disagrees by {lib_err}")
-    fns = {"": lambda *a: decode_attention_cuda(*a),
+    require(lib_err <= tol, f"library attention disagrees by {lib_err}")
+    kernel = (lambda q, k, v, cl: decode_attention_cuda(q, k, v, cl_mid)) \
+        if int_len else decode_attention_cuda
+    err = float((kernel(q, k, v, cl).float()
+                 - ref.decode_attention_ref(q, k, v, cl).float()).abs().max())
+    require(err <= tol, f"decode_attention {gname}: max_abs_err {err} > {tol}")
+    fns = {"": kernel,
            "plain_": lambda *a: ref.decode_attention_ref(*a),
            "library_": sdpa}
     times = {f"{p}ms": _time_ms(torch, fn, sets) for p, fn in fns.items()}
@@ -831,9 +889,11 @@ def _time_decode_attention(torch, dev, gen, gname, B, H, Hkv, dh, S=S_MAIN,
                + 2 * B * H * dh * esize             # q read, out written
                + 4 * B)                             # cache_len
     n_ops = 4 * B * H * cl_mid * dh                 # q.k and p.v
-    bound_ms, bound_by = _bound(n_bytes, n_ops)
+    bound_ms, bound_by = _bound(n_bytes, n_ops, None if dtype == torch.bfloat16
+                                else H100_PEAK_FLOPS_F32)
     return {"kernel": "decode_attention", "group": gname, "B": B, "S": S,
-            "cache_len": cl_mid, "dtype": "bfloat16", "H": H, "Hkv": Hkv,
+            "cache_len": cl_mid, "int_len": int_len,
+            "dtype": str(dtype)[6:], "max_abs_err": err, "H": H, "Hkv": Hkv,
             "dh": dh, "G": H // Hkv, "splits": num_splits(B, Hkv, S, H // Hkv),
             **times,
             "library": "scaled_dot_product_attention(enable_gqa=True, "
@@ -1583,7 +1643,6 @@ def phase_continuous_checks(torch, dev, cfg, params):
     versions; the tail's .contiguous() copy timed; a float32 2-layer cut's
     continuous streams equal to the plain static path's up to the first
     top-2 gap < 1e-3.  Returns {kernel: max error}."""
-    from repro_torch.models import model as M
     from repro_torch.serving.engine import make_prefill_step
     from repro_torch.serving.prefix_cache import compact_kv_hop, restore_kv_hop
 
@@ -1601,24 +1660,12 @@ def phase_continuous_checks(torch, dev, cfg, params):
                     for n in ("k", "v"))
         require(exact, "the lossless KV hop did not restore the prefill cache "
                 "bit for bit")
-        resumed = M.forward(params, cfg, {"tokens": tokens, "prefix": prefix},
-                            mode="prefill", use_kernels=True)
-        rl = resumed.logits[:, -1]
-        tail = slice(CONT_PREFIX, None)
-        cache_diff = max(float((resumed.cache["self"][n][:, :, tail].float()
-                                - cache["self"][n][:, :, tail].float()).abs().max())
-                         for n in ("k", "v"))
-        resume = {"logits_max_abs": float((rl.float() - logits.float()).abs().max()),
-                  "logits_equal": bool(torch.equal(rl, logits)),
-                  "argmax_equal": bool(rl.argmax() == logits.argmax()),
-                  "tail_kv_max_abs": cache_diff,
-                  "tail_kv_equal": cache_diff == 0.0,
-                  "top2_gap": float(_top2_gap(torch, logits)[0])}
         raw = sum(t.numel() * t.element_size() for t in cache["self"].values())
-        del resumed, restored, packed, cache
+        del restored, packed, cache
     emit({"phase": "continuous_checks", "check": "kv_hop", "arch": cfg.name,
           "q_rows": CONT_PREFIX, "rows": CONT_P, "lossless_bit_exact": exact,
-          "wire_bytes": wire, "raw_kv_bytes": raw, "resume_vs_cold_bf16": resume})
+          "wire_bytes": wire, "raw_kv_bytes": raw, "resume_vs_cold_bf16":
+          _resume_vs_cold(torch, dev, cfg, params, req, CONT_PREFIX)})
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(8)
@@ -2070,6 +2117,282 @@ def phase_dense_slices(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# The vlm and audio families and the int8 KV cache
+# ---------------------------------------------------------------------------
+class _DecodeRecorder:
+    """While active: the shape of every decode_attention launch, as
+    (B, S, H, Hkv, dh, dtype, whether the length came as a Python int),
+    with its count.  The wrapped
+    ``ops.decode_attention_cuda`` is called as it is (its own count goes
+    on); the recorder only reads what goes in."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.shapes = {}
+        self._ops, self._fn = ops, ops.decode_attention_cuda
+        rec, fn = self, self._fn
+
+        def recording(q, k, v, cache_len, **kw):
+            key = (q.shape[0], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
+                   str(q.dtype)[6:], isinstance(cache_len, int))
+            rec.shapes[key] = rec.shapes.get(key, 0) + 1
+            return fn(q, k, v, cache_len, **kw)
+
+        ops.decode_attention_cuda = recording
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.decode_attention_cuda = self._fn
+
+    def rows(self):
+        return [{"B": B, "S": S, "H": H, "Hkv": Hkv, "dh": dh, "dtype": dt,
+                 "int_len": il, "launches": n}
+                for (B, S, H, Hkv, dh, dt, il), n in sorted(self.shapes.items())]
+
+
+def phase_family_slice(torch, arch, phase, extra=()):
+    """The launcher's static path on a family of this slice (internvl2-1b
+    and seamless-m4t-medium with the request stream's patch or frame
+    embeddings, llama3.2-1b with ``--kv-int8``) at full width and depth:
+    the launches held as in the slice (the audio decoder's cross-attention
+    counted), masked_compact once per spoke with requests; every decode
+    attention launch recorded by shape.  The int8 path's launches are all
+    f32 (the dequantized cache), the audio's cross launches take the
+    encoder's 1024 rows as a Python-int length.  Returns (summary, counts,
+    {decode shape: launches})."""
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config(arch)
+    with _DecodeRecorder() as rec:
+        s, counts = phase_slice(torch, arch, phase=phase, extra=extra)
+    require(counts["masked_compact"] == len(s["compression_by_group"]) > 0,
+            f"{phase}: masked_compact launched {counts['masked_compact']} times "
+            f"for {len(s['compression_by_group'])} spokes with requests")
+    require(sum(rec.shapes.values()) == counts["decode_attention"],
+            f"{phase}: recorded {sum(rec.shapes.values())} decode_attention "
+            f"calls, counted {counts['decode_attention']}")
+    if "--kv-int8" in extra:
+        require(all(k[5] == "float32" for k in rec.shapes),
+                f"{phase}: decode_attention launched off the f32 route: "
+                f"{rec.rows()}")
+    cross = sum(n for k, n in rec.shapes.items() if k[6])
+    if cfg.family == "audio":
+        require(cross == cfg.num_layers * s["decode_steps"]
+                and all(k[1] == cfg.frontend_tokens for k in rec.shapes if k[6]),
+                f"{phase}: {cross} cross-attention launches, expected "
+                f"{cfg.num_layers} x {s['decode_steps']} over "
+                f"{cfg.frontend_tokens} rows: {rec.rows()}")
+    else:
+        require(cross == 0, f"{phase}: Python-int length launches {rec.rows()}")
+    emit({"phase": f"{phase}_decode_shapes", "arch": arch,
+          "kv_int8": "--kv-int8" in extra, "shapes": rec.rows(),
+          "cross_launches": cross})
+    return s, counts, dict(rec.shapes)
+
+
+def _vlm_continuous_requests(cfg):
+    """The vlm's continuous traffic from request_stream(seed=0): 4 request
+    groups, each with its own image (the stream's first 4 frontends) and
+    shared 64-token prefix (its first 4 prompts), then distinct suffixes
+    (the next prompts, cut to 8-64 tokens), right-padded to 128 tokens;
+    max_new from default_rng(0) over 1-16, with 16 and two single-token
+    requests, but at least 2 for each group's first request: a
+    single-token request takes no slot and a disaggregated one ships no
+    block back, so its group's prefix would be indexed in one mode and not
+    in the other."""
+    from repro_torch.data.pipeline import request_stream
+    from repro_torch.serving.engine import ServeRequest
+    n = VLM_CONT_REQUESTS
+    stream = request_stream(cfg.vocab_size, n=4 + n, mean_prompt=PROMPT_LEN,
+                            seed=0, frontend_tokens=cfg.frontend_tokens,
+                            frontend_dim=cfg.frontend_dim)
+    max_news = np.random.default_rng(0).integers(1, VLM_CONT_MAX_NEW + 1, n)
+    max_news[2] = VLM_CONT_MAX_NEW
+    max_news[:4] = np.maximum(max_news[:4], 2)
+    reqs = []
+    for i in range(n):
+        g, body = i % 4, stream[4 + i].prompt
+        k = int(np.clip(len(body), 8, VLM_CONT_P - CONT_PREFIX))
+        p = np.concatenate([np.resize(stream[g].prompt, CONT_PREFIX),
+                            np.resize(body, k)])
+        reqs.append(ServeRequest(uid=i, max_new=int(max_news[i]),
+                                 prompt=np.pad(p, (0, VLM_CONT_P - len(p))).astype(np.int32),
+                                 frontend=stream[g].frontend))
+    return reqs
+
+
+def phase_vlm_continuous(torch, dev):
+    """internvl2-1b at full width and depth through ContinuousServingEngine
+    on one card (slots 4, 256 patch rows + 128 prompt + 16 new + 8 = 408
+    cache rows) over 12 requests in 4 image groups with shared 64-token
+    prefixes, in two modes with a PrefixCache (block 8, budget 256: the
+    prologue root and the token blocks, resumes at row F + q): per-step
+    with local prefill, and overlapped (K=8) with a PrefillWorker on the
+    card (lossless KV hop on masked_compact).  Checks both modes' streams
+    identical (every request takes the same prefill route in both: cold for
+    each group's first, resumed for the rest), decode_attention == layers
+    x model decode steps, masked_compact == 2 x the hops that shipped a KV
+    tail, 8 prefix hits in each mode.  Then, reported: a per-step run with
+    no cache (every prefill cold) against those streams, and one resumed
+    prefill against its cold one (bf16 logits and tail K/V).  Returns
+    ({mode: launch counts}, {KV tail shape}, {decode shape: launches})."""
+    import repro_torch.core as C
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.prefill import PrefillWorker
+    from repro_torch.serving.prefix_cache import PrefixCache
+
+    cfg = get_config(VLM_ARCH)
+    params = M.init_params(cfg, 0, device=dev)            # the slice's weights
+    reqs = _vlm_continuous_requests(cfg)
+    max_len = cfg.frontend_tokens + VLM_CONT_P + VLM_CONT_MAX_NEW + 8
+    L = cfg.num_layers
+    modes = [("per-step-cached", 0, True, False),
+             ("overlapped-disaggregated", MACRO, True, True),
+             ("per-step-uncached", 0, False, False)]
+    ref, counts_by_mode, hops = None, {}, set()
+    with _DecodeRecorder() as drec:
+        for name, k, cached, remote in modes:
+            pc = PrefixCache(cfg, block_size=8, budget_blocks=256, device=dev) \
+                if cached else None
+            worker = PrefillWorker(cfg, params, device=dev, link=C.ICI_LINK) \
+                if remote else None
+            with _FleetRecorder() as rec:
+                outs, stats, counts, wall, peak = _run_engine(
+                    torch, dev, cfg, params, reqs, slots=SIDE_SLOTS,
+                    max_len=max_len, macro_steps=k, prefix_cache=pc,
+                    prefill_worker=worker)
+            steps = _model_decode_steps(stats, k)
+            require(stats.requests == len(reqs)
+                    and stats.total_tokens == sum(r.max_new for r in reqs),
+                    f"vlm_continuous {name}: {stats.requests} requests, "
+                    f"{stats.total_tokens} tokens")
+            require(counts["decode_attention"] == L * steps,
+                    f"vlm_continuous {name}: decode_attention launched "
+                    f"{counts['decode_attention']} times, expected {L} x {steps}")
+            require(counts["masked_compact"] == 2 * len(rec.hops),
+                    f"vlm_continuous {name}: masked_compact launched "
+                    f"{counts['masked_compact']} times, expected 2 x "
+                    f"{len(rec.hops)} hops that shipped a KV tail")
+            if cached:
+                require(stats.prefix_hits == len(reqs) - 4,
+                        f"vlm_continuous {name}: {stats.prefix_hits} prefix "
+                        f"hits, expected {len(reqs) - 4}")
+                pc.check_invariants()
+            if remote:
+                require(rec.hops and stats.prefill_offloaded > 0
+                        and stats.prefill_fallbacks == 0
+                        and 0 < stats.kv_hop_bytes_wire < stats.kv_hop_bytes_raw,
+                        f"vlm_continuous {name}: hops {len(rec.hops)}, "
+                        f"offloaded {stats.prefill_offloaded}, fallbacks "
+                        f"{stats.prefill_fallbacks}, hop bytes "
+                        f"{stats.kv_hop_bytes_wire} of {stats.kv_hop_bytes_raw}")
+            streams = {o.uid: o.tokens for o in outs}
+            ref = ref or streams
+            diffs = {u: _first_diff(ref[u], streams[u]) for u in ref}
+            diffs = {u: d for u, d in diffs.items() if d is not None}
+            row = {"phase": "vlm_continuous", "mode": name, "arch": cfg.name,
+                   "slots": SIDE_SLOTS, "max_len": max_len, "macro_steps": k,
+                   "requests": len(reqs), "frontend_tokens": cfg.frontend_tokens,
+                   **_stats_row(stats, wall, peak, counts, k),
+                   "prefix_cache": pc.stats() if pc is not None else None,
+                   "kv_tail_hops": len(rec.hops),
+                   "kv_tail_shapes": sorted(set(rec.hops)),
+                   "requests_differing_from_cached": len(diffs),
+                   "first_differences": diffs}
+            if cached:
+                require(not diffs, f"vlm_continuous {name}: streams differ "
+                        f"from the per-step cached mode at {diffs}")
+            emit(row)
+            hops |= set(rec.hops)
+            if name != "per-step-uncached":
+                counts_by_mode[name] = counts
+            del outs, pc, worker
+            torch.cuda.empty_cache()
+    emit({"phase": "vlm_continuous_resume", **_resume_vs_cold(
+        torch, dev, cfg, params, reqs[4], cfg.frontend_tokens + CONT_PREFIX)})
+    del params
+    torch.cuda.empty_cache()
+    return counts_by_mode, hops, dict(drec.shapes)
+
+
+def _resume_vs_cold(torch, dev, cfg, params, req, q_rows):
+    """One request's prefill resumed from the first ``q_rows`` rows of its
+    own cold prefill cache, against the cold one (bf16, kernels on)."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import make_prefill_step
+    batch = {"tokens": torch.as_tensor(req.prompt[None], device=dev)}
+    if req.frontend is not None:
+        batch["frontend"] = torch.as_tensor(req.frontend[None], device=dev)
+    with torch.no_grad():
+        logits, cache = make_prefill_step(cfg)(params, batch)
+        prefix = {"self": {n: t[:, :, :q_rows].clone()
+                           for n, t in cache["self"].items()}}
+        out = M.forward(params, cfg, dict(batch, prefix=prefix), mode="prefill",
+                        use_kernels=True)
+        rl = out.logits[:, -1]
+        tail = max(float((out.cache["self"][n][:, :, q_rows:].float()
+                          - cache["self"][n][:, :, q_rows:].float()).abs().max())
+                   for n in ("k", "v"))
+        head = max(float((out.cache["self"][n][:, :, :q_rows].float()
+                          - cache["self"][n][:, :, :q_rows].float()).abs().max())
+                   for n in ("k", "v"))
+    return {"arch": cfg.name, "uid": req.uid, "q_rows": q_rows,
+            "rows": int(cache["self"]["k"].shape[2]),
+            "logits_max_abs": float((rl.float() - logits.float()).abs().max()),
+            "logits_equal": bool(torch.equal(rl, logits)),
+            "argmax_equal": bool(rl.argmax() == logits.argmax()),
+            "prefix_kv_max_abs": head, "tail_kv_max_abs": tail,
+            "tail_kv_equal": tail == 0.0,
+            "top2_gap": float(_top2_gap(torch, logits)[0])}
+
+
+def phase_families_kernels(torch, dev, decode_shapes, payloads, hops):
+    """With no model held: decode_attention against its plain version at
+    every decode shape the new paths launched, at the batch of each group
+    (the vlm's G=7 over 424 rows and its continuous slots over 408, the
+    audio decoder's self-attention G=1 over 168 and its cross-attention
+    over 1024 rows with a Python-int length, the int8 route's f32 at
+    llama's heads), bf16 within 3e-2 and f32 within 1e-4; masked_compact
+    bit for bit at each spoke's §VI payload ([n,128,896], [n,128,1024],
+    [n,128,2048]) and each KV tail the vlm's hops shipped; then the f32
+    route and the cross shape timed beside their bound and SDPA.  Returns
+    ({kernel: max main-path error}, timing rows)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    errs = {"decode_attention": 0.0, "masked_compact": 0.0}
+    by_shape = []
+    for (B, S, H, Hkv, dh, dtype, int_len) in sorted(decode_shapes):
+        err = _check_decode_attention(torch, dev, gen, [B], H, Hkv, dh,
+                                      "families_kernels", S_main=S,
+                                      edge_cases=False,
+                                      main_dtype=getattr(torch, dtype),
+                                      int_len=int_len)
+        errs["decode_attention"] = max(errs["decode_attention"], err)
+        by_shape.append({"B": B, "S": S, "H": H, "Hkv": Hkv, "dh": dh,
+                         "dtype": dtype, "int_len": int_len, "max_abs_err": err})
+    emit({"phase": "families_kernels", "kernel": "decode_attention",
+          "tolerance": {"bfloat16": 3e-2, "float32": 1e-4}, "shapes": by_shape})
+    mc = [_check_mc_at(torch, dev, gen, name, B, PROMPT_LEN, D, "keep72")
+          for name, B, D in sorted(payloads)]
+    mc += [_check_mc_at(torch, dev, gen, "vlm-kv-hop", L, Rt, D, "all")
+           for L, Rt, D in sorted(hops)]
+    emit({"phase": "families_kernels", "kernel": "masked_compact",
+          "tolerance": "exact", "cases": mc})
+    # timed at the largest batch of each new route
+    B, S, H, Hkv, dh = max(k for k in decode_shapes if k[5] == "float32")[:5]
+    rows = [_time_decode_attention(torch, dev, gen, "int8-f32-route", B, H, Hkv,
+                                   dh, S=S, dtype=torch.float32)]
+    B, S, H, Hkv, dh = max(k for k in decode_shapes if k[6])[:5]
+    rows.append(_time_decode_attention(torch, dev, gen, "audio-cross", B, H, Hkv,
+                                       dh, S=S, cache_len=S, int_len=True))
+    for row in rows:
+        emit({"phase": "families_timing", **row,
+              "share_of_bound": row["bound_ms"] / row["device_ms"]})
+    return errs, rows
+
+
+# ---------------------------------------------------------------------------
 KERNEL_META = {
     "decode_attention": {
         "route": "cuda", "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -2114,11 +2437,22 @@ def kernels_line(rows, counts_by_path, errs):
     return kernels
 
 
+def _free(torch):
+    """After a model's params are dropped: collect the reference cycles that
+    still hold its engines (the ingress's among them) and return the memory
+    to the card, so the next model's peak stands on what is live."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def timed(label, fn, *args, **kw):
-    """Run one phase and print its seconds."""
+    """Run one phase and print its seconds and the device memory still
+    allocated after it (what the next phase's peak stands on)."""
+    import torch
     t0 = time.perf_counter()
     out = fn(*args, **kw)
-    emit({"phase": "seconds", "of": label, "seconds": time.perf_counter() - t0})
+    emit({"phase": "seconds", "of": label, "seconds": time.perf_counter() - t0,
+          "allocated_after_bytes": torch.cuda.memory_allocated()})
     return out
 
 
@@ -2166,7 +2500,7 @@ def main() -> None:
     fleet_errs = timed("fleet_kernels", phase_fleet_kernels, torch, dev, cfg,
                        fleet_shapes)
     del params
-    torch.cuda.empty_cache()
+    _free(torch)
     # the main path's other dense configs: olmo-1b, nemotron-4-15b
     dense_counts, dense_errs = timed("dense_slices", phase_dense_slices, torch, dev)
 
@@ -2187,7 +2521,7 @@ def main() -> None:
     moe_cont_counts = timed("moe_continuous", phase_side_continuous, torch, dev,
                             moe_cfg, params, "moe_continuous")
     del params
-    torch.cuda.empty_cache()
+    _free(torch)
     # decode_attention at long caches, no weights held: llama's and moonshot's heads
     long_rows = timed("long_cache_timing", phase_long_cache_timing, torch, dev,
                       groups["auxiliary"] or REQUESTS,
@@ -2212,13 +2546,30 @@ def main() -> None:
     ssm_cont_counts = timed("ssm_continuous", phase_side_continuous, torch, dev,
                             ssm_cfg, params, "ssm_continuous")
     del params
-    torch.cuda.empty_cache()
+    _free(torch)
     ssm_rows = timed("ssm_timing", phase_ssm_timing, torch, dev, ssm_cfg,
                      ssm_summary)
     torch.cuda.empty_cache()
 
     # the hybrid path: zamba2-2.7b at full width, decode_attention at dh=80
     hyb_counts, hyb_errs = timed("hybrid", phase_hybrid, torch, dev)
+
+    # the vlm and audio families and the int8 KV cache at full width
+    fam_counts, fam_shapes, payloads = {}, {}, set()
+    for arch, phase, extra in ((VLM_ARCH, "vlm_slice", ()),
+                               (AUDIO_ARCH, "audio_slice", ()),
+                               (ARCH, "int8_slice", ("--kv-int8",))):
+        s, c, shapes = timed(phase, phase_family_slice, torch, arch, phase, extra)
+        fam_counts[" ".join((arch,) + extra)] = c
+        fam_shapes.update(shapes)
+        payloads |= {(f"payload-{phase}-{g}", n, get_config(arch).d_model)
+                     for g, n in zip(s["group_names"][1:], s["n_group"][1:]) if n}
+        torch.cuda.empty_cache()
+    vlm_cont_counts, vlm_hops, shapes = timed("vlm_continuous",
+                                              phase_vlm_continuous, torch, dev)
+    fam_shapes.update(shapes)
+    fam_errs, fam_rows = timed("families_kernels", phase_families_kernels, torch,
+                               dev, fam_shapes, payloads, vlm_hops)
 
     by_path = {ARCH: counts}
     by_path.update({f"{ARCH} continuous {m}": c for m, c in cont_counts.items()})
@@ -2231,9 +2582,13 @@ def main() -> None:
     by_path.update({f"{SSM_ARCH} continuous {m}": c
                     for m, c in ssm_cont_counts.items()})
     by_path[HYBRID_ARCH] = hyb_counts
-    kernels = kernels_line(rows + moe_rows + ssm_rows + long_rows, by_path,
+    by_path.update(fam_counts)
+    by_path.update({f"{VLM_ARCH} continuous {m}": c
+                    for m, c in vlm_cont_counts.items()})
+    kernels = kernels_line(rows + moe_rows + ssm_rows + long_rows + fam_rows,
+                           by_path,
                            [errs, cont_errs, fleet_static_errs, fleet_errs,
-                            dense_errs, moe_errs, ssm_errs, hyb_errs])
+                            dense_errs, moe_errs, ssm_errs, hyb_errs, fam_errs])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -3,11 +3,15 @@
 The caller turns a JAX pytree into numpy first
 (``jax.tree.map(np.asarray, tree)``), so this module never sees JAX.  Keys
 and layouts are the same in both packages (L-stacked leaves such as
-``blocks.attn.wq [L,d,H,dh]``; caches ``{"self": {"k","v"}}`` as
-``[L,B,S,Hkv,dh]``; an SSM cache is the tuple ``(conv, ssm)``, which stays a
-tuple).  bf16 leaves arrive as ``ml_dtypes.bfloat16``, which
-torch cannot read, so they go through float32 and are cast back: exact,
-since every bf16 value is a float32 value.
+``blocks.attn.wq [L,d,H,dh]``, the audio model's ``blocks.xattn`` /
+``blocks.lnx``, ``encoder`` stack and ``enc_norm``, the frontend's
+``frontend_proj [fd,d]``; caches ``{"self": {"k","v"}}`` as
+``[L,B,S,Hkv,dh]``, int8 ones with f32 ``k_scale`` / ``v_scale``
+``[L,B,S,Hkv,1]``, the audio decoder's ``{"cross": {"k","v"}}``; an SSM
+cache is the tuple ``(conv, ssm)``, which stays a tuple).  bf16 leaves
+arrive as ``ml_dtypes.bfloat16``, which torch cannot read, so they go
+through float32 and are cast back: exact, since every bf16 value is a
+float32 value.
 """
 from __future__ import annotations
 
@@ -87,6 +91,27 @@ def params_from_numpy(tree: Any, cfg, device: DeviceLike = None) -> Any:
                         shared_w_down=(mlp["w_down"], (f, d)))
     else:
         want["wq"] = (blocks["attn"]["wq"], (L, d, cfg.num_heads, cfg.head_dim))
+    if cfg.family == "audio":
+        if "xattn" not in blocks or "lnx" not in blocks:
+            raise ValueError(f"params do not match {cfg.name}: the decoder "
+                             "blocks have no cross-attention (xattn, lnx)")
+        want["xattn_wq"] = (blocks["xattn"]["wq"],
+                            (L, d, cfg.num_heads, cfg.head_dim))
+    for name, needed in (("encoder", cfg.encoder_layers),
+                         ("enc_norm", cfg.encoder_layers),
+                         ("frontend_proj", cfg.frontend)):
+        if bool(needed) != (name in params):
+            raise ValueError(f"params do not match {cfg.name}: {name} "
+                             f"{'missing' if needed else 'unexpected'}")
+    if cfg.encoder_layers:
+        want["encoder_wq"] = (params["encoder"]["attn"]["wq"],
+                              (cfg.encoder_layers, d, cfg.num_heads,
+                               cfg.head_dim))
+        want["encoder_w_up"] = (params["encoder"]["mlp"]["w_up"],
+                                (cfg.encoder_layers, d, f))
+    if cfg.frontend:
+        want["frontend_proj"] = (params["frontend_proj"],
+                                 (cfg.frontend_dim or d, d))
     if E:
         moe = blocks.get("moe")
         if moe is None:
@@ -117,5 +142,6 @@ def params_from_numpy(tree: Any, cfg, device: DeviceLike = None) -> Any:
 
 
 def cache_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
-    """JAX decode cache (as numpy) -> the port's cache."""
+    """JAX decode cache (as numpy) -> the port's cache; int8 values and
+    their f32 scales keep their dtypes."""
     return tree_from_numpy(tree, device)

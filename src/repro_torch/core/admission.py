@@ -38,7 +38,8 @@ from repro_torch.core.offload import tree_leaves
 def kv_cache_bytes(cfg, slots: int, max_len: int) -> float:
     """Analytic KV/state-cache footprint of one engine: the byte count of
     ``init_cache(cfg, slots, max_len)`` built on the meta device, so
-    nothing is allocated.  The int8 cache raises, as ``init_cache`` does."""
+    nothing is allocated (an int8 cache counts its values and f32 scales,
+    the audio decoder its cross cache)."""
     from repro_torch.models import model as M
     shapes = M.init_cache(cfg, slots, max_len, dtype=cfg.torch_dtype,
                           device="meta")

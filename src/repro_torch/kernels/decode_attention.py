@@ -81,9 +81,10 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, cache_len, *,
                           window: int = 0) -> torch.Tensor:
     """q: [B,1,H,dh]; caches: [B,S,Hkv,dh] (bf16 or f32, one dtype, all on one
-    CUDA device, contiguous); cache_len: [B] int tensor or a scalar.  Returns
-    [B,1,H,dh] in v's dtype.  Launches on the current stream without a host
-    sync and counts the launch in ``decode_attention_cuda.launches``."""
+    CUDA device, contiguous); cache_len: [B] int tensor, a scalar tensor or
+    a Python int.  Returns [B,1,H,dh] in v's dtype.  Launches on the
+    current stream without a host sync and counts the launch in
+    ``decode_attention_cuda.launches``."""
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if not t.is_cuda:
             raise ValueError(f"decode_attention_cuda: {name} is on {t.device}, "
@@ -119,11 +120,15 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                          f"{16 // esize} for {q.dtype})")
     if k_cache.device != q.device or v_cache.device != q.device:
         raise ValueError("decode_attention_cuda: tensors on different devices")
-    cl = torch.as_tensor(cache_len, device=q.device)
-    if cl.dim() > 1 or (cl.dim() == 1 and cl.numel() not in (1, B)):
-        raise ValueError(f"decode_attention_cuda: cache_len shape "
-                         f"{tuple(cl.shape)} is neither scalar nor [{B}]")
-    cl = cl.to(torch.int32).reshape(-1).expand(B).contiguous()
+    if isinstance(cache_len, int):
+        # filled on the device: a host int copied up would sync the stream
+        cl = torch.full((B,), cache_len, dtype=torch.int32, device=q.device)
+    else:
+        cl = torch.as_tensor(cache_len, device=q.device)
+        if cl.dim() > 1 or (cl.dim() == 1 and cl.numel() not in (1, B)):
+            raise ValueError(f"decode_attention_cuda: cache_len shape "
+                             f"{tuple(cl.shape)} is neither scalar nor [{B}]")
+        cl = cl.to(torch.int32).reshape(-1).expand(B).contiguous()
     G = H // Hkv
     splits, rows = num_splits(B, Hkv, S, G)
     need = smem_bytes(dh, esize, splits, tensor_core_path(q.dtype, dh))

@@ -1,7 +1,7 @@
 """Serving launcher with HeteroEdge collaborative offloading.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
-        --requests 16 --prompt-len 128 --max-new 32 [--reduced] \
+        --requests 16 --prompt-len 128 --max-new 32 [--reduced] [--kv-int8] \
         [--split auto|none|<r>] [--macro-steps 8] [--device cuda|cpu] \
         [--topology pair|star] [--nodes N] \
         [--continuous] [--slots 4] [--wave-steps 1] \
@@ -28,8 +28,11 @@ through fixed KV-cache slots on each node group, waves are apportioned by
 the live split from ``SplitRatioController`` (EWMA-smoothed measured
 timings re-solved every few waves), with the prefill spoke, prefix cache,
 mobility trace and power envelope flags; ``--frontend`` puts the asyncio
-multi-tenant ingress in front of it.  The int8 KV cache (``--kv-int8``)
-exits with "not ported yet".
+multi-tenant ingress in front of it.  ``--kv-int8`` serves from an int8 KV
+cache (absmax per position and head).  The vlm (``--arch internvl2-1b``) and
+audio (``--arch seamless-m4t-medium``) families take each request's stubbed
+patch or frame embeddings from the request stream; every engine's cache
+holds the prompt, the vlm's frontend rows, ``max_new`` and 8 spare rows.
 """
 from __future__ import annotations
 
@@ -185,11 +188,16 @@ def serve_static(cfg, params, reqs, *, prompt_len: int, max_new: int,
     engines: List[ServingEngine] = []
     ms_per_step: List[float] = []
 
+    if cfg.frontend:
+        batch["frontend"] = np.stack([r.frontend for r in reqs])
+    max_len = P + M.frontend_offset(cfg) + max_new + 8
+
     def serve_task(b):
-        eng = ServingEngine(cfg, params, max_len=P + max_new + 8,
+        eng = ServingEngine(cfg, params, max_len=max_len,
                             macro_steps=macro_steps, device=device)
         engines.append(eng)
-        res = eng.generate(np.asarray(b["tokens"]), max_new=max_new)
+        res = eng.generate(np.asarray(b["tokens"]), max_new=max_new,
+                           frontend=b.get("frontend"))
         ms_per_step.append(1e3 * res.decode_s / max(eng.decode_steps, 1))
         return res.tokens
 
@@ -322,8 +330,7 @@ def serve_continuous(cfg, params, reqs, *, prompt_len: int, max_new: int,
     if link is not None:
         topology = dataclasses.replace(
             topology, links=[None] + [link] * (len(topology) - 1))
-    offset = cfg.frontend_tokens if cfg.family == "vlm" else 0
-    max_len = prompt_len + offset + max_new + 8
+    max_len = prompt_len + M.frontend_offset(cfg) + max_new + 8
     traces = None
     if link_trace:
         # one trace broadcast to every spoke edge: LinkTrace is a pure
@@ -457,7 +464,7 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--kv-int8", action="store_true",
-                    help="int8 KV cache (not ported yet)")
+                    help="int8 KV cache (absmax per position and head)")
     ap.add_argument("--split", default="auto",
                     help='"auto" (HeteroEdge solver), a float r, or "none"')
     ap.add_argument("--continuous", action="store_true",
@@ -544,8 +551,6 @@ def main(argv: Optional[Sequence[str]] = None):
     args = ap.parse_args(argv)
     nodes = args.nodes or (2 if args.topology == "pair" else 3)
 
-    if args.kv_int8:
-        ap.error("--kv-int8 is not ported yet")
     if args.prefill_group is not None and not args.continuous:
         ap.error("--prefill-group requires --continuous (disaggregated "
                  "prefill rides the continuous overlapped-admission path)")
@@ -577,11 +582,17 @@ def main(argv: Optional[Sequence[str]] = None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if args.kv_int8:
+        cfg = dataclasses.replace(cfg, kv_quant="int8")
     params = M.init_params(cfg, 0, device=device)
-    print(f"arch={cfg.name}{' (reduced)' if args.reduced else ''} "
+    print(f"arch={cfg.name}{' (reduced)' if args.reduced else ''}"
+          f"{' kv=int8' if args.kv_int8 else ''} "
           f"topology={args.topology}/{nodes} device={device}")
     reqs = request_stream(cfg.vocab_size, n=args.requests,
-                          mean_prompt=args.prompt_len, seed=0)
+                          mean_prompt=args.prompt_len, seed=0,
+                          frontend_tokens=cfg.frontend_tokens,
+                          frontend_dim=(cfg.frontend_dim or cfg.d_model)
+                          if cfg.frontend else 0)
     if args.continuous:
         return serve_continuous(
             cfg, params, reqs, prompt_len=args.prompt_len,

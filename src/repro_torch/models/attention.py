@@ -1,11 +1,13 @@
-"""GQA self-attention with a KV cache.
+"""GQA self- and cross-attention with a KV cache (bf16/f32 or int8).
 
 Prefill uses the chunked online-softmax formulation of the JAX package
 (plain tensor code, the same masks and padding sentinels).  Decode is one
 query token against the cache: with kernels on it goes through the
 hand-written CUDA ``decode_attention`` kernel, else through its plain
-version.  A prefill can resume from cached post-RoPE prefix K/V.
-Cross-attention and the int8 KV cache are not ported yet.
+version.  That holds for every cache kind: the self cache, the audio
+decoder's cross cache over the encoder's rows, and the int8 cache, whose
+rows are dequantized to f32 and attended with an f32 query.  A prefill can
+resume from cached post-RoPE prefix K/V.
 """
 from __future__ import annotations
 
@@ -17,8 +19,10 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, norm_apply, normal_stack
 
 
-def attn_init(gen: torch.Generator, cfg, dtype, device, n_layers: int) -> dict:
-    """L-stacked attention weights at the JAX package's init scales."""
+def attn_init(gen: torch.Generator, cfg, dtype, device, n_layers: int, *,
+              cross: bool = False) -> dict:
+    """L-stacked attention weights at the JAX package's init scales; a
+    cross-attention block has no q/k norm."""
     d, h, hkv, dh, L = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                         cfg.head_dim, n_layers)
 
@@ -30,7 +34,7 @@ def attn_init(gen: torch.Generator, cfg, dtype, device, n_layers: int) -> dict:
          "wk": normal((L, d, hkv, dh), s),
          "wv": normal((L, d, hkv, dh), s),
          "wo": normal((L, h, dh, d), 1.0 / math.sqrt(h * dh))}
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = {"scale": torch.ones((L, dh), device=device)}
         p["k_norm"] = {"scale": torch.ones((L, dh), device=device)}
     return p
@@ -143,9 +147,19 @@ def cache_update(cache: torch.Tensor, new: torch.Tensor, index) -> torch.Tensor:
     return cache
 
 
+def quantize_kv(t: torch.Tensor):
+    """Absmax int8 per (batch, position, head): t [..., Hkv, dh] -> (int8
+    values, f32 scale [..., Hkv, 1]).  Rounds half to even, as JAX does."""
+    tf = t.float()
+    scale = torch.clamp(tf.abs().amax(dim=-1, keepdim=True), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(tf / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
 def attn_apply(params, x, cfg, *, positions, mode: str, causal: bool = True,
                cache=None, cache_index=None, use_kernels: bool = False,
-               kv_x=None, prefix_kv=None):
+               kv_x=None, kv_positions=None, cross: bool = False,
+               prefix_kv=None):
     """mode "full":   self-attention over x (prefill); returns (out, (k, v)).
                    ``prefix_kv=(k_pre, v_pre)`` resumes a prefill from
                    cached post-RoPE K/V of positions [0, q): x holds only
@@ -155,11 +169,23 @@ def attn_apply(params, x, cfg, *, positions, mode: str, causal: bool = True,
                    like a cold prefill's.
     mode "decode": x is [B,1,D]; cache = {"k","v"} [B,S,Hkv,dh], updated in
                    place at ``cache_index`` (scalar or [B]); returns
-                   (out, cache).
-    ``kv_x`` (cross-attention) is not ported yet."""
-    if kv_x is not None:
-        raise NotImplementedError("cross-attention is not ported yet")
+                   (out, cache).  An int8 cache also holds f32 ``k_scale``
+                   / ``v_scale`` [B,S,Hkv,1]: the new row is quantized into
+                   it and the whole cache dequantized to f32 for the
+                   attention.
+    Cross-attention: in mode "full" ``kv_x`` [B,F,D] (at ``kv_positions``)
+    gives the keys and values, without RoPE, causal mask or window; in mode
+    "decode" (``cross=True``) the query attends over the cache's F rows,
+    which the decode never writes."""
+    cross = cross or kv_x is not None
     if mode == "full":
+        if cross:
+            q, k, v = _qkv(params, x, kv_x, cfg, positions, kv_positions,
+                           rope=False)
+            out = chunked_attention(q, k, v, causal=False, window=0,
+                                    q_positions=positions,
+                                    kv_positions=kv_positions)
+            return _out_proj(out.to(x.dtype), params["wo"]), (k, v)
         q, k, v = _qkv(params, x, x, cfg, positions, positions, rope=True)
         kv_positions = positions
         if prefix_kv is not None:
@@ -174,9 +200,25 @@ def attn_apply(params, x, cfg, *, positions, mode: str, causal: bool = True,
 
     if mode != "decode":
         raise ValueError(f"unknown attention mode {mode!r}")
-    if "k_scale" in cache:
-        raise NotImplementedError("the int8 KV cache is not ported yet")
+    if cross:
+        q = _proj(x, params["wq"])
+        out = ops.decode_attention(q, cache["k"], cache["v"], cache["k"].shape[1],
+                                   window=0, use_kernels=use_kernels)
+        return _out_proj(out.to(x.dtype), params["wo"]), cache
     q, k, v = _qkv(params, x, x, cfg, positions, positions, rope=True)
+    if "k_scale" in cache:
+        new_cache = {}
+        for name, t in (("k", k), ("v", v)):
+            qt, sc = quantize_kv(t)
+            new_cache[name] = cache_update(cache[name], qt, cache_index)
+            new_cache[name + "_scale"] = cache_update(cache[name + "_scale"], sc,
+                                                      cache_index)
+        k_f32 = new_cache["k"].float() * new_cache["k_scale"]
+        v_f32 = new_cache["v"].float() * new_cache["v_scale"]
+        out = ops.decode_attention(q.float(), k_f32, v_f32, cache_index + 1,
+                                   window=cfg.sliding_window,
+                                   use_kernels=use_kernels)
+        return _out_proj(out.to(x.dtype), params["wo"]), new_cache
     k_cache = cache_update(cache["k"], k, cache_index)
     v_cache = cache_update(cache["v"], v, cache_index)
     cache_len = cache_index + 1

@@ -1,4 +1,5 @@
-"""Top-level model: init / cache / forward (dense, MoE, SSM and hybrid).
+"""Top-level model: init / cache / forward (dense, MoE, SSM, hybrid, and the
+vlm and audio families with their stubbed frontends).
 
 Public API (the JAX package's ``repro/models/model.py`` counterpart)
 ------------------------------------------------------------------
@@ -7,15 +8,20 @@ init_cache(cfg, batch, seq_len, dtype, device) -> the JAX cache layout
 forward(params, cfg, batch, mode=...)        -> ModelOutputs
 
 ``batch`` is a dict:
-  prefill: {"tokens": [B,S]}, optionally "prefix": an L-stacked cache
-           {"self": {"k","v"}} of [L,B,q,Hkv,dh] post-RoPE K/V for rows
-           [0, q) (dense stacks): only the tail rows run, the returned
-           cache is full-length
+  prefill: {"tokens": [B,S]} (+"frontend": [B,F,fd] for vlm/audio: the vlm
+           prepends the projected patch rows, so its caches hold F+S rows;
+           the audio model encodes the frames and its decoder attends over
+           them), optionally "prefix": an L-stacked cache {"self": {"k","v"}}
+           of [L,B,q,Hkv,dh] post-RoPE K/V for rows [0, q) (dense stacks,
+           the vlm's prologue included): only the tail rows run, the
+           returned cache is full-length
   decode:  {"token": [B,1], "cache": ..., "cache_index": scalar or [B]}
+           (the vlm's index counts its F prologue rows)
 """
 from __future__ import annotations
 
 import functools
+import math
 from dataclasses import dataclass
 from typing import Any, Dict
 
@@ -35,12 +41,12 @@ class ModelOutputs:
 
 
 def _kind(cfg) -> str:
-    if cfg.family in ("audio", "vlm") or cfg.frontend or cfg.encoder_layers:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     if cfg.family in ("ssm", "hybrid"):
         return cfg.family
     if cfg.family == "moe" or cfg.num_experts:
         return "moe"
+    if cfg.family == "audio":
+        return "decoder_x"
     return "dense"
 
 
@@ -68,6 +74,15 @@ def init_params(cfg, seed: int = 0, *, device: DeviceLike = None) -> Dict[str, A
     else:
         params["blocks"] = tfm.init_stack(gen, cfg, dtype, dev, kind,
                                           cfg.num_layers)
+    if cfg.encoder_layers:
+        params["encoder"] = tfm.init_stack(gen, cfg, dtype, dev, "encoder",
+                                           cfg.encoder_layers)
+        params["enc_norm"] = norm_init(cfg, cfg.d_model, dev)
+    if cfg.frontend:
+        fd = cfg.frontend_dim or cfg.d_model
+        params["frontend_proj"] = (torch.randn(
+            (fd, cfg.d_model), generator=gen, device=dev) / math.sqrt(fd)
+        ).to(dtype)
     if not cfg.tie_embeddings:
         params["lm_head"] = {"table": (torch.randn(
             (cfg.vocab_size, cfg.d_model), generator=gen, device=dev) * 0.02
@@ -77,17 +92,24 @@ def init_params(cfg, seed: int = 0, *, device: DeviceLike = None) -> Dict[str, A
 
 def init_cache(cfg, batch: int, seq_len: int, dtype=None, *, device) -> Any:
     """Decode caches sized for seq_len positions, in the JAX layout:
-    {"self": {"k","v"}} of [L,B,S,Hkv,dh] (dense, MoE); a tuple (conv
+    {"self": {"k","v"}} of [L,B,S,Hkv,dh] (dense, MoE, vlm); a tuple (conv
     [L,B,W-1,di] in ``dtype``, ssm [L,B,di,N] or [L,B,H,P,N] in f32) (SSM);
-    {"backbone": that tuple, "shared": {"self": kv of nb layers}} (hybrid)."""
+    {"backbone": that tuple, "shared": {"self": kv of nb layers}} (hybrid);
+    the audio decoder adds {"cross": kv of F = frontend_tokens rows}.  With
+    ``kv_quant="int8"`` every self K/V is int8 beside f32 ``k_scale`` /
+    ``v_scale`` [L,B,S,Hkv,1]; the cross cache is never quantized."""
     kind = _kind(cfg)
-    if cfg.kv_quant:
-        raise NotImplementedError("the int8 KV cache is not ported yet")
     dtype = dtype or cfg.torch_dtype
     L = cfg.num_layers
 
-    def kv(n_layers):
-        shape = (n_layers, batch, seq_len, cfg.num_kv_heads, cfg.head_dim)
+    def kv(n_layers, length=seq_len, quant=True):
+        shape = (n_layers, batch, length, cfg.num_kv_heads, cfg.head_dim)
+        if quant and cfg.kv_quant == "int8":
+            scale = shape[:-1] + (1,)
+            return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "k_scale": torch.zeros(scale, dtype=torch.float32, device=device),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "v_scale": torch.zeros(scale, dtype=torch.float32, device=device)}
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -101,7 +123,35 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=None, *, device) -> Any:
     if kind == "hybrid":
         return {"backbone": ssm_states(L),
                 "shared": {"self": kv(L // cfg.hybrid_attn_every)}}
+    if kind == "decoder_x":
+        return {"self": kv(L), "cross": kv(L, cfg.frontend_tokens, quant=False)}
     return {"self": kv(L)}
+
+
+def frontend_offset(cfg) -> int:
+    """Cache rows ahead of the prompt tokens: the vlm's F patch rows."""
+    return cfg.frontend_tokens if cfg.family == "vlm" else 0
+
+
+def _embed_inputs(params, cfg, batch):
+    """(x [B,S',D], positions [S']): the vlm prepends its projected patch
+    embeddings, so S' = F + S."""
+    tokens = batch["tokens"]
+    x = embed_apply(params["embed"], tokens)
+    if cfg.frontend and cfg.family == "vlm":
+        fe = batch["frontend"].to(x.dtype) @ params["frontend_proj"]
+        x = torch.cat([fe, x], dim=1)
+    return x, torch.arange(x.shape[1], device=tokens.device)
+
+
+def _encode(params, cfg, batch):
+    """The audio encoder over the stubbed frame embeddings: (enc_out
+    [B,F,D], positions [F])."""
+    fe = batch["frontend"].to(cfg.torch_dtype) @ params["frontend_proj"]
+    pos = torch.arange(fe.shape[1], device=fe.device)
+    enc, _, _ = tfm.stack_apply(params["encoder"], fe, cfg, kind="encoder",
+                                mode="prefill", positions=pos, causal=False)
+    return norm_apply(params["enc_norm"], enc, cfg), pos
 
 
 def _logits(params, cfg, x):
@@ -123,9 +173,11 @@ def forward(params, cfg, batch, *, mode: str = "prefill",
             use_kernels: bool = False) -> ModelOutputs:
     kind = _kind(cfg)
     if mode == "prefill":
-        tokens = batch["tokens"]
-        x = embed_apply(params["embed"], tokens)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x, positions = _embed_inputs(params, cfg, batch)
+        enc = {}
+        if kind == "decoder_x":
+            enc_out, enc_pos = _encode(params, cfg, batch)
+            enc = {"enc_out": enc_out, "enc_positions": enc_pos}
         prefix = batch.get("prefix")
         if prefix is not None:
             if kind != "dense":
@@ -139,7 +191,7 @@ def forward(params, cfg, batch, *, mode: str = "prefill",
         else:
             x, caches, aux = _stack(kind)(params["blocks"], x, cfg,
                                           mode="prefill", positions=positions,
-                                          use_kernels=use_kernels)
+                                          use_kernels=use_kernels, **enc)
         # only the last position's logits are needed
         return ModelOutputs(logits=_logits(params, cfg, x[:, -1:]),
                             aux_loss=aux, cache=caches)

@@ -1,9 +1,13 @@
-"""Decoder stacks: the dense, MoE and SSM block kinds, and the hybrid stack.
+"""Decoder and encoder stacks: the dense, MoE, SSM, encoder and
+cross-attending decoder block kinds, and the hybrid stack.
 
 Parameters are L-stacked like the JAX package's scanned stacks; a Python
 loop over the layer axis replaces ``lax.scan``.  The hybrid (zamba2) stack
 runs blocks of ``hybrid_attn_every`` Mamba layers with the weight-shared
-dense block applied after each block.
+dense block applied after each block.  The audio model's encoder blocks are
+non-causal dense blocks; its decoder blocks (``"decoder_x"``) add a
+cross-attention sublayer over the encoder's output between self-attention
+and the MLP.
 """
 from __future__ import annotations
 
@@ -20,6 +24,9 @@ from repro_torch.models.layers import (mlp_apply, norm_apply, norm_init,
                                        normal_stack)
 
 
+ATTENTION_KINDS = ("dense", "moe", "encoder", "decoder_x")
+
+
 def _stacked_norm(cfg, d: int, L: int, device) -> dict:
     return {k: v.expand(L, d).clone() for k, v in norm_init(cfg, d, device).items()}
 
@@ -27,17 +34,21 @@ def _stacked_norm(cfg, d: int, L: int, device) -> dict:
 def init_stack(gen: torch.Generator, cfg, dtype, device, kind: str,
                n_layers: int) -> Dict[str, Any]:
     """L-stacked block params at the JAX package's init scales: kind
-    ``"dense"`` (attention + MLP), ``"moe"`` (attention + MoE) or ``"ssm"``
-    (a Mamba mixer)."""
+    ``"dense"`` or ``"encoder"`` (attention + MLP), ``"decoder_x"``
+    (attention + cross-attention + MLP), ``"moe"`` (attention + MoE) or
+    ``"ssm"`` (a Mamba mixer)."""
     d, f, L = cfg.d_model, cfg.d_ff, n_layers
     if kind == "ssm":
         return {"ln1": _stacked_norm(cfg, d, L, device),
                 "mamba": ssm_mod.mamba_init(gen, cfg, dtype, device, L)}
-    if kind not in ("dense", "moe"):
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    if kind not in ATTENTION_KINDS:
+        raise ValueError(f"unknown block kind {kind!r}")
     stack = {"ln1": _stacked_norm(cfg, d, L, device),
-             "attn": attn.attn_init(gen, cfg, dtype, device, L),
-             "ln2": _stacked_norm(cfg, d, L, device)}
+             "attn": attn.attn_init(gen, cfg, dtype, device, L)}
+    if kind == "decoder_x":
+        stack["lnx"] = _stacked_norm(cfg, d, L, device)
+        stack["xattn"] = attn.attn_init(gen, cfg, dtype, device, L, cross=True)
+    stack["ln2"] = _stacked_norm(cfg, d, L, device)
     if kind == "moe":
         stack["moe"] = moe_mod.moe_init(gen, cfg, dtype, device, L)
         return stack
@@ -61,13 +72,15 @@ def layer_slice(tree, i):
 
 
 def block_apply(params, x, cfg, *, kind: str, mode: str, positions,
-                cache=None, cache_index=None, causal: bool = True,
-                use_kernels: bool = False):
+                cache=None, cache_index=None, enc_out=None, enc_positions=None,
+                causal: bool = True, use_kernels: bool = False):
     """One block: returns (x, new_cache, aux) where new_cache = {"self": kv}
-    (attention kinds) or (conv_state, ssm_state) (``"ssm"``), and aux is the
-    MoE router's aux loss (the float 0.0 for the other kinds, which spares
-    the decode loop a launch per layer).  In decode the layer's cache slice
-    is updated in place."""
+    (attention kinds; ``"decoder_x"`` adds {"cross": kv} over ``enc_out``,
+    an ``"encoder"`` block returns None) or (conv_state, ssm_state)
+    (``"ssm"``), and aux is the MoE router's aux loss (the float 0.0 for the
+    other kinds, which spares the decode loop a launch per layer).  In
+    decode the layer's cache slice is updated in place; the cross cache is
+    only read."""
     if kind == "ssm":
         if mode == "resume":
             raise ValueError("SSM states fold the whole prefix; resume is "
@@ -82,8 +95,8 @@ def block_apply(params, x, cfg, *, kind: str, mode: str, positions,
                 dst.copy_(src)
             new_state = cache
         return x + y, new_state, 0.0
-    if kind not in ("dense", "moe"):
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    if kind not in ATTENTION_KINDS:
+        raise ValueError(f"unknown block kind {kind!r}")
     h = norm_apply(params["ln1"], x, cfg)
     if mode == "decode":
         y, new_kv = attn.attn_apply(params["attn"], h, cfg, positions=positions,
@@ -100,21 +113,36 @@ def block_apply(params, x, cfg, *, kind: str, mode: str, positions,
                                 mode="full", causal=causal, prefix_kv=prefix)
         new_kv = {"k": kv[0], "v": kv[1]}
     x = x + y
+    new_cache = None if kind == "encoder" else {"self": new_kv}
+    if kind == "decoder_x":
+        h = norm_apply(params["lnx"], x, cfg)
+        if mode == "decode":
+            y, _ = attn.attn_apply(params["xattn"], h, cfg, positions=positions,
+                                   mode="decode", cache=cache["cross"],
+                                   cross=True, use_kernels=use_kernels)
+            new_cache["cross"] = cache["cross"]
+        else:
+            y, xkv = attn.attn_apply(params["xattn"], h, cfg, positions=positions,
+                                     mode="full", kv_x=enc_out,
+                                     kv_positions=enc_positions)
+            new_cache["cross"] = {"k": xkv[0], "v": xkv[1]}
+        x = x + y
     h = norm_apply(params["ln2"], x, cfg)
     if kind == "moe":
         y, aux = moe_mod.moe_apply(params["moe"], h, cfg, use_kernels=use_kernels)
     else:
         y, aux = mlp_apply(params["mlp"], h, cfg), 0.0
-    return x + y, {"self": new_kv}, aux
+    return x + y, new_cache, aux
 
 
 def stack_apply(stacked, x, cfg, *, kind: str, mode: str, positions,
-                caches=None, cache_index=None, causal: bool = True,
-                use_kernels: bool = False):
+                caches=None, cache_index=None, enc_out=None, enc_positions=None,
+                causal: bool = True, use_kernels: bool = False):
     """Returns (x, caches, aux summed over the layers).  Mode "decode"
     updates the L-stacked ``caches`` in place and returns them; mode
     "prefill" returns freshly stacked [L, ...] caches, and so does mode
-    "resume", whose ``caches`` hold the cached prefix rows."""
+    "resume", whose ``caches`` hold the cached prefix rows.  An encoder
+    stack keeps no cache (None)."""
     collected = []
     aux = 0.0              # a tensor once an MoE block adds its term
     for i in range(_num_layers(stacked)):
@@ -122,13 +150,16 @@ def stack_apply(stacked, x, cfg, *, kind: str, mode: str, positions,
         x, new_cache, a = block_apply(
             layer_slice(stacked, i), x, cfg, kind=kind, mode=mode,
             positions=positions, cache=lcache, cache_index=cache_index,
-            causal=causal, use_kernels=use_kernels)
+            enc_out=enc_out, enc_positions=enc_positions, causal=causal,
+            use_kernels=use_kernels)
         aux = aux + a
         collected.append(new_cache)
     if not torch.is_tensor(aux):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mode == "decode":
         return x, caches, aux
+    if kind == "encoder":
+        return x, None, aux
     return x, tree_map(lambda *ts: torch.stack(ts), *collected), aux
 
 

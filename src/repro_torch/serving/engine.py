@@ -38,6 +38,7 @@ from repro_torch.device import DeviceLike, resolve_device, synchronize, upload
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import resolve_use_kernels
 from repro_torch.models import model as M
+from repro_torch.models.attention import quantize_kv
 
 
 def _use(use_kernels: Union[bool, str], t: torch.Tensor) -> bool:
@@ -176,12 +177,15 @@ class _DecodeLauncher:
 def seed_cache(cfg, big_cache, prefill_cache, prefill_len: int):
     """Copy the prefill caches into the full-size decode buffers, in place,
     leaf by leaf over every cache family (dicts of K/V, tuples of SSM
-    states): each prefill leaf is written at offset 0 of axis 2.  For the
-    length-P K/V buffers that is the first P positions; for same-shape
-    leaves (the conv and SSM states) it replaces the whole leaf."""
-    tree_map(lambda dst, src: dst[:, :, :src.shape[2]].copy_(src),
-             big_cache, prefill_cache)
-    return big_cache
+    states, the audio decoder's cross K/V): each prefill leaf is written at
+    offset 0 of axis 2.  For the length-P K/V buffers that is the first P
+    positions; for same-shape leaves (the conv and SSM states, the cross
+    K/V) it replaces the whole leaf.  An int8 destination takes the
+    quantized prefill K/V and their scales."""
+    def upd(dst, src):
+        dst[:, :, :src.shape[2]].copy_(src)
+        return dst
+    return _merge_cache(cfg, big_cache, prefill_cache, upd)
 
 
 # ---------------------------------------------------------------------------
@@ -220,31 +224,34 @@ class ServingEngine:
     @torch.no_grad()
     def generate(self, prompts: np.ndarray, max_new: int = 16,
                  frontend: Optional[np.ndarray] = None) -> GenerationResult:
-        """prompts: [B, P] int32 (pre-padded)."""
-        if frontend is not None:
-            raise NotImplementedError("frontend (vlm/audio) inputs are not "
-                                      "ported yet")
+        """prompts: [B, P] int32 (pre-padded); ``frontend`` [B, F, fd] for
+        the vlm and audio families (the vlm's cache holds its F patch rows
+        ahead of the prompt, so ``max_len`` counts them)."""
         cfg, dev = self.cfg, self.device
         B, P = prompts.shape
-        tokens = torch.as_tensor(np.asarray(prompts, np.int32), device=dev)
+        batch = {"tokens": torch.as_tensor(np.asarray(prompts, np.int32),
+                                           device=dev)}
+        if frontend is not None:
+            batch["frontend"] = upload(np.asarray(frontend, np.float32), dev)
+        rows = P + M.frontend_offset(cfg)
         t0 = time.perf_counter()
-        last_logits, pre_cache = self.prefill(self.params, {"tokens": tokens})
+        last_logits, pre_cache = self.prefill(self.params, batch)
         synchronize(dev)
         t_prefill = time.perf_counter() - t0
 
         cache = M.init_cache(cfg, B, self.max_len, dtype=cfg.torch_dtype,
                              device=dev)
-        cache = seed_cache(cfg, cache, pre_cache, P)
+        cache = seed_cache(cfg, cache, pre_cache, rows)
         del pre_cache
 
         if self.macro_steps == 0:
-            return self._generate_per_step(last_logits, cache, P, max_new,
+            return self._generate_per_step(last_logits, cache, rows, max_new,
                                            t_prefill)
 
         K = self.macro_steps
         loop = make_decode_loop(cfg, macro_steps=K, use_kernels=self._use_kernels)
         tok = last_logits.argmax(dim=-1).to(torch.int32)
-        lengths = torch.full((B,), P, dtype=torch.int32, device=dev)
+        lengths = torch.full((B,), rows, dtype=torch.int32, device=dev)
         remaining = torch.full((B,), max_new - 1, dtype=torch.int32, device=dev)
         done = remaining <= 0
         # a copy: on the CPU .numpy() would alias tok, which the loop
@@ -302,14 +309,21 @@ class ServingEngine:
 # ---------------------------------------------------------------------------
 def _merge_cache(cfg, big_cache, prefill_cache, upd):
     """Walk the decode-cache tree, applying ``upd(dst_leaf, src_leaf)`` at
-    every leaf: dense and MoE ``{"self": kv}``, SSM ``(conv, ssm)`` tuples
-    and the hybrid ``{"backbone", "shared"}``.  Shared by the per-slot
-    write and the fused splice -- only the leaf update differs."""
+    every leaf and quantizing the prefill K/V into int8 destinations on the
+    way: dense and MoE ``{"self": kv}``, the audio decoder's ``"cross"``
+    K/V (never quantized), SSM ``(conv, ssm)`` tuples and the hybrid
+    ``{"backbone", "shared"}``.  Shared by seeding, the per-slot write and
+    the fused splice -- only the leaf update differs."""
     def copy_kv(dst, src):
         if "self" in dst:            # unwrap {"self": ...} wrappers
             return {key: copy_kv(dst[key], src[key]) for key in dst}
-        if "k_scale" in dst:
-            raise NotImplementedError("the int8 KV cache is not ported yet")
+        if "k_scale" in dst and "k_scale" not in src:
+            out = {}
+            for name in ("k", "v"):
+                qt, sc = quantize_kv(src[name])
+                out[name] = upd(dst[name], qt)
+                out[name + "_scale"] = upd(dst[name + "_scale"], sc)
+            return out
         return tree_map(upd, dst, src)
 
     kind = M._kind(cfg)
@@ -319,15 +333,19 @@ def _merge_cache(cfg, big_cache, prefill_cache, upd):
         return {"backbone": tree_map(upd, big_cache["backbone"],
                                      prefill_cache["backbone"]),
                 "shared": copy_kv(big_cache["shared"], prefill_cache["shared"])}
-    return {"self": copy_kv(big_cache["self"], prefill_cache["self"])}
+    out = {"self": copy_kv(big_cache["self"], prefill_cache["self"])}
+    if "cross" in big_cache:
+        out["cross"] = tree_map(upd, big_cache["cross"], prefill_cache["cross"])
+    return out
 
 
 def write_slot_cache(cfg, big_cache, prefill_cache, slot):
     """Write a B=1 prefill cache into slot ``slot`` of the big decode cache,
     in place.  Every leaf is ``[L, B, ...]`` and the prefill leaf ``[L, 1,
-    P, ...]`` (or ``[L, 1, ...]`` for SSM states); positions past the
-    prompt keep the slot's previous occupant's bytes, which the per-slot
-    length masks hide.  Routes through ``ops.splice_blocks`` with a
+    P, ...]`` (or ``[L, 1, ...]`` for SSM states; the cross K/V's ``[L, 1,
+    F, ...]`` replaces the slot's whole leaf); positions past the prompt
+    keep the slot's previous occupant's bytes, which the per-slot length
+    masks hide.  Routes through ``ops.splice_blocks`` with a
     one-element slot vector, as the JAX engine does."""
     dev = tree_leaves(big_cache)[0].device
     ids = torch.full((1,), int(slot), dtype=torch.int32, device=dev)
@@ -545,6 +563,7 @@ class ContinuousServingEngine:
         # the overlapped schedule's shadow work runs on its own stream
         self._side = torch.cuda.Stream(self.device) \
             if self.device.type == "cuda" else None
+        self._offset = M.frontend_offset(cfg)   # the vlm's prologue rows
 
     def _get_loop(self, K: int):
         key = (K, self.eos_id)
@@ -567,13 +586,14 @@ class ContinuousServingEngine:
         """The host-side (numpy) batch: the prefill uploads it, and the
         prefill pool's affinity key hashes the prompt without a device
         read."""
+        batch = {"tokens": np.asarray(req.prompt)[None]}
         if req.frontend is not None:
-            raise NotImplementedError("frontend (vlm/audio) inputs are not "
-                                      "ported yet")
-        return {"tokens": np.asarray(req.prompt)[None]}
+            batch["frontend"] = np.asarray(req.frontend, np.float32)[None]
+        return batch
 
     def _prefill(self, batch):
-        dev_batch = {"tokens": upload(batch["tokens"], self.device)}
+        dev_batch = {k: upload(batch[k], self.device)
+                     for k in ("tokens", "frontend") if k in batch}
         if "prefix" in batch:
             dev_batch["prefix"] = batch["prefix"]
         return self.prefill(self.params, dev_batch)
@@ -649,7 +669,7 @@ class ContinuousServingEngine:
         pad = self.slots - len(entries)
         ids = [e[0] for e in entries] + [entries[-1][0]] * pad
         logits = [e[2] for e in entries] + [entries[-1][2]] * pad
-        plens = [len(e[1].prompt) for e in entries]
+        plens = [len(e[1].prompt) + self._offset for e in entries]
         plens += [plens[-1]] * pad
         mnews = [e[1].max_new for e in entries]
         mnews += [mnews[-1]] * pad
@@ -722,7 +742,7 @@ class ContinuousServingEngine:
                              "submission")
         if not all(r.max_new >= 1 for r in requests):
             raise ValueError("every request needs max_new >= 1")
-        if P + max(r.max_new for r in requests) > self.max_len:
+        if P + self._offset + max(r.max_new for r in requests) > self.max_len:
             raise ValueError("max_len too small for prompt + generation")
         # this run's prefix-cache / KV-hop deltas (the cache is shared)
         self._pc_hits = self._pc_blocks = 0

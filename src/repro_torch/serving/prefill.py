@@ -132,11 +132,13 @@ class PrefillWorker:
 
     # -- hot path -------------------------------------------------------
     def dispatch(self, batch) -> Tuple[Any, Any]:
-        """Run one B=1 prefill on the prefill group: ``batch["tokens"]`` is
-        host-side (numpy), ``batch["prefix"]`` (optional) a cached KV tree.
-        On the card the work is queued on the current stream."""
+        """Run one B=1 prefill on the prefill group: ``batch["tokens"]`` and
+        ``batch["frontend"]`` (vlm/audio) are host-side (numpy),
+        ``batch["prefix"]`` (optional) a cached KV tree.  On the card the
+        work is queued on the current stream."""
         self._check("dispatch")
-        dev_batch = {"tokens": upload(np.asarray(batch["tokens"]), self.device)}
+        dev_batch = {k: upload(np.asarray(batch[k]), self.device)
+                     for k in ("tokens", "frontend") if k in batch}
         if "prefix" in batch:
             dev_batch["prefix"] = tree_map(lambda t: t.to(self.device),
                                            batch["prefix"])

@@ -24,8 +24,14 @@ requests reuse the cached K/V and prefill only their tail.
 * Reference counts pin a partial hit's nodes until ``release``; eviction
   removes childless, unpinned nodes, least recently used first, until the
   block budget holds.
-* SSM and hybrid stacks fold the whole prefix into their states: they get
-  exact full-prompt terminals only, under the same budget.
+* SSM and hybrid stacks fold the whole prefix into their states, and the
+  audio decoder's cross K/V depend on the whole frame input: they get exact
+  full-prompt terminals only, under the same budget.
+* The vlm's cache starts with its F patch rows (the prologue).  Roots are
+  keyed by the prompt length and the frontend's digest; a vlm root holds
+  rows ``[0, F)`` as its payload, every block node the F-shifted rows of its
+  tokens, and a match without the prologue misses (a resume needs a span
+  contiguous from row 0).
 
 **KV-hop compaction** (``compact_kv_hop`` / ``restore_kv_hop``): the sender
 ships only the tail rows the receiver does not hold, packed to the front of
@@ -33,9 +39,6 @@ the buffer by the ``masked_compact`` kernel; wire bytes are the packed rows
 plus their int32 indices (``core/masking.compression_report``).  The
 keep-all mask is lossless; ``keep_rate < 1`` drops low-salience tail rows
 (K-norm scores) and is lossy.
-
-The vlm frontend's prologue rows are not ported yet: every root starts at
-row 0 of the prompt tokens.
 """
 from __future__ import annotations
 
@@ -144,6 +147,7 @@ class PrefixCache:
         self.block_size = int(block_size)
         self.budget_blocks = int(budget_blocks)
         self.kind = M._kind(cfg)
+        self._offset = M.frontend_offset(cfg)
         self._roots: Dict[Any, _Node] = {}
         self._payload_nodes: list = []   # every node holding kv/logits
         self._tick = 0
@@ -182,7 +186,7 @@ class PrefixCache:
             victim = min(victims, key=lambda n: n.tick)
             if victim.parent is not None:
                 victim.parent.children.pop(victim.key, None)
-            else:
+            else:   # a childless vlm prologue root
                 self._roots = {k: v for k, v in self._roots.items()
                                if v is not victim}
             self._payload_nodes.remove(victim)
@@ -203,12 +207,13 @@ class PrefixCache:
     # -- lookup ---------------------------------------------------------
     def _root_key(self, n_tokens: int, frontend) -> Any:
         # keyed by padded prompt length (prefixes transfer only between
-        # same-shape requests) and by the frontend's digest
+        # same-shape requests) and by the frontend's digest (the vlm's
+        # prologue rows depend on the image, not only on the tokens)
         return (n_tokens, _digest(frontend))
 
     def match(self, tokens, *, frontend=None) -> PrefixHit:
         toks = tuple(int(t) for t in np.asarray(tokens).ravel())
-        rows = len(toks)
+        rows = len(toks) + self._offset
         total = prefill_flops(self.cfg, rows)
         self.flops_total += total
         hit = PrefixHit(rows_total=rows, flops_total=total)
@@ -228,10 +233,15 @@ class PrefixCache:
             matched.append(child)
             node = child
         term = node.children.get(("end", toks[len(matched) * T:]))
+        prologue = [root.kv] if root.kv is not None else []
+        if self._offset and not prologue:
+            # a vlm trie without its prologue rows cannot resume
+            self.misses += 1
+            return hit
         if term is not None:
             # exact full-prompt hit: the complete cache from the chain and
             # the remainder; prefill and the KV hop are skipped
-            parts = [n.kv for n in matched]
+            parts = prologue + [n.kv for n in matched]
             if term.kv is not None:
                 parts.append(term.kv)
             for n in [root] + matched + [term]:
@@ -246,19 +256,22 @@ class PrefixCache:
             self.flops_avoided += hit.flops_avoided
             return hit
 
-        # partial hit: a resume needs >= 1 tail row
-        while matched and len(matched) * T >= rows:
+        # partial hit: a resume needs >= 1 tail row; a vlm resumes from its
+        # prologue alone too
+        while matched and self._offset + len(matched) * T >= rows:
             matched.pop()
-        if not matched:
+        if not matched and not prologue:
             self.misses += 1
             return hit
-        for n in matched:
+        parts = prologue + [n.kv for n in matched]
+        pins = tuple([root] + matched) if prologue else tuple(matched)
+        for n in pins:
             n.refs += 1
             self._touch(n)
-        hit.q_rows = len(matched) * T
-        hit.blocks = len(matched)
-        hit.prefix = _concat_blocks([n.kv for n in matched])
-        hit.pins = tuple(matched)
+        hit.q_rows = self._offset + len(matched) * T
+        hit.blocks = len(parts)
+        hit.prefix = _concat_blocks(parts)
+        hit.pins = pins
         hit.flops_avoided = total - prefill_flops(self.cfg, rows, hit.q_rows)
         self.hits += 1
         self.blocks_reused += hit.blocks
@@ -310,20 +323,26 @@ class PrefixCache:
             self._evict()
             return
 
-        T, rows = self.block_size, len(toks)
+        T, F = self.block_size, self._offset
+        rows = len(toks) + F
         if tree_leaves(cache)[0].shape[2] != rows:
-            raise ValueError("prefill cache rows must cover the prompt tokens")
+            raise ValueError("prefill cache rows must cover the frontend "
+                             "prologue and the prompt tokens")
 
         def rows_of(lo, hi):
             return tree_map(lambda a: self._copy(a[:, :, lo:hi]), cache)
 
+        if F and root.kv is None:
+            root.kv = rows_of(0, F)
+            self._add_payload(root)
         node = root
-        nb = rows // T
+        nb = len(toks) // T
         for i in range(nb):
             blk = toks[i * T:(i + 1) * T]
             child = node.children.get(blk)
             if child is None:
-                child = _Node(blk, kv=rows_of(i * T, (i + 1) * T), parent=node)
+                child = _Node(blk, kv=rows_of(F + i * T, F + (i + 1) * T),
+                              parent=node)
                 node.children[blk] = child
                 self._add_payload(child)
             else:
@@ -332,7 +351,7 @@ class PrefixCache:
         rem = toks[nb * T:]
         tkey = ("end", rem)
         if tkey not in node.children:
-            term = _Node(tkey, kv=rows_of(nb * T, rows) if rem else None,
+            term = _Node(tkey, kv=rows_of(F + nb * T, rows) if rem else None,
                          logits=self._copy(logits), parent=node)
             node.children[tkey] = term
             self._add_payload(term)

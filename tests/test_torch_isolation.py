@@ -45,6 +45,8 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.configs.falcon_mamba_7b",
             "repro_torch.configs.zamba2_2_7b",
             "repro_torch.configs.olmo_1b", "repro_torch.configs.nemotron_4_15b",
+            "repro_torch.configs.internvl2_1b",
+            "repro_torch.configs.seamless_m4t_medium",
             "repro_torch.serving.prefix_cache",
             "repro_torch.serving.prefill",
             "repro_torch.core.battery", "repro_torch.core.mobility",

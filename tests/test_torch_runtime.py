@@ -21,7 +21,7 @@ import dataclasses
 import io
 import json
 import sys
-from contextlib import redirect_stderr
+from contextlib import redirect_stderr, redirect_stdout
 from pathlib import Path
 
 import numpy as np
@@ -614,6 +614,22 @@ def test_launcher_flag_errors_read_as_jax(argv, capsys):
     assert got.split("error: ", 1)[1] == want.split("error: ", 1)[1]
 
 
+def _stdout_of(fn, argv):
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        fn(argv)
+    return buf.getvalue().splitlines()
+
+
 def test_launcher_kv_int8_not_ported():
-    msg = _stderr_of(serve.main, ["--device", "cpu", "--reduced", "--kv-int8"])
-    assert msg.endswith("--kv-int8 is not ported yet")
+    """--kv-int8 (once refused as not ported, hence the name) runs the
+    static path and prints what JAX's launcher prints: the arch line with
+    kv=int8 (the port adds its device) and the local-only output shape."""
+    argv = ["--kv-int8", "--split", "none", "--requests", "4",
+            "--prompt-len", "8", "--max-new", "4"]
+    got = _stdout_of(serve.main, ["--device", "cpu", "--reduced"] + argv)
+    want = _stdout_of(_jax_main, argv)
+    assert want[0] == "arch=llama3.2-1b (reduced) kv=int8 topology=pair/2"
+    assert got[0] == want[0] + " device=cpu"
+    assert got[-1].split(" in ")[0] == want[-1].split(" in ")[0] \
+        == "local-only: (4, 4)"

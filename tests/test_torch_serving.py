@@ -112,8 +112,12 @@ def test_launcher_static_split_on_cpu(capsys):
     assert ops.launch_counts() == {"decode_attention": 0, "masked_compact": 0,
                                    "grouped_ffn": 0, "ssm_scan": 0}
     assert "solver: r* =" in capsys.readouterr().out
-    with pytest.raises(SystemExit):     # the one flag still not ported
-        serve.main(["--reduced", "--device", "cpu", "--kv-int8"])
+    s8 = serve.main(["--reduced", "--device", "cpu", "--kv-int8", "--requests",
+                     "5", "--prompt-len", "12", "--max-new", "5",
+                     "--macro-steps", "4"])                 # the int8 cache
+    assert s8["tokens"].shape == (5, 5)
+    assert s8["decode_steps"] == (1 + sum(1 for n in s8["n_group"] if n)) * 4
+    assert "kv=int8" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "nemotron-4-15b"])
