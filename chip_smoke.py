@@ -213,6 +213,35 @@ freed before the next loads:
            tail the vlm's hops shipped; the f32 route and the cross shape
            timed beside their bound and SDPA
 
+Then the training path, no model held before each loads:
+
+  train_slice  llama3.2-1b at full width and depth (16 layers, d 2048, vocab
+           128256, bf16, random weights from seed 0) through make_train_step
+           at the train launcher's defaults: batch 8, seq 64,
+           synthetic_lm_batches seed 0, lr 1e-3, warmup 2, 20 steps; checks
+           every leaf's gradient finite and non-zero, a microbatches=2 step
+           and a remat step at the full-batch loss within 1e-2 relative, the
+           loss finite at every step and the last below the first, no kernel
+           launched, save_checkpoint + restore_checkpoint of the bf16 params
+           and the AdamW state bit-equal; reports ms a step (CUDA events),
+           tokens/s, peak memory, the first and last loss; then ``python -m
+           repro_torch.launch.train --steps 3`` must exit 0
+  train_moe    moonshot-v1-16b-a3b at full width, depth cut to 2 layers
+           (~1.85 B params), 5 steps at batch 4, seq 64: grouped_ffn ==
+           layers x steps, == 2 x layers x steps in 2 remat steps, every
+           leaf's gradient non-zero (the experts' w_gate, w_up, w_down
+           reported); each train phase also times forward + backward alone
+  train_ssm    falcon-mamba-7b at full width, depth cut to 4 layers (~0.69 B
+           params), 5 steps at batch 2, seq 256: ssm_scan == ssm_scan_bwd ==
+           layers x chunks x steps, every leaf's gradient non-zero
+  train_kernels  the differentiable ops' outputs and gradients against
+           torch.autograd through the plain versions: grouped_ffn at the
+           train buffer (bf16, counts full / ragged / zero, within 3e-2 of
+           max|g|), ssm_scan + ssm_scan_bwd at [2,256,8192,16] and ragged
+           shapes (S 1, odd di x N, G or g absent; f32 within 1e-5 of
+           max|g|); every kernel call twice, bit-equal; ssm_scan_bwd's device
+           ms beside its bytes bound and the plain reverse loop's time
+
 Then the per-kernel summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Every phase also prints its seconds.
 Float32 matmuls run in full float32 (TF32 off).
@@ -220,9 +249,11 @@ Float32 matmuls run in full float32 (TF32 off).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -264,6 +295,16 @@ FLEET_TENANTS = "interactive:0:2:0.5,batch:1:1"
 VLM_CONT_REQUESTS, VLM_CONT_MAX_NEW, VLM_CONT_P = 12, 16, 128
 FFN_TOL = {"bfloat16": 5e-2, "float32": 2e-4}   # tests/test_kernels.py:129
 SCAN_TOL = 1e-5     # relative to max|h|: both versions sum in one order
+# the training path: llama3.2-1b at the train launcher's defaults (steps,
+# batch, seq, lr); moonshot's and falcon-mamba's cuts (layers, steps, batch,
+# seq); losses of a microbatched and a remat step against the full-batch
+# loss (bf16, relative); gradients against the plain versions' (of max|g|)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 20, 8, 64, 1e-3
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 2, 5, 4, 64
+MOE_REMAT_STEPS = 2
+SSM_TRAIN_LAYERS, SSM_TRAIN_STEPS, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ = 4, 5, 2, 256
+TRAIN_TOL = 1e-2
+GRAD_TOL = {"bfloat16": 3e-2, "float32": 1e-5}
 
 # nvidia-smi's name + power limit, stamped on every line after env so each
 # number stands beside the card it came from
@@ -551,7 +592,8 @@ def _expected_launches(cfg, s, prompt_len):
     scan = cfg.family == "ssm" and cfg.mamba_version == 1
     return {"decode_attention": attn_layers.get(cfg.family, L) * steps,
             "grouped_ffn": L * (steps + prefills) if cfg.num_experts else 0,
-            "ssm_scan": L * prefills * -(-prompt_len // 256) if scan else 0}
+            "ssm_scan": L * prefills * -(-prompt_len // 256) if scan else 0,
+            "ssm_scan_bwd": 0}
 
 
 def phase_slice(torch, arch=ARCH, *, phase="slice", split="auto",
@@ -1927,7 +1969,8 @@ def _check_fleet_launches(name, cfg, counts, rec):
     require(counts["masked_compact"] == 2 * len(rec.hops),
             f"{name}: masked_compact launched {counts['masked_compact']} times, "
             f"expected 2 x {len(rec.hops)} hops that shipped a KV tail")
-    require(counts["grouped_ffn"] == counts["ssm_scan"] == 0,
+    require(counts["grouped_ffn"] == counts["ssm_scan"]
+            == counts["ssm_scan_bwd"] == 0,
             f"{name}: MoE/SSM kernels launched: {counts}")
     return steps
 
@@ -2393,6 +2436,429 @@ def phase_families_kernels(torch, dev, decode_shapes, payloads, hops):
 
 
 # ---------------------------------------------------------------------------
+# the training path
+# ---------------------------------------------------------------------------
+def _train_data(cfg, batch, seq):
+    """The launcher's corpus: ``synthetic_lm_batches`` seed 0, after the
+    batch the launcher draws before its first step."""
+    from repro_torch.data.pipeline import DataConfig, synthetic_lm_batches
+    data = synthetic_lm_batches(DataConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=seq, batch_size=batch))
+    next(data)
+    return data
+
+
+def _on(torch, batch, dev):
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def _grad_norms(torch, phase, grads):
+    """Every leaf's gradient norm; fails unless each is finite and above 0."""
+    from repro_torch.training.checkpoint import named_leaves
+    norms = {name: float(torch.linalg.vector_norm(g.float()))
+             for name, g in named_leaves(grads)}
+    bad = {k: v for k, v in norms.items() if not (math.isfinite(v) and v > 0)}
+    require(not bad, f"{phase}: leaves without a finite non-zero gradient: {bad}")
+    return norms
+
+
+def _run_steps(torch, step_fn, params, state, batches):
+    """One train step a batch, each between CUDA events (forward, backward
+    and AdamW as the device ran them; no host sync inside the loop).
+    Returns (params, state, losses, ms a step)."""
+    marks, metrics = [], []
+    for batch in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, state, m = step_fn(params, state, batch)
+        end.record()
+        marks.append((start, end))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    losses = [float(m["loss"]) for m in metrics]
+    require(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
+    return params, state, losses, [s.elapsed_time(e) for s, e in marks]
+
+
+def _step_row(cfg, batch, seq, losses, ms, peak, before):
+    steady = ms[1:] or ms
+    mean = sum(steady) / len(steady)
+    return {"arch": cfg.name, "layers": cfg.num_layers, "batch": batch,
+            "seq": seq, "steps": len(ms), "loss_first": losses[0],
+            "loss_last": losses[-1], "losses": losses, "ms_per_step": mean,
+            "ms_per_step_first": ms[0], "tokens_per_s": batch * seq / mean * 1e3,
+            "peak_memory_bytes": peak, "allocated_before_bytes": before}
+
+
+def _fwd_bwd_ms(torch, T, params, cfg, batch, reps=3):
+    """ms of the loss's forward and backward alone (no AdamW), the mean of
+    ``reps`` calls between CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        T.value_and_grad(params, cfg, batch, remat=False)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _bits(torch, t):
+    return t.view({torch.bfloat16: torch.int16, torch.float32: torch.int32}
+                  .get(t.dtype, t.dtype))
+
+
+def phase_train_slice(torch, dev):
+    """llama3.2-1b at full width and depth (bf16, random weights from seed
+    0) through make_train_step at the train launcher's defaults: batch 8,
+    seq 64, synthetic_lm_batches seed 0, lr 1e-3, warmup 2, 20 steps.
+    Checks: every leaf's gradient finite and non-zero at the first batch;
+    a microbatches=2 step and a remat step give the full-batch loss within
+    1e-2 relative; the loss finite at every step and the last below the
+    first; no kernel launched (the dense path has none); save_checkpoint
+    then restore_checkpoint of the params and the AdamW state bit-equal.
+    Then ``python -m repro_torch.launch.train --steps 3`` exits 0."""
+    import itertools
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.offload import tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.training import train as T
+    from repro_torch.training.checkpoint import (named_leaves, restore_checkpoint,
+                                                 save_checkpoint)
+    from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
+
+    cfg = get_config(ARCH)
+    opt_cfg = OptimizerConfig(lr=TRAIN_LR, warmup_steps=max(TRAIN_STEPS // 10, 1),
+                              total_steps=TRAIN_STEPS)
+    params = M.init_params(cfg, 0, device=dev)
+    data = _train_data(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    first = next(data)
+    loss0, _, grads = T.value_and_grad(params, cfg, _on(torch, first, dev),
+                                       remat=False)
+    norms = _grad_norms(torch, "train_slice", grads)
+    del grads
+    loss_remat = T.value_and_grad(params, cfg, _on(torch, first, dev),
+                                  remat=True)[0]
+    copy = tree_map(torch.clone, params)
+    copy, copy_state, m_mb = T.make_train_step(
+        cfg, opt_cfg, remat=False, microbatches=2)(copy, init_opt_state(copy),
+                                                    first)
+    loss_mb = float(m_mb["loss"])
+    del copy, copy_state, m_mb
+    _free(torch)
+
+    state = init_opt_state(params)
+    step_fn = T.make_train_step(cfg, opt_cfg, remat=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    params, state, losses, ms = _run_steps(
+        torch, step_fn, params, state,
+        itertools.chain([first], itertools.islice(data, TRAIN_STEPS - 1)))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    require(losses[-1] < losses[0], f"train_slice: the loss did not fall: {losses}")
+    require(abs(float(loss0) - losses[0]) <= 1e-6 * abs(losses[0]),
+            f"train_slice: step 0's loss {losses[0]} is not the loss {float(loss0)}"
+            " of the same params and batch")
+    for name, other in (("microbatches=2", loss_mb), ("remat", float(loss_remat))):
+        require(abs(other - losses[0]) <= TRAIN_TOL * abs(losses[0]),
+                f"train_slice: the {name} loss {other} is not within "
+                f"{TRAIN_TOL} of the full-batch loss {losses[0]}")
+    require(not any(counts.values()), f"train_slice: kernels launched: {counts}")
+    fwd_bwd_ms = _fwd_bwd_ms(torch, T, params, cfg, _on(torch, first, dev))
+
+    path = ROOT / "build" / "chip_smoke_train.npz"
+    t0 = time.perf_counter()
+    save_checkpoint(str(path), params, state, metadata={"arch": cfg.name})
+    save_s = time.perf_counter() - t0
+    ckpt_bytes = path.stat().st_size
+    t0 = time.perf_counter()
+    p2, s2, meta = restore_checkpoint(str(path), tree_map(torch.empty_like, params),
+                                      init_opt_state(params))
+    restore_s = time.perf_counter() - t0
+    path.unlink()
+    pairs = list(zip(named_leaves((params, state)), named_leaves((p2, s2))))
+    require(all(a[0] == b[0] and a[1].dtype == b[1].dtype
+                and torch.equal(_bits(torch, a[1]), _bits(torch, b[1]))
+                for a, b in pairs) and meta == {"arch": cfg.name},
+            "train_slice: the restored checkpoint differs from the saved state")
+    row = _step_row(cfg, TRAIN_BATCH, TRAIN_SEQ, losses, ms, peak, before)
+    row.update(ms_forward_backward=fwd_bwd_ms,
+               loss_full_batch=float(loss0), loss_microbatches_2=loss_mb,
+               loss_remat=float(loss_remat), launches=counts,
+               grad_norm_min=min(norms.values()), leaves=len(norms),
+               params=sum(t.numel() for _, t in named_leaves(params)),
+               checkpoint_bytes=ckpt_bytes, checkpoint_leaves=len(pairs),
+               save_s=save_s, restore_s=restore_s, checkpoint_bit_equal=True)
+    emit({"phase": "train_slice", **row})
+    del params, state, p2, s2, pairs, step_fn
+    _free(torch)
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--steps", "3"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)},
+                          capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0, f"{' '.join(cmd[1:])} exited {proc.returncode}:"
+            f" {proc.stderr[-2000:]}")
+    emit({"phase": "train_launcher", "argv": cmd[1:], "returncode": 0,
+          "seconds": time.perf_counter() - t0, "stdout": proc.stdout.splitlines()})
+    return counts, row
+
+
+def phase_train_moe(torch, dev):
+    """moonshot-v1-16b-a3b at full width, depth cut to 2 layers (64 experts,
+    d 2048, F 1408, vocab 163840, bf16, ~1.85 B params), 5 steps at batch 4,
+    seq 64.  Checks grouped_ffn == layers x steps, then == 2 x layers x
+    steps in two remat steps (the forward runs again in the backward), and
+    every leaf's
+    gradient non-zero, the experts' w_gate, w_up and w_down among them.
+    Returns (counts, remat counts, the train buffer's (E, C, D, F), row)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.training import train as T
+    from repro_torch.training.checkpoint import named_leaves
+    from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_TRAIN_LAYERS)
+    B, S, steps = MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS
+    opt_cfg = OptimizerConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=steps)
+    params = M.init_params(cfg, 0, device=dev)
+    state = init_opt_state(params)
+    data = _train_data(cfg, B, S)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    params, state, losses, ms = _run_steps(
+        torch, T.make_train_step(cfg, opt_cfg, remat=False), params, state,
+        [next(data) for _ in range(steps)])
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in counts}
+    want["grouped_ffn"] = cfg.num_layers * steps
+    require(counts == want, f"train_moe: launches {counts}, expected {want}")
+    ops.reset_launch_counts()
+    params, state, remat_losses, remat_ms = _run_steps(
+        torch, T.make_train_step(cfg, opt_cfg, remat=True), params, state,
+        [next(data) for _ in range(MOE_REMAT_STEPS)])
+    remat_counts = ops.launch_counts()
+    want = dict(want, grouped_ffn=2 * cfg.num_layers * MOE_REMAT_STEPS)
+    require(remat_counts == want,
+            f"train_moe remat: launches {remat_counts}, expected {want}")
+    batch = _on(torch, next(data), dev)
+    _, _, grads = T.value_and_grad(params, cfg, batch, remat=False)
+    norms = _grad_norms(torch, "train_moe", grads)
+    del grads
+    fwd_bwd_ms = _fwd_bwd_ms(torch, T, params, cfg, batch)
+    shape = (cfg.num_experts, moe_mod._capacity(B * S, cfg), cfg.d_model, cfg.d_ff)
+    row = _step_row(cfg, B, S, losses, ms, peak, before)
+    row.update(ms_forward_backward=fwd_bwd_ms, launches=counts,
+               remat_launches=remat_counts, remat_ms_per_step=remat_ms,
+               remat_losses=remat_losses,
+               params=sum(t.numel() for _, t in named_leaves(params)),
+               leaves=len(norms), grad_norm_min=min(norms.values()),
+               expert_grad_norms={k: v for k, v in norms.items()
+                                  if k.split("/")[-1] in ("w_gate", "w_up", "w_down")
+                                  and "/moe/" in f"/{k}" and "shared" not in k},
+               train_buffer_ECDF=shape)
+    emit({"phase": "train_moe", **row})
+    del params, state
+    _free(torch)
+    return counts, remat_counts, shape, row
+
+
+def phase_train_ssm(torch, dev):
+    """falcon-mamba-7b at full width, depth cut to 4 layers (d 4096, d_inner
+    8192, N 16, bf16, ~0.69 B params), 5 steps at batch 2, seq 256 (one
+    256-row scan chunk).  Checks ssm_scan == layers x chunks x steps and
+    ssm_scan_bwd the same, and every leaf's gradient non-zero.  Returns
+    (counts, the chunk's (B, S, di, N), row)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.training import train as T
+    from repro_torch.training.checkpoint import named_leaves
+    from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
+
+    cfg = dataclasses.replace(get_config(SSM_ARCH), num_layers=SSM_TRAIN_LAYERS)
+    B, S, steps = SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS
+    opt_cfg = OptimizerConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=steps)
+    params = M.init_params(cfg, 0, device=dev)
+    state = init_opt_state(params)
+    data = _train_data(cfg, B, S)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    params, state, losses, ms = _run_steps(
+        torch, T.make_train_step(cfg, opt_cfg, remat=False), params, state,
+        [next(data) for _ in range(steps)])
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n = cfg.num_layers * -(-S // 256) * steps
+    want = dict({k: 0 for k in counts}, ssm_scan=n, ssm_scan_bwd=n)
+    require(counts == want, f"train_ssm: launches {counts}, expected {want}")
+    batch = _on(torch, next(data), dev)
+    _, _, grads = T.value_and_grad(params, cfg, batch, remat=False)
+    norms = _grad_norms(torch, "train_ssm", grads)
+    del grads
+    fwd_bwd_ms = _fwd_bwd_ms(torch, T, params, cfg, batch)
+    row = _step_row(cfg, B, S, losses, ms, peak, before)
+    row.update(ms_forward_backward=fwd_bwd_ms, launches=counts, leaves=len(norms),
+               params=sum(t.numel() for _, t in named_leaves(params)),
+               grad_norm_min=min(norms.values()),
+               scan_chunk=(B, min(S, 256), cfg.d_inner, cfg.ssm_state))
+    emit({"phase": "train_ssm", **row})
+    del params, state
+    _free(torch)
+    return counts, (B, min(S, 256), cfg.d_inner, cfg.ssm_state), row
+
+
+def _grads_of(torch, fn, inputs, cotangents):
+    """(outputs..., input gradients...) of ``fn`` at fresh leaves of
+    ``inputs``; the outputs paired with the non-None cotangents."""
+    ins = [t.detach().requires_grad_(True) for t in inputs]
+    outs = fn(*ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    used = [(o, c) for o, c in zip(outs, cotangents) if c is not None]
+    grads = torch.autograd.grad([o for o, _ in used], ins, [c for _, c in used])
+    return tuple(o.detach() for o in outs) + grads
+
+
+def _compare_grads(torch, tag, got, again, want, tol):
+    """Every output and gradient within ``tol`` of the plain one's max|x|,
+    and the kernel path's two runs bit-equal; returns the largest abs and
+    relative errors."""
+    require(all(torch.equal(_bits(torch, a), _bits(torch, b))
+                for a, b in zip(got, again)), f"{tag}: two runs differ")
+    worst_abs = worst_rel = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        require(g.shape == w.shape and g.dtype == w.dtype
+                and bool(torch.isfinite(g.float()).all()),
+                f"{tag}: output {i} bad ({g.shape} {g.dtype})")
+        err = float((g.float() - w.float()).abs().max())
+        scale = float(w.float().abs().max())
+        require(err <= tol * max(scale, 1e-30),
+                f"{tag}: output {i} max_abs_err {err} > {tol} x max|g| {scale}")
+        worst_abs = max(worst_abs, err)
+        worst_rel = max(worst_rel, err / scale if scale else 0.0)
+    return worst_abs, worst_rel
+
+
+def phase_train_kernels(torch, dev, ffn_shape, scan_shape):
+    """The differentiable ops' outputs and gradients on the card against
+    torch.autograd through their plain versions: grouped_ffn at moonshot's
+    train buffer in bf16 with counts full, ragged and zero (within 3e-2 of
+    max|g|; rows past a count exactly zero in dbuf); ssm_scan's forward and
+    backward (the CUDA ssm_scan_bwd) at falcon-mamba's train chunk and at
+    ragged shapes (S 1, odd di x N, S past the unroll, G or g absent),
+    within 1e-5 of max|g| in f32, and the raw ssm_scan_bwd against
+    ssm_scan_bwd_ref.  Every kernel-path call twice, bit-equal.  Then
+    ssm_scan_bwd timed beside its bound and the plain reverse loop.
+    Returns ({"ssm_scan_bwd": main-path max abs err}, [timing row])."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    E, C, D, F = ffn_shape
+    ffn_rows = []
+    for kind in ("full", "ragged", "zero"):
+        buf, wg, wu, wd = _ffn_case(torch, gen, E, C, D, F, torch.bfloat16, dev)
+        counts = _ffn_counts(torch, gen, kind, E, C, dev)
+        cot = torch.randn((E, C, D), generator=gen, device=dev).to(torch.bfloat16)
+        kern = functools.partial(ops.grouped_ffn, counts=counts, use_kernels=True)
+        plain = functools.partial(ref.grouped_ffn_ref, counts=counts)
+        got = _grads_of(torch, kern, (buf, wg, wu, wd), (cot,))
+        again = _grads_of(torch, kern, (buf, wg, wu, wd), (cot,))
+        want = _grads_of(torch, plain, (buf, wg, wu, wd), (cot,))
+        tag = f"grouped_ffn backward {kind} E={E} C={C} D={D} F={F}"
+        err, rel = _compare_grads(torch, tag, got, again, want,
+                                  GRAD_TOL["bfloat16"])
+        dead = torch.arange(C, device=dev)[None, :] >= counts[:, None]
+        require(not bool(got[1][dead].any()), f"{tag}: dbuf non-zero past a count")
+        ffn_rows.append({"counts": kind, "max_abs_err": err, "max_rel_err": rel,
+                         "live_rows": int(counts.sum())})
+        del buf, wg, wu, wd, got, again, want
+    emit({"phase": "train_kernels", "kernel": "grouped_ffn (autograd)",
+          "dtype": "bfloat16", "shape_ECDF": ffn_shape,
+          "tolerance": f"{GRAD_TOL['bfloat16']} x max|g|", "cases": ffn_rows})
+
+    Bm, Sm, dim, Nm = scan_shape
+    cases = [("main-path", Bm, Sm, dim, Nm, True, False),
+             ("main-path h_last too", Bm, Sm, dim, Nm, True, True),
+             ("S=1", 3, 1, 100, 3, True, True),
+             ("odd di*N", 2, 7, 101, 3, True, True),
+             ("S past the unroll", 1, 300, 100, 4, True, True),
+             ("h_last only", 2, 9, 64, 4, False, True)]
+    scan_rows, main_err = [], 0.0
+    for name, B, S, di, N, with_G, with_g in cases:
+        decay, bx, h0 = _scan_case(torch, gen, B, S, di, N, dev)
+        G = torch.randn((B, S, di, N), generator=gen, device=dev) if with_G else None
+        g = torch.randn((B, di, N), generator=gen, device=dev) if with_g else None
+        kern = functools.partial(ops.ssm_scan, use_kernels=True)
+        got = _grads_of(torch, kern, (decay, bx, h0), (G, g))
+        again = _grads_of(torch, kern, (decay, bx, h0), (G, g))
+        want = _grads_of(torch, ref.ssm_scan_ref, (decay, bx, h0), (G, g))
+        tag = f"ssm_scan backward {name} B={B} S={S} di={di} N={N}"
+        err, rel = _compare_grads(torch, tag, got, again, want, GRAD_TOL["float32"])
+        raw = ssm_scan_bwd_cuda(decay, got[0], h0, G, g)
+        plain = ref.ssm_scan_bwd_ref(decay, got[0], h0, G, g)
+        raw_err = max(float((a - b).abs().max()) for a, b in zip(raw, plain))
+        exact = all(torch.equal(a, b) for a, b in zip(raw, plain))
+        if name.startswith("main-path"):
+            main_err = max(main_err, raw_err)
+        scan_rows.append({"case": name, "B": B, "S": S, "di": di, "N": N,
+                          "G": with_G, "g": with_g, "max_abs_err": err,
+                          "max_rel_err": rel, "bwd_vs_bwd_ref_max_abs_err": raw_err,
+                          "bwd_vs_bwd_ref_exact": exact})
+        del decay, bx, h0, G, g, got, again, want, raw, plain
+    emit({"phase": "train_kernels", "kernel": "ssm_scan / ssm_scan_bwd (autograd)",
+          "dtype": "float32", "tolerance": f"{GRAD_TOL['float32']} x max|g|",
+          "cases": scan_rows})
+    torch.cuda.empty_cache()
+
+    # ssm_scan_bwd at the train path's chunk
+    B, S, di, N = scan_shape
+    Cn = di * N
+    per_set = 4 * B * Cn * (3 * S + 1)
+    sets = []
+    for _ in range(_sets_for(per_set)):
+        decay, bx, h0 = _scan_case(torch, gen, B, S, di, N, dev)
+        h_all = ref.ssm_scan_ref(decay, bx, h0)[0]
+        sets.append((decay, h_all, h0, torch.randn_like(decay)))
+        del bx
+    # (decay, h_all, h0, G): the train path's call, g absent
+    kern, plain = ssm_scan_bwd_cuda, ref.ssm_scan_bwd_ref
+    times = {"ms": _time_ms(torch, kern, sets, iters=40, warmup=4),
+             "device_ms": _device_ms(torch, kern, sets, iters=10),
+             "plain_ms": _time_ms(torch, plain, sets, iters=3, warmup=1),
+             "plain_device_ms": _device_ms(torch, plain, sets, iters=1,
+                                           need_ahead=False)}
+    # reads decay, h_all, G and h0; writes d_decay, d_bx and d_h0 (f32)
+    n_bytes = 4 * B * Cn * (5 * S + 2)
+    n_ops = 3 * B * S * Cn                # lam: a multiply and an add; d_decay
+    bound_ms, bound_by = _bound(n_bytes, n_ops, H100_PEAK_FLOPS_F32)
+    row = {"kernel": "ssm_scan_bwd", "step": "train", "group": "train",
+           "B": B, "S": S, "di": di, "N": N, "dtype": "float32", **times,
+           "library_ms": None,
+           "library": "none: no single PyTorch call computes this backward",
+           "bytes": n_bytes, "operations": n_ops, "bound_ms": bound_ms,
+           "bound_by": bound_by, "sets": len(sets)}
+    emit({"phase": "train_timing", **row,
+          "share_of_bound": row["bound_ms"] / row["device_ms"]})
+    del sets
+    torch.cuda.empty_cache()
+    return {"ssm_scan_bwd": main_err}, [row]
+
+
+# ---------------------------------------------------------------------------
 KERNEL_META = {
     "decode_attention": {
         "route": "cuda", "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -2406,20 +2872,28 @@ KERNEL_META = {
     "ssm_scan": {
         "route": "cuda", "source": "src/repro_torch/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:51"},
+    "ssm_scan_bwd": {
+        "route": "cuda", "source": "src/repro_torch/csrc/ssm_scan.cu",
+        "replaces": "src/repro/models/ssm.py:145",
+        "replaces_note": "no Pallas kernel: JAX differentiates this "
+                         "associative scan in XLA (a reverse scan)"},
 }
 
 
 def kernels_line(rows, counts_by_path, errs):
     """One entry per kernel: decode_attention and masked_compact timed at
     llama's auxiliary group, grouped_ffn at moonshot's auxiliary group's
-    decode, ssm_scan at falcon-mamba's auxiliary group's prefill; launches
-    summed over every main path (and listed per path: each static slice and
-    each continuous mode); max_abs_err the largest main-path error of any
+    decode, ssm_scan at falcon-mamba's auxiliary group's prefill,
+    ssm_scan_bwd at falcon-mamba's train chunk; launches summed over every
+    main path (and listed per path: each static slice, each continuous mode,
+    each train path); max_abs_err the largest main-path error of any
     path."""
-    pick = {}           # each kernel's first row timed at an auxiliary group
+    pick = {}   # each kernel's first row timed at an auxiliary group, else its first
     for row in rows:
         if row["group"] == "auxiliary":
             pick.setdefault(row["kernel"], row)
+    for row in rows:
+        pick.setdefault(row["kernel"], row)
     kernels = []
     for kname, meta in KERNEL_META.items():
         row = pick[kname]
@@ -2571,6 +3045,16 @@ def main() -> None:
     fam_errs, fam_rows = timed("families_kernels", phase_families_kernels, torch,
                                dev, fam_shapes, payloads, vlm_hops)
 
+    # the training path: llama3.2-1b at full width and depth, then the MoE
+    # and SSM kernels forward and backward inside train steps
+    train_counts, _ = timed("train_slice", phase_train_slice, torch, dev)
+    moe_train_counts, moe_remat_counts, ffn_shape, _ = timed(
+        "train_moe", phase_train_moe, torch, dev)
+    ssm_train_counts, scan_shape, _ = timed("train_ssm", phase_train_ssm, torch,
+                                            dev)
+    train_errs, train_rows = timed("train_kernels", phase_train_kernels, torch,
+                                   dev, ffn_shape, scan_shape)
+
     by_path = {ARCH: counts}
     by_path.update({f"{ARCH} continuous {m}": c for m, c in cont_counts.items()})
     by_path.update({f"{ARCH} {f}": c for f, c in fleet_counts.items()})
@@ -2585,10 +3069,15 @@ def main() -> None:
     by_path.update(fam_counts)
     by_path.update({f"{VLM_ARCH} continuous {m}": c
                     for m, c in vlm_cont_counts.items()})
-    kernels = kernels_line(rows + moe_rows + ssm_rows + long_rows + fam_rows,
-                           by_path,
+    by_path[f"{ARCH} train"] = train_counts
+    by_path[f"{MOE_ARCH} train ({MOE_TRAIN_LAYERS} layers)"] = moe_train_counts
+    by_path[f"{MOE_ARCH} train remat"] = moe_remat_counts
+    by_path[f"{SSM_ARCH} train ({SSM_TRAIN_LAYERS} layers)"] = ssm_train_counts
+    kernels = kernels_line(rows + moe_rows + ssm_rows + long_rows + fam_rows
+                           + train_rows, by_path,
                            [errs, cont_errs, fleet_static_errs, fleet_errs,
-                            dense_errs, moe_errs, ssm_errs, hyb_errs, fam_errs])
+                            dense_errs, moe_errs, ssm_errs, hyb_errs, fam_errs,
+                            train_errs])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

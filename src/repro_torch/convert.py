@@ -11,7 +11,9 @@ and layouts are the same in both packages (L-stacked leaves such as
 cache is the tuple ``(conv, ssm)``, which stays a tuple).  bf16 leaves
 arrive as ``ml_dtypes.bfloat16``, which torch cannot read, so they go
 through float32 and are cast back: exact, since every bf16 value is a
-float32 value.
+float32 value.  ``opt_state_from_numpy`` takes JAX's ``OptState`` (step, m,
+v); ``tree_to_numpy`` goes the other way, bf16 leaves as float32, for a
+test to hand the port's params back to JAX.
 """
 from __future__ import annotations
 
@@ -145,3 +147,27 @@ def cache_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
     """JAX decode cache (as numpy) -> the port's cache; int8 values and
     their f32 scales keep their dtypes."""
     return tree_from_numpy(tree, device)
+
+
+def opt_state_from_numpy(opt: Any, device: DeviceLike = None):
+    """JAX's ``OptState(step, m, v)`` (as numpy) -> the port's ``OptState``:
+    an int32 scalar step, f32 ``m`` and ``v`` trees."""
+    from repro_torch.training.optimizer import OptState
+    dev = resolve_device(device)
+    step, m, v = opt
+    return OptState(step=torch.as_tensor(np.array(step), dtype=torch.int32,
+                                         device=dev),
+                    m=tree_from_numpy(m, dev), v=tree_from_numpy(v, dev))
+
+
+def tree_to_numpy(tree: Any) -> Any:
+    """The port's tree (dicts, tuples, an ``OptState``) as numpy, bf16
+    leaves as float32 (exact)."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_to_numpy(v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return tuple(tree_to_numpy(v) for v in tree)
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -1,15 +1,60 @@
-"""Serving request generator (numpy only).
+"""Data pipeline: the synthetic training corpus and the serving request
+generator (numpy only).
 
-Poisson arrivals with log-normal prompt lengths -- the "image batch"
-analogue that HeteroEdge splits across nodes.  Draws the same prompts from
-the same seed as the JAX package's ``request_stream``.
+Training data is a deterministic synthetic LM stream (Zipf-ish unigrams with
+a short-range bigram structure, learnable without an external dataset).
+Serving data is a Poisson request generator with log-normal prompt lengths
+-- the "image batch" analogue that HeteroEdge splits across nodes.  Both
+draw the same arrays from the same seed as the JAX package's
+``synthetic_lm_batches`` and ``request_stream``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
+
+
+@dataclass
+class DataConfig:
+    vocab_size: int
+    seq_len: int
+    batch_size: int
+    seed: int = 0
+    frontend_tokens: int = 0
+    frontend_dim: int = 0
+
+
+def synthetic_lm_batches(cfg: DataConfig) -> Iterator[Dict[str, np.ndarray]]:
+    """Infinite iterator of {"tokens": [B,S] int32} (+"frontend" [B,F,fd]
+    f32) batches.
+
+    Token stream: Zipf unigrams with a deterministic bigram successor table --
+    a model that learns p(next|prev) drops loss well below unigram entropy.
+    """
+    rng = np.random.default_rng(cfg.seed)
+    V = cfg.vocab_size
+    probs = 1.0 / np.arange(1, V + 1) ** 1.1
+    probs /= probs.sum()
+    successor = rng.permutation(V)  # deterministic bigram: w -> successor[w]
+    while True:
+        first = rng.choice(V, size=(cfg.batch_size, 1), p=probs)
+        toks = [first]
+        cur = first
+        # 70% bigram-follow / 30% resample: learnable but not trivial
+        for _ in range(cfg.seq_len - 1):
+            follow = successor[cur]
+            resample = rng.choice(V, size=cur.shape, p=probs)
+            take = rng.random(cur.shape) < 0.7
+            cur = np.where(take, follow, resample)
+            toks.append(cur)
+        batch = {"tokens": np.concatenate(toks, axis=1).astype(np.int32)}
+        if cfg.frontend_tokens:
+            batch["frontend"] = rng.standard_normal(
+                (cfg.batch_size, cfg.frontend_tokens,
+                 cfg.frontend_dim)).astype(np.float32)
+        yield batch
 
 
 @dataclass

@@ -43,6 +43,9 @@ SIGNATURES = {
     "repro_grouped_ffn": ([_P] * 7 + [_I] * 5 + [_P], _I),
     # decay, bx, h0, h_all, h_last, B, S, channels (= di * N), stream
     "repro_ssm_scan": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+    # decay, h_all, h0, G (or NULL), g (or NULL), d_decay, d_bx, d_h0, B, S,
+    # channels, stream
+    "repro_ssm_scan_bwd": ([_P] * 8 + [_I] * 3 + [_P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -3,6 +3,9 @@
 A CUDA tensor launches the hand-written kernel (or the wrapper raises); a
 CPU tensor, or a call with ``use_kernels=False``, takes the plain PyTorch
 version.  There is no fallback from the kernel to the plain version.
+``grouped_ffn`` and ``ssm_scan`` are differentiable on every device
+(``kernels/autograd.py``); ``ssm_scan``'s backward on the card is the
+hand-written ``repro_ssm_scan_bwd``, counted as ``ssm_scan_bwd``.
 ``use_kernels`` is the port's counterpart of the JAX package's
 ``use_pallas``: ``"auto"`` means "the tensors are on CUDA".
 
@@ -18,15 +21,17 @@ from typing import Dict, Union
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.autograd import GroupedFFN, SSMScan
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.grouped_ffn import check_counts, grouped_ffn_cuda
 from repro_torch.kernels.masked_compact import masked_compact_cuda
-from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda, ssm_scan_cuda
 
 _WRAPPERS = {"decode_attention": decode_attention_cuda,
              "masked_compact": masked_compact_cuda,
              "grouped_ffn": grouped_ffn_cuda,
-             "ssm_scan": ssm_scan_cuda}
+             "ssm_scan": ssm_scan_cuda,
+             "ssm_scan_bwd": ssm_scan_bwd_cuda}
 
 
 def resolve_use_kernels(use_kernels: Union[bool, str],
@@ -60,20 +65,18 @@ def grouped_ffn(buf, wg, wu, wd, *, counts=None, use_kernels: bool = True):
     """buf: [E,C,D]; wg/wu: [E,D,F]; wd: [E,F,D] -> [E,C,D] in buf's dtype.
     ``counts``: None or int32 [E] on buf's device, the leading rows of each
     ``buf[e]`` in use (the rest are taken as zeros and give zero rows).
-    ``use_kernels=False`` takes the plain version on any device."""
+    ``use_kernels=False`` takes the plain version on any device.
+    Differentiable in buf and the weights."""
     check_counts(counts, buf.shape[0], buf.device)
-    if use_kernels and buf.is_cuda:
-        return grouped_ffn_cuda(buf, wg, wu, wd, counts)
-    return ref.grouped_ffn_ref(buf, wg, wu, wd, counts)
+    return GroupedFFN.apply(buf, wg, wu, wd, counts, bool(use_kernels))
 
 
 def ssm_scan(decay, bx, h0, *, use_kernels: bool = True):
     """decay/bx: [B,S,di,N] f32; h0: [B,di,N] f32 -> (h_all [B,S,di,N],
     h_last [B,di,N]), both f32.  ``use_kernels=False`` takes the plain
-    version on any device."""
-    if use_kernels and decay.is_cuda:
-        return ssm_scan_cuda(decay, bx, h0)
-    return ref.ssm_scan_ref(decay, bx, h0)
+    version on any device (forward and backward).  Differentiable in all
+    three inputs."""
+    return SSMScan.apply(decay, bx, h0, bool(use_kernels))
 
 
 def admit_state(cur_tok, lengths, remaining, done, slot_ids, last_logits,

@@ -86,17 +86,19 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
 def grouped_ffn_ref(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
                     wd: torch.Tensor, counts=None) -> torch.Tensor:
     """buf: [E,C,D]; wg/wu: [E,D,F]; wd: [E,F,D] -> [E,C,D] in buf's dtype.
-    Computed in f32 from the inputs; the hidden ``h`` stays f32.  ``counts``
-    ([E] ints, or None for C): rows of ``buf[e]`` at or past ``counts[e]``
-    are taken as zeros, so their output rows are exactly zero."""
-    xf = buf.float()
+    Computed in f32 from the inputs (f64 ones in f64); the hidden ``h``
+    stays f32.  ``counts`` ([E] ints, or None for C): rows of ``buf[e]`` at
+    or past ``counts[e]`` are taken as zeros, so their output rows are
+    exactly zero."""
+    acc = torch.promote_types(buf.dtype, torch.float32)
+    xf = buf.to(acc)
     if counts is not None:
         rows = torch.arange(buf.shape[1], device=buf.device)
         xf = torch.where((rows[None, :] < counts[:, None])[..., None], xf, 0.0)
-    g = torch.bmm(xf, wg.float())
-    u = torch.bmm(xf, wu.float())
+    g = torch.bmm(xf, wg.to(acc))
+    u = torch.bmm(xf, wu.to(acc))
     h = torch.nn.functional.silu(g) * u
-    return torch.bmm(h, wd.float()).to(buf.dtype)
+    return torch.bmm(h, wd.to(acc)).to(buf.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -111,3 +113,24 @@ def ssm_scan_ref(decay: torch.Tensor, bx: torch.Tensor, h0: torch.Tensor):
         h = decay[:, s] * h + bx[:, s]
         h_all[:, s] = h
     return h_all, h
+
+
+def ssm_scan_bwd_ref(decay: torch.Tensor, h_all: torch.Tensor,
+                     h0: torch.Tensor, G=None, g=None):
+    """The recurrence's backward, the reverse loop.  decay/h_all: [B,S,di,N]
+    f32 (the forward's input and output); h0: [B,di,N]; G: None or the
+    gradient of h_all; g: None or the gradient of h_last.  With ``lam`` the
+    adjoint of the state, ``lam_{S-1} = G_{S-1} + g`` and ``lam_t = G_t +
+    decay_{t+1} * lam_{t+1}``; returns (d_decay_t = lam_t * h_{t-1} with
+    h_{-1} = h0, d_bx_t = lam_t, d_h0 = decay_0 * lam_0), rounded step by
+    step as the kernel rounds them."""
+    d_decay = torch.empty_like(decay)
+    d_bx = torch.empty_like(decay)
+    lam = g if g is not None else torch.zeros_like(h0)
+    dnext = torch.ones_like(h0)          # decay_{t+1}; 1 * lam is exact
+    for s in reversed(range(decay.shape[1])):
+        lam = dnext * lam if G is None else G[:, s] + dnext * lam
+        d_bx[:, s] = lam
+        d_decay[:, s] = lam * (h_all[:, s - 1] if s else h0)
+        dnext = decay[:, s]
+    return d_decay, d_bx, dnext * lam

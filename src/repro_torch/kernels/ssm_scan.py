@@ -9,6 +9,11 @@ thread walks S for a float4 of channels with ``h`` in registers, coalesced
 along ``di*N``, so there is no carry between blocks and no scan tree.  Its
 plain version is :func:`repro_torch.kernels.ref.ssm_scan_ref`, which it
 matches bit for bit (no FMA contraction).
+
+Its backward (``repro_ssm_scan_bwd`` in the same source) walks S in reverse
+with the state's adjoint in registers; the TPU had no kernel for it (JAX
+differentiates its associative scan in XLA).  Its plain version is
+:func:`repro_torch.kernels.ref.ssm_scan_bwd_ref`.
 """
 from __future__ import annotations
 
@@ -17,38 +22,49 @@ import torch
 from repro_torch.kernels import _build
 
 
+def _check(what: str, named, B_S_shape) -> None:
+    """The checks both wrappers make: every tensor f32, on decay's CUDA
+    device, contiguous and 16-byte aligned; ``named[0]`` [B,S,di,N] with
+    every other [B,S,di,N] or [B,di,N] as ``B_S_shape`` says; no empty
+    dimension; the launch grid's range."""
+    decay = named[0][1]
+    for name, t in named:
+        if not t.is_cuda:
+            raise ValueError(f"{what}: {name} is on {t.device}, "
+                             "not a CUDA device")
+        if t.device != decay.device:
+            raise ValueError(f"{what}: tensors on different devices")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: {name} has dtype {t.dtype}; "
+                            "the kernel takes float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} is not contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} is not 16-byte aligned")
+    state = (decay.shape[0], *decay.shape[2:])
+    if decay.dim() != 4 or any(
+            tuple(t.shape) != (tuple(decay.shape) if full else state)
+            for (_, t), full in zip(named, B_S_shape)):
+        raise ValueError(f"{what}: bad shapes " + ", ".join(
+            f"{name} {tuple(t.shape)}" for name, t in named))
+    B, S, di, N = decay.shape
+    if min(B, S, di, N) == 0:
+        raise ValueError(f"{what}: empty dimension in B={B}, S={S}, "
+                         f"di={di}, N={N}")
+    if di * N >= 2 ** 31 or B >= 2 ** 16:
+        raise ValueError(f"{what}: B={B}, di*N={di * N} past the "
+                         "launch grid's range")
+
+
 def ssm_scan_cuda(decay: torch.Tensor, bx: torch.Tensor,
                   h0: torch.Tensor):
     """decay/bx: [B,S,di,N] f32; h0: [B,di,N] f32 (one CUDA device,
     contiguous, 16-byte aligned).  Any positive B, S, di and N.  Returns
     (h_all [B,S,di,N], h_last [B,di,N]), both f32.  Launches on the current
     stream and counts the launch in ``ssm_scan_cuda.launches``."""
-    named = (("decay", decay), ("bx", bx), ("h0", h0))
-    for name, t in named:
-        if not t.is_cuda:
-            raise ValueError(f"ssm_scan_cuda: {name} is on {t.device}, "
-                             "not a CUDA device")
-        if t.device != decay.device:
-            raise ValueError("ssm_scan_cuda: tensors on different devices")
-        if t.dtype != torch.float32:
-            raise TypeError(f"ssm_scan_cuda: {name} has dtype {t.dtype}; "
-                            "the kernel takes float32")
-        if not t.is_contiguous():
-            raise ValueError(f"ssm_scan_cuda: {name} is not contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"ssm_scan_cuda: {name} is not 16-byte aligned")
-    if decay.dim() != 4 or bx.shape != decay.shape \
-            or h0.shape != (decay.shape[0], *decay.shape[2:]):
-        raise ValueError(f"ssm_scan_cuda: bad shapes decay "
-                         f"{tuple(decay.shape)}, bx {tuple(bx.shape)}, h0 "
-                         f"{tuple(h0.shape)}")
+    _check("ssm_scan_cuda", (("decay", decay), ("bx", bx), ("h0", h0)),
+           (True, True, False))
     B, S, di, N = decay.shape
-    if min(B, S, di, N) == 0:
-        raise ValueError(f"ssm_scan_cuda: empty dimension in B={B}, S={S}, "
-                         f"di={di}, N={N}")
-    if di * N >= 2 ** 31 or B >= 2 ** 16:
-        raise ValueError(f"ssm_scan_cuda: B={B}, di*N={di * N} past the "
-                         "launch grid's range")
     h_all = torch.empty_like(decay)
     h_last = torch.empty_like(h0)
     lib = _build.load()
@@ -63,3 +79,41 @@ def ssm_scan_cuda(decay: torch.Tensor, bx: torch.Tensor,
 
 
 ssm_scan_cuda.launches = 0
+
+
+def ssm_scan_bwd_cuda(decay: torch.Tensor, h_all: torch.Tensor,
+                      h0: torch.Tensor, G=None, g=None):
+    """The recurrence's backward.  decay/h_all: [B,S,di,N] f32 (the forward's
+    input and output); h0: [B,di,N] f32; G: None or [B,S,di,N] f32, the
+    gradient of h_all; g: None or [B,di,N] f32, the gradient of h_last (the
+    forward wrapper's contract for every tensor given).  Returns (d_decay,
+    d_bx [B,S,di,N], d_h0 [B,di,N]), f32.  Launches on the current stream and
+    counts the launch in ``ssm_scan_bwd_cuda.launches``."""
+    named = [("decay", decay), ("h_all", h_all), ("h0", h0)]
+    full = [True, True, False]
+    if G is not None:
+        named.append(("G", G))
+        full.append(True)
+    if g is not None:
+        named.append(("g", g))
+        full.append(False)
+    _check("ssm_scan_bwd_cuda", named, full)
+    B, S, di, N = decay.shape
+    d_decay = torch.empty_like(decay)
+    d_bx = torch.empty_like(decay)
+    d_h0 = torch.empty_like(h0)
+    lib = _build.load()
+    with torch.cuda.device(decay.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_ssm_scan_bwd(
+            decay.data_ptr(), h_all.data_ptr(), h0.data_ptr(),
+            None if G is None else G.data_ptr(),
+            None if g is None else g.data_ptr(),
+            d_decay.data_ptr(), d_bx.data_ptr(), d_h0.data_ptr(), B, S, di * N,
+            stream)
+    _build.check(err, "ssm_scan_bwd")
+    ssm_scan_bwd_cuda.launches += 1
+    return d_decay, d_bx, d_h0
+
+
+ssm_scan_bwd_cuda.launches = 0

@@ -6,8 +6,11 @@ Public API (the JAX package's ``repro/models/model.py`` counterpart)
 init_params(cfg, seed, device=None)          -> params (dict of tensors)
 init_cache(cfg, batch, seq_len, dtype, device) -> the JAX cache layout
 forward(params, cfg, batch, mode=...)        -> ModelOutputs
+cross_entropy(logits, labels, mask=None)     -> mean next-token NLL (f32)
 
 ``batch`` is a dict:
+  train:   {"tokens": [B,S]} (+"frontend" as in prefill): logits over every
+           position, the router aux loss and ``loss_mask``; no caches
   prefill: {"tokens": [B,S]} (+"frontend": [B,F,fd] for vlm/audio: the vlm
            prepends the projected patch rows, so its caches hold F+S rows;
            the audio model encodes the frames and its decoder attends over
@@ -38,6 +41,7 @@ class ModelOutputs:
     logits: Any           # [B,S,V] (prefill: the last position only, S = 1)
     aux_loss: Any         # scalar router aux (0 for a dense model)
     cache: Any = None     # decode/prefill caches
+    loss_mask: Any = None # train: [S'] bool, the positions that carry loss
 
 
 def _kind(cfg) -> str:
@@ -134,23 +138,26 @@ def frontend_offset(cfg) -> int:
 
 
 def _embed_inputs(params, cfg, batch):
-    """(x [B,S',D], positions [S']): the vlm prepends its projected patch
-    embeddings, so S' = F + S."""
+    """(x [B,S',D], positions [S'], loss_mask [S'] bool): the vlm prepends
+    its projected patch embeddings, so S' = F + S, and its prologue rows
+    ``< frontend_tokens`` carry no loss."""
     tokens = batch["tokens"]
     x = embed_apply(params["embed"], tokens)
     if cfg.frontend and cfg.family == "vlm":
         fe = batch["frontend"].to(x.dtype) @ params["frontend_proj"]
         x = torch.cat([fe, x], dim=1)
-    return x, torch.arange(x.shape[1], device=tokens.device)
+    positions = torch.arange(x.shape[1], device=tokens.device)
+    return x, positions, positions >= frontend_offset(cfg)
 
 
-def _encode(params, cfg, batch):
+def _encode(params, cfg, batch, mode: str = "prefill", remat: bool = False):
     """The audio encoder over the stubbed frame embeddings: (enc_out
     [B,F,D], positions [F])."""
     fe = batch["frontend"].to(cfg.torch_dtype) @ params["frontend_proj"]
     pos = torch.arange(fe.shape[1], device=fe.device)
     enc, _, _ = tfm.stack_apply(params["encoder"], fe, cfg, kind="encoder",
-                                mode="prefill", positions=pos, causal=False)
+                                mode=mode, positions=pos, causal=False,
+                                remat=remat)
     return norm_apply(params["enc_norm"], enc, cfg), pos
 
 
@@ -169,11 +176,24 @@ def _stack(kind: str):
     return functools.partial(tfm.stack_apply, kind=kind)
 
 
-def forward(params, cfg, batch, *, mode: str = "prefill",
+def forward(params, cfg, batch, *, mode: str = "prefill", remat: bool = False,
             use_kernels: bool = False) -> ModelOutputs:
+    """``remat`` (train) recomputes each layer's activations in the backward
+    pass."""
     kind = _kind(cfg)
+    if mode == "train":
+        x, positions, loss_mask = _embed_inputs(params, cfg, batch)
+        enc = {}
+        if kind == "decoder_x":
+            enc_out, enc_pos = _encode(params, cfg, batch, "train", remat)
+            enc = {"enc_out": enc_out, "enc_positions": enc_pos}
+        x, _, aux = _stack(kind)(params["blocks"], x, cfg, mode="train",
+                                 positions=positions, remat=remat,
+                                 use_kernels=use_kernels, **enc)
+        return ModelOutputs(logits=_logits(params, cfg, x), aux_loss=aux,
+                            loss_mask=loss_mask)
     if mode == "prefill":
-        x, positions = _embed_inputs(params, cfg, batch)
+        x, positions, _ = _embed_inputs(params, cfg, batch)
         enc = {}
         if kind == "decoder_x":
             enc_out, enc_pos = _encode(params, cfg, batch)
@@ -210,6 +230,20 @@ def forward(params, cfg, batch, *, mode: str = "prefill",
                                   cache_index=idx, use_kernels=use_kernels)
     return ModelOutputs(logits=_logits(params, cfg, x), aux_loss=aux,
                         cache=caches)
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean next-token NLL in f32: logsumexp over the vocab minus the gold
+    logit (picked with a gather where JAX contracts a one-hot; adding zeros
+    is exact, so the two agree).  ``mask`` (broadcast to the NLL's shape)
+    averages over the positions it keeps."""
+    lf = logits.float()
+    gold = lf.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
+    nll = torch.logsumexp(lf, dim=-1) - gold
+    if mask is not None:
+        m = torch.broadcast_to(mask, nll.shape).float()
+        return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return nll.mean()
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,10 @@
 cross-attending decoder block kinds, and the hybrid stack.
 
 Parameters are L-stacked like the JAX package's scanned stacks; a Python
-loop over the layer axis replaces ``lax.scan``.  The hybrid (zamba2) stack
+loop over the layer axis replaces ``lax.scan``.  Mode "train" runs the
+prefill's arithmetic and keeps no cache; ``remat`` recomputes each layer's
+activations in the backward pass (``torch.utils.checkpoint``, where JAX
+wraps its scan body in ``jax.checkpoint``).  The hybrid (zamba2) stack
 runs blocks of ``hybrid_attn_every`` Mamba layers with the weight-shared
 dense block applied after each block.  The audio model's encoder blocks are
 non-causal dense blocks; its decoder blocks (``"decoder_x"``) add a
@@ -15,6 +18,7 @@ import math
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.offload import tree_map
 from repro_torch.models import attention as attn
@@ -71,6 +75,26 @@ def layer_slice(tree, i):
     return tree[i]
 
 
+def layer_chunks(params, k: int) -> list:
+    """L-stacked params (a tree of dicts) as L/k trees of k-layer views, one
+    ``split`` per leaf.  Its backward joins the chunks' gradients once;
+    slicing the stack once per layer would give each slice's gradient a
+    zero tensor the size of the whole stack, summed over the layers (O(L^2)
+    in a backward pass)."""
+    def split(t):
+        if isinstance(t, dict):
+            return {key: split(v) for key, v in t.items()}
+        return t.split(k)
+
+    def pick(t, j):
+        if isinstance(t, dict):
+            return {key: pick(v, j) for key, v in t.items()}
+        return t[j]
+
+    parts = split(params)
+    return [pick(parts, j) for j in range(-(-_num_layers(params) // k))]
+
+
 def block_apply(params, x, cfg, *, kind: str, mode: str, positions,
                 cache=None, cache_index=None, enc_out=None, enc_positions=None,
                 causal: bool = True, use_kernels: bool = False):
@@ -80,7 +104,7 @@ def block_apply(params, x, cfg, *, kind: str, mode: str, positions,
     (``"ssm"``), and aux is the MoE router's aux loss (the float 0.0 for the
     other kinds, which spares the decode loop a launch per layer).  In
     decode the layer's cache slice is updated in place; the cross cache is
-    only read."""
+    only read.  Mode "train" returns no cache and writes nothing in place."""
     if kind == "ssm":
         if mode == "resume":
             raise ValueError("SSM states fold the whole prefix; resume is "
@@ -94,7 +118,7 @@ def block_apply(params, x, cfg, *, kind: str, mode: str, positions,
             for dst, src in zip(cache, new_state):
                 dst.copy_(src)
             new_state = cache
-        return x + y, new_state, 0.0
+        return x + y, None if mode == "train" else new_state, 0.0
     if kind not in ATTENTION_KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
     h = norm_apply(params["ln1"], x, cfg)
@@ -113,7 +137,8 @@ def block_apply(params, x, cfg, *, kind: str, mode: str, positions,
                                 mode="full", causal=causal, prefix_kv=prefix)
         new_kv = {"k": kv[0], "v": kv[1]}
     x = x + y
-    new_cache = None if kind == "encoder" else {"self": new_kv}
+    new_cache = None if kind == "encoder" or mode == "train" \
+        else {"self": new_kv}
     if kind == "decoder_x":
         h = norm_apply(params["lnx"], x, cfg)
         if mode == "decode":
@@ -125,7 +150,8 @@ def block_apply(params, x, cfg, *, kind: str, mode: str, positions,
             y, xkv = attn.attn_apply(params["xattn"], h, cfg, positions=positions,
                                      mode="full", kv_x=enc_out,
                                      kv_positions=enc_positions)
-            new_cache["cross"] = {"k": xkv[0], "v": xkv[1]}
+            if new_cache is not None:
+                new_cache["cross"] = {"k": xkv[0], "v": xkv[1]}
         x = x + y
     h = norm_apply(params["ln2"], x, cfg)
     if kind == "moe":
@@ -135,20 +161,29 @@ def block_apply(params, x, cfg, *, kind: str, mode: str, positions,
     return x + y, new_cache, aux
 
 
+def _block(lp, x, cfg, remat: bool, **kw):
+    """``block_apply``, its activations recomputed in the backward pass
+    under ``remat``."""
+    if remat:
+        return checkpoint(block_apply, lp, x, cfg, use_reentrant=False, **kw)
+    return block_apply(lp, x, cfg, **kw)
+
+
 def stack_apply(stacked, x, cfg, *, kind: str, mode: str, positions,
                 caches=None, cache_index=None, enc_out=None, enc_positions=None,
-                causal: bool = True, use_kernels: bool = False):
+                causal: bool = True, remat: bool = False,
+                use_kernels: bool = False):
     """Returns (x, caches, aux summed over the layers).  Mode "decode"
     updates the L-stacked ``caches`` in place and returns them; mode
     "prefill" returns freshly stacked [L, ...] caches, and so does mode
     "resume", whose ``caches`` hold the cached prefix rows.  An encoder
-    stack keeps no cache (None)."""
+    stack, and every stack in mode "train", keeps no cache (None)."""
     collected = []
     aux = 0.0              # a tensor once an MoE block adds its term
-    for i in range(_num_layers(stacked)):
+    for i, layer in enumerate(layer_chunks(stacked, 1)):
         lcache = layer_slice(caches, i) if mode in ("decode", "resume") else None
-        x, new_cache, a = block_apply(
-            layer_slice(stacked, i), x, cfg, kind=kind, mode=mode,
+        x, new_cache, a = _block(
+            layer_slice(layer, 0), x, cfg, remat, kind=kind, mode=mode,
             positions=positions, cache=lcache, cache_index=cache_index,
             enc_out=enc_out, enc_positions=enc_positions, causal=causal,
             use_kernels=use_kernels)
@@ -158,34 +193,35 @@ def stack_apply(stacked, x, cfg, *, kind: str, mode: str, positions,
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mode == "decode":
         return x, caches, aux
-    if kind == "encoder":
+    if kind == "encoder" or mode == "train":
         return x, None, aux
     return x, tree_map(lambda *ts: torch.stack(ts), *collected), aux
 
 
 def hybrid_apply(params, x, cfg, *, mode: str, positions, caches=None,
-                 cache_index=None, use_kernels: bool = False):
+                 cache_index=None, remat: bool = False,
+                 use_kernels: bool = False):
     """Zamba2-style: nb blocks of k Mamba layers + the shared dense block.
 
     params: {"backbone": L-stacked Mamba layers, "shared": one dense block}.
     caches (decode): {"backbone": (conv, ssm) L-stacked, "shared": {"self":
     nb-stacked kv}}, updated in place and returned; prefill returns fresh
-    caches of that layout."""
+    caches of that layout, train none."""
     k, L = cfg.hybrid_attn_every, cfg.num_layers
     if L % k:
         raise ValueError(f"hybrid stack: {L} layers is not a multiple of "
                          f"hybrid_attn_every={k}")
     decode = mode == "decode"
     bb_new, sh_new = [], []
-    for j in range(L // k):
+    for j, block in enumerate(layer_chunks(params["backbone"], k)):
         layers = slice(j * k, (j + 1) * k)
         x, bc, _ = stack_apply(
-            layer_slice(params["backbone"], layers), x, cfg, kind="ssm",
+            block, x, cfg, kind="ssm",
             mode=mode, positions=positions,
             caches=layer_slice(caches["backbone"], layers) if decode else None,
-            cache_index=cache_index, use_kernels=use_kernels)
-        x, sc, _ = block_apply(
-            params["shared"], x, cfg, kind="dense", mode=mode,
+            cache_index=cache_index, remat=remat, use_kernels=use_kernels)
+        x, sc, _ = _block(
+            params["shared"], x, cfg, remat, kind="dense", mode=mode,
             positions=positions,
             cache=layer_slice(caches["shared"], j) if decode else None,
             cache_index=cache_index, use_kernels=use_kernels)
@@ -194,6 +230,8 @@ def hybrid_apply(params, x, cfg, *, mode: str, positions, caches=None,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if decode:
         return x, caches, aux
+    if mode == "train":
+        return x, None, aux
     return x, {"backbone": tree_map(lambda *ts: torch.cat(ts), *bb_new),
                "shared": tree_map(lambda *ts: torch.stack(ts), *sh_new)}, aux
 

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``repro_torch`` (nor chip_smoke.py)
-imports jax or the JAX package, by source scan and at run time."""
+imports jax, the JAX package or ml_dtypes (the card's machine has none of
+them), by source scan and at run time."""
 import ast
 import os
 import subprocess
@@ -19,7 +20,7 @@ def _port_files():
 
 
 def _forbidden(name: str) -> bool:
-    return name.split(".")[0] in ("jax", "jaxlib", "repro")
+    return name.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def test_no_jax_or_repro_imports_in_source():
@@ -52,13 +53,17 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.core.battery", "repro_torch.core.mobility",
             "repro_torch.core.scheduler", "repro_torch.core.admission",
             "repro_torch.core.topology",
-            "repro_torch.serving.frontend"} <= set(mods)
+            "repro_torch.serving.frontend",
+            "repro_torch.training.optimizer", "repro_torch.training.train",
+            "repro_torch.training.checkpoint", "repro_torch.launch.train",
+            "repro_torch.kernels.autograd"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(n for n in sys.modules\n"
-        "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
+        "                                    'ml_dtypes'))\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -109,4 +114,5 @@ def test_cpu_tensors_never_count_as_launches():
     ops.grouped_ffn(torch.randn(2, 4, 8), w, w, torch.randn(2, 16, 8))
     ops.ssm_scan(torch.rand(1, 4, 8, 2), torch.randn(1, 4, 8, 2), torch.randn(1, 8, 2))
     assert ops.launch_counts() == {"decode_attention": 0, "masked_compact": 0,
-                                   "grouped_ffn": 0, "ssm_scan": 0}
+                                   "grouped_ffn": 0, "ssm_scan": 0,
+                                   "ssm_scan_bwd": 0}

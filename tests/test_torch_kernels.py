@@ -128,7 +128,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         ssm_scan_cuda(torch.zeros(1, 4, 8, 2), torch.zeros(1, 4, 8, 2),
                       torch.zeros(1, 8, 2))
     assert ops.launch_counts() == {"decode_attention": 0, "masked_compact": 0,
-                                   "grouped_ffn": 0, "ssm_scan": 0}
+                                   "grouped_ffn": 0, "ssm_scan": 0,
+                                   "ssm_scan_bwd": 0}
 
 
 def test_kernel_library_names_missing_card():
