@@ -242,8 +242,65 @@ Then the training path, no model held before each loads:
            max|g|); every kernel call twice, bit-equal; ssm_scan_bwd's device
            ms beside its bytes bound and the plain reverse loop's time
 
-Then the per-kernel summary line, the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``.  Every phase also prints its seconds.
+Then the mesh paths: ranks spawned on the one card (``torch.multiprocessing``,
+spawn), one process each, over gloo (NCCL takes one rank per card); the
+kernels built above, the ranks only load them; this process holds no model:
+
+  mesh_dense   llama3.2-1b at full width and depth (bf16, seed 0) on a
+           (data=1, model=2) mesh: heads, MLP width and vocab split over
+           the two ranks.  The continuous phase's 24 requests per-step and
+           with macro_steps=8 (slots 8, max_len 512).  Checks on each rank
+           decode_attention == layers x model decode steps and both ranks'
+           streams identical; the prefill logits of 4 prompts within 5e-2
+           of max|logit| of the one-rank model (bf16: each layer's partial
+           sums round apart on two ranks); reports the greedy streams that
+           agree with the one-rank continuous run, ms a model decode step
+           and tokens/s beside the one-rank run's, the all_reduce count a
+           step and the host wall inside the collectives
+  mesh_seq     the same model on (data=2, model=2), four ranks, 3 slots:
+           the batch does not divide "data", so it spills onto the sequence
+           (``seq_shard_layout``): the sequence-sharded cache_update and
+           splice_blocks, decode_attention with lse on each rank's rows,
+           merged across "data".  12 of the requests, local and
+           disaggregated (a mesh-wide PrefillWorker with a PrefixCache:
+           each rank compacts its own rows of a KV hop on masked_compact).
+           Checks the launches (masked_compact == 2 x the KV tails each
+           rank compacted, none on the local arm), both arms' streams
+           identical on every rank, decode_s == t_dispatch_s + t_await_s
+           exactly, the boundary wall in t_splice_s (disaggregated) or
+           t_slot_write_s (local)
+  mesh_profile ``profile_engine_programs`` on mesh_seq's engine: the four
+           programs, zero collective bytes on splice and slot_write
+  mesh_moe     moonshot-v1-16b-a3b at full width, 4 of its 48 layers (the
+           depth cut), expert-parallel on (data=1, model=2): 32 experts a
+           rank, the shared experts split on their width; 6 requests,
+           slots 4, K=8.  Checks grouped_ffn launched with counts on both
+           ranks, layers x (model decode steps + prefills); reports the
+           streams that agree with the one-rank run.  Its float32 2-layer
+           copy: prefill and 4 teacher-forced decode steps' logits within
+           1e-3 of the one-rank model's (moe_parity's rule)
+  mesh_nccl    the mesh_dense path at world size 1 over NCCL: streams
+           identical to the one-rank continuous run; NCCL's own all_reduce
+           and broadcast right
+  mesh_kernels with no model held: decode_attention with lse (and a
+           per-slot start) against its plain version at every shard shape
+           the mesh phases launched, each slot one of: the whole shard,
+           wholly past cache_len (length at s0), wholly before the window,
+           a window starting inside it, a length inside it, a length at s0
+           + S_loc; bf16 within 3e-2, f32 within 1e-4, lse within 1e-4 and
+           -inf exactly at the empty windows (output 0 there); every call
+           twice, bit-equal, and bit-equal to the call without lse;
+           grouped_ffn at every local-expert shape with counts;
+           masked_compact bit for bit (both branches) at every KV tail a
+           rank compacted; the lse call's device ms at mesh_seq's shard
+           shape beside its bound and the call without lse
+
+The float32 2-layer copy of llama's weights runs through mesh_dense and
+mesh_seq: its greedy streams agree with the one-rank plain path up to the
+first top-2 gap < 1e-3 (the parity phase's rule).
+
+Then the per-kernel summary line (the mesh paths in ``launches_by_path``),
+the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  Every phase also prints its seconds.
 Float32 matmuls run in full float32 (TF32 off).
 """
 from __future__ import annotations
@@ -1588,7 +1645,8 @@ def phase_continuous(torch, dev, cfg, params):
     request by request; decode_attention launched layers x model decode
     steps in every mode; masked_compact 2 x the remote partial hits in the
     disaggregated modes (0 elsewhere), counted as the hops that shipped a
-    KV tail.  Returns {mode: launch counts}."""
+    KV tail.  Returns ({mode: launch counts}, the per-step mode's streams by
+    uid, {mode: its row})."""
     import repro_torch.core as C
     from repro_torch.serving.prefill import PrefillWorker
     from repro_torch.serving.prefix_cache import PrefixCache
@@ -1606,7 +1664,7 @@ def phase_continuous(torch, dev, cfg, params):
     reqs = _continuous_requests(cfg)
     K, L = MACRO, cfg.num_layers
     base = dict(slots=CONT_SLOTS, max_len=CONT_MAX_LEN, macro_steps=K)
-    ref, counts_by_mode = None, {}
+    ref, counts_by_mode, rows_by_mode = None, {}, {}
     for name, kw, extra in CONT_MODES:
         pc = worker = None
         if extra:
@@ -1671,9 +1729,10 @@ def phase_continuous(torch, dev, cfg, params):
                         f"the per-step mode at {diffs}")
         emit(row)
         counts_by_mode[name] = counts
+        rows_by_mode[name] = row
         del outs, pc, worker
         torch.cuda.empty_cache()
-    return counts_by_mode
+    return counts_by_mode, ref, rows_by_mode
 
 
 def phase_continuous_checks(torch, dev, cfg, params):
@@ -1729,20 +1788,27 @@ def phase_continuous_checks(torch, dev, cfg, params):
 
 def _check_mc_at(torch, dev, gen, name, B, S, D, kind):
     """masked_compact at [B,S,D] bf16 (mask ``kind`` of ``_mc_case``) against
-    its plain version, bit for bit, twice."""
+    its plain version, bit for bit: the plan's branch twice and the other
+    base-finding branch once."""
+    from repro_torch.kernels import masked_compact as mc
     from repro_torch.kernels import ref
-    from repro_torch.kernels.masked_compact import masked_compact_cuda
     toks, mask, K = _mc_case(torch, gen, dev, B, S, D, kind)
-    got = masked_compact_cuda(toks, mask, K)
-    again = masked_compact_cuda(toks, mask, K)
+    plan = mc.masked_compact_plan(B, S, D * toks.element_size(), K)
+    other = mc.masked_compact_plan(B, S, D * toks.element_size(), K,
+                                   long_rows=not plan.long_rows)
+    got = mc.masked_compact_cuda(toks, mask, K)
+    again = mc.masked_compact_cuda(toks, mask, K)
+    branch = mc.masked_compact_cuda(toks, mask, K, plan=other)
     want = ref.masked_compact_ref(toks, mask, K)
     torch.cuda.synchronize()
-    for what, res in (("first call", got), ("second call", again)):
+    for what, res in (("first call", got), ("second call", again),
+                      ("other branch", branch)):
         require(all(torch.equal(a, b) for a, b in zip(res, want)),
                 f"masked_compact {name} [{B},{S},{D}] K={K}: {what} differs "
                 "from the plain version")
     return {"case": name, "B": B, "S": S, "D": D, "K": K, "dtype": "bfloat16",
-            "kept": int(mask.sum()), "exact": True, "bit_equal_twice": True}
+            "kept": int(mask.sum()), "exact": True, "bit_equal_twice": True,
+            "other_branch_exact": True}
 
 
 def _time_tail_copy(torch, dev, gen, cfg):
@@ -2859,6 +2925,791 @@ def phase_train_kernels(torch, dev, ffn_shape, scan_shape):
 
 
 # ---------------------------------------------------------------------------
+# The mesh paths: 2-4 ranks spawned on the one card, one process each, over
+# gloo (NCCL refuses two ranks on one card); NCCL at world size 1
+# ---------------------------------------------------------------------------
+MESH_TIMEOUT_S = 480            # a mesh phase's whole spawn
+MESH_SEQ_SLOTS, MESH_SEQ_REQUESTS = 3, 12
+MESH_F32_REQUESTS = 8           # the float32 2-layer copies' requests
+MESH_MOE_LAYERS = 4             # moonshot's depth on its mesh (of 48)
+MESH_LOGIT_TOL = 5e-2           # bf16 prefill logits, of max|logit|: each
+                                # of 16 layers rounds its 3 partial sums
+                                # apart on two ranks
+LSE_TOL = 1e-4
+MESH_MOE_F32_TOL = 1e-3         # float32 logits, absolute (moe_parity's)
+MESH_MOE_F32_STEPS = 4          # its teacher-forced decode steps
+
+
+def _rank_env(shape):
+    """In a spawned rank: the card, TF32 off, the kernels the parent built
+    loaded, and the (data, model) mesh of ``shape``."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import Mesh
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load()
+    mesh = Mesh(np.arange(int(np.prod(shape))).reshape(shape), ("data", "model"))
+    return torch, dev, mesh
+
+
+class _MeshRecorder:
+    """While active: every decode_attention launch's (B, S, H, Hkv, dh,
+    dtype, start given, lse asked), every grouped_ffn call's (E, C, D, F,
+    dtype, counts given) and every KV tail this rank's prefill worker
+    compacts (``compact_kv_hop``: [layers, tail rows, this rank's
+    Hkv*dh]), with their counts; ``n_hops`` counts the tails.  The wrapped
+    functions run as they are; the recorder only reads what goes in."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        from repro_torch.serving import prefill
+        self.decode, self.ffn, self.hops, self.n_hops = {}, {}, {}, 0
+        self._ops, self._prefill = ops, prefill
+        self._dec, self._ffn = ops.decode_attention_cuda, ops.grouped_ffn
+        self._hop = prefill.compact_kv_hop
+        rec, dec, ffn, hop = self, self._dec, self._ffn, self._hop
+
+        def recording_decode(q, k, v, cache_len, **kw):
+            key = (q.shape[0], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
+                   str(q.dtype)[6:], kw.get("start") is not None,
+                   bool(kw.get("lse")))
+            rec.decode[key] = rec.decode.get(key, 0) + 1
+            return dec(q, k, v, cache_len, **kw)
+
+        def recording_ffn(buf, wg, wu, wd, **kw):
+            key = (*buf.shape, wg.shape[2], str(buf.dtype)[6:],
+                   kw.get("counts") is not None)
+            rec.ffn[key] = rec.ffn.get(key, 0) + 1
+            return ffn(buf, wg, wu, wd, **kw)
+
+        def recording_hop(cache, q_rows, *, keep_rate=None):
+            k = cache["self"]["k"]                  # [L, 1, S, Hkv_loc, dh]
+            key = (k.shape[0], k.shape[2] - q_rows, k.shape[3] * k.shape[4])
+            rec.hops[key] = rec.hops.get(key, 0) + 1
+            rec.n_hops += 1
+            return hop(cache, q_rows, keep_rate=keep_rate)
+
+        ops.decode_attention_cuda = recording_decode
+        ops.grouped_ffn = recording_ffn
+        prefill.compact_kv_hop = recording_hop
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.decode_attention_cuda = self._dec
+        self._ops.grouped_ffn = self._ffn
+        self._prefill.compact_kv_hop = self._hop
+
+
+def _rank_run(torch, dev, mesh, cfg, params, reqs, rec=None, **kw):
+    """One ContinuousServingEngine run on this rank, its launch counts set
+    to 0 just before and read just after, its collectives counted (and,
+    under a _MeshRecorder ``rec``, the KV tails it compacted).  Returns
+    (engine, summary)."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import ContinuousServingEngine
+    eng = ContinuousServingEngine(cfg, params, device=dev, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hops0 = rec.n_hops if rec is not None else 0
+    ops.reset_launch_counts()
+    with coll.counting(mesh) as cc:
+        t0 = time.perf_counter()
+        outs, stats = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    K = kw.get("macro_steps", MACRO)
+    row = _stats_row(stats, wall, torch.cuda.max_memory_allocated(), counts, K)
+    row["collectives"] = {"calls": dict(cc.calls), "bytes": cc.totals(),
+                          "host_seconds": cc.seconds}
+    row["ms_per_model_decode_step"] = 1e3 * stats.decode_s / max(
+        row["model_decode_steps"], 1)
+    row["requests"] = stats.requests
+    row["streams"] = {o.uid: o.tokens.tolist() for o in outs}
+    row["kv_tail_hops"] = rec.n_hops - hops0 if rec is not None else 0
+    return eng, row
+
+
+def _f32_cut(torch, params, layers=2):
+    """A float32 copy of the first ``layers`` layers of bf16 params."""
+    from repro_torch.core.offload import tree_map
+    p32 = {k: tree_map(lambda t: t.float(), v) for k, v in params.items()
+           if k != "blocks"}
+    p32["blocks"] = tree_map(lambda t: t[:layers].float(), params["blocks"])
+    return p32
+
+
+def _plain_streams(torch, dev, cfg, params, reqs, max_len):
+    """The one-rank plain static path (one batch, kernels off, per-token
+    steps): greedy streams and each step's top-2 gap, [B, max_new]."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import (make_prefill_step, make_serve_step,
+                                            seed_cache)
+    B, max_new = len(reqs), max(r.max_new for r in reqs)
+    P = len(reqs[0].prompt)
+    tokens = torch.as_tensor(np.stack([r.prompt for r in reqs]), device=dev)
+    with torch.no_grad():
+        last, pre = make_prefill_step(cfg, use_kernels=False)(params,
+                                                               {"tokens": tokens})
+        cache = seed_cache(cfg, M.init_cache(cfg, B, max_len, device=dev),
+                           pre, P)
+        del pre
+        step = make_serve_step(cfg, use_kernels=False)
+        tok = last.argmax(dim=-1).to(torch.int32)
+        stream, gaps = [tok], [_top2_gap(torch, last)]
+        for i in range(max_new - 1):
+            lengths = torch.full((B,), P + i, dtype=torch.int32, device=dev)
+            lp, cache = step(params, cache, tok[:, None], lengths)
+            tok = lp.argmax(dim=-1).to(torch.int32)
+            stream.append(tok)
+            gaps.append(_top2_gap(torch, lp))
+        return (torch.stack(stream, dim=1).cpu().numpy(),
+                torch.stack(gaps, dim=1).cpu().numpy())
+
+
+def _gap_rule(streams, plain, gaps):
+    """Per request: the first position where a stream leaves the plain one
+    and the plain one's first top-2 gap < 1e-3; a stream may leave only at
+    or after such a gap (the parity phase's rule)."""
+    out = {}
+    for uid, toks in streams.items():
+        toks = np.asarray(toks)
+        n = len(toks)
+        diff = np.nonzero(toks != plain[uid, :n])[0]
+        low = np.nonzero(gaps[uid, :n] < 1e-3)[0]
+        m = int(diff[0]) if diff.size else None
+        g = int(low[0]) if low.size else None
+        out[uid] = {"first_mismatch": m, "first_low_gap": g,
+                    "ok": m is None or (g is not None and m >= g)}
+    return out
+
+
+def _rank_f32(torch, dev, mesh, cfg, p32, reqs, **kw):
+    """The float32 2-layer copy: the one-rank plain streams (rank 0, off
+    the mesh), then the mesh engine (kernels on) on this rank's shard."""
+    from repro_torch.launch.mesh import shard_params
+    from repro_torch.models.sharding import activation_sharding
+    cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    plain = _plain_streams(torch, dev, cfg2, p32, reqs, kw["max_len"]) \
+        if mesh.rank == 0 else None
+    shard = shard_params(p32, mesh)
+    with activation_sharding(mesh):
+        _, row = _rank_run(torch, dev, mesh, cfg2, shard, reqs, **kw)
+    out = {"launches": row["launches"],
+           "model_decode_steps": row["model_decode_steps"]}
+    if plain is not None:
+        out["rule"] = _gap_rule(row["streams"], *plain)
+        out["min_top2_gap"] = float(plain[1].min())
+    return out
+
+
+def _rank_mesh_dense(rank, world, shape, reqs):
+    """mesh_dense on one rank: llama3.2-1b (bf16, seed 0) on a (1, 2) mesh;
+    prefill logits against the one-rank model (rank 0), the continuous
+    traffic per-step and fused, the float32 2-layer copy."""
+    torch, dev, mesh = _rank_env(shape)
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import shard_params
+    from repro_torch.models import model as M
+    from repro_torch.models.sharding import activation_sharding
+    cfg = get_config(ARCH)
+    full = M.init_params(cfg, 0, device=dev)
+    p32 = _f32_cut(torch, full)
+    tokens = torch.as_tensor(np.stack([r.prompt for r in reqs[:4]]), device=dev)
+    out = {"rank": rank}
+    with torch.no_grad():
+        ref = M.forward(full, cfg, {"tokens": tokens}, mode="prefill",
+                        use_kernels=True).logits[:, -1].float() \
+            if rank == 0 else None
+        params = shard_params(full, mesh)
+        del full
+        _free(torch)
+        with activation_sharding(mesh):
+            got = M.forward(params, cfg, {"tokens": tokens}, mode="prefill",
+                            use_kernels=True).logits[:, -1].float()
+    if ref is not None:
+        err = (got - ref).abs()
+        out["prefill_logits"] = {"max_abs_err": float(err.max()),
+                                 "mean_abs_err": float(err.mean()),
+                                 "max_abs_logit": float(ref.abs().max())}
+    runs = {}
+    with _MeshRecorder() as rec, activation_sharding(mesh):
+        for name, kw in (("per-step", dict(macro_steps=0)),
+                         ("fused", dict(macro_steps=MACRO))):
+            _, runs[name] = _rank_run(torch, dev, mesh, cfg, params, reqs,
+                                      rec, slots=CONT_SLOTS,
+                                      max_len=CONT_MAX_LEN, **kw)
+    del params
+    _free(torch)
+    out.update(runs=runs, decode_shapes=rec.decode, ffn_shapes=rec.ffn,
+               hop_shapes=rec.hops)
+    out["f32"] = _rank_f32(torch, dev, mesh, cfg, p32, reqs[:MESH_F32_REQUESTS],
+                           slots=CONT_SLOTS, max_len=CONT_MAX_LEN,
+                           macro_steps=MACRO)
+    return out
+
+
+def _rank_mesh_seq(rank, world, shape, reqs):
+    """mesh_seq on one rank: llama3.2-1b (bf16, seed 0) on a (2, 2) mesh
+    with 3 slots (the batch spills onto the sequence over "data", the
+    heads split over "model"); the local arm, the disaggregated arm (a
+    mesh-wide PrefillWorker and a PrefixCache: the KV hops compact this
+    rank's rows), the engine's program profile, the float32 copy."""
+    torch, dev, mesh = _rank_env(shape)
+    import repro_torch.core as C
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import shard_params
+    from repro_torch.models import model as M
+    from repro_torch.models.sharding import activation_sharding
+    from repro_torch.serving.prefill import PrefillWorker
+    from repro_torch.serving.prefix_cache import PrefixCache
+    from repro_torch.serving.profiling import profile_engine_programs
+    cfg = get_config(ARCH)
+    full = M.init_params(cfg, 0, device=dev)
+    p32 = _f32_cut(torch, full)
+    params = shard_params(full, mesh)
+    del full
+    _free(torch)
+    kw = dict(slots=MESH_SEQ_SLOTS, max_len=CONT_MAX_LEN, macro_steps=MACRO)
+    runs = {}
+    with _MeshRecorder() as rec, activation_sharding(mesh):
+        _, runs["local"] = _rank_run(torch, dev, mesh, cfg, params, reqs, rec,
+                                     **kw)
+        pc = PrefixCache(cfg, block_size=8, budget_blocks=256, device=dev)
+        worker = PrefillWorker(cfg, params, device=dev, link=C.ICI_LINK)
+        eng, runs["disaggregated"] = _rank_run(
+            torch, dev, mesh, cfg, params, reqs, rec, prefill_worker=worker,
+            prefix_cache=pc, **kw)
+        t0 = time.perf_counter()
+        profile = profile_engine_programs(eng, prompt_len=CONT_P, n_blocks=2)
+        profile["seconds"] = time.perf_counter() - t0
+        layout = eng._shard._asdict()
+        layout.pop("mesh")
+        layout["seq"] = layout["seq"]._asdict() if layout["seq"] else None
+    del params, eng, worker, pc
+    _free(torch)
+    out = {"rank": rank, "runs": runs, "profile": profile, "layout": layout,
+           "decode_shapes": rec.decode, "ffn_shapes": rec.ffn,
+           "hop_shapes": rec.hops}
+    out["f32"] = _rank_f32(torch, dev, mesh, cfg, p32,
+                           reqs[:MESH_F32_REQUESTS], **kw)
+    return out
+
+
+def _teacher_forced_logits(torch, dev, cfg, params, tokens, steps):
+    """Prefill logits of ``tokens`` [B, P] and of ``steps`` decode steps fed
+    the prompts' own first tokens (kernels on; under a mesh, this rank's
+    block), stacked [1 + steps, B, V] f32."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import seed_cache
+    B, P = tokens.shape
+    with torch.no_grad():
+        out = M.forward(params, cfg, {"tokens": tokens}, mode="prefill",
+                        use_kernels=True)
+        logits = [out.logits[:, -1].float()]
+        cache = M.init_cache(cfg, B, P + steps, device=dev)
+        shard = M.cache_shard(cfg, B, P + steps)
+        seed_cache(cfg, cache, out.cache, P, shard)
+        del out
+        for i in range(steps):
+            lengths = torch.full((B,), P + i, dtype=torch.int32, device=dev)
+            o = M.forward(params, cfg, {"token": tokens[:, i:i + 1],
+                                        "cache": cache, "cache_index": lengths},
+                          mode="decode", use_kernels=True, shard=shard)
+            logits.append(o.logits[:, 0].float())
+    return torch.stack(logits)
+
+
+def _min_router_margin(torch, fn):
+    """``fn()`` with every routing call's smallest gap between the K-th and
+    (K+1)-th router probability recorded: (its result, the least gap)."""
+    from repro_torch.models import moe as moe_mod
+    orig, gaps = moe_mod.route, []
+
+    def spy(xt, router, cfg):
+        res = orig(xt, router, cfg)
+        top = torch.topk(res[3], cfg.experts_per_token + 1, dim=-1).values
+        gaps.append(float((top[:, -2] - top[:, -1]).min()))
+        return res
+
+    moe_mod.route = spy
+    try:
+        return fn(), min(gaps)
+    finally:
+        moe_mod.route = orig
+
+
+def _rank_mesh_moe(rank, world, shape, reqs):
+    """mesh_moe on one rank: moonshot-v1-16b-a3b at full width, its first
+    4 of 48 layers (bf16, seed 0), expert-parallel on a (1, 2) mesh (32
+    experts a rank); the one-rank streams (rank 0) before the mesh run;
+    the float32 2-layer copy's prefill and teacher-forced decode logits,
+    one-rank (rank 0, with its least router margin) and on the mesh."""
+    torch, dev, mesh = _rank_env(shape)
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import shard_params
+    from repro_torch.models import model as M
+    from repro_torch.models.sharding import activation_sharding
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MESH_MOE_LAYERS)
+    cfg32 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    full = M.init_params(cfg, 0, device=dev)
+    p32 = _f32_cut(torch, full)
+    tokens = torch.as_tensor(np.stack([r.prompt for r in reqs[:4]]), device=dev)
+    kw = dict(slots=SIDE_SLOTS, max_len=CONT_MAX_LEN, macro_steps=MACRO)
+    one_rank = ref32 = margin = None
+    if rank == 0:
+        from repro_torch.launch.mesh import make_smoke_mesh
+        _, row = _rank_run(torch, dev, make_smoke_mesh(), cfg, full, reqs, **kw)
+        one_rank = row["streams"]
+        ref32, margin = _min_router_margin(torch, lambda: _teacher_forced_logits(
+            torch, dev, cfg32, p32, tokens, MESH_MOE_F32_STEPS))
+    params = shard_params(full, mesh)
+    del full
+    _free(torch)
+    with _MeshRecorder() as rec, activation_sharding(mesh):
+        _, row = _rank_run(torch, dev, mesh, cfg, params, reqs, rec, **kw)
+    out = {"rank": rank, "runs": {"fused": row}, "one_rank": one_rank,
+           "experts_held": int(params["blocks"]["moe"]["w_gate"].shape[1]),
+           "decode_shapes": rec.decode, "ffn_shapes": rec.ffn,
+           "hop_shapes": rec.hops}
+    del params
+    p32 = shard_params(p32, mesh)
+    _free(torch)
+    with activation_sharding(mesh):
+        got = _teacher_forced_logits(torch, dev, cfg32, p32, tokens,
+                                     MESH_MOE_F32_STEPS)
+    if ref32 is not None:
+        out["f32"] = {"max_abs_err": (got - ref32).abs().amax(dim=(1, 2)).tolist(),
+                      "max_abs_logit": float(ref32.abs().max()),
+                      "min_router_margin": margin}
+    return out
+
+
+def _rank_mesh_nccl(rank, world, reqs):
+    """mesh_nccl: the mesh_dense path at world size 1 over NCCL (a (1, 1)
+    mesh; its collectives are over one rank and not issued), and one
+    all_reduce and broadcast on the NCCL group itself."""
+    torch, dev, mesh = _rank_env((1, 1))
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import shard_params
+    from repro_torch.models import model as M
+    from repro_torch.models.sharding import activation_sharding
+    cfg = get_config(ARCH)
+    params = shard_params(M.init_params(cfg, 0, device=dev), mesh)
+    with activation_sharding(mesh):
+        _, row = _rank_run(torch, dev, mesh, cfg, params, reqs,
+                           slots=CONT_SLOTS, max_len=CONT_MAX_LEN,
+                           macro_steps=MACRO)
+    t = torch.arange(4, dtype=torch.float32, device=dev)
+    dist.all_reduce(t)
+    dist.broadcast(t, src=0)
+    torch.cuda.synchronize()
+    return {"rank": rank, "backend": dist.get_backend(), "runs": {"fused": row},
+            "nccl_check": t.tolist()}
+
+
+def _mesh_checks(name, cfg, res):
+    """Launch checks of every run on every rank: decode_attention ==
+    attention layers x model decode steps, grouped_ffn == layers x (model
+    decode steps + prefills) on MoE (none on dense), masked_compact == 2 x
+    the KV tails the rank compacted (K and V), and every rank's streams
+    identical."""
+    moe = bool(cfg.num_experts)
+    for r in res:
+        for mode, row in r["runs"].items():
+            c, steps = row["launches"], row["model_decode_steps"]
+            tag = f"{name} rank {r['rank']} {mode}"
+            require(c["decode_attention"] == cfg.num_layers * steps and steps > 0,
+                    f"{tag}: decode_attention {c['decode_attention']}, "
+                    f"expected {cfg.num_layers} x {steps}")
+            want_ffn = cfg.num_layers * (steps + row["requests"]) if moe else 0
+            require(c["grouped_ffn"] == want_ffn,
+                    f"{tag}: grouped_ffn {c['grouped_ffn']}, expected {want_ffn}")
+            require(c["masked_compact"] == 2 * row["kv_tail_hops"],
+                    f"{tag}: masked_compact {c['masked_compact']}, expected 2 x "
+                    f"{row['kv_tail_hops']} KV tails")
+            require(row["streams"] == res[0]["runs"][mode]["streams"],
+                    f"{tag}: streams differ from rank 0's")
+
+
+def _mesh_row(name, r, mode, row, one_rank_row=None):
+    keys = ("requests", "total_tokens", "tokens_per_s", "wall_s", "decode_s",
+            "prefill_s", "t_dispatch_s", "t_await_s", "t_splice_s",
+            "t_slot_write_s", "model_decode_steps", "ms_per_model_decode_step",
+            "macro_dispatches", "admission_stalls", "prefill_offloaded",
+            "prefix_hits", "kv_hop_bytes_raw", "kv_hop_bytes_wire",
+            "kv_tail_hops", "peak_memory_bytes", "launches", "collectives")
+    out = {"phase": name, "mode": mode, "rank": r["rank"],
+           **{k: row[k] for k in keys}}
+    steps = max(row["model_decode_steps"], 1)
+    out["all_reduce_calls_per_decode_step"] = \
+        row["collectives"]["calls"]["all-reduce"] / steps
+    if one_rank_row is not None:
+        out["one_rank"] = {k: one_rank_row[k] for k in
+                           ("tokens_per_s", "wall_s", "decode_s",
+                            "model_decode_steps")}
+        out["one_rank"]["ms_per_model_decode_step"] = 1e3 * \
+            one_rank_row["decode_s"] / max(one_rank_row["model_decode_steps"], 1)
+    return out
+
+
+def _agreement(streams, ref):
+    """(requests with identical streams, tokens agreeing before the first
+    difference, tokens) of ``streams`` against ``ref`` (uid -> tokens)."""
+    same = agree = total = 0
+    for uid, toks in streams.items():
+        toks, want = np.asarray(toks), np.asarray(ref[uid])
+        d = _first_diff(toks, want)
+        same += d is None
+        agree += len(toks) if d is None else d
+        total += len(want)
+    return {"identical_requests": same, "requests": len(streams),
+            "agreeing_tokens": agree, "tokens": total}
+
+
+def _check_f32(name, res):
+    f32 = res[0]["f32"]
+    bad = {u: v for u, v in f32["rule"].items() if not v["ok"]}
+    require(not bad, f"{name} float32 copy: streams leave the one-rank plain "
+            f"path before a top-2 gap < 1e-3: {bad}")
+    for r in res:
+        require(r["f32"]["launches"]["decode_attention"]
+                == 2 * r["f32"]["model_decode_steps"],
+                f"{name} float32 copy rank {r['rank']}: {r['f32']['launches']}")
+    emit({"phase": name, "run": "float32 2-layer copy", "rule": f32["rule"],
+          "min_top2_gap": f32["min_top2_gap"],
+          "mismatching_requests": sum(v["first_mismatch"] is not None
+                                      for v in f32["rule"].values())})
+
+
+def phase_mesh_dense(torch, dev, ref_streams, ref_rows):
+    """llama3.2-1b at full width and depth on a (data=1, model=2) mesh: two
+    ranks on the one card over gloo (spawned); the continuous phase's 24
+    requests per-step and with macro_steps=8 (slots 8, max_len 512).
+    Checks the launches on each rank, both ranks' streams identical, the
+    prefill logits within MESH_LOGIT_TOL of max|logit| of the one-rank
+    model; reports how many greedy streams agree with the one-rank
+    continuous run's, ms a decode step and tokens/s beside it; the float32
+    2-layer copy within the parity rule."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.spawn import run_ranks
+    cfg = get_config(ARCH)
+    reqs = _continuous_requests(cfg)
+    res = run_ranks(_rank_mesh_dense, 2, (1, 2), reqs, timeout_s=MESH_TIMEOUT_S)
+    _mesh_checks("mesh_dense", cfg, res)
+    lg = res[0]["prefill_logits"]
+    require(lg["max_abs_err"] <= MESH_LOGIT_TOL * lg["max_abs_logit"],
+            f"mesh_dense: prefill logits off the one-rank model by {lg}")
+    emit({"phase": "mesh_dense", "mesh": {"data": 1, "model": 2},
+          "backend": "gloo", "prefill_logits": lg,
+          "tolerance_of_max_abs_logit": MESH_LOGIT_TOL})
+    counts = {}
+    for r in res:
+        for mode, row in r["runs"].items():
+            one = ref_rows["per-step" if mode == "per-step" else "overlapped"]
+            out = _mesh_row("mesh_dense", r, mode, row, one)
+            out["agreement_with_one_rank"] = _agreement(row["streams"],
+                                                        ref_streams)
+            emit(out)
+            counts[f"{ARCH} mesh_dense 1x2 rank {r['rank']} {mode}"] = \
+                row["launches"]
+    _check_f32("mesh_dense", res)
+    return counts, _merge_shapes(res)
+
+
+def phase_mesh_seq(torch, dev):
+    """llama3.2-1b at full width and depth on a (data=2, model=2) mesh:
+    four ranks, 3 slots, so the batch spills onto the sequence (over
+    "data") and the heads split (over "model"): the sequence-sharded
+    cache_update and splice_blocks, decode_attention with lse merged
+    across "data".  12 of the continuous requests, local and disaggregated
+    (a mesh-wide PrefillWorker with a PrefixCache: the hops compact each
+    rank's rows).  Checks the launches, the streams of both arms identical
+    on every rank, masked_compact == 2 x the KV tails each rank compacted
+    (none on the local arm, some on the disaggregated one), decode_s ==
+    t_dispatch_s + t_await_s exactly, the boundary wall in t_splice_s
+    (disaggregated) or t_slot_write_s (local); mesh_profile: the four
+    programs, zero collective bytes on splice and slot_write."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.spawn import run_ranks
+    cfg = get_config(ARCH)
+    reqs = _continuous_requests(cfg)[:MESH_SEQ_REQUESTS]
+    res = run_ranks(_rank_mesh_seq, 4, (2, 2), reqs, timeout_s=MESH_TIMEOUT_S)
+    _mesh_checks("mesh_seq", cfg, res)
+    counts = {}
+    for r in res:
+        lay = r["layout"]
+        require(lay["seq"] is not None and lay["seq"]["s_axes"] == ("data",)
+                and not lay["b_sharded"],
+                f"mesh_seq rank {r['rank']}: cache layout {lay}")
+        loc, dis = r["runs"]["local"], r["runs"]["disaggregated"]
+        require(loc["streams"] == dis["streams"],
+                f"mesh_seq rank {r['rank']}: the arms' streams differ")
+        for name, row in (("local", loc), ("disaggregated", dis)):
+            require(row["decode_s"] == row["t_dispatch_s"] + row["t_await_s"],
+                    f"mesh_seq {name}: decode_s != t_dispatch_s + t_await_s")
+        require(dis["t_splice_s"] > 0 and dis["t_slot_write_s"] == 0
+                and loc["t_slot_write_s"] > 0 and loc["t_splice_s"] == 0,
+                f"mesh_seq: boundary walls in the wrong buckets: {dis} {loc}")
+        require(dis["prefill_offloaded"] > 0 and dis["prefix_hits"] > 0
+                and dis["kv_tail_hops"] > 0,
+                f"mesh_seq disaggregated rank {r['rank']}: offloaded "
+                f"{dis['prefill_offloaded']}, hits {dis['prefix_hits']}, "
+                f"KV tails {dis['kv_tail_hops']}")
+        for name, row in (("local", loc), ("disaggregated", dis)):
+            out = _mesh_row("mesh_seq", r, name, row)
+            out["layout"] = lay
+            emit(out)
+            counts[f"{ARCH} mesh_seq 2x2 rank {r['rank']} {name}"] = \
+                row["launches"]
+        progs = r["profile"]["programs"]
+        require(set(progs) >= {"decode_loop", "splice", "slot_write",
+                               "prefill"}, f"mesh_profile: {sorted(progs)}")
+        require(progs["splice"]["collective_bytes"]["total"] == 0
+                and progs["slot_write"]["collective_bytes"]["total"] == 0,
+                f"mesh_profile rank {r['rank']}: the splice or slot write "
+                "moved collective bytes")
+        emit({"phase": "mesh_profile", "rank": r["rank"], **r["profile"]})
+    _check_f32("mesh_seq", res)
+    return counts, _merge_shapes(res)
+
+
+def phase_mesh_moe(torch, dev):
+    """moonshot-v1-16b-a3b at full width, 4 of its 48 layers, on a (data=1,
+    model=2) mesh, expert-parallel (32 experts a rank): the continuous
+    engine (slots 4, K=8) over 6 requests; grouped_ffn launched with counts
+    on both ranks, layers x (model decode steps + prefills); agreement with
+    the one-rank streams reported.  The float32 2-layer copy: prefill and 4
+    teacher-forced decode steps' logits within MESH_MOE_F32_TOL of the
+    one-rank model (moe_parity's rule: excused only by a router margin
+    below 1e-6; the parity gap rule does not apply, since the static
+    batch's and the engine's prefills route under different capacities)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.spawn import run_ranks
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MESH_MOE_LAYERS)
+    reqs = _continuous_requests(cfg, n_requests=SIDE_REQUESTS,
+                                most_new=SIDE_MAX_NEW)
+    res = run_ranks(_rank_mesh_moe, 2, (1, 2), reqs, timeout_s=MESH_TIMEOUT_S)
+    _mesh_checks("mesh_moe", cfg, res)
+    f32 = res[0]["f32"]
+    excused = f32["min_router_margin"] < 1e-6
+    require(max(f32["max_abs_err"]) <= MESH_MOE_F32_TOL or excused,
+            f"mesh_moe float32 copy: logits off the one-rank model by "
+            f"{f32['max_abs_err']} > {MESH_MOE_F32_TOL} with no router margin "
+            f"below 1e-6 ({f32['min_router_margin']})")
+    emit({"phase": "mesh_moe", "run": "float32 2-layer copy",
+          "steps": ["prefill"] + [f"decode {i}" for i in range(MESH_MOE_F32_STEPS)],
+          **f32, "tolerance": MESH_MOE_F32_TOL,
+          "excused_by_router_margin": excused})
+    counts = {}
+    for r in res:
+        require(r["experts_held"] == cfg.num_experts // 2,
+                f"mesh_moe rank {r['rank']}: holds {r['experts_held']} experts")
+        require(r["ffn_shapes"] and all(k[0] == cfg.num_experts // 2 and k[-1]
+                                        for k in r["ffn_shapes"]),
+                f"mesh_moe rank {r['rank']}: grouped_ffn calls {r['ffn_shapes']}")
+        row = r["runs"]["fused"]
+        out = _mesh_row("mesh_moe", r, "fused", row)
+        out.update(layers=MESH_MOE_LAYERS, layers_of=get_config(MOE_ARCH).num_layers,
+                   experts_held=r["experts_held"],
+                   agreement_with_one_rank=_agreement(row["streams"],
+                                                      res[0]["one_rank"]))
+        emit(out)
+        counts[f"{MOE_ARCH} mesh_moe 1x2 ({MESH_MOE_LAYERS} layers) rank "
+               f"{r['rank']}"] = row["launches"]
+    return counts, _merge_shapes(res)
+
+
+def phase_mesh_nccl(torch, dev, ref_streams):
+    """The mesh_dense path at world size 1 over NCCL: the fused continuous
+    run's streams identical to the one-rank run's, and NCCL's own
+    all_reduce and broadcast right."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.spawn import run_ranks
+    cfg = get_config(ARCH)
+    reqs = _continuous_requests(cfg)
+    res = run_ranks(_rank_mesh_nccl, 1, reqs, backend="nccl",
+                    timeout_s=MESH_TIMEOUT_S)
+    _mesh_checks("mesh_nccl", cfg, res)
+    r = res[0]
+    row = r["runs"]["fused"]
+    agree = _agreement(row["streams"], ref_streams)
+    require(r["backend"] == "nccl" and r["nccl_check"] == [0.0, 1.0, 2.0, 3.0],
+            f"mesh_nccl: backend {r['backend']}, all_reduce {r['nccl_check']}")
+    require(agree["identical_requests"] == agree["requests"],
+            f"mesh_nccl: streams differ from the one-rank run: {agree}")
+    out = _mesh_row("mesh_nccl", r, "fused", row)
+    out["agreement_with_one_rank"] = agree
+    emit(out)
+    return {f"{ARCH} mesh_nccl 1x1": row["launches"]}
+
+
+def _merge_shapes(res):
+    """The ranks' recorded launch shapes summed: {"decode", "ffn", "hops"},
+    each shape -> calls."""
+    into = {"decode": {}, "ffn": {}, "hops": {}}
+    for r in res:
+        for key, got in (("decode", "decode_shapes"), ("ffn", "ffn_shapes"),
+                         ("hops", "hop_shapes")):
+            for k, n in r[got].items():
+                into[key][k] = into[key].get(k, 0) + n
+    return into
+
+
+def _shard_rows(B, S):
+    """(local length, start) per slot at a shard of S rows: every shape a
+    shard of a split cache meets -- the whole shard, a shard wholly past
+    cache_len (length at s0: 0), wholly before the window (start = S), a
+    window that starts inside it, a window inside it, a length inside it,
+    a length at s0 + S_loc with the window below s0 -- cycled over B."""
+    cases = [(S, 0), (0, 0), (S, S), (S, S // 2 + 3), (S - 2, S // 3),
+             (S // 2 + 1, 0), (S, 0)]
+    return [cases[b % len(cases)] for b in range(B)]
+
+
+def phase_mesh_kernels(torch, dev, shapes):
+    """With no model held: decode_attention with lse (and start) against
+    its plain version at every shard shape the mesh phases launched, with
+    the edge cases of _shard_rows; bf16 within 3e-2, f32 within 1e-4, the
+    lse within 1e-4 and -inf exactly where the window is empty, 0 output
+    there; every call twice, bit-equal, and its output bit-equal to the
+    same call without lse.  grouped_ffn at every local-expert shape with
+    counts; masked_compact bit for bit (both base-finding branches) at
+    every KV tail a rank compacted ([layers, tail rows, the rank's
+    Hkv*dh], all rows kept as the lossless hop keeps them).  Times the lse
+    call at mesh_seq's shard shape beside its bytes bound, the plain
+    version and the call without lse."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.grouped_ffn import grouped_ffn_cuda
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    tol = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
+    cases = []
+    errs = {"decode_attention": 0.0, "grouped_ffn": 0.0, "masked_compact": 0.0}
+    keys = sorted({k[:5] for k in shapes["decode"]})
+    for (B, S, H, Hkv, dh) in keys:
+        for dtype in (torch.bfloat16, torch.float32):
+            rows = _shard_rows(B, S)
+            q, k, v, cl = _decode_case(torch, gen, B, S, H, Hkv, dh, dtype,
+                                       [r[0] for r in rows], dev)
+            for with_start in (True, False):
+                st = torch.as_tensor([r[1] for r in rows], dtype=torch.int32,
+                                     device=dev) if with_start else None
+                got, lse = decode_attention_cuda(q, k, v, cl, start=st, lse=True)
+                again, lse2 = decode_attention_cuda(q, k, v, cl, start=st,
+                                                    lse=True)
+                want, wlse = ref.decode_attention_ref(q, k, v, cl, start=st,
+                                                      lse=True)
+                torch.cuda.synchronize()
+                tag = (f"decode_attention lse B={B} S={S} H={H} Hkv={Hkv} "
+                       f"dh={dh} {dtype} start={with_start}")
+                empty = torch.isinf(wlse)
+                err = float((got.float() - want.float()).abs().max())
+                finite = ~empty
+                lerr = float((lse[finite] - wlse[finite]).abs().max()) \
+                    if bool(finite.any()) else 0.0
+                require(err <= tol[dtype], f"{tag}: max_abs_err {err}")
+                require(lerr <= LSE_TOL, f"{tag}: lse off by {lerr}")
+                require(torch.equal(torch.isinf(lse), empty)
+                        and bool((lse[empty] < 0).all()),
+                        f"{tag}: lse not -inf exactly at the empty windows")
+                require(not bool(got[:, 0][empty].any()),
+                        f"{tag}: an empty window gave non-zero")
+                require(torch.equal(got, again) and torch.equal(lse, lse2),
+                        f"{tag}: two calls differ")
+                if st is None:
+                    plain = decode_attention_cuda(q, k, v, cl)
+                    require(torch.equal(plain, got),
+                            f"{tag}: lse changed the output")
+                if dtype == torch.bfloat16:
+                    errs["decode_attention"] = max(errs["decode_attention"], err)
+                cases.append({"B": B, "S": S, "H": H, "Hkv": Hkv, "dh": dh,
+                              "dtype": str(dtype)[6:], "start": with_start,
+                              "max_abs_err": err, "lse_max_abs_err": lerr,
+                              "empty_rows": int(empty.any(dim=1).sum())})
+    emit({"phase": "mesh_kernels", "kernel": "decode_attention",
+          "tolerance": {"bfloat16": 3e-2, "float32": 1e-4, "lse": LSE_TOL},
+          "recorded": [list(k) + [n] for k, n in sorted(shapes["decode"].items())],
+          "cases": cases})
+    ffn_cases = []
+    for (E, C, D, F, dt, _) in sorted(shapes["ffn"]):
+        dtype = getattr(torch, dt)
+        buf, wg, wu, wd = _ffn_case(torch, gen, E, C, D, F, dtype, dev)
+        counts = torch.randint(0, C + 1, (E,), generator=gen, device=dev,
+                               dtype=torch.int32)
+        got = grouped_ffn_cuda(buf, wg, wu, wd, counts=counts)
+        want = ref.grouped_ffn_ref(buf, wg, wu, wd, counts)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        require(err <= FFN_TOL[dt], f"mesh_kernels grouped_ffn {E}x{C}x{D}x{F}: "
+                f"{err}")
+        errs["grouped_ffn"] = max(errs["grouped_ffn"], err)
+        ffn_cases.append({"E": E, "C": C, "D": D, "F": F, "dtype": dt,
+                          "max_abs_err": err})
+    emit({"phase": "mesh_kernels", "kernel": "grouped_ffn",
+          "tolerance": FFN_TOL, "cases": ffn_cases})
+    mc = [dict(_check_mc_at(torch, dev, gen, "mesh-kv-hop", L, Rt, D, "all"),
+               recorded=n) for (L, Rt, D), n in sorted(shapes["hops"].items())]
+    require(mc, "mesh_kernels: no KV tail recorded on the mesh paths")
+    emit({"phase": "mesh_kernels", "kernel": "masked_compact",
+          "tolerance": "exact", "cases": mc})
+    return errs, _time_lse(torch, dev, gen, shapes)
+
+
+def _time_lse(torch, dev, gen, shapes):
+    """decode_attention with lse and start at the largest shard shape the
+    mesh phases launched with lse (mesh_seq's, bf16): device ms and ms
+    beside the bytes bound (q, the K/V rows of the windows -- here every
+    row --, lengths, starts, output and lse, each once), the plain
+    version's ms and the same call without lse."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    key = max((k for k in shapes["decode"] if k[7]),
+              key=lambda k: (k[5] == "bfloat16", k[0] * k[1] * k[3]))
+    B, S, H, Hkv, dh = key[:5]
+    dtype = getattr(torch, key[5])
+    es = torch.tensor([], dtype=dtype).element_size()
+    sets = []
+    for _ in range(_sets_for(2 * B * S * Hkv * dh * es)):
+        q, k, v, cl = _decode_case(torch, gen, B, S, H, Hkv, dh, dtype, [S] * B,
+                                   dev)
+        sets.append((q, k, v, cl, torch.zeros((B,), dtype=torch.int32,
+                                              device=dev)))
+    lse_call = lambda q, k, v, cl, st: decode_attention_cuda(  # noqa: E731
+        q, k, v, cl, start=st, lse=True)
+    plain_call = lambda q, k, v, cl, st: decode_attention_cuda(q, k, v, cl)  # noqa: E731
+    ref_call = lambda q, k, v, cl, st: ref.decode_attention_ref(  # noqa: E731
+        q, k, v, cl, start=st, lse=True)
+    n_bytes = (2 * B * H * dh * es + 2 * B * S * Hkv * dh * es + 2 * B * 4
+               + B * H * 4)
+    bound_ms, bound_by = _bound(n_bytes, 4 * B * H * S * dh)
+    row = {"phase": "mesh_kernels_timing", "kernel": "decode_attention",
+           "variant": "lse+start", "group": "mesh_seq shard",
+           "B": B, "S": S, "H": H, "Hkv": Hkv, "dh": dh, "dtype": key[5],
+           "ms": _time_ms(torch, lse_call, sets),
+           "device_ms": _device_ms(torch, lse_call, sets),
+           "ms_without_lse": _time_ms(torch, plain_call, sets),
+           "device_ms_without_lse": _device_ms(torch, plain_call, sets),
+           "plain_ms": _time_ms(torch, ref_call, sets, iters=20, warmup=2),
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "library_note": "not timed: the aten call that returns the "
+                           "log-sum-exp beside the output, "
+                           "_scaled_dot_product_efficient_attention("
+                           "compute_log_sumexp=True), takes no GQA and no "
+                           "lengths, so K/V would first be expanded H/Hkv-"
+                           "fold and the lengths and start built into a "
+                           "dense bias: not one call on these inputs"}
+    emit(row)
+    return row
+
+
+# ---------------------------------------------------------------------------
 KERNEL_META = {
     "decode_attention": {
         "route": "cuda", "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -2956,7 +3807,8 @@ def main() -> None:
     timed("trace", phase_trace, torch, dev, cfg, params, prompts,
           groups["auxiliary"] or REQUESTS)
     rows = timed("timing", phase_timing, torch, dev, slice_summary)
-    cont_counts = timed("continuous", phase_continuous, torch, dev, cfg, params)
+    cont_counts, cont_streams, cont_rows = timed("continuous", phase_continuous,
+                                                 torch, dev, cfg, params)
     cont_errs = timed("continuous_checks", phase_continuous_checks, torch, dev,
                       cfg, params)
     # the fleet runtime: a static star, then HeteroRuntime three ways
@@ -3055,6 +3907,22 @@ def main() -> None:
     train_errs, train_rows = timed("train_kernels", phase_train_kernels, torch,
                                    dev, ffn_shape, scan_shape)
 
+    # the mesh paths: ranks spawned on the card (the kernels built above;
+    # the ranks only load them), no model held by this process
+    _free(torch)
+    mesh_counts, mesh_shapes = timed("mesh_dense", phase_mesh_dense, torch, dev,
+                                     cont_streams, cont_rows)
+    for phase, fn in (("mesh_seq", phase_mesh_seq), ("mesh_moe", phase_mesh_moe)):
+        c, shapes = timed(phase, fn, torch, dev)
+        mesh_counts.update(c)
+        for key in ("decode", "ffn", "hops"):
+            for k, n in shapes[key].items():
+                mesh_shapes[key][k] = mesh_shapes[key].get(k, 0) + n
+    mesh_counts.update(timed("mesh_nccl", phase_mesh_nccl, torch, dev,
+                             cont_streams))
+    mesh_errs, _ = timed("mesh_kernels", phase_mesh_kernels, torch, dev,
+                         mesh_shapes)
+
     by_path = {ARCH: counts}
     by_path.update({f"{ARCH} continuous {m}": c for m, c in cont_counts.items()})
     by_path.update({f"{ARCH} {f}": c for f, c in fleet_counts.items()})
@@ -3073,11 +3941,12 @@ def main() -> None:
     by_path[f"{MOE_ARCH} train ({MOE_TRAIN_LAYERS} layers)"] = moe_train_counts
     by_path[f"{MOE_ARCH} train remat"] = moe_remat_counts
     by_path[f"{SSM_ARCH} train ({SSM_TRAIN_LAYERS} layers)"] = ssm_train_counts
+    by_path.update(mesh_counts)
     kernels = kernels_line(rows + moe_rows + ssm_rows + long_rows + fam_rows
                            + train_rows, by_path,
                            [errs, cont_errs, fleet_static_errs, fleet_errs,
                             dense_errs, moe_errs, ssm_errs, hyb_errs, fam_errs,
-                            train_errs])
+                            train_errs, mesh_errs])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -78,6 +78,11 @@ class ModelConfig:
     def d_inner(self) -> int:
         return self.ssm_expand * self.d_model
 
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic sequence handling (SSM / hybrid / sliding window)."""
+        return self.family in ("ssm", "hybrid") or self.sliding_window > 0
+
 
 # ---------------------------------------------------------------------------
 _REGISTRY: Dict[str, ModelConfig] = {}

@@ -86,12 +86,68 @@ class GroupHealth:
                       f"{kind} #{self._calls[kind]}")
 
 
+def mesh_axis_sizes(n_devices: int, n_axes: int,
+                    axis_sizes: Optional[Sequence[int]] = None) -> Tuple[int, ...]:
+    """Factor ``n_devices`` into ``n_axes`` mesh-axis sizes, largest first.
+
+    An explicit ``axis_sizes`` is validated against the device count;
+    otherwise the factorization is balanced greedily -- each axis takes the
+    smallest divisor of the remainder at or above the even split
+    rem^(1/axes_left), which keeps the factors descending -- so 8 devices
+    over 2 axes give (4, 2), 4 give (2, 2), 12 over 3 give (3, 2, 2) and
+    a prime count degenerates to (n, 1, ...).
+    """
+    if axis_sizes is not None:
+        sizes = tuple(int(s) for s in axis_sizes)
+        if len(sizes) != n_axes:
+            raise ValueError(f"axis_sizes {sizes} has {len(sizes)} entries "
+                             f"for {n_axes} axes")
+        prod = 1
+        for s in sizes:
+            prod *= s
+        if prod != n_devices:
+            raise ValueError(f"axis_sizes {sizes} does not cover "
+                             f"{n_devices} devices")
+        return sizes
+    sizes = []
+    rem = n_devices
+    for axes_left in range(n_axes, 1, -1):
+        # smallest divisor of rem at or above the even split rem^(1/axes):
+        # keeps factors descending, e.g. 12 over 3 axes -> (3, 2, 2)
+        target = rem ** (1.0 / axes_left)
+        d = rem
+        for cand in range(1, rem + 1):
+            if rem % cand == 0 and cand >= target - 1e-9:
+                d = cand
+                break
+        sizes.append(d)
+        rem //= d
+    sizes.append(rem)
+    return tuple(sizes)
+
+
 @dataclass
 class NodeGroup:
+    """A node group: its devices, and (under ``torch.distributed``) the
+    ranks that serve it as one SPMD program (None: every rank of the
+    process group, or this process alone without one)."""
     name: str
     devices: List[torch.device]
     profile: DeviceProfile
     health: GroupHealth = field(default_factory=GroupHealth)
+    ranks: Optional[List[int]] = None
+
+    def mesh(self, axes=("data",), axis_sizes: Optional[Sequence[int]] = None):
+        """The port's :class:`~repro_torch.launch.mesh.Mesh` over the
+        group's ranks, factored over ``axes`` by :func:`mesh_axis_sizes`
+        (a collective when a process group is initialised: every rank
+        calls it)."""
+        from repro_torch.launch.mesh import Mesh, world_ranks
+        ranks = np.array(world_ranks() if self.ranks is None else self.ranks)
+        if len(axes) == 1:
+            return Mesh(ranks, axes)
+        shape = mesh_axis_sizes(len(ranks), len(axes), axis_sizes)
+        return Mesh(ranks.reshape(shape), axes)
 
     @property
     def alive(self) -> bool:
@@ -448,3 +504,24 @@ class OffloadEngine:
             n_group=tuple(counts), t_group_s=tuple(t_group),
             t_link_s=tuple(t_link),
             host_syncs=sum(1 for g in range(G) if counts[g]))
+
+
+# ---------------------------------------------------------------------------
+def padded_quota_batch(batch, r: float, n_groups: int = 2):
+    """Re-lay a batch (a tree of tensors) as [n_groups, quota_max, ...] +
+    validity mask for the single-program multi-pod step.  Group 0 =
+    auxiliary (gets round(r·B)), group 1 = primary."""
+    B = tree_leaves(batch)[0].shape[0]
+    n_off, n_loc = split_sizes(B, r)
+    quota = max(n_off, n_loc, 1)
+
+    def relay(a):
+        pad = torch.zeros((n_groups * quota - B, *a.shape[1:]), dtype=a.dtype,
+                          device=a.device)
+        aux = torch.cat([a[:n_off], pad[:quota - n_off]], 0)
+        loc = torch.cat([a[n_off:], pad[:quota - n_loc]], 0)
+        return torch.stack([aux, loc])
+
+    ar = torch.arange(quota)
+    mask = torch.stack([ar < n_off, ar < n_loc])
+    return tree_map(relay, batch), mask

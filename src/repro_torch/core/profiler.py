@@ -7,7 +7,7 @@ a synthetic device described by the paper's own published tables
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -136,3 +136,35 @@ def paper_profiles() -> Tuple[MeasuredProfile, MeasuredProfile, MeasuredProfile]
         pri.add(r, t2, p2, m2)
         off.add(r, t3, 0.0, 0.0)
     return aux, pri, off
+
+
+# ---------------------------------------------------------------------------
+@dataclass
+class WorkloadCost:
+    """Per-request cost of one workload unit (from a program's cost
+    profile: ``serving/profiling.py``)."""
+    name: str
+    flops: float
+    hbm_bytes: float
+    collective_bytes: float = 0.0
+    request_bytes: float = 0.0     # bytes that cross the link if offloaded
+
+    def scaled(self, fraction: float) -> "WorkloadCost":
+        return WorkloadCost(self.name, self.flops * fraction,
+                            self.hbm_bytes * fraction,
+                            self.collective_bytes * fraction,
+                            self.request_bytes * fraction)
+
+
+def analytic_profile(device: DeviceProfile, cost: WorkloadCost,
+                     rs: Sequence[float]) -> MeasuredProfile:
+    """Synthesize a MeasuredProfile for `device` executing fraction r of the
+    workload per sample -- the analytic substitute for Table I."""
+    prof = MeasuredProfile(device.name)
+    for r in rs:
+        c = cost.scaled(r)
+        t = device.exec_time(c.flops, c.hbm_bytes)
+        p = device.power(min(1.0, r + 0.05))
+        m = min(1.0, (c.hbm_bytes / max(device.chips * device.memory_bytes, 1.0)))
+        prof.add(r, t, p, m)
+    return prof

@@ -6,6 +6,12 @@
 // per sequence against its cache, online softmax in f32, scale 1/sqrt(dh),
 // optional sliding window len - window <= pos < len, output in v's dtype,
 // and 0 for an empty window (the softmax denominator is clamped at 1e-20).
+// Two optional extras serve a cache whose sequence is split across ranks: a
+// per-slot lower bound start[b] on the rows (the rows are then max(start,
+// len - window) <= pos < len, so a shard can state its part of a window in
+// its own row numbers), and an f32 output lse[b, head], the log-sum-exp of
+// the scaled scores over those rows (-inf for an empty window), from which
+// the shards' partial outputs merge.  Both are null on every other call.
 //
 // Bound: memory, and at short caches latency.  The call must read the K and
 // V rows inside [lo, hi) once, plus q, and write out.  At the serving path's
@@ -153,7 +159,8 @@ __host__ __device__ inline int region_bytes(int ring_bytes, int dh, int nsplit) 
 template <typename T>
 __device__ __forceinline__ void merge_and_store(unsigned char* smem, T* __restrict__ out,
                                                 float* __restrict__ part,
-                                                int* __restrict__ tickets, int* last_block,
+                                                int* __restrict__ tickets,
+                                                float* __restrict__ lse, int* last_block,
                                                 int pair, int split, int nsplit, int G, int g0,
                                                 int Gb, int b, int h, int H, int dh) {
   const int warp = threadIdx.x >> 5;
@@ -175,6 +182,8 @@ __device__ __forceinline__ void merge_and_store(unsigned char* smem, T* __restri
     }
     if (nsplit == 1) {
       ob[i] = from_f32<T>(A / fmaxf(L, 1e-20f));
+      if (lse != nullptr && d == 0)
+        lse[(size_t)b * H + (size_t)h * G + g0 + g] = L > 0.f ? M + logf(L) : -INFINITY;
     } else {
       float* pp = part + ((size_t)(pair * nsplit + split) * G + g0 + g) * rp;
       pp[d] = A;
@@ -213,7 +222,11 @@ __device__ __forceinline__ void merge_and_store(unsigned char* smem, T* __restri
       L = fmaf(c, __ldcg(pg + sp * sstride + dh + 1), L);
     }
     L = warp_sum(L);
-    if (lane == 0) Ls[g] = L;
+    if (lane == 0) {
+      Ls[g] = L;
+      if (lse != nullptr)
+        lse[(size_t)b * H + (size_t)h * G + g0 + g] = L > 0.f ? M + logf(L) : -INFINITY;
+    }
   }
   __syncthreads();
   for (int i = threadIdx.x; i < Gb * dh; i += kThreads) {
@@ -244,9 +257,10 @@ template <typename T, int DJ>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ cache_len,
-                        T* __restrict__ out, float* __restrict__ part, int* __restrict__ tickets,
-                        int S, int H, int Hkv, int dh, int window, int rows_per_split,
-                        float scale) {
+                        const int* __restrict__ start, T* __restrict__ out,
+                        float* __restrict__ part, int* __restrict__ tickets,
+                        float* __restrict__ lse, int S, int H, int Hkv, int dh, int window,
+                        int rows_per_split, float scale) {
   constexpr int STAGES = stages_for<T, DJ>();
   constexpr int kVec = 16 / sizeof(T);
   extern __shared__ __align__(16) unsigned char smem[];
@@ -271,7 +285,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int len = cache_len[b];
   const int hi = min(len, S);
-  const int lo = window > 0 ? max(len - window, 0) : 0;
+  int lo = window > 0 ? max(len - window, 0) : 0;
+  if (start != nullptr) lo = max(lo, start[b]);
   const int rs = max(lo, split * rows_per_split);
   const int re = min(hi, (split + 1) * rows_per_split);
   const int ntiles = rs < re ? (re - rs + kRows - 1) / kRows : 0;
@@ -435,14 +450,14 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   __syncthreads();
-  merge_and_store<T>(smem, out, part, tickets, &last_block, pair, split, nsplit, G, g0, Gb, b, h, H,
-                     dh);
+  merge_and_store<T>(smem, out, part, tickets, lse, &last_block, pair, split, nsplit, G, g0, Gb, b,
+                     h, H, dh);
 }
 
 template <typename T, int DJ>
-int run(const void* q, const void* k, const void* v, const int* cache_len, void* out,
-        float* part, int* tickets, int B, int S, int H, int Hkv, int dh, int window,
-        int splits, int rows_per_split, cudaStream_t stream) {
+int run(const void* q, const void* k, const void* v, const int* cache_len, const int* start,
+        void* out, float* part, int* tickets, float* lse, int B, int S, int H, int Hkv, int dh,
+        int window, int splits, int rows_per_split, cudaStream_t stream) {
   constexpr int STAGES = stages_for<T, DJ>();
   const int pitch = dh * (int)sizeof(T) + 16;
   const size_t smem =
@@ -458,7 +473,8 @@ int run(const void* q, const void* k, const void* v, const int* cache_len, void*
   const float scale = (float)(1.0 / sqrt((double)dh));
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), cache_len,
-      static_cast<T*>(out), part, tickets, S, H, Hkv, dh, window, rows_per_split, scale);
+      start, static_cast<T*>(out), part, tickets, lse, S, H, Hkv, dh, window, rows_per_split,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -479,8 +495,9 @@ template <int KS>  // KS = dh / 16
 __global__ void __launch_bounds__(kThreads)
 decode_attention_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, const int* __restrict__ cache_len,
-                    __nv_bfloat16* __restrict__ out, float* __restrict__ part,
-                    int* __restrict__ tickets, int S, int H, int Hkv, int window,
+                    const int* __restrict__ start, __nv_bfloat16* __restrict__ out,
+                    float* __restrict__ part, int* __restrict__ tickets,
+                    float* __restrict__ lse, int S, int H, int Hkv, int window,
                     int rows_per_split, float scale) {
   constexpr int dh = 16 * KS;
   constexpr int kPitch = tc_pitch(dh);
@@ -508,7 +525,8 @@ decode_attention_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 
   const int len = cache_len[b];
   const int hi = min(len, S);
-  const int lo = window > 0 ? max(len - window, 0) : 0;
+  int lo = window > 0 ? max(len - window, 0) : 0;
+  if (start != nullptr) lo = max(lo, start[b]);
   const int rs = max(lo, split * rows_per_split);
   const int re = min(hi, (split + 1) * rows_per_split);
   const int ntiles = rs < re ? (re - rs + kTcRows - 1) / kTcRows : 0;
@@ -650,14 +668,14 @@ decode_attention_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     }
   }
   __syncthreads();
-  merge_and_store<__nv_bfloat16>(smem, out, part, tickets, &last_block, pair, split, nsplit, G,
-                                 g0, Gb, b, h, H, dh);
+  merge_and_store<__nv_bfloat16>(smem, out, part, tickets, lse, &last_block, pair, split, nsplit,
+                                 G, g0, Gb, b, h, H, dh);
 }
 
 template <int KS>
-int run_tc(const void* q, const void* k, const void* v, const int* cache_len, void* out,
-           float* part, int* tickets, int B, int S, int H, int Hkv, int window, int splits,
-           int rows_per_split, cudaStream_t stream) {
+int run_tc(const void* q, const void* k, const void* v, const int* cache_len, const int* start,
+           void* out, float* part, int* tickets, float* lse, int B, int S, int H, int Hkv,
+           int window, int splits, int rows_per_split, cudaStream_t stream) {
   constexpr int dh = 16 * KS;
   const size_t smem = region_bytes(kWarps * kTcStages * 2 * kTcRows * tc_pitch(dh), dh, splits);
   auto kernel = decode_attention_tc<KS>;
@@ -671,42 +689,56 @@ int run_tc(const void* q, const void* k, const void* v, const int* cache_len, vo
   const float scale = (float)(1.0 / sqrt((double)dh));
   typedef __nv_bfloat16 bf;
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const bf*>(q), static_cast<const bf*>(k),
-                                           static_cast<const bf*>(v), cache_len,
-                                           static_cast<bf*>(out), part, tickets, S, H, Hkv,
-                                           window, rows_per_split, scale);
+                                           static_cast<const bf*>(v), cache_len, start,
+                                           static_cast<bf*>(out), part, tickets, lse, S, H,
+                                           Hkv, window, rows_per_split, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const int* cl, void* out, float* part,
-           int* tickets, int B, int S, int H, int Hkv, int dh, int window, int splits,
-           int rows, cudaStream_t s) {
-  if (dh <= 64) return run<T, 1>(q, k, v, cl, out, part, tickets, B, S, H, Hkv, dh, window, splits, rows, s);
-  if (dh <= 128) return run<T, 2>(q, k, v, cl, out, part, tickets, B, S, H, Hkv, dh, window, splits, rows, s);
-  return run<T, 4>(q, k, v, cl, out, part, tickets, B, S, H, Hkv, dh, window, splits, rows, s);
+int launch(const void* q, const void* k, const void* v, const int* cl, const int* st, void* out,
+           float* part, int* tickets, float* lse, int B, int S, int H, int Hkv, int dh, int window,
+           int splits, int rows, cudaStream_t s) {
+  if (dh <= 64)
+    return run<T, 1>(q, k, v, cl, st, out, part, tickets, lse, B, S, H, Hkv, dh, window, splits,
+                     rows, s);
+  if (dh <= 128)
+    return run<T, 2>(q, k, v, cl, st, out, part, tickets, lse, B, S, H, Hkv, dh, window, splits,
+                     rows, s);
+  return run<T, 4>(q, k, v, cl, st, out, part, tickets, lse, B, S, H, Hkv, dh, window, splits,
+                   rows, s);
 }
 
 }  // namespace
 
+// start and lse may be null (no lower bound, no log-sum-exp output)
 extern "C" int repro_decode_attention(const void* q, const void* k, const void* v,
-                                      const void* cache_len, void* out, void* part,
-                                      void* tickets, int B, int S, int H, int Hkv, int dh,
-                                      int window, int splits, int rows_per_split, int is_bf16,
-                                      void* stream) {
+                                      const void* cache_len, const void* start, void* out,
+                                      void* part, void* tickets, void* lse, int B, int S, int H,
+                                      int Hkv, int dh, int window, int splits,
+                                      int rows_per_split, int is_bf16, void* stream) {
   const int* cl = static_cast<const int*>(cache_len);
+  const int* st = static_cast<const int*>(start);
   float* p = static_cast<float*>(part);
   int* t = static_cast<int*>(tickets);
+  float* ls = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     switch (dh) {  // the tensor-core path: dh 64, 80 or 128
-      case 64: return run_tc<4>(q, k, v, cl, out, p, t, B, S, H, Hkv, window, splits, rows_per_split, s);
-      case 80: return run_tc<5>(q, k, v, cl, out, p, t, B, S, H, Hkv, window, splits, rows_per_split, s);
-      case 128: return run_tc<8>(q, k, v, cl, out, p, t, B, S, H, Hkv, window, splits, rows_per_split, s);
+      case 64:
+        return run_tc<4>(q, k, v, cl, st, out, p, t, ls, B, S, H, Hkv, window, splits,
+                         rows_per_split, s);
+      case 80:
+        return run_tc<5>(q, k, v, cl, st, out, p, t, ls, B, S, H, Hkv, window, splits,
+                         rows_per_split, s);
+      case 128:
+        return run_tc<8>(q, k, v, cl, st, out, p, t, ls, B, S, H, Hkv, window, splits,
+                         rows_per_split, s);
       default: break;
     }
-    return launch<__nv_bfloat16>(q, k, v, cl, out, p, t, B, S, H, Hkv, dh, window, splits,
-                                 rows_per_split, s);
+    return launch<__nv_bfloat16>(q, k, v, cl, st, out, p, t, ls, B, S, H, Hkv, dh, window,
+                                 splits, rows_per_split, s);
   }
-  return launch<float>(q, k, v, cl, out, p, t, B, S, H, Hkv, dh, window, splits,
+  return launch<float>(q, k, v, cl, st, out, p, t, ls, B, S, H, Hkv, dh, window, splits,
                        rows_per_split, s);
 }

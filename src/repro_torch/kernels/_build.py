@@ -32,9 +32,9 @@ _I = ctypes.c_int
 # exported C functions: name -> (argtypes, restype); the launch functions
 # return the cudaError_t of their launch as an int
 SIGNATURES = {
-    # q, k, v, cache_len, out, part, tickets, B, S, H, Hkv, dh, window,
-    # splits, rows_per_split, is_bf16, stream
-    "repro_decode_attention": ([_P] * 7 + [_I] * 9 + [_P], _I),
+    # q, k, v, cache_len, start (or NULL), out, part, tickets, lse (or
+    # NULL), B, S, H, Hkv, dh, window, splits, rows_per_split, is_bf16, stream
+    "repro_decode_attention": ([_P] * 9 + [_I] * 9 + [_P], _I),
     # tokens, mask, out, idx, count, ws (or NULL), B, S, row_bytes, K, tile,
     # n_tiles, chunks, stream
     "repro_masked_compact": ([_P] * 6 + [_I] * 7 + [_P], _I),

@@ -3,7 +3,11 @@
 The kernel (``csrc/decode_attention.cu``) replaces the Pallas TPU kernel
 ``repro/kernels/decode_attention.py:decode_attention_pallas``: GQA
 single-token attention over a KV cache with per-slot lengths.  Its plain
-version is :func:`repro_torch.kernels.ref.decode_attention_ref`.
+version is :func:`repro_torch.kernels.ref.decode_attention_ref`.  For a
+cache whose sequence is split across ranks the kernel also takes a per-slot
+lower bound on the rows (``start``) and returns the log-sum-exp of the
+scores (``lse=True``), which the shards' outputs merge by
+(``models/attention.py``).
 """
 from __future__ import annotations
 
@@ -79,12 +83,15 @@ def _ticket_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
 
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, cache_len, *,
-                          window: int = 0) -> torch.Tensor:
+                          window: int = 0, start=None, lse: bool = False):
     """q: [B,1,H,dh]; caches: [B,S,Hkv,dh] (bf16 or f32, one dtype, all on one
     CUDA device, contiguous); cache_len: [B] int tensor, a scalar tensor or
-    a Python int.  Returns [B,1,H,dh] in v's dtype.  Launches on the
-    current stream without a host sync and counts the launch in
-    ``decode_attention_cuda.launches``."""
+    a Python int.  Returns [B,1,H,dh] in v's dtype.  ``start`` (None or an
+    int [B] tensor on q's device) raises each slot's first row to
+    ``max(start, len - window)``; ``lse=True`` also returns the f32
+    log-sum-exp of the scaled scores over the rows attended, [B,H] (-inf
+    for an empty window).  Launches on the current stream without a host
+    sync and counts the launch in ``decode_attention_cuda.launches``."""
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if not t.is_cuda:
             raise ValueError(f"decode_attention_cuda: {name} is on {t.device}, "
@@ -129,6 +136,13 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
             raise ValueError(f"decode_attention_cuda: cache_len shape "
                              f"{tuple(cl.shape)} is neither scalar nor [{B}]")
         cl = cl.to(torch.int32).reshape(-1).expand(B).contiguous()
+    st = None
+    if start is not None:
+        if not torch.is_tensor(start) or start.device != q.device \
+                or start.shape != (B,):
+            raise ValueError("decode_attention_cuda: start must be a [B] "
+                             "tensor on q's device")
+        st = start.to(torch.int32).contiguous()
     G = H // Hkv
     splits, rows = num_splits(B, Hkv, S, G)
     need = smem_bytes(dh, esize, splits, tensor_core_path(q.dtype, dh))
@@ -136,6 +150,8 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"decode_attention_cuda: dh={dh} with {splits} splits "
                          f"needs {need} bytes of shared memory")
     out = torch.empty_like(q, dtype=v_cache.dtype)
+    lse_out = torch.empty((B, H), dtype=torch.float32, device=q.device) \
+        if lse else None
     lib = _build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -147,14 +163,16 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                                      B * Hkv * -(-G // MAX_G))
         err = lib.repro_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            cl.data_ptr(), out.data_ptr(),
+            cl.data_ptr(), None if st is None else st.data_ptr(),
+            out.data_ptr(),
             None if part is None else part.data_ptr(),
             None if tickets is None else tickets.data_ptr(),
+            None if lse_out is None else lse_out.data_ptr(),
             B, S, H, Hkv, dh, int(window), splits, rows,
             int(q.dtype == torch.bfloat16), stream)
     _build.check(err, "decode_attention")
     decode_attention_cuda.launches += 1
-    return out
+    return (out, lse_out) if lse else out
 
 
 decode_attention_cuda.launches = 0

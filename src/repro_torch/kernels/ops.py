@@ -43,14 +43,18 @@ def resolve_use_kernels(use_kernels: Union[bool, str],
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
-                     use_kernels: bool = True):
+                     start=None, lse: bool = False, use_kernels: bool = True):
     """q: [B,1,H,dh]; caches: [B,S,Hkv,dh]; cache_len: [B] or scalar.
-    ``use_kernels=False`` takes the plain version on any device."""
+    ``start`` ([B] ints or None) raises each slot's first row; ``lse=True``
+    also returns the f32 log-sum-exp [B,H] of the scores attended (the
+    sequence-sharded decode merges shards by it).  ``use_kernels=False``
+    takes the plain version on any device."""
     if use_kernels and q.is_cuda:
         return decode_attention_cuda(q.contiguous(), k_cache, v_cache,
-                                     cache_len, window=window)
+                                     cache_len, window=window, start=start,
+                                     lse=lse)
     return ref.decode_attention_ref(q, k_cache, v_cache, cache_len,
-                                    window=window)
+                                    window=window, start=start, lse=lse)
 
 
 def masked_compact(tokens, mask, capacity: int, *, use_kernels: bool = True):
@@ -107,16 +111,46 @@ def admit_slots(cur_tok, lengths, remaining, done, slot_ids, last_logits,
                        last_logits, prompt_lens, max_news, eos_id=eos_id)
 
 
-def splice_blocks(dst, src, slot_ids):
+def splice_blocks(dst, src, slot_ids, shard=None):
     """Write M stacked prefill-cache blocks into M slots of a decode-cache
     leaf, in place.  ``dst`` is ``[L, B, ...]``; ``src`` is ``[L, M, ...]``
     whose trailing extents are at most dst's: each block lands at offset 0
     of every trailing axis (``[L, M, P, Hkv, dh]`` K/V rows fill the first
     P positions; same-shape leaves such as SSM states are replaced
     whole).  ``slot_ids`` [M] may repeat an index with identical blocks
-    (the padding contract of :func:`admit_state`).  Returns ``dst``."""
+    (the padding contract of :func:`admit_state`).  Returns ``dst``.
+
+    On a mesh (``shard``, the :class:`~repro_torch.models.sharding.RankShard`
+    of the decode cache) a ``[L, B, S, Hkv, dh]`` leaf holds this rank's
+    batch rows and sequence rows [s0, s0 + S_loc): the rank takes its rows
+    of the (replicated) source blocks and writes the slots it holds, with
+    no collective, as the JAX package's shard_map does."""
+    src = src.to(dst.dtype)
+    if shard is not None and dst.dim() == 5:
+        return _splice_local(dst, src, slot_ids, shard)
     region = tuple(slice(0, n) for n in src.shape[2:])
-    dst[(slice(None), slot_ids.long()) + region] = src.to(dst.dtype)
+    dst[(slice(None), slot_ids.long()) + region] = src
+    return dst
+
+
+def _splice_local(dst, src, slot_ids, shard):
+    s0 = shard.s0 if shard.seq is not None else 0
+    n = max(0, min(src.shape[2] - s0, dst.shape[2]))    # my rows under P
+    if n == 0:
+        return dst
+    rows = src[:, :, s0:s0 + n]
+    ids = slot_ids.long()
+    if not shard.b_sharded:
+        dst[:, ids, :n] = rows
+        return dst
+    # slots are global: write only those on this rank's batch rows, one at
+    # a time (a slot elsewhere rewrites a held slot with its own bytes)
+    local = ids - shard.b0
+    mine = (local >= 0) & (local < shard.B_loc)
+    local = local.clamp(0, shard.B_loc - 1)
+    for m in range(ids.shape[0]):
+        cur = dst[:, local[m], :n]
+        dst[:, local[m], :n] = torch.where(mine[m], rows[:, m], cur)
     return dst
 
 

@@ -51,13 +51,17 @@ def masked_scatter_ref(compacted: torch.Tensor, idx: torch.Tensor, seq_len: int)
 # decode_attention: GQA single-token attention over a KV cache
 # ---------------------------------------------------------------------------
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
-                         v_cache: torch.Tensor, cache_len, *, window: int = 0):
+                         v_cache: torch.Tensor, cache_len, *, window: int = 0,
+                         start=None, lse: bool = False):
     """q: [B,1,H,dh]; caches: [B,S,Hkv,dh]; cache_len: [B] or scalar int
     number of valid positions.  Returns [B,1,H,dh] in v dtype.
 
     Valid positions are ``len - window <= pos < len`` (the lower bound only
-    when ``window > 0``).  An empty window gives 0, as the kernels do (their
-    softmax denominator is clamped at 1e-20)."""
+    when ``window > 0``), and also ``pos >= start[b]`` when ``start`` ([B]
+    ints) is given.  An empty window gives 0, as the kernels do (their
+    softmax denominator is clamped at 1e-20).  ``lse=True`` also returns the
+    f32 log-sum-exp of the scaled scores over the valid positions, [B,H]
+    (-inf for an empty window)."""
     B, _, H, dh = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = H // Hkv
@@ -70,14 +74,22 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     valid = pos < cl[:, None]
     if window:
         valid &= pos >= (cl[:, None] - window)
+    if start is not None:
+        valid &= pos >= start.reshape(B, 1)
     valid = valid[:, None, None]                                  # [B,1,1,S]
     s = s.masked_fill(~valid, -math.inf)
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
     out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
-    out = out / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-20)
-    return out.reshape(B, 1, H, dh).to(v_cache.dtype)
+    denom = p.sum(dim=-1, keepdim=True)
+    out = out / torch.clamp(denom, min=1e-20)
+    out = out.reshape(B, 1, H, dh).to(v_cache.dtype)
+    if not lse:
+        return out
+    l = denom.reshape(B, H)
+    return out, torch.where(l > 0, m.reshape(B, H) + torch.log(l),
+                            torch.full_like(l, -math.inf))
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,430 @@
+"""The rank mesh, and the placement rules of the JAX package's
+``repro/launch/mesh.py``.
+
+A :class:`Mesh` is the port's ``jax.sharding.Mesh``: a grid of
+``torch.distributed`` ranks with named axes ("pod", "data", "model"),
+``shape`` as a dict, and one process group per axis line (the ranks that
+share every other coordinate), made for every set of axes.  The port is
+SPMD: every rank runs the same host code on its own shard and launches its
+own kernels; ranks meet only in the collectives of
+``distributed/collectives.py``.
+
+``param_spec`` is the JAX rule verbatim: for every leaf it gives the
+placement JAX's ``params_shardings`` gives (a tuple standing for the
+``PartitionSpec``).  ``shard_params`` is the serving counterpart of
+``params_shardings``: it slices each leaf to this rank's part on the
+"model" axis and leaves the data axes to the batch (FSDP's second split
+waits for the training slice).  Explicit collectives run a layer split on
+the dimension it was written for, so a leaf is sliced only on its preferred
+model dimension: where GSPMD would fall back to another dimension (a head
+count the axis does not divide), the leaf stays whole on every rank and the
+layer runs replicated.  ``data_specs`` / ``shard_batch`` are the
+counterpart of ``data_shardings``.
+
+Sharding strategy (the JAX package's DESIGN.md §5):
+  * "model" axis: tensor/expert parallel -- attention heads, MLP hidden,
+    MoE experts, vocab, SSM inner channels.
+  * "data" axis: batch (and, in training, FSDP-style parameter sharding).
+  * "pod" axis (multi-pod): pure data parallel.
+"""
+from __future__ import annotations
+
+import datetime
+import itertools
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+GROUP_TIMEOUT_S = 120     # a collective that waits longer fails
+
+
+class Mesh:
+    """A grid of ranks with named axes.
+
+    ``ranks`` holds global ``torch.distributed`` ranks in the grid's shape.
+    With a process group initialised, constructing a mesh is itself a
+    collective: every rank of the world must construct the same meshes in
+    the same order (``new_group``'s rule), members or not.  Without one,
+    or with ``groups=False``, the mesh has no process groups: it then
+    stands for one process (the collectives are identities) or only states
+    a shape (the rules)."""
+
+    def __init__(self, ranks, axes: Sequence[str], *,
+                 timeout_s: float = GROUP_TIMEOUT_S, groups: bool = True):
+        self.ranks = np.asarray(ranks, dtype=np.int64)
+        self.axes = tuple(axes)
+        if self.ranks.ndim != len(self.axes):
+            raise ValueError(f"ranks of shape {self.ranks.shape} for axes "
+                             f"{self.axes}")
+        self.shape: Dict[str, int] = dict(zip(self.axes, self.ranks.shape))
+        self.counters: list = []          # active CollectiveCounters
+        self.rank = dist.get_rank() if dist.is_initialized() \
+            else int(self.ranks.flat[0])
+        where = np.argwhere(self.ranks == self.rank)
+        self.coords: Optional[Tuple[int, ...]] = \
+            tuple(int(c) for c in where[0]) if len(where) else None
+        self._groups: Dict[Tuple[str, ...], Any] = {}
+        if groups and dist.is_initialized():
+            timeout = datetime.timedelta(seconds=timeout_s)
+            for n in range(1, len(self.axes) + 1):
+                for sub in itertools.combinations(self.axes, n):
+                    for line in self._lines(sub):
+                        group = dist.new_group(line, timeout=timeout)
+                        if self.rank in line:
+                            self._groups[sub] = group
+
+    @property
+    def size(self) -> int:
+        return int(self.ranks.size)
+
+    def _lines(self, axes: Tuple[str, ...]) -> List[List[int]]:
+        """Every line along ``axes``: the ranks that share the other
+        coordinates, first-axis-major."""
+        idx = [self.axes.index(a) for a in axes]
+        rest = [i for i in range(len(self.axes)) if i not in idx]
+        grid = np.transpose(self.ranks, rest + idx).reshape(
+            -1, int(np.prod([self.ranks.shape[i] for i in idx])))
+        return [[int(r) for r in row] for row in grid]
+
+    def canon(self, axes: Sequence[str]) -> Tuple[str, ...]:
+        """``axes`` in the mesh's own order."""
+        return tuple(a for a in self.axes if a in tuple(axes))
+
+    def axis_index(self, name: str) -> int:
+        """This rank's coordinate on axis ``name``."""
+        if self.coords is None:
+            raise ValueError(f"rank {self.rank} is not in this mesh")
+        return self.coords[self.axes.index(name)]
+
+    def axes_size(self, axes: Sequence[str]) -> int:
+        return int(np.prod([self.shape[a] for a in axes])) if axes else 1
+
+    def linear_index(self, axes: Sequence[str]) -> int:
+        """This rank's index along ``axes`` taken together, the first axis
+        major (a shard's index under a PartitionSpec entry of those axes)."""
+        lin = 0
+        for a in axes:
+            lin = lin * self.shape[a] + self.axis_index(a)
+        return lin
+
+    def line_ranks(self, axes: Sequence[str]) -> List[int]:
+        """The ranks of this rank's line along ``axes``."""
+        axes = self.canon(axes)
+        return next(line for line in self._lines(axes) if self.rank in line)
+
+    def group(self, axes: Sequence[str]):
+        """The process group of this rank's line along ``axes`` (None for
+        no axes, or a mesh without process groups)."""
+        axes = self.canon(axes)
+        return self._groups.get(axes) if axes else None
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, rank={self.rank})"
+
+
+def world_ranks() -> List[int]:
+    """Every rank of the initialised process group (``[0]`` without one)."""
+    return list(range(dist.get_world_size())) if dist.is_initialized() \
+        else [0]
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = int(np.prod(shape))
+    ranks = world_ranks()
+    if len(ranks) < n:
+        raise RuntimeError(
+            f"need {n} ranks for the production mesh, have {len(ranks)} -- "
+            "launch one process per card with torch.distributed.run over "
+            f"{n} cards")
+    return Mesh(np.array(ranks[:n]).reshape(shape), axes)
+
+
+def make_smoke_mesh() -> Mesh:
+    """1x1 mesh of this rank with the same axis names: it makes no process
+    group, so its collectives are identities."""
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    return Mesh(np.full((1, 1), rank), ("data", "model"), groups=False)
+
+
+# ---------------------------------------------------------------------------
+# Parameter sharding rules (the JAX package's, verbatim)
+# ---------------------------------------------------------------------------
+# leaf-name -> preferred model-parallel dim (negative = from the end),
+# counted on the UNSTACKED tensor (scan adds a leading L dim handled below).
+_MODEL_DIM_BY_NAME = {
+    "table": 0,        # [V, D]   vocab-parallel embedding / lm head
+    "wq": 1,           # [D, H, dh]
+    "wk": 1,           # [D, Hkv, dh]
+    "wv": 1,
+    "wo": 0,           # [H, dh, D]
+    "w_gate": -1,      # [D, F] or [E, D, F]
+    "w_up": -1,
+    "w_down": -2,      # [F, D] or [E, F, D]
+    "router": 1,       # [D, E]
+    "in_proj": 1,      # [D, 2di]
+    "bc_proj": 0,      # [di, 2N]
+    "x_proj": 0,       # [di, r+2N]
+    "dt_proj": 1,      # [r, di] / [di, H]
+    "out_proj": 0,     # [di, D]
+    "conv_w": 1,       # [W, di]
+    "conv_b": 0,
+    "A_log": 0,        # [di, N] / [H]
+    "D": 0,            # [di] / [H]
+    "dt_bias": 0,
+    "frontend_proj": 1,
+}
+# MoE expert tensors: expert dim is the model-parallel dim instead
+_EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def _path_names(path) -> Tuple[str, ...]:
+    return tuple(str(getattr(p, "key", getattr(p, "idx", p))) for p in path)
+
+
+def _preferred_dim(names: Tuple[str, ...], nd: int, stacked: bool):
+    offset = 1 if (stacked and nd >= 2) else 0  # leading scan/L dim
+    leaf = names[-1]
+    if "moe" in names and leaf in _EXPERT_LEAVES:
+        return offset  # expert dim
+    if leaf in _MODEL_DIM_BY_NAME:
+        d = _MODEL_DIM_BY_NAME[leaf]
+        return d + nd if d < 0 else d + offset
+    return None
+
+
+def param_spec(path, shape: Tuple[int, ...], *, model_size: int,
+               data_size: int, stacked: bool, fsdp: bool = True,
+               fsdp_axes: Optional[Tuple[Tuple[str, ...], int]] = None
+               ) -> tuple:
+    """The PartitionSpec of one parameter tensor, as a tuple (one entry per
+    dim: None, an axis name or a tuple of names)."""
+    names = _path_names(path)
+    nd = len(shape)
+    spec: list = [None] * nd
+    offset = 1 if (stacked and nd >= 2) else 0  # leading scan/L dim
+    preferred = _preferred_dim(names, nd, stacked)
+
+    def ok_model(i):
+        return 0 <= i < nd and shape[i] % model_size == 0 and shape[i] >= model_size
+
+    model_dim = None
+    if preferred is not None:
+        if ok_model(preferred):
+            model_dim = preferred
+        else:
+            # fallback: largest other dim divisible by the model axis
+            # (e.g. internvl2's 14 heads can't take a 16-way axis -- its
+            # d_model=896 can)
+            for i in sorted(range(offset, nd), key=lambda j: -shape[j]):
+                if ok_model(i):
+                    model_dim = i
+                    break
+    if model_dim is not None:
+        spec[model_dim] = "model"
+
+    if fsdp:
+        # FSDP: shard one more large dim over the batch axes -- ("pod","data")
+        # on the multi-pod mesh, "data" alone on a single pod.
+        axes, size = fsdp_axes if fsdp_axes else (("data",), data_size)
+        cands = sorted(range(offset, nd), key=lambda i: -shape[i])
+        for i in cands:
+            if i != model_dim and spec[i] is None \
+                    and shape[i] % size == 0 and shape[i] >= 4 * size:
+                spec[i] = axes if len(axes) > 1 else axes[0]
+                break
+    return tuple(spec)
+
+
+def _stacked(names: Tuple[str, ...]) -> bool:
+    stacked = "blocks" in names or "encoder" in names or "backbone" in names
+    # the hybrid "shared" block is NOT stacked
+    if "shared" in names and "backbone" not in names:
+        stacked = False
+    return stacked
+
+
+def _walk(tree, fn, names=()):
+    if isinstance(tree, dict):
+        return {k: _walk(v, fn, names + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_walk(v, fn, names + (str(i),)) for i, v in enumerate(tree))
+    return fn(names, tree)
+
+
+def params_specs(params, mesh: Mesh, *, fsdp: bool = True):
+    """The spec tree ``params_shardings`` places a param tree by."""
+    model_size = mesh.shape.get("model", 1)
+    data_size = mesh.shape.get("data", 1)
+    fsdp_ax = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    fsdp_axes = (fsdp_ax, int(np.prod([mesh.shape[a] for a in fsdp_ax]))) \
+        if fsdp_ax else None
+    return _walk(params, lambda names, leaf: param_spec(
+        names, tuple(leaf.shape), model_size=model_size, data_size=data_size,
+        stacked=_stacked(names), fsdp=fsdp, fsdp_axes=fsdp_axes))
+
+
+def _slice(t: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
+    """Shard ``i`` of ``n`` along ``dim``, as a contiguous tensor of its own
+    (so the full leaf can be freed)."""
+    step = t.shape[dim] // n
+    return t.narrow(dim, i * step, step).contiguous()
+
+
+def serving_model_dim(names: Tuple[str, ...], shape: Tuple[int, ...],
+                      model_size: int, *, heads_split: bool = True):
+    """The dim a serving rank slices a leaf on ("model" axis), or None:
+    the leaf's preferred dim when the axis divides it, never the router
+    (the JAX shard_map takes it whole), the attention projections only
+    together (``heads_split``: the kv heads divide the axis), and the MoE
+    layer's shared experts on their hidden width, as a dense MLP."""
+    leaf = names[-1]
+    if model_size == 1 or leaf == "router":
+        return None
+    if leaf in ("wq", "wk", "wv", "wo") and not heads_split:
+        return None
+    if "moe" in names and "shared" in names:
+        # the shared experts are one dense MLP, split on its hidden width
+        names = tuple(n for n in names if n != "moe")
+    dim = _preferred_dim(names, len(shape), _stacked(names))
+    if dim is None or not (shape[dim] % model_size == 0
+                           and shape[dim] >= model_size):
+        return None
+    return dim
+
+
+def shard_params(params, mesh: Mesh):
+    """This rank's part of a (full) param tree for serving on ``mesh``: each
+    leaf sliced on its preferred model dim (:func:`serving_model_dim`),
+    every other leaf shared as it is.  MoE experts slice their expert dim,
+    or (``f_parallel``, when the experts do not divide the axis) their
+    hidden width, as ``moe_apply`` reads them."""
+    m = mesh.shape.get("model", 1)
+    mi = mesh.axis_index("model") if m > 1 else 0
+
+    def heads_split(tree) -> bool:
+        hkv = tree["wk"].shape[-2]
+        return hkv % m == 0 and hkv >= m
+
+    def walk(tree, names):
+        if isinstance(tree, dict):
+            split = heads_split(tree) if "wk" in tree else True
+            out = {}
+            for k, v in tree.items():
+                if isinstance(v, (dict, tuple, list)):
+                    out[k] = walk(v, names + (k,))
+                    continue
+                sub = names + (k,)
+                dim = serving_model_dim(sub, tuple(v.shape), m,
+                                        heads_split=split)
+                if dim is None and "moe" in names and k in _EXPERT_LEAVES:
+                    # f_parallel: every rank holds all experts, a slice of
+                    # each one's hidden width (w_gate/w_up [.., D, F],
+                    # w_down [.., F, D])
+                    f_dim = v.dim() - (2 if k == "w_down" else 1)
+                    if v.shape[f_dim] % m == 0 and v.shape[f_dim] >= m:
+                        dim = f_dim
+                out[k] = v if dim is None else _slice(v, dim, m, mi)
+            return out
+        if isinstance(tree, (tuple, list)):
+            raise NotImplementedError(
+                "serving on a mesh covers the dense and MoE families; the "
+                "SSM and hybrid stacks wait for their mesh port")
+        return tree
+
+    return walk(params, ())
+
+
+# ---------------------------------------------------------------------------
+# Batch / cache rules
+# ---------------------------------------------------------------------------
+def batch_axes(mesh: Mesh) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.shape)
+
+
+def data_specs(abs_batch, mesh: Mesh):
+    """The spec tree ``data_shardings`` places a batch tree by: the batch
+    dim over ("pod","data") when divisible, else replicate the batch and
+    shard the sequence dim (long_500k decode).  Leaves may be tensors,
+    arrays or anything with a ``shape``.
+
+    This is the JAX package's launcher rule, kept verbatim for callers
+    that hold a whole batch tree; it is not the engines' rule.  The model
+    and the engines take their block through ``models.sharding.rank_shard``
+    (``seq_shard_layout``), as the JAX model code does, and the two rules
+    differ where the JAX ones do: here only "data" spills onto a KV
+    cache's sequence, there "pod" too."""
+    baxes = batch_axes(mesh)
+    bsize = int(np.prod([mesh.shape[a] for a in baxes]))
+    dsize = mesh.shape.get("data", 1)
+    model_size = mesh.shape.get("model", 1)
+
+    def one(names, leaf):
+        shape = tuple(leaf.shape)
+        if not shape:
+            return ()
+        spec: list = [None] * len(shape)
+        is_cache = "cache" in names or len(shape) >= 4
+        b_dim = 1 if is_cache and len(shape) >= 3 else 0  # caches: [L,B,...]
+        b_sharded = False
+        if len(shape) > b_dim and shape[b_dim] % bsize == 0 and shape[b_dim] >= bsize:
+            spec[b_dim] = baxes if len(baxes) > 1 else baxes[0]
+            b_sharded = True
+        if len(shape) == 5:
+            # KV cache [L,B,S,Hkv,dh]: prefer kv-head dim on "model";
+            # else shard the sequence dim (flash-decode style).  If the
+            # batch could not shard, the sequence dim also absorbs the
+            # data axis.
+            s_axes = [] if b_sharded else ["data"]
+            if shape[3] % model_size == 0 and shape[3] >= model_size:
+                spec[3] = "model"
+            else:
+                s_axes.append("model")
+            div = int(np.prod([mesh.shape[a] for a in s_axes])) if s_axes else 1
+            if s_axes and shape[2] % div == 0 and shape[2] >= div:
+                spec[2] = tuple(s_axes) if len(s_axes) > 1 else s_axes[0]
+        elif len(shape) == 4:
+            # SSM state [L,B,di,N] / conv state [L,B,W-1,di]: shard the
+            # channel dim on "model"
+            for i in (2, 3):
+                if shape[i] % model_size == 0 and shape[i] >= model_size:
+                    spec[i] = "model"
+                    break
+        elif len(shape) == 3 and not is_cache and not b_sharded:
+            # unbatchable [B,S,D] input (long-context frontend): seq on data
+            if shape[1] % dsize == 0 and shape[1] >= dsize:
+                spec[1] = "data"
+        return tuple(spec)
+
+    return _walk(abs_batch, one)
+
+
+def shard_tensor(t: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
+    """This rank's block of ``t`` under ``spec`` (views, no copies)."""
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        n = mesh.axes_size(axes)
+        step = t.shape[dim] // n
+        t = t.narrow(dim, mesh.linear_index(axes) * step, step)
+    return t
+
+
+def shard_batch(batch, mesh: Mesh):
+    """This rank's block of every leaf of a (replicated) batch tree, by
+    :func:`data_specs`."""
+    specs = data_specs(batch, mesh)
+
+    def pick(tree, spec):
+        if isinstance(tree, dict):
+            return {k: pick(v, spec[k]) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return tuple(pick(v, s) for v, s in zip(tree, spec))
+        return shard_tensor(tree, spec, mesh)
+
+    return pick(batch, specs)

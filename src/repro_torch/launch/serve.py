@@ -13,6 +13,10 @@
         [--frontend [--tenants SPEC] [--queue-depth N] [--shed-depth N]] \
         [--telemetry-json out.json]
 
+    python -m torch.distributed.run --standalone --nproc-per-node N \
+        -m repro_torch.launch.serve --mesh DATAxMODEL \
+        [--dist-backend nccl|gloo] [--continuous] [...]
+
 Serves a Poisson request stream.  ``--split auto`` runs the HeteroEdge
 loop: time a probe slice, fit the Eq. 1-3 polynomials, solve for the split
 (Eq. 4 on a pair, ``solve_star`` over the groups of a star), price each
@@ -33,13 +37,25 @@ cache (absmax per position and head).  The vlm (``--arch internvl2-1b``) and
 audio (``--arch seamless-m4t-medium``) families take each request's stubbed
 patch or frame embeddings from the request stream; every engine's cache
 holds the prompt, the vlm's frontend rows, ``max_new`` and 8 spare rows.
+
+``--mesh DATAxMODEL`` serves the request stream as one SPMD program on a
+(data, model) mesh of DATA x MODEL ranks, one process each, started by
+``torch.distributed.run``: every rank builds the same weights from seed 0,
+keeps its shard (``launch.mesh.shard_params``) and runs the sharded engine
+(``ServingEngine``, or ``ContinuousServingEngine`` with ``--continuous``).
+The mesh is one node group, so the split and topology flags do not apply.
+Rank 0 alone prints: one JSON line with the streams and timings.  The
+process group uses ``--dist-backend`` (NCCL by default on the card, gloo on
+the CPU; NCCL takes one rank per card, so ranks sharing one card use gloo).
 """
 from __future__ import annotations
 
 import argparse
 import asyncio
 import dataclasses
+import datetime
 import json
+import os
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -169,6 +185,21 @@ def price_payload(params, cfg, prompts: np.ndarray, *,
             "bandwidth_saving": rep.bandwidth_saving}
 
 
+def _pad_prompt(prompt, P: int) -> np.ndarray:
+    """The first ``P`` tokens of ``prompt``, zero-padded to ``P`` (int32)."""
+    return np.pad(prompt[:P], (0, max(0, P - len(prompt)))).astype(np.int32)
+
+
+def _serve_requests(cfg, reqs, prompt_len: int, max_new: int):
+    """The engine's requests: each prompt padded to ``prompt_len``, each
+    request keeping its own completion length (capped at ``max_new``) --
+    mixed lengths are exactly what the slot engine absorbs."""
+    return [ServeRequest(uid=r.uid, prompt=_pad_prompt(r.prompt, prompt_len),
+                         max_new=max(1, min(r.max_new_tokens, max_new)),
+                         frontend=r.frontend, task=cfg.name)
+            for r in reqs]
+
+
 def serve_static(cfg, params, reqs, *, prompt_len: int, max_new: int,
                  macro_steps: int, split: str, device: torch.device,
                  topology: Optional[C.Topology] = None) -> Dict[str, Any]:
@@ -181,8 +212,7 @@ def serve_static(cfg, params, reqs, *, prompt_len: int, max_new: int,
     topology = topology or build_topology("pair", 2, device=device)
     G = len(topology)
     P = prompt_len
-    prompts = np.stack([np.pad(r.prompt[:P], (0, max(0, P - len(r.prompt))))
-                        for r in reqs]).astype(np.int32)
+    prompts = np.stack([_pad_prompt(r.prompt, P) for r in reqs])
     B = prompts.shape[0]
     batch = {"tokens": prompts}
     engines: List[ServingEngine] = []
@@ -360,14 +390,7 @@ def serve_continuous(cfg, params, reqs, *, prompt_len: int, max_new: int,
                      payload_bytes_per_item=prompt_len * cfg.d_model * 2)
     mode, fixed_r = parse_split(split)
 
-    # each request keeps its own completion length (capped at max_new) —
-    # mixed lengths are exactly what the slot engine absorbs
-    requests = [ServeRequest(uid=r.uid, prompt=np.pad(
-                    r.prompt[:prompt_len],
-                    (0, max(0, prompt_len - len(r.prompt)))).astype(np.int32),
-                    max_new=max(1, min(r.max_new_tokens, max_new)),
-                    frontend=r.frontend, task=cfg.name)
-                for r in reqs]
+    requests = _serve_requests(cfg, reqs, prompt_len, max_new)
     if frontend:
         # asyncio ingress in front of the same runtime: tenant-fair
         # admission waves, streamed tokens, power/memory shedding
@@ -452,6 +475,105 @@ def serve_continuous(cfg, params, reqs, *, prompt_len: int, max_new: int,
     return result
 
 
+def parse_mesh(value: str) -> Tuple[int, int]:
+    """``--mesh`` parser: "DATAxMODEL" -> (data, model)."""
+    try:
+        data, model = (int(v) for v in value.lower().split("x"))
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"--mesh must be DATAxMODEL, e.g. 1x2, got {value!r}")
+    if data < 1 or model < 1:
+        raise argparse.ArgumentTypeError(f"--mesh {value!r}: sizes must be >= 1")
+    return data, model
+
+
+def serve_mesh(ap, args) -> Optional[Dict[str, Any]]:
+    """``--mesh``: this rank's part of the SPMD serving program.  Returns
+    the result on rank 0 (which prints it as one JSON line), None on the
+    other ranks."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import GROUP_TIMEOUT_S, Mesh, shard_params
+    from repro_torch.models.sharding import activation_sharding
+    from repro_torch.serving.engine import ContinuousServingEngine
+
+    not_on_mesh = {"--topology star": args.topology != "pair",
+                   "--nodes": args.nodes is not None,
+                   "--split": args.split is not None,
+                   "--prefill-group": args.prefill_group is not None,
+                   "--prefix-cache-blocks": bool(args.prefix_cache_blocks),
+                   "--link-trace": args.link_trace is not None,
+                   "--frontend": args.frontend,
+                   "--power-budget-wh": args.power_budget_wh is not None,
+                   "--wave-steps": args.wave_steps > 1,
+                   "--kv-int8": args.kv_int8}
+    bad = [flag for flag, given in not_on_mesh.items() if given]
+    if bad:
+        ap.error(f"--mesh serves one node group as one SPMD program; "
+                 f"{', '.join(bad)} do not apply")
+    try:
+        data, model = parse_mesh(args.mesh)
+    except argparse.ArgumentTypeError as e:
+        ap.error(str(e))
+    if "WORLD_SIZE" not in os.environ:
+        ap.error("--mesh runs under torch.distributed.run, one process per "
+                 "rank (WORLD_SIZE is not set)")
+    device = resolve_device(args.device)
+    if device.type == "cuda" and device.index is None:
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        device = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    backend = args.dist_backend or ("nccl" if device.type == "cuda" else "gloo")
+    dist.init_process_group(
+        backend, timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+    try:
+        world, rank = dist.get_world_size(), dist.get_rank()
+        if world != data * model:
+            ap.error(f"--mesh {args.mesh} needs {data * model} ranks, "
+                     f"torch.distributed.run started {world}")
+        mesh = Mesh(np.arange(world).reshape(data, model), ("data", "model"))
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = reduced(cfg)
+        params = shard_params(M.init_params(cfg, 0, device=device), mesh)
+        reqs = request_stream(cfg.vocab_size, n=args.requests,
+                              mean_prompt=args.prompt_len, seed=0)
+        P = args.prompt_len
+        max_len = P + args.max_new + 8
+        out: Dict[str, Any] = {"arch": cfg.name, "mesh": dict(mesh.shape),
+                               "backend": backend, "device": str(device),
+                               "requests": len(reqs), "prompt_len": P}
+        with activation_sharding(mesh):
+            if args.continuous:
+                eng = ContinuousServingEngine(
+                    cfg, params, slots=args.slots, max_len=max_len,
+                    macro_steps=args.macro_steps,
+                    overlap_admission=args.overlap_admission, device=device)
+                outs, st = eng.run(_serve_requests(cfg, reqs, P,
+                                                   args.max_new))
+                out.update(mode="continuous", slots=args.slots,
+                           tokens={o.uid: o.tokens.tolist() for o in outs},
+                           tokens_per_s=st.tokens_per_s,
+                           decode_steps=st.decode_steps,
+                           decode_s=st.decode_s, prefill_s=st.prefill_s)
+            else:
+                eng = ServingEngine(cfg, params, max_len=max_len,
+                                    macro_steps=args.macro_steps,
+                                    device=device)
+                res = eng.generate(
+                    np.stack([_pad_prompt(r.prompt, P) for r in reqs]),
+                    max_new=args.max_new)
+                out.update(mode="static", tokens=res.tokens.tolist(),
+                           tokens_per_s=res.tokens_per_s,
+                           decode_steps=eng.decode_steps,
+                           decode_s=res.decode_s, prefill_s=res.prefill_s)
+        if rank != 0:
+            return None
+        print(json.dumps(out), flush=True)
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
 def main(argv: Optional[Sequence[str]] = None):
     """Parse ``argv`` and serve.  Returns the static path's summary dict,
     the continuous path's ``ServeResult``, or (``--frontend``) the
@@ -465,8 +587,9 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--kv-int8", action="store_true",
                     help="int8 KV cache (absmax per position and head)")
-    ap.add_argument("--split", default="auto",
-                    help='"auto" (HeteroEdge solver), a float r, or "none"')
+    ap.add_argument("--split", default=None,
+                    help='"auto" (HeteroEdge solver, the default), a float r, '
+                         'or "none"')
     ap.add_argument("--continuous", action="store_true",
                     help="slot-based continuous batching runtime")
     ap.add_argument("--slots", type=int, default=4,
@@ -548,7 +671,17 @@ def main(argv: Optional[Sequence[str]] = None):
                     help="P_available floor (W) under the power envelope")
     ap.add_argument("--device", default="cuda",
                     help='"cuda" (default; raises without a card) or "cpu"')
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="serve as one SPMD program on a (data, model) mesh "
+                         "of ranks; run under torch.distributed.run with "
+                         "DATA x MODEL processes")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                    help="process-group backend for --mesh (default nccl on "
+                         "the card, gloo on the CPU)")
     args = ap.parse_args(argv)
+    if args.mesh is not None:
+        return serve_mesh(ap, args)
+    args.split = args.split or "auto"
     nodes = args.nodes or (2 if args.topology == "pair" else 3)
 
     if args.prefill_group is not None and not args.continuous:

@@ -8,6 +8,17 @@ version.  That holds for every cache kind: the self cache, the audio
 decoder's cross cache over the encoder's rows, and the int8 cache, whose
 rows are dequantized to f32 and attended with an f32 query.  A prefill can
 resume from cached post-RoPE prefix K/V.
+
+On a mesh (``shard``, a :class:`~repro_torch.models.sharding.RankShard`)
+the heads are split over "model" when the rank holds a slice of them
+(``shard_params`` slices ``wq/wk/wv`` on the head dim and ``wo`` on its
+head dim when the kv heads divide the axis); the partial output
+projections then meet in one all_reduce.  A sequence-sharded cache (the
+layout ``seq_shard_layout`` gives) is written only by the rank that owns
+the row, with no collective (``cache_update``), and decode runs the kernel
+on each rank's own rows with ``lse``; the partial outputs merge across the
+sequence axes by their log-sum-exps (``merge_shards``), the only
+cross-shard data of the decode.
 """
 from __future__ import annotations
 
@@ -15,6 +26,7 @@ import math
 
 import torch
 
+from repro_torch.distributed import collectives as coll
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, norm_apply, normal_stack
 
@@ -128,23 +140,76 @@ def chunked_attention(q, k, v, *, causal: bool, window: int,
 
 
 # ---------------------------------------------------------------------------
-def cache_update(cache: torch.Tensor, new: torch.Tensor, index) -> torch.Tensor:
+def cache_update(cache: torch.Tensor, new: torch.Tensor, index,
+                 shard=None) -> torch.Tensor:
     """Write one token's K or V into ``cache`` [B,S,Hkv,dh] at ``index``
     (sequence axis 1), IN PLACE -- the JAX engine donates the cache, so the
     port updates the buffer it was given and returns it.
 
     ``index`` is a scalar (every row at one position) or a per-slot [B]
     tensor.  Like ``dynamic_update_slice`` an out-of-range index is clamped
-    into [0, S-1]."""
+    into [0, S-1].  On a sequence-sharded cache (``shard.seq``) ``cache``
+    holds this rank's rows [s0, s0 + S_loc) and ``index`` counts global
+    positions: the rank writes the rows that land on it and leaves the
+    rest, moving no collective bytes."""
     B, S = cache.shape[:2]
     index = torch.as_tensor(index, device=cache.device)
     new = new.to(cache.dtype)
+    if shard is not None and shard.seq is not None:
+        local = index - shard.s0
+        mine = (local >= 0) & (local < S)
+        local = local.clamp(0, S - 1).long()
+        rows = torch.arange(B, device=cache.device)
+        if not index.dim():
+            local, mine = local.expand(B), mine.expand(B)
+        cur = cache[rows, local]
+        cache[rows, local] = torch.where(mine[:, None, None], new[:, 0], cur)
+        return cache
     if index.dim():
         rows = torch.arange(B, device=cache.device)
         cache[rows, index.clamp(0, S - 1).long()] = new[:, 0]
     else:
         cache.index_copy_(1, index.clamp(0, S - 1).long().reshape(1), new)
     return cache
+
+
+def merge_shards(out: torch.Tensor, lse: torch.Tensor, mesh,
+                 axes) -> torch.Tensor:
+    """Merge the sequence shards' partial decode outputs: ``o = sum_r
+    exp(lse_r - lse) o_r`` with ``lse = log sum_r exp(lse_r)``, over the
+    ranks along ``axes``.  out: [B,1,H,dh]; lse: [B,H] f32 (-inf for a
+    shard with no row in the window).  A row no shard attends gives 0 (the
+    kernel's contract).  Two all_reduces: the max of the lse, then the
+    weighted outputs with their weights in one buffer."""
+    top = coll.all_reduce(lse.clone(), mesh, axes, op="max")
+    top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    w = torch.where(torch.isfinite(lse), torch.exp(lse - top),
+                    torch.zeros_like(lse))                        # [B,H]
+    packed = torch.cat([out[:, 0].float() * w[..., None], w[..., None]], -1)
+    coll.all_reduce(packed, mesh, axes)                           # [B,H,dh+1]
+    merged = packed[..., :-1] / torch.clamp(packed[..., -1:], min=1e-20)
+    return merged[:, None].to(out.dtype)
+
+
+def decode_attend(q, k_cache, v_cache, cache_len, *, window: int,
+                  use_kernels: bool, shard=None) -> torch.Tensor:
+    """``ops.decode_attention`` over the cache this rank holds.  On a
+    sequence-sharded cache the global lengths and window become this
+    shard's rows: ``len - s0`` clamped into [0, S_loc], and the window's
+    first row as the kernel's per-slot ``start``; the shards' results
+    merge by :func:`merge_shards`."""
+    if shard is None or shard.seq is None:
+        return ops.decode_attention(q, k_cache, v_cache, cache_len,
+                                    window=window, use_kernels=use_kernels)
+    B, S_loc = k_cache.shape[:2]
+    cl = torch.as_tensor(cache_len, device=q.device).to(torch.int32)
+    cl = cl.reshape(-1).expand(B)
+    local_len = (cl - shard.s0).clamp(0, S_loc)
+    start = (cl - window - shard.s0).clamp(0, S_loc) if window else None
+    out, lse = ops.decode_attention(q, k_cache, v_cache, local_len,
+                                    start=start, lse=True,
+                                    use_kernels=use_kernels)
+    return merge_shards(out, lse, shard.mesh, shard.seq.s_axes)
 
 
 def quantize_kv(t: torch.Tensor):
@@ -159,7 +224,7 @@ def quantize_kv(t: torch.Tensor):
 def attn_apply(params, x, cfg, *, positions, mode: str, causal: bool = True,
                cache=None, cache_index=None, use_kernels: bool = False,
                kv_x=None, kv_positions=None, cross: bool = False,
-               prefix_kv=None):
+               prefix_kv=None, shard=None):
     """mode "full":   self-attention over x (prefill); returns (out, (k, v)).
                    ``prefix_kv=(k_pre, v_pre)`` resumes a prefill from
                    cached post-RoPE K/V of positions [0, q): x holds only
@@ -176,8 +241,15 @@ def attn_apply(params, x, cfg, *, positions, mode: str, causal: bool = True,
     Cross-attention: in mode "full" ``kv_x`` [B,F,D] (at ``kv_positions``)
     gives the keys and values, without RoPE, causal mask or window; in mode
     "decode" (``cross=True``) the query attends over the cache's F rows,
-    which the decode never writes."""
+    which the decode never writes.  ``shard``: this rank's block on a mesh
+    (see the module docstring); self-attention only."""
     cross = cross or kv_x is not None
+    # heads split over "model": the partial projections meet in one all_reduce
+    split = shard is not None and params["wq"].shape[-2] != cfg.num_heads
+
+    def project(out):
+        y = _out_proj(out.to(x.dtype), params["wo"])
+        return coll.all_reduce(y, shard.mesh, ("model",)) if split else y
     if mode == "full":
         if cross:
             q, k, v = _qkv(params, x, kv_x, cfg, positions, kv_positions,
@@ -196,7 +268,7 @@ def attn_apply(params, x, cfg, *, positions, mode: str, causal: bool = True,
         out = chunked_attention(q, k, v, causal=causal,
                                 window=cfg.sliding_window,
                                 q_positions=positions, kv_positions=kv_positions)
-        return _out_proj(out.to(x.dtype), params["wo"]), (k, v)
+        return project(out), (k, v)
 
     if mode != "decode":
         raise ValueError(f"unknown attention mode {mode!r}")
@@ -210,18 +282,18 @@ def attn_apply(params, x, cfg, *, positions, mode: str, causal: bool = True,
         new_cache = {}
         for name, t in (("k", k), ("v", v)):
             qt, sc = quantize_kv(t)
-            new_cache[name] = cache_update(cache[name], qt, cache_index)
+            new_cache[name] = cache_update(cache[name], qt, cache_index, shard)
             new_cache[name + "_scale"] = cache_update(cache[name + "_scale"], sc,
-                                                      cache_index)
+                                                      cache_index, shard)
         k_f32 = new_cache["k"].float() * new_cache["k_scale"]
         v_f32 = new_cache["v"].float() * new_cache["v_scale"]
-        out = ops.decode_attention(q.float(), k_f32, v_f32, cache_index + 1,
-                                   window=cfg.sliding_window,
-                                   use_kernels=use_kernels)
-        return _out_proj(out.to(x.dtype), params["wo"]), new_cache
-    k_cache = cache_update(cache["k"], k, cache_index)
-    v_cache = cache_update(cache["v"], v, cache_index)
-    cache_len = cache_index + 1
-    out = ops.decode_attention(q, k_cache, v_cache, cache_len,
-                               window=cfg.sliding_window, use_kernels=use_kernels)
-    return _out_proj(out.to(x.dtype), params["wo"]), {"k": k_cache, "v": v_cache}
+        out = decode_attend(q.float(), k_f32, v_f32, cache_index + 1,
+                            window=cfg.sliding_window, use_kernels=use_kernels,
+                            shard=shard)
+        return project(out), new_cache
+    k_cache = cache_update(cache["k"], k, cache_index, shard)
+    v_cache = cache_update(cache["v"], v, cache_index, shard)
+    out = decode_attend(q, k_cache, v_cache, cache_index + 1,
+                        window=cfg.sliding_window, use_kernels=use_kernels,
+                        shard=shard)
+    return project(out), {"k": k_cache, "v": v_cache}

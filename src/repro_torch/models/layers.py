@@ -2,11 +2,15 @@
 
 Plain functions on tensors; params are dicts in the JAX package's keys and
 layout, so the L-stacked trees of both packages compare like with like.
+On a mesh whose "model" axis splits the vocabulary, ``vocab_embed`` and
+``vocab_logits`` run the embedding table's row slice of this rank.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import collectives as coll
 
 
 # ---------------------------------------------------------------------------
@@ -101,3 +105,24 @@ def embed_apply(params, tokens: torch.Tensor) -> torch.Tensor:
 def unembed_apply(params, x: torch.Tensor, *, tied_table=None) -> torch.Tensor:
     table = tied_table if tied_table is not None else params["table"]
     return x @ table.T
+
+
+def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, mesh) -> torch.Tensor:
+    """The embedding of ``tokens`` from this rank's rows of a table split
+    over "model" (rank i holds rows [i V_loc, (i + 1) V_loc)): a masked
+    lookup, then one all_reduce (each row comes from exactly one rank, the
+    rest add zeros, so the result is exact)."""
+    V_loc = table.shape[0]
+    rel = tokens - mesh.axis_index("model") * V_loc
+    mine = (rel >= 0) & (rel < V_loc)
+    x = table[rel.clamp(0, V_loc - 1)] * mine[..., None].to(table.dtype)
+    return coll.all_reduce(x, mesh, ("model",))
+
+
+def vocab_logits(x: torch.Tensor, table: torch.Tensor, mesh) -> torch.Tensor:
+    """``x @ table.T`` over the whole vocabulary from this rank's rows of a
+    table split over "model": each rank's [.., V_loc] block gathered (one
+    all_reduce of a zero-filled buffer) into [.., V]."""
+    part = x @ table.T
+    blocks = coll.gather_sum(part, mesh, ("model",))       # [m, ..., V_loc]
+    return torch.movedim(blocks, 0, -2).flatten(-2)

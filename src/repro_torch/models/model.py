@@ -20,6 +20,14 @@ cross_entropy(logits, labels, mask=None)     -> mean next-token NLL (f32)
            returned cache is full-length
   decode:  {"token": [B,1], "cache": ..., "cache_index": scalar or [B]}
            (the vlm's index counts its F prologue rows)
+
+Under ``models.sharding.activation_sharding(mesh)`` (dense and MoE
+families, serving modes) every rank holds ``launch.mesh.shard_params``'
+slice of the params and its block of the cache (``init_cache``), takes the
+whole batch's tokens and indices (replicated), computes its own batch rows
+(all of them when the batch does not divide the batch axes) and returns the
+whole batch's logits, gathered over the "model" axis (vocab-parallel head)
+and the batch axes: every rank ends a step with the same logits.
 """
 from __future__ import annotations
 
@@ -31,9 +39,13 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import collectives as coll
+from repro_torch.models import sharding
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import embed_apply, norm_apply, norm_init, unembed_apply
+from repro_torch.models.layers import (embed_apply, norm_apply, norm_init,
+                                       unembed_apply, vocab_embed,
+                                       vocab_logits)
 
 
 @dataclass
@@ -94,6 +106,17 @@ def init_params(cfg, seed: int = 0, *, device: DeviceLike = None) -> Dict[str, A
     return params
 
 
+def _mesh_kind(cfg, mesh) -> str:
+    """The block kind, checked servable on ``mesh``."""
+    kind = _kind(cfg)
+    if kind not in ("dense", "moe") or cfg.frontend:
+        raise NotImplementedError(
+            f"serving {cfg.name} ({cfg.family}) on a mesh: the port's mesh "
+            "path covers the dense and MoE families; the SSM, hybrid, vlm "
+            "and audio families wait for their mesh port")
+    return kind
+
+
 def init_cache(cfg, batch: int, seq_len: int, dtype=None, *, device) -> Any:
     """Decode caches sized for seq_len positions, in the JAX layout:
     {"self": {"k","v"}} of [L,B,S,Hkv,dh] (dense, MoE, vlm); a tuple (conv
@@ -101,13 +124,26 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=None, *, device) -> Any:
     {"backbone": that tuple, "shared": {"self": kv of nb layers}} (hybrid);
     the audio decoder adds {"cross": kv of F = frontend_tokens rows}.  With
     ``kv_quant="int8"`` every self K/V is int8 beside f32 ``k_scale`` /
-    ``v_scale`` [L,B,S,Hkv,1]; the cross cache is never quantized."""
+    ``v_scale`` [L,B,S,Hkv,1]; the cross cache is never quantized.
+
+    Under an active mesh only this rank's block is allocated: its batch
+    rows, its kv heads (when they divide "model") and its sequence rows,
+    the block :func:`cache_shard` names."""
     kind = _kind(cfg)
     dtype = dtype or cfg.torch_dtype
     L = cfg.num_layers
+    hkv = cfg.num_kv_heads
+    mesh = sharding.active_mesh()
+    if mesh is not None:
+        kind = _mesh_kind(cfg, mesh)
+        sh = cache_shard(cfg, batch, seq_len)
+        batch, seq_len = sh.B_loc, sh.S_loc
+        m = mesh.shape.get("model", 1)
+        if hkv % m == 0 and hkv >= m:
+            hkv //= m
 
     def kv(n_layers, length=seq_len, quant=True):
-        shape = (n_layers, batch, length, cfg.num_kv_heads, cfg.head_dim)
+        shape = (n_layers, batch, length, hkv, cfg.head_dim)
         if quant and cfg.kv_quant == "int8":
             scale = shape[:-1] + (1,)
             return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -132,17 +168,28 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=None, *, device) -> Any:
     return {"self": kv(L)}
 
 
+def cache_shard(cfg, batch: int, seq_len: int):
+    """The :class:`~repro_torch.models.sharding.RankShard` of a [batch,
+    seq_len] decode cache on the active mesh (None off-mesh): the block
+    ``init_cache`` allocates, and what a decode (``forward``'s ``shard``),
+    a slot write and a splice need to find this rank's rows."""
+    mesh = sharding.active_mesh()
+    if mesh is None:
+        return None
+    return sharding.rank_shard(mesh, batch, Hkv=cfg.num_kv_heads, S=seq_len)
+
+
 def frontend_offset(cfg) -> int:
     """Cache rows ahead of the prompt tokens: the vlm's F patch rows."""
     return cfg.frontend_tokens if cfg.family == "vlm" else 0
 
 
-def _embed_inputs(params, cfg, batch):
+def _embed_inputs(params, cfg, batch, shard=None):
     """(x [B,S',D], positions [S'], loss_mask [S'] bool): the vlm prepends
     its projected patch embeddings, so S' = F + S, and its prologue rows
     ``< frontend_tokens`` carry no loss."""
     tokens = batch["tokens"]
-    x = embed_apply(params["embed"], tokens)
+    x = _embed(params, cfg, tokens, shard)
     if cfg.frontend and cfg.family == "vlm":
         fe = batch["frontend"].to(x.dtype) @ params["frontend_proj"]
         x = torch.cat([fe, x], dim=1)
@@ -161,11 +208,25 @@ def _encode(params, cfg, batch, mode: str = "prefill", remat: bool = False):
     return norm_apply(params["enc_norm"], enc, cfg), pos
 
 
-def _logits(params, cfg, x):
+def _logits(params, cfg, x, shard=None):
     x = norm_apply(params["final_norm"], x, cfg)
-    return unembed_apply(
-        params.get("lm_head"), x,
-        tied_table=params["embed"]["table"] if cfg.tie_embeddings else None)
+    table = params["embed"]["table"] if cfg.tie_embeddings \
+        else params["lm_head"]["table"]
+    if shard is None:
+        return unembed_apply(None, x, tied_table=table)
+    logits = vocab_logits(x, table, shard.mesh) \
+        if table.shape[0] != cfg.vocab_size else x @ table.T
+    if shard.b_sharded:    # every rank's batch rows, in rank order
+        logits = coll.gather_sum(logits, shard.mesh, shard.batch_axes) \
+            .flatten(0, 1)
+    return logits
+
+
+def _embed(params, cfg, tokens, shard):
+    table = params["embed"]["table"]
+    if shard is not None and table.shape[0] != cfg.vocab_size:
+        return vocab_embed(table, tokens, shard.mesh)
+    return embed_apply(params["embed"], tokens)
 
 
 def _stack(kind: str):
@@ -177,10 +238,20 @@ def _stack(kind: str):
 
 
 def forward(params, cfg, batch, *, mode: str = "prefill", remat: bool = False,
-            use_kernels: bool = False) -> ModelOutputs:
+            use_kernels: bool = False, shard=None) -> ModelOutputs:
     """``remat`` (train) recomputes each layer's activations in the backward
-    pass."""
+    pass.  Under an active mesh the rank runs its block (module docstring),
+    which goes down to every layer: a prefill's batch rows, or in decode
+    ``shard``, the decode cache's block (:func:`cache_shard`, required on a
+    mesh)."""
     kind = _kind(cfg)
+    mesh = sharding.active_mesh()
+    if mesh is not None:
+        kind = _mesh_kind(cfg, mesh)
+        if mode not in ("prefill", "decode"):
+            raise NotImplementedError(
+                f"forward mode {mode!r} on a mesh: training across ranks "
+                "waits for the training slice of the mesh port")
     if mode == "train":
         x, positions, loss_mask = _embed_inputs(params, cfg, batch)
         enc = {}
@@ -192,8 +263,15 @@ def forward(params, cfg, batch, *, mode: str = "prefill", remat: bool = False,
                                  use_kernels=use_kernels, **enc)
         return ModelOutputs(logits=_logits(params, cfg, x), aux_loss=aux,
                             loss_mask=loss_mask)
+    on_mesh = {}          # {"shard": this rank's block} on a mesh
     if mode == "prefill":
-        x, positions, _ = _embed_inputs(params, cfg, batch)
+        if mesh is not None:      # this rank's batch rows
+            shard = sharding.rank_shard(mesh, batch["tokens"].shape[0])
+            batch = dict(batch, tokens=batch["tokens"][
+                shard.b0:shard.b0 + shard.B_loc])
+            on_mesh["shard"] = shard
+        x, positions, _ = _embed_inputs(params, cfg, batch,
+                                        on_mesh.get("shard"))
         enc = {}
         if kind == "decoder_x":
             enc_out, enc_pos = _encode(params, cfg, batch)
@@ -207,19 +285,31 @@ def forward(params, cfg, batch, *, mode: str = "prefill", remat: bool = False,
             x, caches, aux = tfm.stack_apply(
                 params["blocks"], x[:, q_rows:], cfg, kind=kind, mode="resume",
                 positions=positions[q_rows:], caches=prefix,
-                use_kernels=use_kernels)
+                use_kernels=use_kernels, **on_mesh)
         else:
             x, caches, aux = _stack(kind)(params["blocks"], x, cfg,
                                           mode="prefill", positions=positions,
-                                          use_kernels=use_kernels, **enc)
+                                          use_kernels=use_kernels, **enc,
+                                          **on_mesh)
         # only the last position's logits are needed
-        return ModelOutputs(logits=_logits(params, cfg, x[:, -1:]),
+        return ModelOutputs(logits=_logits(params, cfg, x[:, -1:],
+                                           on_mesh.get("shard")),
                             aux_loss=aux, cache=caches)
 
     if mode != "decode":
         raise NotImplementedError(f"forward mode {mode!r} is not ported yet")
     token, cache, idx = batch["token"], batch["cache"], batch["cache_index"]
-    x = embed_apply(params["embed"], token)
+    if mesh is not None:          # this rank's batch rows and cache block
+        if shard is None or shard.B != token.shape[0]:
+            raise ValueError("decode on a mesh takes shard=, the decode "
+                             "cache's block (model.cache_shard) for a batch "
+                             f"of {token.shape[0]}")
+        rows = slice(shard.b0, shard.b0 + shard.B_loc)
+        token = token[rows]
+        if torch.is_tensor(idx) and idx.dim():
+            idx = idx[rows]
+        on_mesh["shard"] = shard
+    x = _embed(params, cfg, token, on_mesh.get("shard"))
     if torch.is_tensor(idx) and idx.dim():   # per-slot cache indices [B]
         positions = idx.to(torch.int32)[:, None]
     else:
@@ -227,9 +317,10 @@ def forward(params, cfg, batch, *, mode: str = "prefill", remat: bool = False,
                                     device=token.device).reshape(1)
     x, caches, aux = _stack(kind)(params["blocks"], x, cfg, mode="decode",
                                   positions=positions, caches=cache,
-                                  cache_index=idx, use_kernels=use_kernels)
-    return ModelOutputs(logits=_logits(params, cfg, x), aux_loss=aux,
-                        cache=caches)
+                                  cache_index=idx, use_kernels=use_kernels,
+                                  **on_mesh)
+    return ModelOutputs(logits=_logits(params, cfg, x, on_mesh.get("shard")),
+                        aux_loss=aux, cache=caches)
 
 
 def cross_entropy(logits, labels, mask=None):

@@ -6,9 +6,16 @@ what they sum to: sort the (token, expert) choices by expert id, scatter the
 kept ones into an ``[E, C, D]`` capacity buffer, run the experts' SwiGLU
 FFN over the buffer, gather back, weight by the gates and sum over the k
 choices.  The expert FFN goes through ``ops.grouped_ffn``: the hand-written
-CUDA kernel on the card, its plain version elsewhere.  The expert-parallel
-shard_map path waits for the multi-GPU port; ``moe_apply`` always takes the
-global path, as the JAX one does without a mesh.
+CUDA kernel on the card, its plain version elsewhere.
+
+On a mesh ``moe_apply`` takes the JAX package's ``_moe_shardmap`` path, as
+JAX's does: every rank routes its (batch shard of) tokens with the whole
+router and dispatches them locally (``local_dispatch_ffn``) into its own
+experts -- E / msize of them (expert-parallel), or all E at a 1/msize slice
+of each one's hidden width (``f_parallel``, when the experts do not divide
+the "model" axis) -- and one all_reduce over "model" merges the partial
+outputs.  The capacity is the shard's (from its own token count), and the
+aux loss is averaged over the batch axes when the batch is split.
 
 Returns the layer output plus the router aux (load-balance) loss term of
 Shazeer et al. / Switch.
@@ -19,6 +26,7 @@ import math
 
 import torch
 
+from repro_torch.distributed import collectives as coll
 from repro_torch.kernels import ops
 from repro_torch.models.layers import mlp_apply, normal_stack
 
@@ -87,8 +95,19 @@ def dispatch(expert_ids: torch.Tensor, E: int, C: int):
     return sort_idx, sorted_ids, pos, keep, src_token, counts
 
 
-def moe_apply(params, x: torch.Tensor, cfg, *, use_kernels: bool = False):
-    """x: [B,S,D] -> (y [B,S,D] in x's dtype, aux scalar f32)."""
+def moe_apply(params, x: torch.Tensor, cfg, *, use_kernels: bool = False,
+              shard=None):
+    """x: [B,S,D] -> (y [B,S,D] in x's dtype, aux scalar f32).  On a mesh
+    (``shard``) x is this rank's batch rows and the experts are this rank's
+    slice (``launch.mesh.shard_params``)."""
+    if shard is not None and "model" in shard.mesh.shape:
+        msize = shard.mesh.shape["model"]
+        if cfg.num_experts % msize == 0 and cfg.num_experts >= msize:
+            return moe_sharded(params, x, cfg, shard,
+                               use_kernels=use_kernels)   # expert-parallel
+        if cfg.d_ff % msize == 0 and cfg.d_ff >= msize:
+            return moe_sharded(params, x, cfg, shard, f_parallel=True,
+                               use_kernels=use_kernels)   # TP within experts
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
     T = B * S
@@ -119,4 +138,79 @@ def moe_apply(params, x: torch.Tensor, cfg, *, use_kernels: bool = False):
 
     if "shared" in params:
         y = y + mlp_apply(params["shared"], xt, cfg).to(x.dtype)
+    return y.reshape(B, S, D), aux
+
+
+def local_dispatch_ffn(xt, gate_vals, expert_ids, wg, wu, wd, e0: int,
+                       E_loc: int, C_loc: int, *, use_kernels: bool = False):
+    """Sort-based dispatch + expert FFN over the LOCAL experts [e0, e0 +
+    E_loc) (the JAX package's ``_local_dispatch_ffn``).  xt: [T,D]; the
+    routing [T,K] is global.  Returns [T,D] holding only these experts'
+    gate-weighted contributions.  A choice of another rank's expert, or one
+    past the capacity C_loc, lands in a spare expert row that is cut off."""
+    T, D = xt.shape
+    K = expert_ids.shape[1]
+    rel = expert_ids.reshape(-1) - e0                      # [T*K]
+    mine = (rel >= 0) & (rel < E_loc)
+    bins = torch.where(mine, rel, E_loc)
+    sort_idx = torch.argsort(bins, stable=True)
+    sorted_bins = bins[sort_idx]
+    counts = torch.zeros((E_loc + 1,), dtype=torch.long, device=xt.device) \
+        .index_add_(0, bins, torch.ones_like(bins))
+    offsets = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(T * K, device=xt.device) - offsets[sorted_bins]
+    keep = (pos < C_loc) & (sorted_bins < E_loc)
+    src_token = sort_idx // K
+    e_idx = torch.where(keep, sorted_bins, E_loc)
+    slot = torch.where(keep, pos, 0)
+
+    # kept (expert, slot) pairs are distinct; the rest write zeros into the
+    # spare row E_loc
+    buf = torch.zeros((E_loc + 1, C_loc, D), dtype=xt.dtype, device=xt.device)
+    buf[e_idx, slot] = xt[src_token].masked_fill(~keep[:, None], 0)
+    out_buf = ops.grouped_ffn(buf[:E_loc], wg, wu, wd,
+                              counts=counts[:E_loc].clamp(max=C_loc)
+                              .to(torch.int32),
+                              use_kernels=use_kernels)
+    gathered = out_buf[torch.where(keep, sorted_bins, 0), slot] \
+        .masked_fill(~keep[:, None], 0)
+    w = gate_vals.reshape(T * K)[sort_idx][:, None].to(xt.dtype)
+    unsorted = torch.zeros((T * K, D), dtype=xt.dtype, device=xt.device)
+    unsorted[sort_idx] = gathered * w
+    return unsorted.reshape(T, K, D).sum(dim=1)
+
+
+def moe_sharded(params, x: torch.Tensor, cfg, shard, *,
+                f_parallel: bool = False, use_kernels: bool = False):
+    """The JAX package's ``_moe_shardmap`` on this rank: x [B_loc,S,D] (its
+    batch rows) -> (y [B_loc,S,D], aux).  Expert-parallel: this rank holds
+    experts [i E/msize, (i + 1) E/msize); ``f_parallel``: all E experts at
+    a 1/msize slice of the hidden width.  One all_reduce over "model" adds
+    the partial outputs (and the shared experts' partial MLP, when their
+    hidden width is split too)."""
+    mesh = shard.mesh
+    B, S, D = x.shape
+    E = cfg.num_experts
+    msize = mesh.shape["model"]
+    E_loc = E if f_parallel else E // msize
+    T = B * S
+    C_loc = _capacity(T, cfg)
+    xt = x.reshape(T, D)
+    gate_vals, expert_ids, aux, _ = route(xt, params["router"], cfg)
+    if shard.batch_axes:
+        # the aux loss is a per-shard mean: average it over the batch shards
+        aux = coll.all_reduce(aux.reshape(1), mesh, shard.batch_axes)[0] \
+            / mesh.axes_size(shard.batch_axes)
+    e0 = 0 if f_parallel else mesh.axis_index("model") * E_loc
+    y = local_dispatch_ffn(xt, gate_vals, expert_ids, params["w_gate"],
+                           params["w_up"], params["w_down"], e0, E_loc, C_loc,
+                           use_kernels=use_kernels)
+    shared = params.get("shared")
+    split_shared = shared is not None and \
+        shared["w_down"].shape[-2] != cfg.d_ff * cfg.num_shared_experts
+    if split_shared:
+        y = y + mlp_apply(shared, xt, cfg).to(x.dtype)
+    y = coll.all_reduce(y, mesh, ("model",))
+    if shared is not None and not split_shared:
+        y = y + mlp_apply(shared, xt, cfg).to(x.dtype)
     return y.reshape(B, S, D), aux

@@ -10,7 +10,10 @@ runs blocks of ``hybrid_attn_every`` Mamba layers with the weight-shared
 dense block applied after each block.  The audio model's encoder blocks are
 non-causal dense blocks; its decoder blocks (``"decoder_x"``) add a
 cross-attention sublayer over the encoder's output between self-attention
-and the MLP.
+and the MLP.  On a mesh (``shard``) the dense and MoE blocks run this rank's
+block: attention as ``attention.attn_apply`` says, the MLP as column
+(``w_gate``/``w_up``) and row (``w_down``) slices of its hidden width
+meeting in one all_reduce, the MoE layer as ``moe.moe_apply`` says.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.offload import tree_map
+from repro_torch.distributed import collectives as coll
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -97,7 +101,7 @@ def layer_chunks(params, k: int) -> list:
 
 def block_apply(params, x, cfg, *, kind: str, mode: str, positions,
                 cache=None, cache_index=None, enc_out=None, enc_positions=None,
-                causal: bool = True, use_kernels: bool = False):
+                causal: bool = True, use_kernels: bool = False, shard=None):
     """One block: returns (x, new_cache, aux) where new_cache = {"self": kv}
     (attention kinds; ``"decoder_x"`` adds {"cross": kv} over ``enc_out``,
     an ``"encoder"`` block returns None) or (conv_state, ssm_state)
@@ -126,7 +130,7 @@ def block_apply(params, x, cfg, *, kind: str, mode: str, positions,
         y, new_kv = attn.attn_apply(params["attn"], h, cfg, positions=positions,
                                     mode="decode", cache=cache["self"],
                                     cache_index=cache_index,
-                                    use_kernels=use_kernels)
+                                    use_kernels=use_kernels, shard=shard)
     else:
         # mode "resume": x holds only the tail rows and cache["self"] the
         # cached prefix K/V they attend over; the returned K/V are
@@ -134,7 +138,8 @@ def block_apply(params, x, cfg, *, kind: str, mode: str, positions,
         prefix = (cache["self"]["k"], cache["self"]["v"]) \
             if mode == "resume" else None
         y, kv = attn.attn_apply(params["attn"], h, cfg, positions=positions,
-                                mode="full", causal=causal, prefix_kv=prefix)
+                                mode="full", causal=causal, prefix_kv=prefix,
+                                shard=shard)
         new_kv = {"k": kv[0], "v": kv[1]}
     x = x + y
     new_cache = None if kind == "encoder" or mode == "train" \
@@ -155,9 +160,12 @@ def block_apply(params, x, cfg, *, kind: str, mode: str, positions,
         x = x + y
     h = norm_apply(params["ln2"], x, cfg)
     if kind == "moe":
-        y, aux = moe_mod.moe_apply(params["moe"], h, cfg, use_kernels=use_kernels)
+        y, aux = moe_mod.moe_apply(params["moe"], h, cfg,
+                                   use_kernels=use_kernels, shard=shard)
     else:
         y, aux = mlp_apply(params["mlp"], h, cfg), 0.0
+        if shard is not None and params["mlp"]["w_down"].shape[-2] != cfg.d_ff:
+            y = coll.all_reduce(y, shard.mesh, ("model",))
     return x + y, new_cache, aux
 
 
@@ -172,7 +180,7 @@ def _block(lp, x, cfg, remat: bool, **kw):
 def stack_apply(stacked, x, cfg, *, kind: str, mode: str, positions,
                 caches=None, cache_index=None, enc_out=None, enc_positions=None,
                 causal: bool = True, remat: bool = False,
-                use_kernels: bool = False):
+                use_kernels: bool = False, shard=None):
     """Returns (x, caches, aux summed over the layers).  Mode "decode"
     updates the L-stacked ``caches`` in place and returns them; mode
     "prefill" returns freshly stacked [L, ...] caches, and so does mode
@@ -186,7 +194,7 @@ def stack_apply(stacked, x, cfg, *, kind: str, mode: str, positions,
             layer_slice(layer, 0), x, cfg, remat, kind=kind, mode=mode,
             positions=positions, cache=lcache, cache_index=cache_index,
             enc_out=enc_out, enc_positions=enc_positions, causal=causal,
-            use_kernels=use_kernels)
+            use_kernels=use_kernels, shard=shard)
         aux = aux + a
         collected.append(new_cache)
     if not torch.is_tensor(aux):

@@ -20,6 +20,17 @@ stream while the decode macro-step runs, launched from one worker thread;
 with a ``prefill_worker`` those prefills go to the prefill group
 (disaggregated prefill), and with a ``prefix_cache`` every admission reuses
 cached prefix blocks.
+
+Both engines serve on a mesh: constructed and run inside
+``models.sharding.activation_sharding(mesh)`` on every rank, with
+``launch.mesh.shard_params``' params, each rank holds its block of the
+cache and runs the same host schedule.  The carried decode-state vectors
+are replicated (broadcast from the mesh's first rank when they are made),
+every step's logits come back whole to every rank, and every host decision
+depends only on tokens and counts, so the ranks stay in step.  Collectives
+go out from one thread in one order: on a mesh the decode macro-step
+launches inline on the engine's thread instead of the decode-launch
+worker.
 """
 from __future__ import annotations
 
@@ -38,6 +49,7 @@ from repro_torch.device import DeviceLike, resolve_device, synchronize, upload
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import resolve_use_kernels
 from repro_torch.models import model as M
+from repro_torch.models import sharding
 from repro_torch.models.attention import quantize_kv
 
 
@@ -55,13 +67,15 @@ def make_prefill_step(cfg, *, use_kernels: Union[bool, str] = "auto"):
 
 
 def make_serve_step(cfg, *, use_kernels: Union[bool, str] = "auto"):
-    """(params, cache, token [B,1], cache_index) -> (logits [B,V], cache);
-    the cache is updated in place."""
-    def serve_step(params, cache, token, cache_index):
+    """(params, cache, token [B,1], cache_index, shard=None) -> (logits
+    [B,V], cache); the cache is updated in place.  ``shard``: the cache's
+    block on a mesh (``model.cache_shard``)."""
+    def serve_step(params, cache, token, cache_index, shard=None):
         out = M.forward(params, cfg,
                         {"token": token, "cache": cache,
                          "cache_index": cache_index},
-                        mode="decode", use_kernels=_use(use_kernels, token))
+                        mode="decode", use_kernels=_use(use_kernels, token),
+                        shard=shard)
         return out.logits[:, 0], out.cache
     return serve_step
 
@@ -70,8 +84,9 @@ def make_decode_loop(cfg, *, macro_steps: int, eos_id: Optional[int] = None,
                      use_kernels: Union[bool, str] = "auto"):
     """Fused K-token decode.
 
-    ``(params, cache, cur_tok [B], lengths [B], remaining [B], done [B])
-    -> (tokens [K, B], cache, cur_tok, lengths, remaining, done)``
+    ``(params, cache, cur_tok [B], lengths [B], remaining [B], done [B],
+    shard=None) -> (tokens [K, B], cache, cur_tok, lengths, remaining,
+    done)`` (``shard``: the cache's block on a mesh)
 
     Each step runs one decode step for every slot, takes the greedy argmax
     on the device (first index on ties), and advances only the live slots:
@@ -82,7 +97,8 @@ def make_decode_loop(cfg, *, macro_steps: int, eos_id: Optional[int] = None,
     """
     eos = -1 if eos_id is None else int(eos_id)
 
-    def decode_loop(params, cache, cur_tok, lengths, remaining, done):
+    def decode_loop(params, cache, cur_tok, lengths, remaining, done,
+                    shard=None):
         kern = _use(use_kernels, cur_tok)
         toks = torch.empty((macro_steps, cur_tok.shape[0]), dtype=torch.int32,
                            device=cur_tok.device)
@@ -90,7 +106,7 @@ def make_decode_loop(cfg, *, macro_steps: int, eos_id: Optional[int] = None,
             out = M.forward(params, cfg,
                             {"token": cur_tok[:, None], "cache": cache,
                              "cache_index": lengths},
-                            mode="decode", use_kernels=kern)
+                            mode="decode", use_kernels=kern, shard=shard)
             new_tok = out.logits[:, 0].argmax(dim=-1).to(torch.int32)
             active = ~done
             step = active.to(torch.int32)
@@ -109,7 +125,7 @@ def make_wave_driver(cfg, *, macro_steps: int, wave_steps: int,
                      use_kernels: Union[bool, str] = "auto"):
     """M fused K-token macro-steps per call, one token block for all:
 
-    ``(params, cache, cur_tok, lengths, remaining, done)
+    ``(params, cache, cur_tok, lengths, remaining, done, shard=None)
     -> (tokens [M, K, B], cache, cur_tok, lengths, remaining, done)``
 
     Slots that finish mid-wave freeze exactly as they do mid-macro-step,
@@ -118,12 +134,13 @@ def make_wave_driver(cfg, *, macro_steps: int, wave_steps: int,
     loop = make_decode_loop(cfg, macro_steps=macro_steps, eos_id=eos_id,
                             use_kernels=use_kernels)
 
-    def wave_driver(params, cache, cur_tok, lengths, remaining, done):
+    def wave_driver(params, cache, cur_tok, lengths, remaining, done,
+                    shard=None):
         toks = torch.empty((wave_steps, macro_steps, cur_tok.shape[0]),
                            dtype=torch.int32, device=cur_tok.device)
         for m in range(wave_steps):
             toks[m], cache, cur_tok, lengths, remaining, done = loop(
-                params, cache, cur_tok, lengths, remaining, done)
+                params, cache, cur_tok, lengths, remaining, done, shard)
         return toks, cache, cur_tok, lengths, remaining, done
 
     return wave_driver
@@ -144,7 +161,11 @@ class _DecodeLauncher:
     program under ``no_grad`` on the stream that was current on the
     submitting thread, so every decode step of the engine (and every
     decode_attention split ticket, keyed by device and stream) stays on
-    the one decode stream."""
+    the one decode stream.
+
+    On a mesh every submit runs inline: the macro-step's collectives must go
+    out from the thread that issues the shadow prefills' collectives, in one
+    order on every rank."""
 
     def __init__(self, device: torch.device):
         self._device = device
@@ -161,6 +182,8 @@ class _DecodeLauncher:
             return fn(*args)
 
     def submit(self, fn, *args):
+        if sharding.active_mesh() is not None:
+            return fn(*args)
         if id(fn) not in self._warm:
             self._warm.add(id(fn))
             return fn(*args)
@@ -174,16 +197,22 @@ class _DecodeLauncher:
 
 
 # ---------------------------------------------------------------------------
-def seed_cache(cfg, big_cache, prefill_cache, prefill_len: int):
+def seed_cache(cfg, big_cache, prefill_cache, prefill_len: int, shard=None):
     """Copy the prefill caches into the full-size decode buffers, in place,
     leaf by leaf over every cache family (dicts of K/V, tuples of SSM
     states, the audio decoder's cross K/V): each prefill leaf is written at
     offset 0 of axis 2.  For the length-P K/V buffers that is the first P
     positions; for same-shape leaves (the conv and SSM states, the cross
     K/V) it replaces the whole leaf.  An int8 destination takes the
-    quantized prefill K/V and their scales."""
+    quantized prefill K/V and their scales.  On a mesh (``shard`` of the
+    decode cache) both hold this rank's batch rows, and the rank copies the
+    prefill rows its sequence shard [s0, s0 + S_loc) holds."""
     def upd(dst, src):
-        dst[:, :, :src.shape[2]].copy_(src)
+        if shard is None:
+            dst[:, :, :src.shape[2]].copy_(src)
+        else:
+            n = max(0, min(src.shape[2] - shard.s0, dst.shape[2]))
+            dst[:, :, :n].copy_(src[:, :, shard.s0:shard.s0 + n])
         return dst
     return _merge_cache(cfg, big_cache, prefill_cache, upd)
 
@@ -241,12 +270,13 @@ class ServingEngine:
 
         cache = M.init_cache(cfg, B, self.max_len, dtype=cfg.torch_dtype,
                              device=dev)
-        cache = seed_cache(cfg, cache, pre_cache, rows)
+        shard = M.cache_shard(cfg, B, self.max_len)
+        cache = seed_cache(cfg, cache, pre_cache, rows, shard)
         del pre_cache
 
         if self.macro_steps == 0:
             return self._generate_per_step(last_logits, cache, rows, max_new,
-                                           t_prefill)
+                                           t_prefill, shard)
 
         K = self.macro_steps
         loop = make_decode_loop(cfg, macro_steps=K, use_kernels=self._use_kernels)
@@ -263,7 +293,7 @@ class ServingEngine:
         t0 = time.perf_counter()
         while need > 0:
             toks, cache, tok, lengths, remaining, done = loop(
-                self.params, cache, tok, lengths, remaining, done)
+                self.params, cache, tok, lengths, remaining, done, shard)
             t = toks.cpu().numpy()        # the macro-step's ONE host sync
             host_syncs += 1
             dispatches += 1
@@ -280,7 +310,7 @@ class ServingEngine:
             t_per_macro_step_s=t_decode / max(dispatches, 1))
 
     def _generate_per_step(self, last_logits, cache, idx: int, max_new: int,
-                           t_prefill: float) -> GenerationResult:
+                           t_prefill: float, shard=None) -> GenerationResult:
         """Per-token host loop: one dispatch + one host sync per token."""
         tok = last_logits.argmax(dim=-1)[:, None].to(torch.int32)
         out_toks = [tok.cpu().numpy()]
@@ -290,7 +320,7 @@ class ServingEngine:
         idx_dev = torch.tensor(idx, dtype=torch.int32, device=self.device)
         t0 = time.perf_counter()
         for _ in range(max_new - 1):
-            logits, cache = self.step(self.params, cache, tok, idx_dev)
+            logits, cache = self.step(self.params, cache, tok, idx_dev, shard)
             tok = logits.argmax(dim=-1)[:, None].to(torch.int32)
             out_toks.append(tok.cpu().numpy())
             host_syncs += 1
@@ -339,18 +369,19 @@ def _merge_cache(cfg, big_cache, prefill_cache, upd):
     return out
 
 
-def write_slot_cache(cfg, big_cache, prefill_cache, slot):
+def write_slot_cache(cfg, big_cache, prefill_cache, slot, shard=None):
     """Write a B=1 prefill cache into slot ``slot`` of the big decode cache,
     in place.  Every leaf is ``[L, B, ...]`` and the prefill leaf ``[L, 1,
     P, ...]`` (or ``[L, 1, ...]`` for SSM states; the cross K/V's ``[L, 1,
     F, ...]`` replaces the slot's whole leaf); positions past the prompt
     keep the slot's previous occupant's bytes, which the per-slot length
     masks hide.  Routes through ``ops.splice_blocks`` with a
-    one-element slot vector, as the JAX engine does."""
+    one-element slot vector, as the JAX engine does (``shard``: the decode
+    cache's on a mesh)."""
     dev = tree_leaves(big_cache)[0].device
     ids = torch.full((1,), int(slot), dtype=torch.int32, device=dev)
     return _merge_cache(cfg, big_cache, prefill_cache,
-                        lambda d, s: ops.splice_blocks(d, s, ids))
+                        lambda d, s: ops.splice_blocks(d, s, ids, shard))
 
 
 def stack_prefill_blocks(caches):
@@ -359,27 +390,27 @@ def stack_prefill_blocks(caches):
     return tree_map(lambda *xs: torch.cat(xs, dim=1), *caches)
 
 
-def splice_slot_caches(cfg, big_cache, blocks, slot_ids):
+def splice_slot_caches(cfg, big_cache, blocks, slot_ids, shard=None):
     """Write M B=1 prefill caches (a list, or a tree stacked on axis 1)
     into slots ``slot_ids`` [M] of the big decode cache in one pass over
     its leaves, in place: the cross-group splice of disaggregated
-    prefill."""
+    prefill (``shard``: the decode cache's on a mesh)."""
     if isinstance(blocks, (list, tuple)):
         blocks = stack_prefill_blocks(blocks)
     return _merge_cache(cfg, big_cache, blocks,
-                        lambda d, s: ops.splice_blocks(d, s, slot_ids))
+                        lambda d, s: ops.splice_blocks(d, s, slot_ids, shard))
 
 
 def admit_boundary(cfg, big_cache, blocks, slot_ids, cur_tok, lengths,
                    remaining, done, last_logits, prompt_lens, max_news,
-                   *, eos_id: int = -1):
+                   *, eos_id: int = -1, shard=None):
     """A whole admission boundary: splice the admitted blocks into the big
     cache (:func:`splice_slot_caches`) and scatter the four decode-state
     vectors (``ops.admit_state``), all in place.  Every vector and the
     block list are padded to the slot width by repeating the last real
     entry (identical duplicate writes).  Returns ``(cache, cur_tok,
     lengths, remaining, done, first)``."""
-    cache = splice_slot_caches(cfg, big_cache, blocks, slot_ids)
+    cache = splice_slot_caches(cfg, big_cache, blocks, slot_ids, shard)
     cur_tok, lengths, remaining, done, first = ops.admit_state(
         cur_tok, lengths, remaining, done, slot_ids, last_logits,
         prompt_lens, max_news, eos_id=eos_id)
@@ -564,6 +595,8 @@ class ContinuousServingEngine:
         self._side = torch.cuda.Stream(self.device) \
             if self.device.type == "cuda" else None
         self._offset = M.frontend_offset(cfg)   # the vlm's prologue rows
+        # the decode cache's block on the mesh the engine is built under
+        self._shard = M.cache_shard(cfg, slots, max_len)
 
     def _get_loop(self, K: int):
         key = (K, self.eos_id)
@@ -680,7 +713,8 @@ class ContinuousServingEngine:
         """One ``macro_steps=0`` decode step with the state advance on the
         device: greedy-argmax the next token, move only the live slots, and
         read the token vector -- the step's one host sync."""
-        logits, cache = self.step(self.params, cache, cur_tok[:, None], lengths)
+        logits, cache = self.step(self.params, cache, cur_tok[:, None], lengths,
+                                  self._shard)
         new_tok = logits.argmax(dim=-1).to(torch.int32)
         adv = ~done
         cur_tok = torch.where(adv, new_tok, cur_tok)
@@ -700,7 +734,8 @@ class ContinuousServingEngine:
                 req = pending.popleft()
                 last_logits, pre_cache = self._prefill_via_cache(req)
                 tw0 = time.perf_counter()
-                cache = write_slot_cache(self.cfg, cache, pre_cache, slot)
+                cache = write_slot_cache(self.cfg, cache, pre_cache, slot,
+                                         self._shard)
                 t_write += time.perf_counter() - tw0
                 admitted.append((slot, req, last_logits))
         syncs = 0
@@ -719,11 +754,14 @@ class ContinuousServingEngine:
         return cache, cur_tok, lengths, remaining, done, syncs, t_write
 
     def _init_state(self):
-        """Fresh decode state (``done`` marks free slots) and big cache."""
+        """Fresh decode state (``done`` marks free slots) and big cache (on
+        a mesh: the rank's block, and the state replicated from the mesh's
+        first rank)."""
         dev, n = self.device, self.slots
         zeros = lambda: torch.zeros((n,), dtype=torch.int32, device=dev)  # noqa: E731
         lengths, cur_tok, remaining = zeros(), zeros(), zeros()
         done = torch.ones((n,), dtype=torch.bool, device=dev)
+        sharding.replicate((cur_tok, lengths, remaining, done))
         cache = M.init_cache(self.cfg, n, self.max_len,
                              dtype=self.cfg.torch_dtype, device=dev)
         return cache, cur_tok, lengths, remaining, done
@@ -844,7 +882,8 @@ class ContinuousServingEngine:
             fn = self._get_wave(K, W) if W > 1 else self._get_loop(K)
             t0 = time.perf_counter()
             toks, cache, cur_tok, lengths, remaining, done = \
-                fn(self.params, cache, cur_tok, lengths, remaining, done)
+                fn(self.params, cache, cur_tok, lengths, remaining, done,
+                   self._shard)
             t1 = time.perf_counter()
             block = _fetch(toks).reshape(-1, self.slots)   # the one sync
             t2 = time.perf_counter()
@@ -1082,7 +1121,8 @@ class ContinuousServingEngine:
                     admit_boundary(self.cfg, cache, blks, ids, cur_tok,
                                    lengths, remaining, done, logits_cat,
                                    plens, mnews,
-                                   eos_id=-1 if eos is None else int(eos))
+                                   eos_id=-1 if eos is None else int(eos),
+                                   shard=self._shard)
                 if worker is not None:
                     t_splice += time.perf_counter() - tb0
                 else:
@@ -1101,7 +1141,8 @@ class ContinuousServingEngine:
             if any(s.busy and s.remaining > 0 and not _eos_done(s)
                    for s in slot_states):
                 fn = self._get_wave(K, W) if W > 1 else self._get_loop(K)
-                args = (self.params, cache, cur_tok, lengths, remaining, done)
+                args = (self.params, cache, cur_tok, lengths, remaining, done,
+                        self._shard)
                 launch = self._launcher.submit(fn, *args) \
                     if self._launcher is not None else fn(*args)
             t_dispatch += time.perf_counter() - t0

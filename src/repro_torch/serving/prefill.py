@@ -7,6 +7,12 @@ comes back at the macro boundary over the priced link (``t_kv_transfer_s``)
 and the engine splices it into a freed slot.  A resumed prefill ships only
 its tail, compacted by ``masked_compact`` (``prefix_cache.compact_kv_hop``).
 
+Inside ``models.sharding.activation_sharding(mesh)`` a worker runs
+mesh-wide like every other program, as the JAX package's does: each rank's
+worker prefills on that rank's device with its slice of the params, and a
+block's KV hop carries (and compacts) that rank's own rows, which the rank
+splices locally.
+
 Failure semantics: ``dispatch`` / ``fetch`` raise :class:`PrefillWorkerError`
 (or its :class:`PrefillWorkerTimeout` subclass) once the worker is
 ``kill()``ed or an injected fault fires, and the engine falls back to local
@@ -25,6 +31,7 @@ from repro_torch.core.network import offload_latency
 from repro_torch.core.offload import tree_leaves, tree_map
 from repro_torch.device import DeviceLike, resolve_device, upload
 from repro_torch.kernels.ops import resolve_use_kernels
+from repro_torch.models.sharding import active_mesh
 from repro_torch.serving.engine import make_prefill_step
 from repro_torch.serving.prefix_cache import compact_kv_hop, restore_kv_hop
 
@@ -70,6 +77,10 @@ class PrefillWorker:
         self.link = link
         self.distance = float(distance)
         self.kv_keep_rate = kv_keep_rate
+        if active_mesh() is not None:
+            # mesh-wide: the prefill group is an accounting entity, and each
+            # rank prefills where its slice of the params lives
+            device = tree_leaves(params)[0].device
         self.device = resolve_device(device)
         if share_from is not None:
             self.params = share_from.params
