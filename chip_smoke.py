@@ -279,6 +279,39 @@ kernels built above, the ranks only load them; this process holds no model:
            streams that agree with the one-rank run.  Its float32 2-layer
            copy: prefill and 4 teacher-forced decode steps' logits within
            1e-3 of the one-rank model's (moe_parity's rule)
+  mesh_ssm     falcon-mamba-7b at full width and depth (64 layers, d_inner
+           8192: 4096 channels a rank) on (data=1, model=2): each Mamba
+           layer's conv, scan and gate on the rank's channels, x_proj and
+           out_proj on its d_inner rows (one all_reduce each); the
+           ssm_continuous traffic (6 requests of 128 tokens, slots 4,
+           K=8).  Checks ssm_scan == layers x prefills on both ranks, every
+           launch on [1, 128, 4096, 16], both ranks' streams identical, one
+           decode step's all_reduces == 130; reports the streams that agree
+           with the one-rank ssm_continuous run, ms a model decode step and
+           tokens/s beside its, the host wall inside the collectives
+  mesh_hybrid  zamba2-2.7b at full width and depth on (1, 2): Mamba-2 on 40
+           heads a rank (dt and B/C of its d_inner rows in one all_reduce),
+           the shared block's 16 heads and their KV cache; the hybrid
+           slice's 4 requests of 128 tokens, 16 new, slots 4.
+           decode_attention == 9 x model decode steps, 128 all_reduces a
+           step; the streams that agree with the hybrid slice's reported
+  mesh_vlm     internvl2-1b at full width and depth on (data=2, model=2)
+           with 3 slots: the batch spills onto the sequence, so the 256
+           prologue rows sit in the sequence-sharded cache; vlm_continuous'
+           12 requests per-step with a PrefixCache (block 8: the prologue
+           root) and overlapped with a PrefillWorker and a PrefixCache (each
+           rank compacts its own KV tail rows).  Checks both arms' streams
+           identical, 8 prefix hits each, KV tails on the disaggregated arm
+           only, masked_compact == 2 x the tails, 96 all_reduces a step
+           (its vocab of 151655 rows stays whole on every rank)
+  mesh_audio   seamless-m4t-medium at full width and depth on (1, 2): the
+           encoder's and the decoder's heads split (8 a rank), the cross
+           cache of 1024 rows on the rank's heads; 6 requests of 128
+           tokens with their frame embeddings, slots 4.  decode_attention
+           == 24 x model decode steps (self and cross), 38 all_reduces a
+           step.  Each family phase also serves its reduced() float32 copy
+           on the same mesh: greedy streams within the parity rule of the
+           one-rank plain path
   mesh_nccl    the mesh_dense path at world size 1 over NCCL: streams
            identical to the one-rank continuous run; NCCL's own all_reduce
            and broadcast right
@@ -292,8 +325,10 @@ kernels built above, the ranks only load them; this process holds no model:
            twice, bit-equal, and bit-equal to the call without lse;
            grouped_ffn at every local-expert shape with counts;
            masked_compact bit for bit (both branches) at every KV tail a
-           rank compacted; the lse call's device ms at mesh_seq's shard
-           shape beside its bound and the call without lse
+           rank compacted; ssm_scan bit for bit at every shape a rank
+           launched; the lse call's device ms at mesh_seq's shard shape
+           beside its bound and the call without lse, and ssm_scan's at
+           falcon-mamba's rank shape beside its bound
 
 The float32 2-layer copy of llama's weights runs through mesh_dense and
 mesh_seq: its greedy streams agree with the one-rank plain path up to the
@@ -344,6 +379,7 @@ KV_HOP = (16, 2048, 512)            # llama3.2-1b's K (or V) tail of one
 CONT_SLOTS, CONT_MAX_LEN, CONT_REQUESTS = 8, 512, 24
 CONT_PREFIX, CONT_P, CONT_MIN_PROMPT, CONT_MAX_NEW = 64, 256, 72, 48
 SIDE_SLOTS, SIDE_REQUESTS, SIDE_MAX_NEW = 4, 6, 8
+SIDE_MAX_NEWS = [SIDE_MAX_NEW, 3, 1, 6, SIDE_MAX_NEW, 5]
 # the fleet paths (HeteroRuntime): slots per group, requests, most new tokens
 FLEET_SLOTS, FLEET_REQUESTS, FLEET_MAX_NEW = 4, 64, 32
 FLEET_MAX_LEN = CONT_P + FLEET_MAX_NEW + 8     # the launcher's cache rows
@@ -1524,7 +1560,8 @@ def phase_hybrid(torch, dev):
     decode_attention launches held to 9 shared-block calls a decode step;
     decode_attention against its plain version at zamba2's head shape
     (H=Hkv=32, dh=80); macro_steps 8 and 0 give identical bf16 streams.
-    Returns (launch counts, {kernel: main-path error})."""
+    Returns (launch counts, {kernel: main-path error}, the slice's streams
+    {uid: tokens})."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M
 
@@ -1544,7 +1581,8 @@ def phase_hybrid(torch, dev):
           "macro_8_equals_0": same, "dtype": "bfloat16",
           "layers": cfg.num_layers})
     del params
-    return counts, {"decode_attention": err}
+    return counts, {"decode_attention": err}, \
+        {u: t.tolist() for u, t in enumerate(summary["tokens"])}
 
 
 # ---------------------------------------------------------------------------
@@ -1901,14 +1939,14 @@ def phase_side_continuous(torch, dev, cfg, params, phase):
     streams identical across modes and the launches: grouped_ffn in every
     MoE layer of each B=1 admission prefill and each model decode step,
     ssm_scan in every Mamba-1 layer of each B=1 prefill.  Returns {mode:
-    launch counts}."""
+    launch counts}, the streams (uid -> tokens) and {mode: stats row}."""
     from repro_torch.serving.engine import ServeRequest
 
     prompts = _prompts(cfg)[:SIDE_REQUESTS]
-    max_news = [SIDE_MAX_NEW, 3, 1, 6, SIDE_MAX_NEW, 5]
+    max_news = SIDE_MAX_NEWS
     reqs = [ServeRequest(uid=i, prompt=prompts[i], max_new=m)
             for i, m in enumerate(max_news)]
-    ref, counts_by_mode = None, {}
+    ref, counts_by_mode, rows = None, {}, {}
     for name, kw, _ in CONT_MODES[:3]:
         kw = {"macro_steps": MACRO, **kw}
         outs, stats, counts, wall, peak = _run_engine(
@@ -1928,12 +1966,13 @@ def phase_side_continuous(torch, dev, cfg, params, phase):
             ref = streams
         require(all(np.array_equal(ref[u], streams[u]) for u in ref),
                 f"{phase} {name}: streams differ from the per-step mode")
+        rows[name] = _stats_row(stats, wall, peak, counts, kw["macro_steps"])
         emit({"phase": phase, "mode": name, "arch": cfg.name,
               "slots": SIDE_SLOTS, "requests": len(reqs), "max_news": max_news,
-              **_stats_row(stats, wall, peak, counts, kw["macro_steps"]),
-              "expected_launches": want, "streams_equal_per_step": True})
+              **rows[name], "expected_launches": want,
+              "streams_equal_per_step": True})
         counts_by_mode[name] = counts
-    return counts_by_mode
+    return counts_by_mode, {u: t.tolist() for u, t in ref.items()}, rows
 
 
 # ---------------------------------------------------------------------------
@@ -2344,7 +2383,8 @@ def phase_vlm_continuous(torch, dev):
     tail, 8 prefix hits in each mode.  Then, reported: a per-step run with
     no cache (every prefill cold) against those streams, and one resumed
     prefill against its cold one (bf16 logits and tail K/V).  Returns
-    ({mode: launch counts}, {KV tail shape}, {decode shape: launches})."""
+    ({mode: launch counts}, {KV tail shape}, {decode shape: launches}, the
+    per-step cached mode's streams {uid: tokens})."""
     import repro_torch.core as C
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M
@@ -2422,7 +2462,8 @@ def phase_vlm_continuous(torch, dev):
         torch, dev, cfg, params, reqs[4], cfg.frontend_tokens + CONT_PREFIX)})
     del params
     torch.cuda.empty_cache()
-    return counts_by_mode, hops, dict(drec.shapes)
+    return counts_by_mode, hops, dict(drec.shapes), \
+        {u: t.tolist() for u, t in ref.items()}
 
 
 def _resume_vs_cold(torch, dev, cfg, params, req, q_rows):
@@ -2958,19 +2999,27 @@ def _rank_env(shape):
 class _MeshRecorder:
     """While active: every decode_attention launch's (B, S, H, Hkv, dh,
     dtype, start given, lse asked), every grouped_ffn call's (E, C, D, F,
-    dtype, counts given) and every KV tail this rank's prefill worker
-    compacts (``compact_kv_hop``: [layers, tail rows, this rank's
-    Hkv*dh]), with their counts; ``n_hops`` counts the tails.  The wrapped
-    functions run as they are; the recorder only reads what goes in."""
+    dtype, counts given), every ssm_scan launch's (B, S, di, N) and every
+    KV tail this rank's prefill worker compacts (``compact_kv_hop``:
+    [layers, tail rows, this rank's Hkv*dh]), with their counts;
+    ``n_hops`` counts the tails.  The wrapped functions run as they are;
+    the recorder only reads what goes in."""
 
     def __enter__(self):
-        from repro_torch.kernels import ops
+        from repro_torch.kernels import autograd, ops
         from repro_torch.serving import prefill
         self.decode, self.ffn, self.hops, self.n_hops = {}, {}, {}, 0
-        self._ops, self._prefill = ops, prefill
+        self.scan = {}
+        self._ops, self._prefill, self._autograd = ops, prefill, autograd
         self._dec, self._ffn = ops.decode_attention_cuda, ops.grouped_ffn
-        self._hop = prefill.compact_kv_hop
-        rec, dec, ffn, hop = self, self._dec, self._ffn, self._hop
+        self._hop, self._scan = prefill.compact_kv_hop, autograd.ssm_scan_cuda
+        rec, dec, ffn, hop, scan = (self, self._dec, self._ffn, self._hop,
+                                    self._scan)
+
+        def recording_scan(decay, bx, h0):
+            key = tuple(decay.shape)
+            rec.scan[key] = rec.scan.get(key, 0) + 1
+            return scan(decay, bx, h0)
 
         def recording_decode(q, k, v, cache_len, **kw):
             key = (q.shape[0], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
@@ -2995,12 +3044,14 @@ class _MeshRecorder:
         ops.decode_attention_cuda = recording_decode
         ops.grouped_ffn = recording_ffn
         prefill.compact_kv_hop = recording_hop
+        autograd.ssm_scan_cuda = recording_scan
         return self
 
     def __exit__(self, *exc):
         self._ops.decode_attention_cuda = self._dec
         self._ops.grouped_ffn = self._ffn
         self._prefill.compact_kv_hop = self._hop
+        self._autograd.ssm_scan_cuda = self._scan
 
 
 def _rank_run(torch, dev, mesh, cfg, params, reqs, rec=None, **kw):
@@ -3044,17 +3095,21 @@ def _f32_cut(torch, params, layers=2):
 
 
 def _plain_streams(torch, dev, cfg, params, reqs, max_len):
-    """The one-rank plain static path (one batch, kernels off, per-token
-    steps): greedy streams and each step's top-2 gap, [B, max_new]."""
+    """The one-rank plain static path (one batch with the requests'
+    frontends, kernels off, per-token steps): greedy streams and each
+    step's top-2 gap, [B, max_new]."""
     from repro_torch.models import model as M
     from repro_torch.serving.engine import (make_prefill_step, make_serve_step,
                                             seed_cache)
     B, max_new = len(reqs), max(r.max_new for r in reqs)
-    P = len(reqs[0].prompt)
-    tokens = torch.as_tensor(np.stack([r.prompt for r in reqs]), device=dev)
+    P = len(reqs[0].prompt) + M.frontend_offset(cfg)
+    batch = {"tokens": torch.as_tensor(np.stack([r.prompt for r in reqs]),
+                                       device=dev)}
+    if reqs[0].frontend is not None:
+        batch["frontend"] = torch.as_tensor(
+            np.stack([r.frontend for r in reqs]), device=dev)
     with torch.no_grad():
-        last, pre = make_prefill_step(cfg, use_kernels=False)(params,
-                                                               {"tokens": tokens})
+        last, pre = make_prefill_step(cfg, use_kernels=False)(params, batch)
         cache = seed_cache(cfg, M.init_cache(cfg, B, max_len, device=dev),
                            pre, P)
         del pre
@@ -3099,7 +3154,7 @@ def _rank_f32(torch, dev, mesh, cfg, p32, reqs, **kw):
     shard = shard_params(p32, mesh)
     with activation_sharding(mesh):
         _, row = _rank_run(torch, dev, mesh, cfg2, shard, reqs, **kw)
-    out = {"launches": row["launches"],
+    out = {"launches": row["launches"], "requests": row["requests"],
            "model_decode_steps": row["model_decode_steps"]}
     if plain is not None:
         out["rule"] = _gap_rule(row["streams"], *plain)
@@ -3313,23 +3368,26 @@ def _rank_mesh_nccl(rank, world, reqs):
             "nccl_check": t.tolist()}
 
 
-def _mesh_checks(name, cfg, res):
-    """Launch checks of every run on every rank: decode_attention ==
-    attention layers x model decode steps, grouped_ffn == layers x (model
-    decode steps + prefills) on MoE (none on dense), masked_compact == 2 x
-    the KV tails the rank compacted (K and V), and every rank's streams
-    identical."""
-    moe = bool(cfg.num_experts)
+def _mesh_checks(name, cfg, res, prompt_len=CONT_P):
+    """Launch checks of every run on every rank (``_expected_launches``):
+    decode_attention == attention layers x model decode steps (the hybrid's
+    shared block, the audio decoder's self- and cross-attention),
+    grouped_ffn == layers x (model decode steps + prefills) on MoE,
+    ssm_scan == Mamba-1 layers x prefills x chunks of ``prompt_len`` (none
+    elsewhere), masked_compact == 2 x the KV tails the rank compacted (K
+    and V), and every rank's streams identical."""
     for r in res:
         for mode, row in r["runs"].items():
             c, steps = row["launches"], row["model_decode_steps"]
             tag = f"{name} rank {r['rank']} {mode}"
-            require(c["decode_attention"] == cfg.num_layers * steps and steps > 0,
-                    f"{tag}: decode_attention {c['decode_attention']}, "
-                    f"expected {cfg.num_layers} x {steps}")
-            want_ffn = cfg.num_layers * (steps + row["requests"]) if moe else 0
-            require(c["grouped_ffn"] == want_ffn,
-                    f"{tag}: grouped_ffn {c['grouped_ffn']}, expected {want_ffn}")
+            want = _expected_launches(cfg, {"decode_steps": steps,
+                                            "prefills": row["requests"]},
+                                      prompt_len)
+            require(steps > 0, f"{tag}: no model decode step")
+            for kname, n in want.items():
+                require(c[kname] == n, f"{tag}: {kname} {c[kname]}, expected "
+                        f"{n} ({cfg.num_layers} layers, {steps} decode steps, "
+                        f"{row['requests']} prefills)")
             require(c["masked_compact"] == 2 * row["kv_tail_hops"],
                     f"{tag}: masked_compact {c['masked_compact']}, expected 2 x "
                     f"{row['kv_tail_hops']} KV tails")
@@ -3372,16 +3430,27 @@ def _agreement(streams, ref):
             "agreeing_tokens": agree, "tokens": total}
 
 
-def _check_f32(name, res):
+def _check_f32(name, res, cfg32=None, prompt_len=CONT_P,
+               run="float32 2-layer copy"):
+    """The float32 copy (``cfg32``; default: 2 layers of a dense model):
+    rank 0's streams against the one-rank plain path by the parity rule,
+    and every rank's launches as ``_expected_launches`` says."""
     f32 = res[0]["f32"]
     bad = {u: v for u, v in f32["rule"].items() if not v["ok"]}
-    require(not bad, f"{name} float32 copy: streams leave the one-rank plain "
+    require(not bad, f"{name} {run}: streams leave the one-rank plain "
             f"path before a top-2 gap < 1e-3: {bad}")
     for r in res:
-        require(r["f32"]["launches"]["decode_attention"]
-                == 2 * r["f32"]["model_decode_steps"],
-                f"{name} float32 copy rank {r['rank']}: {r['f32']['launches']}")
-    emit({"phase": name, "run": "float32 2-layer copy", "rule": f32["rule"],
+        got = r["f32"]
+        if cfg32 is None:
+            want = {"decode_attention": 2 * got["model_decode_steps"]}
+        else:
+            want = _expected_launches(cfg32, {
+                "decode_steps": got["model_decode_steps"],
+                "prefills": got["requests"]}, prompt_len)
+        require(all(got["launches"][k] == n for k, n in want.items()),
+                f"{name} {run} rank {r['rank']}: {got['launches']}, "
+                f"expected {want}")
+    emit({"phase": name, "run": run, "rule": f32["rule"],
           "min_top2_gap": f32["min_top2_gap"],
           "mismatching_requests": sum(v["first_mismatch"] is not None
                                       for v in f32["rule"].values())})
@@ -3549,14 +3618,263 @@ def phase_mesh_nccl(torch, dev, ref_streams):
     return {f"{ARCH} mesh_nccl 1x1": row["launches"]}
 
 
-def _merge_shapes(res):
-    """The ranks' recorded launch shapes summed: {"decode", "ffn", "hops"},
-    each shape -> calls."""
-    into = {"decode": {}, "ffn": {}, "hops": {}}
+# ---------------------------------------------------------------------------
+# The SSM, hybrid, vlm and audio families on a mesh
+# ---------------------------------------------------------------------------
+# phase -> (arch, mesh, slots): falcon-mamba at full depth, the others at
+# full width and depth too; the vlm's 3 slots on (2, 2) spill its batch onto
+# the cache's sequence (the 256 prologue rows in the sequence shards)
+MESH_FAMILIES = {"mesh_ssm": (SSM_ARCH, (1, 2), SIDE_SLOTS),
+                 "mesh_hybrid": (HYBRID_ARCH, (1, 2), HYBRID_REQUESTS),
+                 "mesh_vlm": (VLM_ARCH, (2, 2), MESH_SEQ_SLOTS),
+                 "mesh_audio": (AUDIO_ARCH, (1, 2), SIDE_SLOTS)}
+VLM_MESH_ARMS = (("per-step-cached", 0, False),
+                 ("overlapped-disaggregated", MACRO, True))
+
+
+def _family_traffic(cfg, phase):
+    """(requests, cache rows) of a family phase, made for
+    ``cfg`` (the full config or its reduced() copy): ssm_continuous's 6
+    requests of 128 tokens for falcon-mamba; the hybrid slice's 4 requests
+    of 128 tokens and 16 new; vlm_continuous's 12 requests in 4 image
+    groups; for seamless request_stream(seed=0)'s first 6 prompts of 128
+    tokens with their frame embeddings and ssm_continuous's max_new."""
+    from repro_torch.data.pipeline import request_stream
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import ServeRequest
+    if phase == "mesh_vlm":
+        rows = M.frontend_offset(cfg) + VLM_CONT_P + VLM_CONT_MAX_NEW + 8
+        return _vlm_continuous_requests(cfg), rows
+    if phase == "mesh_hybrid":
+        prompts = _prompts(cfg)
+        return ([ServeRequest(uid=i, prompt=prompts[i], max_new=HYBRID_MAX_NEW)
+                 for i in range(HYBRID_REQUESTS)],
+                PROMPT_LEN + HYBRID_MAX_NEW + 8)
+    if cfg.frontend:
+        stream = request_stream(cfg.vocab_size, n=SIDE_REQUESTS,
+                                mean_prompt=PROMPT_LEN, seed=0,
+                                frontend_tokens=cfg.frontend_tokens,
+                                frontend_dim=cfg.frontend_dim or cfg.d_model)
+        prompts = [np.pad(r.prompt[:PROMPT_LEN],
+                          (0, max(0, PROMPT_LEN - len(r.prompt)))).astype(np.int32)
+                   for r in stream]
+        frontends = [r.frontend for r in stream]
+    else:
+        prompts, frontends = _prompts(cfg), [None] * SIDE_REQUESTS
+    return ([ServeRequest(uid=i, prompt=prompts[i], max_new=m,
+                          frontend=frontends[i])
+             for i, m in enumerate(SIDE_MAX_NEWS)],
+            PROMPT_LEN + SIDE_MAX_NEW + 8)
+
+
+def _all_reduces_per_decode_step(cfg, shape, B):
+    """The all_reduces one decode step runs on a rank of a (data, model)
+    mesh whose "model" axis divides the kv heads and the mixer's channels
+    (PERF.md §6; tests/test_torch_mesh_families.py holds the CPU ranks to
+    the same count): the embedding and the vocab gather when the axis
+    splits the vocab (internvl2-1b's 151655 rows stay whole), a gather of
+    the batch rows when the batch splits over "data" > 1; two a Mamba
+    layer; a self-attention sublayer one, three when its cache's sequence
+    is sharded (the lse merge); a cross-attention sublayer one; an MLP
+    one."""
+    data, model = shape
+    b_split = B % data == 0
+    attn = 1 if b_split else 3
+    n = (2 if cfg.vocab_size % model == 0 else 0) \
+        + (1 if b_split and data > 1 else 0)
+    per_layer = {"ssm": 2, "audio": attn + 2}.get(cfg.family, attn + 1)
+    n += per_layer * cfg.num_layers
+    if cfg.family == "hybrid":
+        n += (cfg.num_layers // cfg.hybrid_attn_every) * (attn + 1)
+    return n
+
+
+def _decode_step_all_reduces(torch, dev, mesh, cfg, params, slots, max_len):
+    """The all_reduces of one decode step of the engine's shape on this
+    rank (kernels on; outside the counted runs)."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.models import model as M
+    cache = M.init_cache(cfg, slots, max_len, device=dev)
+    shard = M.cache_shard(cfg, slots, max_len)
+    tok = torch.zeros((slots, 1), dtype=torch.int32, device=dev)
+    idx = torch.full((slots,), 8, dtype=torch.int32, device=dev)
+    with torch.no_grad(), coll.counting(mesh) as cc:
+        M.forward(params, cfg, {"token": tok, "cache": cache,
+                                "cache_index": idx},
+                  mode="decode", use_kernels=True, shard=shard)
+    torch.cuda.synchronize()
+    return cc.calls["all-reduce"]
+
+
+def _rank_family_f32(torch, dev, mesh, phase, slots):
+    """The phase's reduced() float32 copy (seed 0): the one-rank plain
+    streams (rank 0, off the mesh), then the mesh engine (kernels on,
+    K=8) on this rank's shard over the phase's traffic made for it."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.launch.mesh import shard_params
+    from repro_torch.models import model as M
+    from repro_torch.models.sharding import activation_sharding
+    cfg = reduced(get_config(MESH_FAMILIES[phase][0]))
+    params = M.init_params(cfg, 0, device=dev)
+    reqs, max_len = _family_traffic(cfg, phase)
+    reqs = reqs[:MESH_F32_REQUESTS]
+    plain = _plain_streams(torch, dev, cfg, params, reqs, max_len) \
+        if mesh.rank == 0 else None
+    with activation_sharding(mesh):
+        _, row = _rank_run(torch, dev, mesh, cfg, shard_params(params, mesh),
+                           reqs, slots=slots, max_len=max_len,
+                           macro_steps=MACRO)
+    out = {"launches": row["launches"], "requests": row["requests"],
+           "model_decode_steps": row["model_decode_steps"]}
+    if plain is not None:
+        out["rule"] = _gap_rule(row["streams"], *plain)
+        out["min_top2_gap"] = float(plain[1].min())
+    return out
+
+
+def _rank_mesh_family(rank, world, shape, phase):
+    """One family phase on one rank: the config at full width and depth
+    (bf16, seed 0) sharded over the mesh, its continuous traffic (the vlm:
+    per-step with a PrefixCache, then overlapped with a PrefillWorker and a
+    PrefixCache), each decode step's all_reduces, then the reduced()
+    float32 copy."""
+    torch, dev, mesh = _rank_env(shape)
+    import repro_torch.core as C
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import shard_params
+    from repro_torch.models import model as M
+    from repro_torch.models.sharding import activation_sharding
+    from repro_torch.serving.prefill import PrefillWorker
+    from repro_torch.serving.prefix_cache import PrefixCache
+    arch, _, slots = MESH_FAMILIES[phase]
+    cfg = get_config(arch)
+    params = shard_params(M.init_params(cfg, 0, device=dev), mesh)
+    _free(torch)
+    reqs, max_len = _family_traffic(cfg, phase)
+    kw = dict(slots=slots, max_len=max_len)
+    runs = {}
+    with _MeshRecorder() as rec, activation_sharding(mesh):
+        if phase == "mesh_vlm":
+            for name, k, remote in VLM_MESH_ARMS:
+                pc = PrefixCache(cfg, block_size=8, budget_blocks=256,
+                                 device=dev)
+                worker = PrefillWorker(cfg, params, device=dev,
+                                       link=C.ICI_LINK) if remote else None
+                _, runs[name] = _rank_run(torch, dev, mesh, cfg, params, reqs,
+                                          rec, macro_steps=k, prefix_cache=pc,
+                                          prefill_worker=worker, **kw)
+                pc.check_invariants()
+            del pc, worker
+        else:
+            _, runs["fused"] = _rank_run(torch, dev, mesh, cfg, params, reqs,
+                                         rec, macro_steps=MACRO, **kw)
+        eng_shard = M.cache_shard(cfg, slots, max_len)
+    layout = eng_shard._asdict()
+    layout.pop("mesh")
+    layout["seq"] = layout["seq"]._asdict() if layout["seq"] else None
+    with activation_sharding(mesh):
+        calls = _decode_step_all_reduces(torch, dev, mesh, cfg, params, slots,
+                                         max_len)
+    held = {"mixer_channels": int(params["blocks"]["mamba"]["conv_w"].shape[-1])
+            } if cfg.family == "ssm" else {}
+    del params
+    _free(torch)
+    out = {"rank": rank, "runs": runs, "layout": layout,
+           "decode_step_all_reduces": calls, **held,
+           "decode_shapes": rec.decode, "ffn_shapes": rec.ffn,
+           "hop_shapes": rec.hops, "scan_shapes": rec.scan}
+    out["f32"] = _rank_family_f32(torch, dev, mesh, phase, slots)
+    return out
+
+
+def phase_mesh_family(torch, dev, phase, one_rank=None, one_rank_rows=None):
+    """One family phase (``MESH_FAMILIES``) over ranks spawned on the card:
+    mesh_ssm (falcon-mamba-7b at full width and depth on (1, 2): ssm_scan
+    on each rank's 4096 channels), mesh_hybrid (zamba2-2.7b on (1, 2):
+    Mamba-2 on 40 heads a rank, the shared block's 16 heads and their KV
+    cache), mesh_vlm (internvl2-1b on (2, 2), 3 slots: the prologue rows in
+    the sequence-sharded cache, the local and the disaggregated arm with
+    the prologue root) and mesh_audio (seamless-m4t-medium on (1, 2): the
+    encoder and the cross cache split by heads).  Checks every run's
+    launches on every rank (``_mesh_checks``), every rank's streams
+    identical, one decode step's all_reduces equal to
+    ``_all_reduces_per_decode_step``; the vlm's arms identical, with 8
+    prefix hits each and KV tails on the disaggregated one; falcon's
+    ssm_scan shapes on di / 2 channels; the reduced() float32 copy within
+    the parity rule.  Reports each run beside ``one_rank_rows`` (the same
+    traffic on one rank, where a phase ran it) and the streams that agree
+    with ``one_rank``.  Returns ({path: launch counts}, recorded shapes)."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.distributed.spawn import run_ranks
+    arch, shape, slots = MESH_FAMILIES[phase]
+    cfg = get_config(arch)
+    prompt_len = VLM_CONT_P if phase == "mesh_vlm" else PROMPT_LEN
+    res = run_ranks(_rank_mesh_family, int(np.prod(shape)), shape, phase,
+                    timeout_s=MESH_TIMEOUT_S)
+    _mesh_checks(phase, cfg, res, prompt_len)
+    want_calls = _all_reduces_per_decode_step(cfg, shape, slots)
+    counts = {}
     for r in res:
-        for key, got in (("decode", "decode_shapes"), ("ffn", "ffn_shapes"),
-                         ("hops", "hop_shapes")):
-            for k, n in r[got].items():
+        require(r["decode_step_all_reduces"] == want_calls,
+                f"{phase} rank {r['rank']}: {r['decode_step_all_reduces']} "
+                f"all_reduces a decode step, expected {want_calls}")
+        if cfg.family == "ssm":
+            require(r["mixer_channels"] == cfg.d_inner // shape[1]
+                    and r["scan_shapes"]
+                    and all(k[2] == cfg.d_inner // shape[1]
+                            for k in r["scan_shapes"]),
+                    f"{phase} rank {r['rank']}: ssm_scan shapes "
+                    f"{r['scan_shapes']} on {r['mixer_channels']} channels")
+        if phase == "mesh_vlm":
+            lay = r["layout"]
+            require(lay["seq"] is not None and lay["seq"]["s_axes"] == ("data",)
+                    and not lay["b_sharded"],
+                    f"{phase} rank {r['rank']}: cache layout {lay}")
+            names = [a[0] for a in VLM_MESH_ARMS]
+            loc, dis = (r["runs"][n] for n in names)
+            require(loc["streams"] == dis["streams"],
+                    f"{phase} rank {r['rank']}: the arms' streams differ")
+            n_req = len(loc["streams"])
+            require(loc["prefix_hits"] == dis["prefix_hits"] == n_req - 4,
+                    f"{phase} rank {r['rank']}: prefix hits "
+                    f"{loc['prefix_hits']} / {dis['prefix_hits']}, expected "
+                    f"{n_req - 4}")
+            require(dis["kv_tail_hops"] > 0 and loc["kv_tail_hops"] == 0
+                    and dis["prefill_offloaded"] > 0,
+                    f"{phase} rank {r['rank']}: KV tails {loc['kv_tail_hops']}"
+                    f" / {dis['kv_tail_hops']}, offloaded "
+                    f"{dis['prefill_offloaded']}")
+        for mode, row in r["runs"].items():
+            one = one_rank_rows.get(mode) if one_rank_rows else None
+            out = _mesh_row(phase, r, mode, row, one)
+            out.update(arch=arch, mesh={"data": shape[0], "model": shape[1]},
+                       slots=slots, layout=r["layout"],
+                       decode_step_all_reduces=r["decode_step_all_reduces"],
+                       expected_decode_step_all_reduces=want_calls,
+                       scan_shapes=[list(k) + [n] for k, n in
+                                    sorted(r["scan_shapes"].items())])
+            if one_rank is not None:
+                out["agreement_with_one_rank"] = _agreement(row["streams"],
+                                                            one_rank)
+            emit(out)
+            counts[f"{arch} {phase} {shape[0]}x{shape[1]} rank {r['rank']} "
+                   f"{mode}"] = row["launches"]
+    _check_f32(phase, res, reduced(cfg), prompt_len,
+               run="reduced() float32 copy")
+    return counts, _merge_shapes(res)
+
+
+MESH_SHAPE_KINDS = ("decode", "ffn", "hops", "scan")
+
+
+def _merge_shapes(res):
+    """The ranks' recorded launch shapes summed: {"decode", "ffn", "hops",
+    "scan"}, each shape -> calls."""
+    into = {key: {} for key in MESH_SHAPE_KINDS}
+    for r in res:
+        for key in MESH_SHAPE_KINDS:
+            for k, n in r.get("hop_shapes" if key == "hops"
+                              else f"{key}_shapes", {}).items():
                 into[key][k] = into[key].get(k, 0) + n
     return into
 
@@ -3581,17 +3899,21 @@ def phase_mesh_kernels(torch, dev, shapes):
     same call without lse.  grouped_ffn at every local-expert shape with
     counts; masked_compact bit for bit (both base-finding branches) at
     every KV tail a rank compacted ([layers, tail rows, the rank's
-    Hkv*dh], all rows kept as the lossless hop keeps them).  Times the lse
-    call at mesh_seq's shard shape beside its bytes bound, the plain
-    version and the call without lse."""
+    Hkv*dh], all rows kept as the lossless hop keeps them); ssm_scan bit
+    for bit against its plain version at every [B, S, di/m, N] a rank
+    launched, twice.  Times the lse call at mesh_seq's shard shape beside
+    its bytes bound, the plain version and the call without lse, and
+    ssm_scan at falcon-mamba's rank shape beside its bytes bound."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.grouped_ffn import grouped_ffn_cuda
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
     gen = torch.Generator(device=dev)
     gen.manual_seed(20)
     tol = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
     cases = []
-    errs = {"decode_attention": 0.0, "grouped_ffn": 0.0, "masked_compact": 0.0}
+    errs = {"decode_attention": 0.0, "grouped_ffn": 0.0, "masked_compact": 0.0,
+            "ssm_scan": 0.0}
     keys = sorted({k[:5] for k in shapes["decode"]})
     for (B, S, H, Hkv, dh) in keys:
         for dtype in (torch.bfloat16, torch.float32):
@@ -3659,7 +3981,56 @@ def phase_mesh_kernels(torch, dev, shapes):
     require(mc, "mesh_kernels: no KV tail recorded on the mesh paths")
     emit({"phase": "mesh_kernels", "kernel": "masked_compact",
           "tolerance": "exact", "cases": mc})
-    return errs, _time_lse(torch, dev, gen, shapes)
+    scan = []
+    for (B, S, di, N), n in sorted(shapes["scan"].items()):
+        decay, bx, h0 = _scan_case(torch, gen, B, S, di, N, dev)
+        got = ssm_scan_cuda(decay, bx, h0)
+        again = ssm_scan_cuda(decay, bx, h0)
+        want = ref.ssm_scan_ref(decay, bx, h0)
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        require(all(torch.equal(g, w) and torch.equal(g, a)
+                    for g, w, a in zip(got, want, again)),
+                f"mesh_kernels ssm_scan [{B},{S},{di},{N}]: not bit-equal to "
+                f"its plain version (max_abs_err {err}) or to itself")
+        errs["ssm_scan"] = max(errs["ssm_scan"], err)
+        scan.append({"B": B, "S": S, "di": di, "N": N, "recorded": n,
+                     "max_abs_err": err, "exact": True})
+        del decay, bx, h0, got, again, want
+    require(scan, "mesh_kernels: no ssm_scan launch recorded on the mesh paths")
+    emit({"phase": "mesh_kernels", "kernel": "ssm_scan", "tolerance": "exact",
+          "cases": scan})
+    return errs, [_time_lse(torch, dev, gen, shapes),
+                  _time_scan_rank(torch, dev, gen, shapes)]
+
+
+def _time_scan_rank(torch, dev, gen, shapes):
+    """ssm_scan at the largest shape a rank launched (falcon-mamba's B=1
+    admission prefill on di / 2 channels): ms a call, device ms and the
+    plain version's ms, beside the bytes bound (decay, bx and h_all of
+    every element, h0 and h_last, f32, each once)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+    B, S, di, N = max(shapes["scan"], key=lambda k: int(np.prod(k)))
+    C = di * N
+    sets = [_scan_case(torch, gen, B, S, di, N, dev)
+            for _ in range(_sets_for(4 * B * C * (2 * S + 1)))]
+    n_bytes = 4 * B * C * (3 * S + 2)
+    bound_ms, bound_by = _bound(n_bytes, 2 * B * S * C, H100_PEAK_FLOPS_F32)
+    row = {"phase": "mesh_kernels_timing", "kernel": "ssm_scan",
+           "group": "mesh_ssm rank", "B": B, "S": S, "di": di, "N": N,
+           "dtype": "float32",
+           "ms": _time_ms(torch, ssm_scan_cuda, sets, iters=40, warmup=4),
+           "device_ms": _device_ms(torch, ssm_scan_cuda, sets, iters=10),
+           "plain_ms": _time_ms(torch, ref.ssm_scan_ref, sets, iters=4,
+                                warmup=1),
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes,
+           "library_ms": None,
+           "library": "none: no single PyTorch call computes this recurrence",
+           "sets": len(sets)}
+    emit(row)
+    del sets
+    return row
 
 
 def _time_lse(torch, dev, gen, shapes):
@@ -3844,8 +4215,8 @@ def main() -> None:
           groups["auxiliary"] or REQUESTS, max_new=MOE_TRACE_NEW)
     moe_rows = timed("moe_timing", phase_moe_timing, torch, dev, moe_cfg,
                      params, moe_summary)
-    moe_cont_counts = timed("moe_continuous", phase_side_continuous, torch, dev,
-                            moe_cfg, params, "moe_continuous")
+    moe_cont_counts, _, _ = timed("moe_continuous", phase_side_continuous,
+                                  torch, dev, moe_cfg, params, "moe_continuous")
     del params
     _free(torch)
     # decode_attention at long caches, no weights held: llama's and moonshot's heads
@@ -3869,8 +4240,9 @@ def main() -> None:
     groups = dict(zip(ssm_summary["group_names"], ssm_summary["n_group"]))
     timed("ssm_trace", phase_trace, torch, dev, ssm_cfg, params, prompts,
           groups["auxiliary"] or REQUESTS)
-    ssm_cont_counts = timed("ssm_continuous", phase_side_continuous, torch, dev,
-                            ssm_cfg, params, "ssm_continuous")
+    ssm_cont_counts, ssm_streams, ssm_cont_rows = timed(
+        "ssm_continuous", phase_side_continuous, torch, dev, ssm_cfg, params,
+        "ssm_continuous")
     del params
     _free(torch)
     ssm_rows = timed("ssm_timing", phase_ssm_timing, torch, dev, ssm_cfg,
@@ -3878,7 +4250,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # the hybrid path: zamba2-2.7b at full width, decode_attention at dh=80
-    hyb_counts, hyb_errs = timed("hybrid", phase_hybrid, torch, dev)
+    hyb_counts, hyb_errs, hyb_streams = timed("hybrid", phase_hybrid, torch, dev)
 
     # the vlm and audio families and the int8 KV cache at full width
     fam_counts, fam_shapes, payloads = {}, {}, set()
@@ -3891,8 +4263,8 @@ def main() -> None:
         payloads |= {(f"payload-{phase}-{g}", n, get_config(arch).d_model)
                      for g, n in zip(s["group_names"][1:], s["n_group"][1:]) if n}
         torch.cuda.empty_cache()
-    vlm_cont_counts, vlm_hops, shapes = timed("vlm_continuous",
-                                              phase_vlm_continuous, torch, dev)
+    vlm_cont_counts, vlm_hops, shapes, vlm_streams = timed(
+        "vlm_continuous", phase_vlm_continuous, torch, dev)
     fam_shapes.update(shapes)
     fam_errs, fam_rows = timed("families_kernels", phase_families_kernels, torch,
                                dev, fam_shapes, payloads, vlm_hops)
@@ -3912,10 +4284,18 @@ def main() -> None:
     _free(torch)
     mesh_counts, mesh_shapes = timed("mesh_dense", phase_mesh_dense, torch, dev,
                                      cont_streams, cont_rows)
-    for phase, fn in (("mesh_seq", phase_mesh_seq), ("mesh_moe", phase_mesh_moe)):
-        c, shapes = timed(phase, fn, torch, dev)
+    # the SSM, hybrid, vlm and audio families, each beside its one-rank run
+    # where an earlier phase served the same traffic
+    family_refs = {"mesh_ssm": (ssm_streams, {"fused": ssm_cont_rows["overlapped"]}),
+                   "mesh_hybrid": (hyb_streams, None),
+                   "mesh_vlm": (vlm_streams, None), "mesh_audio": (None, None)}
+    mesh_runs = [("mesh_seq", phase_mesh_seq, ()), ("mesh_moe", phase_mesh_moe, ())]
+    mesh_runs += [(phase, phase_mesh_family, (phase, *refs))
+                  for phase, refs in family_refs.items()]
+    for phase, fn, args in mesh_runs:
+        c, shapes = timed(phase, fn, torch, dev, *args)
         mesh_counts.update(c)
-        for key in ("decode", "ffn", "hops"):
+        for key in MESH_SHAPE_KINDS:
             for k, n in shapes[key].items():
                 mesh_shapes[key][k] = mesh_shapes[key].get(k, 0) + n
     mesh_counts.update(timed("mesh_nccl", phase_mesh_nccl, torch, dev,

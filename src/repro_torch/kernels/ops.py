@@ -111,7 +111,7 @@ def admit_slots(cur_tok, lengths, remaining, done, slot_ids, last_logits,
                        last_logits, prompt_lens, max_news, eos_id=eos_id)
 
 
-def splice_blocks(dst, src, slot_ids, shard=None):
+def splice_blocks(dst, src, slot_ids, shard=None, *, kv: bool = True):
     """Write M stacked prefill-cache blocks into M slots of a decode-cache
     leaf, in place.  ``dst`` is ``[L, B, ...]``; ``src`` is ``[L, M, ...]``
     whose trailing extents are at most dst's: each block lands at offset 0
@@ -121,27 +121,29 @@ def splice_blocks(dst, src, slot_ids, shard=None):
     (the padding contract of :func:`admit_state`).  Returns ``dst``.
 
     On a mesh (``shard``, the :class:`~repro_torch.models.sharding.RankShard`
-    of the decode cache) a ``[L, B, S, Hkv, dh]`` leaf holds this rank's
-    batch rows and sequence rows [s0, s0 + S_loc): the rank takes its rows
-    of the (replicated) source blocks and writes the slots it holds, with
-    no collective, as the JAX package's shard_map does."""
+    of the decode cache) ``dst`` holds this rank's batch rows, and a K/V
+    leaf (``kv``) its sequence rows [s0, s0 + S_loc): the rank takes the
+    rows of the (replicated) source blocks it holds and writes the slots
+    it holds, with no collective, as the JAX package's shard_map does.  A
+    state or cross leaf (``kv=False``) has no sequence: its blocks land
+    whole."""
     src = src.to(dst.dtype)
-    if shard is not None and dst.dim() == 5:
-        return _splice_local(dst, src, slot_ids, shard)
+    if shard is not None:
+        return _splice_local(dst, src, slot_ids, shard, kv)
     region = tuple(slice(0, n) for n in src.shape[2:])
     dst[(slice(None), slot_ids.long()) + region] = src
     return dst
 
 
-def _splice_local(dst, src, slot_ids, shard):
-    s0 = shard.s0 if shard.seq is not None else 0
-    n = max(0, min(src.shape[2] - s0, dst.shape[2]))    # my rows under P
-    if n == 0:
+def _splice_local(dst, src, slot_ids, shard, kv):
+    rows = shard.held_rows(src.shape[2], kv)
+    src = src[:, :, rows]
+    if src.shape[2] == 0:
         return dst
-    rows = src[:, :, s0:s0 + n]
+    region = tuple(slice(0, n) for n in src.shape[2:])
     ids = slot_ids.long()
     if not shard.b_sharded:
-        dst[:, ids, :n] = rows
+        dst[(slice(None), ids) + region] = src
         return dst
     # slots are global: write only those on this rank's batch rows, one at
     # a time (a slot elsewhere rewrites a held slot with its own bytes)
@@ -149,8 +151,8 @@ def _splice_local(dst, src, slot_ids, shard):
     mine = (local >= 0) & (local < shard.B_loc)
     local = local.clamp(0, shard.B_loc - 1)
     for m in range(ids.shape[0]):
-        cur = dst[:, local[m], :n]
-        dst[:, local[m], :n] = torch.where(mine[m], rows[:, m], cur)
+        at = (slice(None), local[m]) + region
+        dst[at] = torch.where(mine[m], src[:, m], dst[at])
     return dst
 
 

@@ -275,15 +275,52 @@ def _slice(t: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
     return t.narrow(dim, i * step, step).contiguous()
 
 
+def mamba_splits(d_inner: int, heads: int, model_size: int) -> bool:
+    """Whether a Mamba mixer of ``d_inner`` channels splits over a "model"
+    axis of ``model_size``: each rank takes d_inner / m channels, which
+    for Mamba-2 (``heads`` > 0: its channels reshape to heads of
+    d_inner / heads) must be whole heads.  Otherwise every rank holds the
+    whole mixer and runs it replicated."""
+    def divides(n):
+        return n % model_size == 0 and n >= model_size
+    return model_size > 1 and divides(d_inner) and (not heads or divides(heads))
+
+
+# A split Mamba mixer: each leaf's channel (d_inner) dim, or for Mamba-2's
+# per-head leaves its head dim, counted from the end; ``in_proj`` [.., D,
+# 2 di] is the u and z halves side by side, so a rank takes its channels
+# of each half (:func:`_slice_halves`).  Mamba-1's ``x_proj`` and both
+# versions' ``out_proj`` (and Mamba-2's ``bc_proj`` and ``dt_proj``) are
+# split on their di rows: their products are partial sums the mixer
+# all_reduces.
+_MAMBA_DIM = {
+    1: {"conv_w": -1, "conv_b": -1, "x_proj": -2, "dt_proj": -1,
+        "dt_bias": -1, "A_log": -2, "D": -1, "out_proj": -2},
+    2: {"conv_w": -1, "conv_b": -1, "bc_proj": -2, "dt_proj": -2,
+        "dt_bias": -1, "A_log": -1, "D": -1, "out_proj": -2},
+}
+
+
+def _slice_halves(t: torch.Tensor, n: int, i: int) -> torch.Tensor:
+    """Shard ``i`` of ``n`` of each half of ``t``'s last dim, side by side
+    (``in_proj``'s u and z channels of this rank)."""
+    u, z = t.chunk(2, dim=-1)
+    return torch.cat([_slice(u, -1, n, i), _slice(z, -1, n, i)], dim=-1)
+
+
 def serving_model_dim(names: Tuple[str, ...], shape: Tuple[int, ...],
                       model_size: int, *, heads_split: bool = True):
     """The dim a serving rank slices a leaf on ("model" axis), or None:
     the leaf's preferred dim when the axis divides it, never the router
-    (the JAX shard_map takes it whole), the attention projections only
-    together (``heads_split``: the kv heads divide the axis), and the MoE
-    layer's shared experts on their hidden width, as a dense MLP."""
+    (the JAX shard_map takes it whole) nor ``frontend_proj`` (every rank
+    projects the whole patch or frame embedding, as it holds the whole
+    router), the attention projections only together (``heads_split``:
+    the kv heads divide the axis), and the MoE layer's shared experts on
+    their hidden width, as a dense MLP.  A Mamba mixer's leaves are
+    :func:`shard_params`' (``_MAMBA_DIM``): one rule does not fit both
+    versions' ``dt_proj``."""
     leaf = names[-1]
-    if model_size == 1 or leaf == "router":
+    if model_size == 1 or leaf in ("router", "frontend_proj"):
         return None
     if leaf in ("wq", "wk", "wv", "wo") and not heads_split:
         return None
@@ -302,7 +339,10 @@ def shard_params(params, mesh: Mesh):
     leaf sliced on its preferred model dim (:func:`serving_model_dim`),
     every other leaf shared as it is.  MoE experts slice their expert dim,
     or (``f_parallel``, when the experts do not divide the axis) their
-    hidden width, as ``moe_apply`` reads them."""
+    hidden width, as ``moe_apply`` reads them.  A Mamba mixer takes its
+    channels [i di/m, (i+1) di/m) of every leaf (``_MAMBA_DIM``; Mamba-2's
+    per-head leaves the matching heads) when :func:`mamba_splits`, else
+    stays whole."""
     m = mesh.shape.get("model", 1)
     mi = mesh.axis_index("model") if m > 1 else 0
 
@@ -310,31 +350,35 @@ def shard_params(params, mesh: Mesh):
         hkv = tree["wk"].shape[-2]
         return hkv % m == 0 and hkv >= m
 
+    def mamba(tree):
+        version = 2 if "bc_proj" in tree else 1
+        heads = tree["A_log"].shape[-1] if version == 2 else 0
+        if not mamba_splits(tree["conv_w"].shape[-1], heads, m):
+            return dict(tree)
+        dims = _MAMBA_DIM[version]
+        return {k: _slice_halves(v, m, mi) if k == "in_proj"
+                else _slice(v, dims[k], m, mi) for k, v in tree.items()}
+
     def walk(tree, names):
-        if isinstance(tree, dict):
-            split = heads_split(tree) if "wk" in tree else True
-            out = {}
-            for k, v in tree.items():
-                if isinstance(v, (dict, tuple, list)):
-                    out[k] = walk(v, names + (k,))
-                    continue
-                sub = names + (k,)
-                dim = serving_model_dim(sub, tuple(v.shape), m,
-                                        heads_split=split)
-                if dim is None and "moe" in names and k in _EXPERT_LEAVES:
-                    # f_parallel: every rank holds all experts, a slice of
-                    # each one's hidden width (w_gate/w_up [.., D, F],
-                    # w_down [.., F, D])
-                    f_dim = v.dim() - (2 if k == "w_down" else 1)
-                    if v.shape[f_dim] % m == 0 and v.shape[f_dim] >= m:
-                        dim = f_dim
-                out[k] = v if dim is None else _slice(v, dim, m, mi)
-            return out
-        if isinstance(tree, (tuple, list)):
-            raise NotImplementedError(
-                "serving on a mesh covers the dense and MoE families; the "
-                "SSM and hybrid stacks wait for their mesh port")
-        return tree
+        if "in_proj" in tree:
+            return mamba(tree)
+        split = heads_split(tree) if "wk" in tree else True
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, names + (k,))
+                continue
+            sub = names + (k,)
+            dim = serving_model_dim(sub, tuple(v.shape), m, heads_split=split)
+            if dim is None and "moe" in names and k in _EXPERT_LEAVES:
+                # f_parallel: every rank holds all experts, a slice of
+                # each one's hidden width (w_gate/w_up [.., D, F],
+                # w_down [.., F, D])
+                f_dim = v.dim() - (2 if k == "w_down" else 1)
+                if v.shape[f_dim] % m == 0 and v.shape[f_dim] >= m:
+                    dim = f_dim
+            out[k] = v if dim is None else _slice(v, dim, m, mi)
+        return out
 
     return walk(params, ())
 

@@ -38,7 +38,8 @@ audio (``--arch seamless-m4t-medium``) families take each request's stubbed
 patch or frame embeddings from the request stream; every engine's cache
 holds the prompt, the vlm's frontend rows, ``max_new`` and 8 spare rows.
 
-``--mesh DATAxMODEL`` serves the request stream as one SPMD program on a
+``--mesh DATAxMODEL`` serves the request stream (any family; the vlm and
+audio requests with their frontend embeddings) as one SPMD program on a
 (data, model) mesh of DATA x MODEL ranks, one process each, started by
 ``torch.distributed.run``: every rank builds the same weights from seed 0,
 keeps its shard (``launch.mesh.shard_params``) and runs the sharded engine
@@ -487,6 +488,16 @@ def parse_mesh(value: str) -> Tuple[int, int]:
     return data, model
 
 
+def _request_stream(cfg, args):
+    """The launcher's requests from seed 0, with the config's stubbed
+    frontend embeddings (vlm patches, audio frames) when it has one."""
+    return request_stream(cfg.vocab_size, n=args.requests,
+                          mean_prompt=args.prompt_len, seed=0,
+                          frontend_tokens=cfg.frontend_tokens,
+                          frontend_dim=(cfg.frontend_dim or cfg.d_model)
+                          if cfg.frontend else 0)
+
+
 def serve_mesh(ap, args) -> Optional[Dict[str, Any]]:
     """``--mesh``: this rank's part of the SPMD serving program.  Returns
     the result on rank 0 (which prints it as one JSON line), None on the
@@ -535,10 +546,9 @@ def serve_mesh(ap, args) -> Optional[Dict[str, Any]]:
         if args.reduced:
             cfg = reduced(cfg)
         params = shard_params(M.init_params(cfg, 0, device=device), mesh)
-        reqs = request_stream(cfg.vocab_size, n=args.requests,
-                              mean_prompt=args.prompt_len, seed=0)
+        reqs = _request_stream(cfg, args)
         P = args.prompt_len
-        max_len = P + args.max_new + 8
+        max_len = P + M.frontend_offset(cfg) + args.max_new + 8
         out: Dict[str, Any] = {"arch": cfg.name, "mesh": dict(mesh.shape),
                                "backend": backend, "device": str(device),
                                "requests": len(reqs), "prompt_len": P}
@@ -561,7 +571,9 @@ def serve_mesh(ap, args) -> Optional[Dict[str, Any]]:
                                     device=device)
                 res = eng.generate(
                     np.stack([_pad_prompt(r.prompt, P) for r in reqs]),
-                    max_new=args.max_new)
+                    max_new=args.max_new,
+                    frontend=np.stack([r.frontend for r in reqs])
+                    if cfg.frontend else None)
                 out.update(mode="static", tokens=res.tokens.tolist(),
                            tokens_per_s=res.tokens_per_s,
                            decode_steps=eng.decode_steps,
@@ -721,11 +733,7 @@ def main(argv: Optional[Sequence[str]] = None):
     print(f"arch={cfg.name}{' (reduced)' if args.reduced else ''}"
           f"{' kv=int8' if args.kv_int8 else ''} "
           f"topology={args.topology}/{nodes} device={device}")
-    reqs = request_stream(cfg.vocab_size, n=args.requests,
-                          mean_prompt=args.prompt_len, seed=0,
-                          frontend_tokens=cfg.frontend_tokens,
-                          frontend_dim=(cfg.frontend_dim or cfg.d_model)
-                          if cfg.frontend else 0)
+    reqs = _request_stream(cfg, args)
     if args.continuous:
         return serve_continuous(
             cfg, params, reqs, prompt_len=args.prompt_len,

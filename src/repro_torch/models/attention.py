@@ -13,7 +13,8 @@ On a mesh (``shard``, a :class:`~repro_torch.models.sharding.RankShard`)
 the heads are split over "model" when the rank holds a slice of them
 (``shard_params`` slices ``wq/wk/wv`` on the head dim and ``wo`` on its
 head dim when the kv heads divide the axis); the partial output
-projections then meet in one all_reduce.  A sequence-sharded cache (the
+projections then meet in one all_reduce, in self- and cross-attention
+alike.  A sequence-sharded cache (the
 layout ``seq_shard_layout`` gives) is written only by the rank that owns
 the row, with no collective (``cache_update``), and decode runs the kernel
 on each rank's own rows with ``lse``; the partial outputs merge across the
@@ -242,7 +243,8 @@ def attn_apply(params, x, cfg, *, positions, mode: str, causal: bool = True,
     gives the keys and values, without RoPE, causal mask or window; in mode
     "decode" (``cross=True``) the query attends over the cache's F rows,
     which the decode never writes.  ``shard``: this rank's block on a mesh
-    (see the module docstring); self-attention only."""
+    (see the module docstring); a cross cache holds the rank's batch rows
+    and kv heads of all F rows, never a sequence shard."""
     cross = cross or kv_x is not None
     # heads split over "model": the partial projections meet in one all_reduce
     split = shard is not None and params["wq"].shape[-2] != cfg.num_heads
@@ -257,7 +259,7 @@ def attn_apply(params, x, cfg, *, positions, mode: str, causal: bool = True,
             out = chunked_attention(q, k, v, causal=False, window=0,
                                     q_positions=positions,
                                     kv_positions=kv_positions)
-            return _out_proj(out.to(x.dtype), params["wo"]), (k, v)
+            return project(out), (k, v)
         q, k, v = _qkv(params, x, x, cfg, positions, positions, rope=True)
         kv_positions = positions
         if prefix_kv is not None:
@@ -276,7 +278,7 @@ def attn_apply(params, x, cfg, *, positions, mode: str, causal: bool = True,
         q = _proj(x, params["wq"])
         out = ops.decode_attention(q, cache["k"], cache["v"], cache["k"].shape[1],
                                    window=0, use_kernels=use_kernels)
-        return _out_proj(out.to(x.dtype), params["wo"]), cache
+        return project(out), cache
     q, k, v = _qkv(params, x, x, cfg, positions, positions, rope=True)
     if "k_scale" in cache:
         new_cache = {}

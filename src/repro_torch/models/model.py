@@ -21,13 +21,15 @@ cross_entropy(logits, labels, mask=None)     -> mean next-token NLL (f32)
   decode:  {"token": [B,1], "cache": ..., "cache_index": scalar or [B]}
            (the vlm's index counts its F prologue rows)
 
-Under ``models.sharding.activation_sharding(mesh)`` (dense and MoE
-families, serving modes) every rank holds ``launch.mesh.shard_params``'
-slice of the params and its block of the cache (``init_cache``), takes the
-whole batch's tokens and indices (replicated), computes its own batch rows
-(all of them when the batch does not divide the batch axes) and returns the
-whole batch's logits, gathered over the "model" axis (vocab-parallel head)
-and the batch axes: every rank ends a step with the same logits.
+Under ``models.sharding.activation_sharding(mesh)`` (every family,
+serving modes) every rank holds ``launch.mesh.shard_params``' slice of the
+params and its block of the cache (``init_cache``), takes the whole
+batch's tokens, frontend embeddings and indices (replicated), computes its
+own batch rows (all of them when the batch does not divide the batch axes)
+and returns the whole batch's logits, gathered over the "model" axis
+(vocab-parallel head) and the batch axes: every rank ends a step with the
+same logits.  ``frontend_proj`` is whole on every rank, so the vlm's
+prologue rows and the audio encoder's input are too.
 """
 from __future__ import annotations
 
@@ -106,17 +108,6 @@ def init_params(cfg, seed: int = 0, *, device: DeviceLike = None) -> Dict[str, A
     return params
 
 
-def _mesh_kind(cfg, mesh) -> str:
-    """The block kind, checked servable on ``mesh``."""
-    kind = _kind(cfg)
-    if kind not in ("dense", "moe") or cfg.frontend:
-        raise NotImplementedError(
-            f"serving {cfg.name} ({cfg.family}) on a mesh: the port's mesh "
-            "path covers the dense and MoE families; the SSM, hybrid, vlm "
-            "and audio families wait for their mesh port")
-    return kind
-
-
 def init_cache(cfg, batch: int, seq_len: int, dtype=None, *, device) -> Any:
     """Decode caches sized for seq_len positions, in the JAX layout:
     {"self": {"k","v"}} of [L,B,S,Hkv,dh] (dense, MoE, vlm); a tuple (conv
@@ -128,14 +119,15 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=None, *, device) -> Any:
 
     Under an active mesh only this rank's block is allocated: its batch
     rows, its kv heads (when they divide "model") and its sequence rows,
-    the block :func:`cache_shard` names."""
+    the block :func:`cache_shard` names; a state leaf holds the rank's
+    channels (Mamba-2: heads) and the cross K/V all F rows."""
     kind = _kind(cfg)
     dtype = dtype or cfg.torch_dtype
     L = cfg.num_layers
     hkv = cfg.num_kv_heads
+    m = 1
     mesh = sharding.active_mesh()
     if mesh is not None:
-        kind = _mesh_kind(cfg, mesh)
         sh = cache_shard(cfg, batch, seq_len)
         batch, seq_len = sh.B_loc, sh.S_loc
         m = mesh.shape.get("model", 1)
@@ -154,7 +146,7 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=None, *, device) -> Any:
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 
     def ssm_states(n_layers):
-        conv, ssm = ssm_mod.mamba_state_shapes(cfg, batch)
+        conv, ssm = ssm_mod.mamba_state_shapes(cfg, batch, m)
         return (torch.zeros((n_layers, *conv), dtype=dtype, device=device),
                 torch.zeros((n_layers, *ssm), dtype=torch.float32, device=device))
 
@@ -172,10 +164,13 @@ def cache_shard(cfg, batch: int, seq_len: int):
     """The :class:`~repro_torch.models.sharding.RankShard` of a [batch,
     seq_len] decode cache on the active mesh (None off-mesh): the block
     ``init_cache`` allocates, and what a decode (``forward``'s ``shard``),
-    a slot write and a splice need to find this rank's rows."""
+    a slot write and a splice need to find this rank's rows.  An SSM
+    model's cache is states alone: no sequence to shard."""
     mesh = sharding.active_mesh()
     if mesh is None:
         return None
+    if _kind(cfg) == "ssm":
+        return sharding.rank_shard(mesh, batch)
     return sharding.rank_shard(mesh, batch, Hkv=cfg.num_kv_heads, S=seq_len)
 
 
@@ -197,14 +192,15 @@ def _embed_inputs(params, cfg, batch, shard=None):
     return x, positions, positions >= frontend_offset(cfg)
 
 
-def _encode(params, cfg, batch, mode: str = "prefill", remat: bool = False):
+def _encode(params, cfg, batch, mode: str = "prefill", remat: bool = False,
+            shard=None):
     """The audio encoder over the stubbed frame embeddings: (enc_out
-    [B,F,D], positions [F])."""
+    [B,F,D], positions [F]); ``shard``: this rank's block on a mesh."""
     fe = batch["frontend"].to(cfg.torch_dtype) @ params["frontend_proj"]
     pos = torch.arange(fe.shape[1], device=fe.device)
     enc, _, _ = tfm.stack_apply(params["encoder"], fe, cfg, kind="encoder",
                                 mode=mode, positions=pos, causal=False,
-                                remat=remat)
+                                remat=remat, shard=shard)
     return norm_apply(params["enc_norm"], enc, cfg), pos
 
 
@@ -247,7 +243,6 @@ def forward(params, cfg, batch, *, mode: str = "prefill", remat: bool = False,
     kind = _kind(cfg)
     mesh = sharding.active_mesh()
     if mesh is not None:
-        kind = _mesh_kind(cfg, mesh)
         if mode not in ("prefill", "decode"):
             raise NotImplementedError(
                 f"forward mode {mode!r} on a mesh: training across ranks "
@@ -267,14 +262,15 @@ def forward(params, cfg, batch, *, mode: str = "prefill", remat: bool = False,
     if mode == "prefill":
         if mesh is not None:      # this rank's batch rows
             shard = sharding.rank_shard(mesh, batch["tokens"].shape[0])
-            batch = dict(batch, tokens=batch["tokens"][
-                shard.b0:shard.b0 + shard.B_loc])
+            rows = slice(shard.b0, shard.b0 + shard.B_loc)
+            batch = dict(batch, **{k: batch[k][rows] for k in
+                                   ("tokens", "frontend") if k in batch})
             on_mesh["shard"] = shard
         x, positions, _ = _embed_inputs(params, cfg, batch,
                                         on_mesh.get("shard"))
         enc = {}
         if kind == "decoder_x":
-            enc_out, enc_pos = _encode(params, cfg, batch)
+            enc_out, enc_pos = _encode(params, cfg, batch, **on_mesh)
             enc = {"enc_out": enc_out, "enc_positions": enc_pos}
         prefix = batch.get("prefix")
         if prefix is not None:

@@ -109,7 +109,10 @@ class RankShard(NamedTuple):
     """The block of a batch-``B`` forward (and of its decode cache) this
     rank holds on ``mesh``: batch rows [b0, b0 + B_loc) -- all of them when
     the batch does not divide the batch axes -- and cache rows [s0, s0 +
-    S_loc) of the sequence (``seq`` None: all of them)."""
+    S_loc) of the sequence (``seq`` None: all of them).  The sequence is a
+    K/V leaf's: a state leaf (a Mamba conv or SSM state) and the audio
+    decoder's cross K/V have none, and hold the rank's batch rows whole
+    (:meth:`held_rows`)."""
     mesh: object
     B: int
     b_sharded: bool
@@ -122,6 +125,15 @@ class RankShard(NamedTuple):
     @property
     def batch_axes(self) -> Tuple[str, ...]:
         return batch_axes(self.mesh) if self.b_sharded else ()
+
+    def held_rows(self, n_src: int, kv: bool = True) -> slice:
+        """The rows of an ``n_src``-row source block (axis 2 of a prefill
+        cache leaf) that this rank's block holds, from its row 0: a K/V
+        leaf's sequence shard, clipped to the source; every row of a state
+        or cross leaf (``kv=False``)."""
+        if not kv or self.seq is None:
+            return slice(0, n_src)
+        return slice(self.s0, max(self.s0, min(n_src, self.s0 + self.S_loc)))
 
 
 def rank_shard(mesh, B: int, *, Hkv: int = 0,

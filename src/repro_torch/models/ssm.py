@@ -11,6 +11,14 @@ attention-like products plus inter-chunk state passing.
 
 Both have a single-step form for decode with carried (conv_state,
 ssm_state).  Params are L-stacked like every port stack.
+
+On a mesh (``shard``) a mixer split by ``launch.mesh.shard_params`` holds
+this rank's d_inner / m channels (Mamba-2: its H / m heads): the conv, the
+scan and the gate are channel-local, and two all_reduces over "model" a
+layer join the rest -- the partial products of the di-row slices of
+``x_proj`` (Mamba-1) or of ``dt_proj`` and ``bc_proj`` in one buffer
+(Mamba-2), and those of ``out_proj``.  Every width is read from the
+params, so the same code runs a whole mixer and a rank's slice of one.
 """
 from __future__ import annotations
 
@@ -19,7 +27,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as coll
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import mamba_splits
 from repro_torch.models.layers import normal_stack
 
 
@@ -63,15 +73,19 @@ def mamba_init(gen: torch.Generator, cfg, dtype, device, n_layers: int) -> dict:
     return p
 
 
-def mamba_state_shapes(cfg, batch: int):
-    """(conv_state, ssm_state) shapes for one layer."""
+def mamba_state_shapes(cfg, batch: int, model_size: int = 1):
+    """(conv_state, ssm_state) shapes for one layer; on a "model" axis of
+    ``model_size`` that splits the mixer (``mamba_splits``), this rank's
+    channels (Mamba-2: heads) of them."""
     di, n = cfg.d_inner, cfg.ssm_state
+    heads = di // cfg.ssm_head_dim if cfg.mamba_version == 2 else 0
+    if mamba_splits(di, heads, model_size):
+        di, heads = di // model_size, heads // model_size
     conv = (batch, cfg.ssm_conv - 1, di)
     if cfg.mamba_version == 1:
         ssm = (batch, di, n)
     else:
-        h = di // cfg.ssm_head_dim
-        ssm = (batch, h, cfg.ssm_head_dim, n)
+        ssm = (batch, heads, cfg.ssm_head_dim, n)
     return conv, ssm
 
 
@@ -190,12 +204,18 @@ def mamba2_step(x, dt, A, Bm, Cm, D, h):
 # Full block forward
 # ---------------------------------------------------------------------------
 def mamba_apply(params, x, cfg, *, state=None, mode: str = "full",
-                scan_chunk: int = 256, use_kernels: bool = False):
+                scan_chunk: int = 256, use_kernels: bool = False, shard=None):
     """x: [B,S,D] ("full") or [B,1,D] ("decode").
-    state: None or (conv_state, ssm_state).  Returns (y, new_state)."""
+    state: None or (conv_state, ssm_state).  Returns (y, new_state).
+    ``shard``: this rank's block on a mesh (module docstring)."""
     B = x.shape[0]
-    di, n = cfg.d_inner, cfg.ssm_state
+    n = cfg.ssm_state
+    di = params["conv_w"].shape[-1]          # this rank's channels
+    split = shard is not None and di != cfg.d_inner
     conv_state, ssm_state = state if state is not None else (None, None)
+
+    def reduce(t):
+        return coll.all_reduce(t, shard.mesh, ("model",)) if split else t
 
     uz = x @ params["in_proj"]
     u, z = uz.chunk(2, dim=-1)                               # [B,S,di] each
@@ -203,7 +223,7 @@ def mamba_apply(params, x, cfg, *, state=None, mode: str = "full",
 
     if cfg.mamba_version == 1:
         A = -torch.exp(params["A_log"])                      # [di,N]
-        dbc = u @ params["x_proj"]
+        dbc = reduce(u @ params["x_proj"])
         r = cfg.ssm_dt_rank
         dt_r, Bm, Cm = dbc.split([r, n, n], dim=-1)
         delta = F.softplus((dt_r @ params["dt_proj"]).float() + params["dt_bias"])
@@ -218,10 +238,19 @@ def mamba_apply(params, x, cfg, *, state=None, mode: str = "full",
                                     Cf[:, 0], params["D"], ssm_state)
             y = y[:, None]
     else:
-        H, P = di // cfg.ssm_head_dim, cfg.ssm_head_dim
+        P = cfg.ssm_head_dim
+        H = di // P                                          # this rank's heads
         A = -torch.exp(params["A_log"])                      # [H]
-        Bm, Cm = (u @ params["bc_proj"]).chunk(2, dim=-1)
-        dt = F.softplus((u @ params["dt_proj"]).float() + params["dt_bias"])
+        dtp, bc = u @ params["dt_proj"], u @ params["bc_proj"]
+        if split:
+            # dt of every head and B/C are partial sums here: one
+            # all_reduce of both, then this rank's heads of dt
+            H_all = dtp.shape[-1]
+            dt_bc = reduce(torch.cat([dtp, bc], dim=-1))
+            h0 = shard.mesh.axis_index("model") * H
+            dtp, bc = dt_bc[..., h0:h0 + H], dt_bc[..., H_all:]
+        Bm, Cm = bc.chunk(2, dim=-1)
+        dt = F.softplus(dtp.float() + params["dt_bias"])
         xh = u.reshape(B, -1, H, P)
         if mode == "full":
             y, h_last = mamba2_ssd(xh, dt, A, Bm, Cm, params["D"], ssm_state,
@@ -233,4 +262,4 @@ def mamba_apply(params, x, cfg, *, state=None, mode: str = "full",
             y = y.reshape(B, 1, di)
 
     y = y.to(x.dtype) * F.silu(z)
-    return y @ params["out_proj"], (conv_new, h_last)
+    return reduce(y @ params["out_proj"]), (conv_new, h_last)

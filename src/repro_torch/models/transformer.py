@@ -10,10 +10,12 @@ runs blocks of ``hybrid_attn_every`` Mamba layers with the weight-shared
 dense block applied after each block.  The audio model's encoder blocks are
 non-causal dense blocks; its decoder blocks (``"decoder_x"``) add a
 cross-attention sublayer over the encoder's output between self-attention
-and the MLP.  On a mesh (``shard``) the dense and MoE blocks run this rank's
-block: attention as ``attention.attn_apply`` says, the MLP as column
-(``w_gate``/``w_up``) and row (``w_down``) slices of its hidden width
-meeting in one all_reduce, the MoE layer as ``moe.moe_apply`` says.
+and the MLP.  On a mesh (``shard``) every block kind runs this rank's
+block: attention (self and cross) as ``attention.attn_apply`` says, the
+MLP as column (``w_gate``/``w_up``) and row (``w_down``) slices of its
+hidden width meeting in one all_reduce, the MoE layer as
+``moe.moe_apply`` says, a Mamba mixer as ``ssm.mamba_apply`` says; the
+hybrid stack hands the shard to its backbone and its shared block.
 """
 from __future__ import annotations
 
@@ -117,7 +119,7 @@ def block_apply(params, x, cfg, *, kind: str, mode: str, positions,
         y, new_state = ssm_mod.mamba_apply(
             params["mamba"], h, cfg, state=cache,
             mode="decode" if mode == "decode" else "full",
-            use_kernels=use_kernels)
+            use_kernels=use_kernels, shard=shard)
         if mode == "decode":
             for dst, src in zip(cache, new_state):
                 dst.copy_(src)
@@ -149,12 +151,13 @@ def block_apply(params, x, cfg, *, kind: str, mode: str, positions,
         if mode == "decode":
             y, _ = attn.attn_apply(params["xattn"], h, cfg, positions=positions,
                                    mode="decode", cache=cache["cross"],
-                                   cross=True, use_kernels=use_kernels)
+                                   cross=True, use_kernels=use_kernels,
+                                   shard=shard)
             new_cache["cross"] = cache["cross"]
         else:
             y, xkv = attn.attn_apply(params["xattn"], h, cfg, positions=positions,
                                      mode="full", kv_x=enc_out,
-                                     kv_positions=enc_positions)
+                                     kv_positions=enc_positions, shard=shard)
             if new_cache is not None:
                 new_cache["cross"] = {"k": xkv[0], "v": xkv[1]}
         x = x + y
@@ -208,13 +211,14 @@ def stack_apply(stacked, x, cfg, *, kind: str, mode: str, positions,
 
 def hybrid_apply(params, x, cfg, *, mode: str, positions, caches=None,
                  cache_index=None, remat: bool = False,
-                 use_kernels: bool = False):
+                 use_kernels: bool = False, shard=None):
     """Zamba2-style: nb blocks of k Mamba layers + the shared dense block.
 
     params: {"backbone": L-stacked Mamba layers, "shared": one dense block}.
     caches (decode): {"backbone": (conv, ssm) L-stacked, "shared": {"self":
     nb-stacked kv}}, updated in place and returned; prefill returns fresh
-    caches of that layout, train none."""
+    caches of that layout, train none.  ``shard``: this rank's block on a
+    mesh, for both."""
     k, L = cfg.hybrid_attn_every, cfg.num_layers
     if L % k:
         raise ValueError(f"hybrid stack: {L} layers is not a multiple of "
@@ -227,12 +231,13 @@ def hybrid_apply(params, x, cfg, *, mode: str, positions, caches=None,
             block, x, cfg, kind="ssm",
             mode=mode, positions=positions,
             caches=layer_slice(caches["backbone"], layers) if decode else None,
-            cache_index=cache_index, remat=remat, use_kernels=use_kernels)
+            cache_index=cache_index, remat=remat, use_kernels=use_kernels,
+            shard=shard)
         x, sc, _ = _block(
             params["shared"], x, cfg, remat, kind="dense", mode=mode,
             positions=positions,
             cache=layer_slice(caches["shared"], j) if decode else None,
-            cache_index=cache_index, use_kernels=use_kernels)
+            cache_index=cache_index, use_kernels=use_kernels, shard=shard)
         bb_new.append(bc)
         sh_new.append(sc)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

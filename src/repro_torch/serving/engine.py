@@ -206,13 +206,13 @@ def seed_cache(cfg, big_cache, prefill_cache, prefill_len: int, shard=None):
     K/V) it replaces the whole leaf.  An int8 destination takes the
     quantized prefill K/V and their scales.  On a mesh (``shard`` of the
     decode cache) both hold this rank's batch rows, and the rank copies the
-    prefill rows its sequence shard [s0, s0 + S_loc) holds."""
-    def upd(dst, src):
-        if shard is None:
-            dst[:, :, :src.shape[2]].copy_(src)
-        else:
-            n = max(0, min(src.shape[2] - shard.s0, dst.shape[2]))
-            dst[:, :, :n].copy_(src[:, :, shard.s0:shard.s0 + n])
+    prefill rows it holds (``RankShard.held_rows``: a K/V leaf's sequence
+    shard, all of a state or cross leaf)."""
+    def upd(dst, src, kv):
+        rows = slice(0, src.shape[2]) if shard is None \
+            else shard.held_rows(src.shape[2], kv)
+        n = rows.stop - rows.start
+        dst[:, :, :n].copy_(src[:, :, rows])
         return dst
     return _merge_cache(cfg, big_cache, prefill_cache, upd)
 
@@ -338,12 +338,17 @@ class ServingEngine:
 # Continuous batching
 # ---------------------------------------------------------------------------
 def _merge_cache(cfg, big_cache, prefill_cache, upd):
-    """Walk the decode-cache tree, applying ``upd(dst_leaf, src_leaf)`` at
-    every leaf and quantizing the prefill K/V into int8 destinations on the
-    way: dense and MoE ``{"self": kv}``, the audio decoder's ``"cross"``
+    """Walk the decode-cache tree, applying ``upd(dst_leaf, src_leaf, kv)``
+    at every leaf and quantizing the prefill K/V into int8 destinations on
+    the way: dense and MoE ``{"self": kv}``, the audio decoder's ``"cross"``
     K/V (never quantized), SSM ``(conv, ssm)`` tuples and the hybrid
-    ``{"backbone", "shared"}``.  Shared by seeding, the per-slot write and
-    the fused splice -- only the leaf update differs."""
+    ``{"backbone", "shared"}``.  ``kv`` tells a self-attention K/V leaf
+    (whose sequence a mesh may shard) from a state or cross leaf (which has
+    none).  Shared by seeding, the per-slot write and the fused splice --
+    only the leaf update differs."""
+    def states(dst, src):
+        return tree_map(lambda d, s: upd(d, s, False), dst, src)
+
     def copy_kv(dst, src):
         if "self" in dst:            # unwrap {"self": ...} wrappers
             return {key: copy_kv(dst[key], src[key]) for key in dst}
@@ -351,21 +356,21 @@ def _merge_cache(cfg, big_cache, prefill_cache, upd):
             out = {}
             for name in ("k", "v"):
                 qt, sc = quantize_kv(src[name])
-                out[name] = upd(dst[name], qt)
-                out[name + "_scale"] = upd(dst[name + "_scale"], sc)
+                out[name] = upd(dst[name], qt, True)
+                out[name + "_scale"] = upd(dst[name + "_scale"], sc, True)
             return out
-        return tree_map(upd, dst, src)
+        return tree_map(lambda d, s: upd(d, s, True), dst, src)
 
     kind = M._kind(cfg)
     if kind == "ssm":
-        return tree_map(upd, big_cache, prefill_cache)
+        return states(big_cache, prefill_cache)
     if kind == "hybrid":
-        return {"backbone": tree_map(upd, big_cache["backbone"],
-                                     prefill_cache["backbone"]),
+        return {"backbone": states(big_cache["backbone"],
+                                   prefill_cache["backbone"]),
                 "shared": copy_kv(big_cache["shared"], prefill_cache["shared"])}
     out = {"self": copy_kv(big_cache["self"], prefill_cache["self"])}
     if "cross" in big_cache:
-        out["cross"] = tree_map(upd, big_cache["cross"], prefill_cache["cross"])
+        out["cross"] = states(big_cache["cross"], prefill_cache["cross"])
     return out
 
 
@@ -381,7 +386,8 @@ def write_slot_cache(cfg, big_cache, prefill_cache, slot, shard=None):
     dev = tree_leaves(big_cache)[0].device
     ids = torch.full((1,), int(slot), dtype=torch.int32, device=dev)
     return _merge_cache(cfg, big_cache, prefill_cache,
-                        lambda d, s: ops.splice_blocks(d, s, ids, shard))
+                        lambda d, s, kv: ops.splice_blocks(d, s, ids, shard,
+                                                           kv=kv))
 
 
 def stack_prefill_blocks(caches):
@@ -398,7 +404,8 @@ def splice_slot_caches(cfg, big_cache, blocks, slot_ids, shard=None):
     if isinstance(blocks, (list, tuple)):
         blocks = stack_prefill_blocks(blocks)
     return _merge_cache(cfg, big_cache, blocks,
-                        lambda d, s: ops.splice_blocks(d, s, slot_ids, shard))
+                        lambda d, s, kv: ops.splice_blocks(d, s, slot_ids,
+                                                           shard, kv=kv))
 
 
 def admit_boundary(cfg, big_cache, blocks, slot_ids, cur_tok, lengths,

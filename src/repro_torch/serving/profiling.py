@@ -96,7 +96,12 @@ def profile_engine_programs(engine, *, prompt_len: int,
     K = max(engine.macro_steps, 1)
     slots = engine.slots
     m_blocks = max(1, min(n_blocks, slots))
-    tokens = torch.zeros((1, prompt_len), dtype=torch.int32, device=dev)
+    batch = {"tokens": torch.zeros((1, prompt_len), dtype=torch.int32,
+                                   device=dev)}
+    if cfg.frontend:         # the vlm's patch rows, the audio model's frames
+        batch["frontend"] = torch.zeros(
+            (1, cfg.frontend_tokens, cfg.frontend_dim or cfg.d_model),
+            dtype=cfg.torch_dtype, device=dev)
     cache, cur_tok, lengths, remaining, done = engine._init_state()
     done.zero_()                     # every slot decodes
     remaining.fill_(K)
@@ -104,8 +109,7 @@ def profile_engine_programs(engine, *, prompt_len: int,
     made: Dict[str, Any] = {}
 
     def prefill():
-        made["logits"], made["cache"] = engine.prefill(engine.params,
-                                                       {"tokens": tokens})
+        made["logits"], made["cache"] = engine.prefill(engine.params, batch)
 
     programs = {"prefill": _measure(prefill, mesh)}
     pre = made["cache"]

@@ -231,3 +231,223 @@ def profile_rank(rank, world, shape, arch, replace, slots, max_len, K,
                                       max_len=max_len, macro_steps=K,
                                       device="cpu")
         return profile_engine_programs(eng, prompt_len=prompt_len)
+
+
+# ---------------------------------------------------------------------------
+# The SSM, hybrid, vlm and audio families on a mesh
+# ---------------------------------------------------------------------------
+def family_rank(rank, world, shape, cases):
+    """Runs every case of ``cases`` (kinds "mamba", "family_logits",
+    "family_cache") on this rank of a (data, model) mesh of ``shape``."""
+    torch.manual_seed(0)
+    mesh = make_mesh(shape)
+    kinds = {"mamba": _mamba_case, "family_logits": _family_logits_case,
+             "family_cache": _family_cache_case}
+    return [kinds[case["kind"]](mesh, case) for case in cases]
+
+
+def _mamba_case(mesh, case):
+    """One Mamba mixer (JAX's layer params) on this rank's channels:
+    prefill, then one decode step from the prefill's state."""
+    from repro_torch.models.ssm import mamba_apply
+    cfg = make_cfg(case["arch"])
+    p = shard_params({"mamba": tree_from_numpy(case["params"], "cpu")},
+                     mesh)["mamba"]
+    x, x1 = torch.from_numpy(case["x"]), torch.from_numpy(case["x1"])
+    shard = sharding.rank_shard(mesh, x.shape[0])
+    with torch.no_grad():
+        y, (conv, h) = mamba_apply(p, x, cfg, mode="full", shard=shard)
+        y1, (conv1, h1) = mamba_apply(p, x1, cfg, state=(conv.clone(),
+                                                         h.clone()),
+                                      mode="decode", shard=shard)
+    return dict(y=y.numpy(), conv=conv.numpy(), h=h.numpy(), y1=y1.numpy(),
+                conv1=conv1.numpy(), h1=h1.numpy(),
+                mi=mesh.axis_index("model"), di=p["conv_w"].shape[-1])
+
+
+def _family_logits_case(mesh, case):
+    """Prefill (with the case's frontend) and teacher-forced decode steps on
+    this rank's block: every step's whole-batch logits and the all_reduces
+    each decode step ran."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.serving.engine import seed_cache
+    cfg = make_cfg(case["arch"])
+    params = shard_params(params_from_numpy(case["params"], cfg, "cpu"), mesh)
+    batch = {"tokens": torch.from_numpy(case["prompts"])}
+    if case["frontend"] is not None:
+        batch["frontend"] = torch.from_numpy(case["frontend"])
+    B, P = case["prompts"].shape
+    rows, S = P + M.frontend_offset(cfg), case["max_len"]
+    logits, calls = [], []
+    with torch.no_grad(), sharding.activation_sharding(mesh):
+        out = M.forward(params, cfg, batch, mode="prefill")
+        logits.append(out.logits[:, -1].numpy())
+        cache = M.init_cache(cfg, B, S, device="cpu")
+        shard = M.cache_shard(cfg, B, S)
+        seed_cache(cfg, cache, out.cache, rows, shard)
+        for i, tok in enumerate(case["tokens"]):
+            with coll.counting(mesh) as cc:
+                out = M.forward(params, cfg,
+                                {"token": torch.from_numpy(tok)[:, None],
+                                 "cache": cache,
+                                 "cache_index": torch.tensor(rows + i)},
+                                mode="decode", shard=shard)
+            calls.append(cc.calls["all-reduce"])
+            logits.append(out.logits[:, 0].numpy())
+    return dict(logits=logits, all_reduce_calls=calls,
+                b_sharded=shard.b_sharded, seq=shard.seq is not None)
+
+
+def cache_block(cfg, tree, mesh, shard, *, rows=True, seq=True):
+    """This rank's block of a whole (one-rank) cache tree, leaf by leaf by
+    role: batch rows [b0, b0 + B_loc) of every leaf (``rows``); a Mamba
+    state's channels (Mamba-2: heads) when the mixer splits; a K/V leaf's
+    kv heads when they divide "model" and, under ``seq``, its sequence
+    shard; a cross K/V leaf all of its F rows."""
+    from repro_torch.launch.mesh import mamba_splits
+    m = mesh.shape["model"]
+    mi = mesh.axis_index("model")
+
+    def cut(t, dim, n):
+        step = t.shape[dim] // n
+        return t.narrow(dim, mi * step, step)
+
+    def batch(t):
+        return t.narrow(1, shard.b0, shard.B_loc) if rows else t
+
+    def state(t, dim):
+        di = cfg.d_inner
+        heads = di // cfg.ssm_head_dim if cfg.mamba_version == 2 else 0
+        return cut(batch(t), dim, m) if mamba_splits(di, heads, m) \
+            else batch(t)
+
+    def kv(t, cross=False):
+        t = batch(t)
+        hkv = cfg.num_kv_heads
+        if hkv % m == 0 and hkv >= m:
+            t = cut(t, 3, m)
+        if seq and not cross and shard.seq is not None:
+            t = t.narrow(2, shard.s0, shard.S_loc)
+        return t
+
+    def states(pair):
+        conv, ssm = pair
+        return (state(conv, 3), state(ssm, 2))
+
+    def kvs(d, cross=False):
+        return {k: kv(v, cross) for k, v in d.items()}
+
+    if isinstance(tree, tuple):
+        return states(tree)
+    if "backbone" in tree:
+        return {"backbone": states(tree["backbone"]),
+                "shared": {"self": kvs(tree["shared"]["self"])}}
+    out = {"self": kvs(tree["self"])}
+    if "cross" in tree:
+        out["cross"] = kvs(tree["cross"], cross=True)
+    return out
+
+
+def _family_cache_case(mesh, case):
+    """seed_cache, write_slot_cache and splice_slot_caches on this rank's
+    block against the same ops on the whole one-rank cache, by leaf: the
+    caches and prefill blocks are numpy draws from the case's seed (the
+    same on every rank), each rank cuts its blocks with
+    :func:`cache_block`.  Returns, per op, each leaf's largest difference
+    from the one-rank result's block, and the shapes ``init_cache``
+    allocates on the mesh beside those ``cache_block`` cuts."""
+    from repro_torch.core.offload import tree_leaves, tree_map
+    from repro_torch.serving.engine import (seed_cache, splice_slot_caches,
+                                            write_slot_cache)
+    cfg = make_cfg(case["arch"])
+    B, S, P, ids = case["slots"], case["max_len"], case["prefill"], case["ids"]
+    rng = np.random.default_rng(case["seed"])
+
+    def draw(tree):
+        return tree_map(lambda t: torch.from_numpy(rng.standard_normal(
+            tuple(t.shape)).astype(np.float32)), tree)
+
+    def prefill_cache(n):
+        """An n-row prefill cache of P prompt rows (the cross K/V's F)."""
+        return draw(M.init_cache(cfg, n, P, device="cpu"))
+
+    whole = draw(M.init_cache(cfg, B, S, device="cpu"))
+    seed_src, slot_src = prefill_cache(B), prefill_cache(1)
+    blocks = [prefill_cache(1) for _ in ids]
+    slot_ids = torch.as_tensor(ids, dtype=torch.int32)
+    with sharding.activation_sharding(mesh):
+        shard = M.cache_shard(cfg, B, S)
+        local_shapes = [tuple(t.shape) for t in
+                        tree_leaves(M.init_cache(cfg, B, S, device="cpu"))]
+    clone = lambda tree: tree_map(lambda t: t.clone(), tree)  # noqa: E731
+    out = {"shapes": local_shapes,
+           "cut_shapes": [tuple(t.shape) for t in
+                          tree_leaves(cache_block(cfg, whole, mesh, shard))],
+           "b_sharded": shard.b_sharded, "seq": shard.seq is not None}
+    ops_ = {
+        "seed": (lambda c, sh, blk: seed_cache(cfg, c, blk(seed_src, True),
+                                               P, sh)),
+        "slot_write": (lambda c, sh, blk: write_slot_cache(
+            cfg, c, blk(slot_src, False), case["slot"], sh)),
+        "splice": (lambda c, sh, blk: splice_slot_caches(
+            cfg, c, [blk(b, False) for b in blocks], slot_ids, sh)),
+    }
+    for name, op in ops_.items():
+        want = op(clone(whole), None, lambda t, _: t)
+        got = op(clone(cache_block(cfg, whole, mesh, shard)), shard,
+                 lambda t, rows: cache_block(cfg, t, mesh, shard, rows=rows,
+                                             seq=False))
+        want = cache_block(cfg, want, mesh, shard)
+        out[name] = [float((g - w).abs().max())
+                     for g, w in zip(tree_leaves(got), tree_leaves(want))]
+    return out
+
+
+def family_engine_rank(rank, world, shape, scenarios):
+    """Each scenario's continuous engine (JAX's params of its ``arch``) on
+    this rank of a (data, model) mesh of ``shape``: the per-step arm, the
+    local overlapped arm (K=4), the disaggregated arm (a mesh-wide
+    PrefillWorker) and, with ``cached``, that arm with a PrefixCache
+    (block 4: the vlm's prologue root and token blocks); the profile of
+    the engine's programs; the cache block it allocates."""
+    from repro_torch.core.offload import tree_leaves
+    from repro_torch.serving.engine import ContinuousServingEngine, ServeRequest
+    from repro_torch.serving.prefill import PrefillWorker
+    from repro_torch.serving.prefix_cache import PrefixCache
+    from repro_torch.serving.profiling import profile_engine_programs
+    mesh = make_mesh(shape)
+    out = []
+    for sc in scenarios:
+        cfg = make_cfg(sc["arch"])
+        params = shard_params(params_from_numpy(sc["params"], cfg, "cpu"), mesh)
+        reqs = [ServeRequest(uid=i, prompt=p, max_new=m, frontend=f)
+                for i, (p, m, f) in enumerate(zip(sc["prompts"], sc["max_news"],
+                                                  sc["frontend"]))]
+        kw = dict(slots=sc["slots"], max_len=sc["max_len"], device="cpu")
+        res = {"rank": rank}
+        with sharding.activation_sharding(mesh):
+            arms = {"per_step": dict(macro_steps=0),
+                    "local": dict(macro_steps=4),
+                    "disagg": dict(macro_steps=4, prefill_worker=PrefillWorker(
+                        cfg, params, device="cpu"))}
+            if sc["cached"]:
+                arms["cached"] = dict(
+                    macro_steps=4,
+                    prefix_cache=PrefixCache(cfg, block_size=4, device="cpu"),
+                    prefill_worker=PrefillWorker(cfg, params, device="cpu"))
+            for name, extra in arms.items():
+                eng = ContinuousServingEngine(cfg, params, **kw, **extra)
+                outs, st = eng.run(reqs)
+                res[name] = {"streams": [o.tokens.tolist() for o in outs],
+                             "offloaded": st.prefill_offloaded,
+                             "prefix_hits": st.prefix_hits,
+                             "kv_hop_bytes_wire": st.kv_hop_bytes_wire,
+                             "kv_hop_bytes_raw": st.kv_hop_bytes_raw}
+            res["profile"] = profile_engine_programs(
+                eng, prompt_len=len(sc["prompts"][0]), n_blocks=2)
+            res["shard"] = {"b_sharded": eng._shard.b_sharded,
+                            "seq": eng._shard.seq is not None}
+            res["cache_block"] = [list(t.shape) for t in tree_leaves(
+                M.init_cache(cfg, sc["slots"], sc["max_len"], device="cpu"))]
+        out.append(res)
+    return out

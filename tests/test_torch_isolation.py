@@ -56,7 +56,10 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.serving.frontend",
             "repro_torch.training.optimizer", "repro_torch.training.train",
             "repro_torch.training.checkpoint", "repro_torch.launch.train",
-            "repro_torch.kernels.autograd"} <= set(mods)
+            "repro_torch.kernels.autograd", "repro_torch.launch.mesh",
+            "repro_torch.models.sharding", "repro_torch.distributed.spawn",
+            "repro_torch.distributed.collectives",
+            "repro_torch.serving.profiling"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
