@@ -334,6 +334,36 @@ The float32 2-layer copy of llama's weights runs through mesh_dense and
 mesh_seq: its greedy streams agree with the one-rank plain path up to the
 first top-2 gap < 1e-3 (the parity phase's rule).
 
+Then training across ranks, four ranks on (data=2, model=2) over gloo
+(before mesh_kernels, which also covers their launch shapes): the params
+and AdamW state cut by shard_params(fsdp=True) (FSDP over "data", the
+serving cuts over "model"), each rank's batch rows, 3 steps of
+make_train_step(layout=); every step's collective calls and bytes by kind
+on every rank equal to _train_collectives' formula, the ranks' losses
+identical, every leaf's whole gradient finite and non-zero; ms a step
+(CUDA events), forward + backward ms, tokens/s, peak memory a rank, the
+host seconds inside collectives against the wall:
+
+  mesh_train   llama3.2-1b at full width and depth, batch 8 x 64 (4 rows a
+           rank), train_slice's first batches and schedule: losses within
+           1e-2 relative of train_slice's, no kernel launched; a float32
+           2-layer cut of the same weights, the one-rank plain step
+           (rank 0) against the mesh step, losses within 1e-4
+  mesh_train_moe  moonshot-v1-16b-a3b at full width, 2 layers, batch 4 x
+           64: each rank's 32 experts on grouped_ffn with counts ==
+           layers x steps, then 2 remat steps at 2 x layers x steps (the
+           experts' gradients reported)
+  mesh_train_ssm  falcon-mamba-7b at full width, 4 layers, batch 2 x 256:
+           ssm_scan == ssm_scan_bwd == layers x chunks x steps, every
+           launch at [1, 256, 4096, 16]
+  mesh_train_launcher  ``torch.distributed.run --nproc-per-node 4 -m
+           repro_torch.launch.train --mesh 2x2 --dist-backend gloo --steps
+           3`` exits 0 and prints mesh=
+
+mesh_kernels then also holds ssm_scan_bwd bit for bit against
+ssm_scan_bwd_ref at the rank shape, and times ssm_scan, ssm_scan_bwd and
+grouped_ffn at every rank shape beside their bounds.
+
 Then the per-kernel summary line (the mesh paths in ``launches_by_path``),
 the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  Every phase also prints its seconds.
 Float32 matmuls run in full float32 (TF32 off).
@@ -2999,7 +3029,8 @@ def _rank_env(shape):
 class _MeshRecorder:
     """While active: every decode_attention launch's (B, S, H, Hkv, dh,
     dtype, start given, lse asked), every grouped_ffn call's (E, C, D, F,
-    dtype, counts given), every ssm_scan launch's (B, S, di, N) and every
+    dtype, counts given), every ssm_scan and ssm_scan_bwd launch's (B, S,
+    di, N) and every
     KV tail this rank's prefill worker compacts (``compact_kv_hop``:
     [layers, tail rows, this rank's Hkv*dh]), with their counts;
     ``n_hops`` counts the tails.  The wrapped functions run as they are;
@@ -3009,17 +3040,23 @@ class _MeshRecorder:
         from repro_torch.kernels import autograd, ops
         from repro_torch.serving import prefill
         self.decode, self.ffn, self.hops, self.n_hops = {}, {}, {}, 0
-        self.scan = {}
+        self.scan, self.scan_bwd = {}, {}
         self._ops, self._prefill, self._autograd = ops, prefill, autograd
         self._dec, self._ffn = ops.decode_attention_cuda, ops.grouped_ffn
         self._hop, self._scan = prefill.compact_kv_hop, autograd.ssm_scan_cuda
-        rec, dec, ffn, hop, scan = (self, self._dec, self._ffn, self._hop,
-                                    self._scan)
+        self._scan_bwd = autograd.ssm_scan_bwd_cuda
+        rec, dec, ffn, hop, scan, scan_bwd = (
+            self, self._dec, self._ffn, self._hop, self._scan, self._scan_bwd)
 
         def recording_scan(decay, bx, h0):
             key = tuple(decay.shape)
             rec.scan[key] = rec.scan.get(key, 0) + 1
             return scan(decay, bx, h0)
+
+        def recording_scan_bwd(decay, h_all, h0, G, g):
+            key = tuple(decay.shape)
+            rec.scan_bwd[key] = rec.scan_bwd.get(key, 0) + 1
+            return scan_bwd(decay, h_all, h0, G, g)
 
         def recording_decode(q, k, v, cache_len, **kw):
             key = (q.shape[0], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
@@ -3045,6 +3082,7 @@ class _MeshRecorder:
         ops.grouped_ffn = recording_ffn
         prefill.compact_kv_hop = recording_hop
         autograd.ssm_scan_cuda = recording_scan
+        autograd.ssm_scan_bwd_cuda = recording_scan_bwd
         return self
 
     def __exit__(self, *exc):
@@ -3052,6 +3090,7 @@ class _MeshRecorder:
         self._ops.grouped_ffn = self._ffn
         self._prefill.compact_kv_hop = self._hop
         self._autograd.ssm_scan_cuda = self._scan
+        self._autograd.ssm_scan_bwd_cuda = self._scan_bwd
 
 
 def _rank_run(torch, dev, mesh, cfg, params, reqs, rec=None, **kw):
@@ -3864,12 +3903,12 @@ def phase_mesh_family(torch, dev, phase, one_rank=None, one_rank_rows=None):
     return counts, _merge_shapes(res)
 
 
-MESH_SHAPE_KINDS = ("decode", "ffn", "hops", "scan")
+MESH_SHAPE_KINDS = ("decode", "ffn", "hops", "scan", "scan_bwd")
 
 
 def _merge_shapes(res):
     """The ranks' recorded launch shapes summed: {"decode", "ffn", "hops",
-    "scan"}, each shape -> calls."""
+    "scan", "scan_bwd"}, each shape -> calls."""
     into = {key: {} for key in MESH_SHAPE_KINDS}
     for r in res:
         for key in MESH_SHAPE_KINDS:
@@ -3901,13 +3940,15 @@ def phase_mesh_kernels(torch, dev, shapes):
     every KV tail a rank compacted ([layers, tail rows, the rank's
     Hkv*dh], all rows kept as the lossless hop keeps them); ssm_scan bit
     for bit against its plain version at every [B, S, di/m, N] a rank
-    launched, twice.  Times the lse call at mesh_seq's shard shape beside
-    its bytes bound, the plain version and the call without lse, and
-    ssm_scan at falcon-mamba's rank shape beside its bytes bound."""
+    launched, twice, and ssm_scan_bwd bit for bit against ssm_scan_bwd_ref
+    at every shape a rank's train step launched.  Times the lse call at
+    mesh_seq's shard shape beside its bytes bound, the plain version and
+    the call without lse, and ssm_scan, ssm_scan_bwd and grouped_ffn at
+    every rank shape beside their bounds."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.grouped_ffn import grouped_ffn_cuda
-    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda, ssm_scan_cuda
     gen = torch.Generator(device=dev)
     gen.manual_seed(20)
     tol = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
@@ -4000,25 +4041,51 @@ def phase_mesh_kernels(torch, dev, shapes):
     require(scan, "mesh_kernels: no ssm_scan launch recorded on the mesh paths")
     emit({"phase": "mesh_kernels", "kernel": "ssm_scan", "tolerance": "exact",
           "cases": scan})
-    return errs, [_time_lse(torch, dev, gen, shapes),
-                  _time_scan_rank(torch, dev, gen, shapes)]
+    bwd = []
+    for (B, S, di, N), n in sorted(shapes["scan_bwd"].items()):
+        decay, bx, h0 = _scan_case(torch, gen, B, S, di, N, dev)
+        h_all = ssm_scan_cuda(decay, bx, h0)[0]
+        G = torch.randn_like(decay)        # the train path: h_all's gradient
+        got = ssm_scan_bwd_cuda(decay, h_all, h0, G, None)
+        again = ssm_scan_bwd_cuda(decay, h_all, h0, G, None)
+        want = ref.ssm_scan_bwd_ref(decay, h_all, h0, G, None)
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        require(all(torch.equal(g, w) and torch.equal(g, a)
+                    for g, w, a in zip(got, want, again)),
+                f"mesh_kernels ssm_scan_bwd [{B},{S},{di},{N}]: not bit-equal "
+                f"to ssm_scan_bwd_ref (max_abs_err {err}) or to itself")
+        errs["ssm_scan_bwd"] = max(errs.get("ssm_scan_bwd", 0.0), err)
+        bwd.append({"B": B, "S": S, "di": di, "N": N, "recorded": n,
+                    "max_abs_err": err, "exact": True})
+        del decay, bx, h0, h_all, G, got, again, want
+    require(bwd, "mesh_kernels: no ssm_scan_bwd launch recorded on the mesh "
+            "train path")
+    emit({"phase": "mesh_kernels", "kernel": "ssm_scan_bwd",
+          "tolerance": "exact", "cases": bwd})
+    timing = [_time_lse(torch, dev, gen, shapes)]
+    timing += [_time_scan_rank(torch, dev, gen, k) for k in sorted(shapes["scan"])]
+    timing += [_time_scan_bwd_rank(torch, dev, gen, k)
+               for k in sorted(shapes["scan_bwd"])]
+    timing += [_time_ffn_rank(torch, dev, gen, k) for k in sorted(shapes["ffn"])]
+    return errs, timing
 
 
-def _time_scan_rank(torch, dev, gen, shapes):
-    """ssm_scan at the largest shape a rank launched (falcon-mamba's B=1
-    admission prefill on di / 2 channels): ms a call, device ms and the
-    plain version's ms, beside the bytes bound (decay, bx and h_all of
-    every element, h0 and h_last, f32, each once)."""
+def _time_scan_rank(torch, dev, gen, key):
+    """ssm_scan at a rank's shape ``key`` (falcon-mamba's B=1 admission
+    prefill, or its train chunk, on di / 2 channels): ms a call, device ms
+    and the plain version's ms, beside the bytes bound (decay, bx and
+    h_all of every element, h0 and h_last, f32, each once)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssm_scan import ssm_scan_cuda
-    B, S, di, N = max(shapes["scan"], key=lambda k: int(np.prod(k)))
+    B, S, di, N = key
     C = di * N
     sets = [_scan_case(torch, gen, B, S, di, N, dev)
             for _ in range(_sets_for(4 * B * C * (2 * S + 1)))]
     n_bytes = 4 * B * C * (3 * S + 2)
     bound_ms, bound_by = _bound(n_bytes, 2 * B * S * C, H100_PEAK_FLOPS_F32)
     row = {"phase": "mesh_kernels_timing", "kernel": "ssm_scan",
-           "group": "mesh_ssm rank", "B": B, "S": S, "di": di, "N": N,
+           "group": "mesh rank", "B": B, "S": S, "di": di, "N": N,
            "dtype": "float32",
            "ms": _time_ms(torch, ssm_scan_cuda, sets, iters=40, warmup=4),
            "device_ms": _device_ms(torch, ssm_scan_cuda, sets, iters=10),
@@ -4027,6 +4094,75 @@ def _time_scan_rank(torch, dev, gen, shapes):
            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes,
            "library_ms": None,
            "library": "none: no single PyTorch call computes this recurrence",
+           "sets": len(sets)}
+    emit(row)
+    del sets
+    return row
+
+
+def _time_scan_bwd_rank(torch, dev, gen, key):
+    """ssm_scan_bwd at a rank's train chunk ``key``, as the train path
+    calls it (the gradient of h_all only): ms, device ms and the plain
+    reverse loop's ms, beside the bytes bound (decay, h_all, G and h0 read,
+    d_decay, d_bx and d_h0 written, f32, each once)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda
+    B, S, di, N = key
+    Cn = di * N
+    sets = []
+    for _ in range(_sets_for(4 * B * Cn * (3 * S + 1))):
+        decay, bx, h0 = _scan_case(torch, gen, B, S, di, N, dev)
+        sets.append((decay, ref.ssm_scan_ref(decay, bx, h0)[0], h0,
+                     torch.randn_like(decay), None))
+        del bx
+    n_bytes = 4 * B * Cn * (5 * S + 2)
+    bound_ms, bound_by = _bound(n_bytes, 3 * B * S * Cn, H100_PEAK_FLOPS_F32)
+    row = {"phase": "mesh_kernels_timing", "kernel": "ssm_scan_bwd",
+           "group": "mesh_train_ssm rank", "B": B, "S": S, "di": di, "N": N,
+           "dtype": "float32",
+           "ms": _time_ms(torch, ssm_scan_bwd_cuda, sets, iters=40, warmup=4),
+           "device_ms": _device_ms(torch, ssm_scan_bwd_cuda, sets, iters=10),
+           "plain_ms": _time_ms(torch, ref.ssm_scan_bwd_ref, sets, iters=2,
+                                warmup=1),
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes,
+           "library_ms": None,
+           "library": "none: no single PyTorch call computes this backward",
+           "sets": len(sets)}
+    emit(row)
+    del sets
+    return row
+
+
+def _time_ffn_rank(torch, dev, gen, key):
+    """grouped_ffn at a rank's expert shape ``key`` (E, C, D, F, dtype,
+    counts) with random counts: ms, device ms and the plain version's ms,
+    beside the bound over these counts' experts and rows (rows read, the
+    output written, the used experts' weights, the counts)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.grouped_ffn import grouped_ffn_cuda
+    E, C, D, F, dt, _ = key
+    dtype = getattr(torch, dt)
+    es = torch.tensor([], dtype=dtype).element_size()
+    sets = []
+    for _ in range(_sets_for(3 * E * D * F * es)):
+        buf, wg, wu, wd = _ffn_case(torch, gen, E, C, D, F, dtype, dev)
+        counts = torch.randint(0, C + 1, (E,), generator=gen, device=dev,
+                               dtype=torch.int32)
+        sets.append((buf, wg, wu, wd, counts))
+    rows = sum(int(c.sum()) for *_, c in sets) / len(sets)
+    used = sum(int((c > 0).sum()) for *_, c in sets) / len(sets)
+    n_bytes = es * (rows * D + E * C * D + used * 3 * D * F) + 4 * E
+    bound_ms, bound_by = _bound(n_bytes, 6 * rows * D * F)
+    row = {"phase": "mesh_kernels_timing", "kernel": "grouped_ffn",
+           "group": "mesh rank", "E": E, "C": C, "D": D, "F": F, "dtype": dt,
+           "routed_rows_mean": rows, "experts_used_mean": used,
+           "ms": _time_ms(torch, grouped_ffn_cuda, sets, iters=40, warmup=4),
+           "device_ms": _device_ms(torch, grouped_ffn_cuda, sets, iters=20),
+           "plain_ms": _time_ms(torch, ref.grouped_ffn_ref, sets, iters=4,
+                                warmup=1),
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes,
+           "library_ms": None,
+           "library": "none: no single PyTorch call computes this function",
            "sets": len(sets)}
     emit(row)
     del sets
@@ -4078,6 +4214,480 @@ def _time_lse(torch, dev, gen, shapes):
                            "dense bias: not one call on these inputs"}
     emit(row)
     return row
+
+
+# ---------------------------------------------------------------------------
+# Training across ranks: ranks spawned on the card over gloo, FSDP over
+# "data" and the serving cuts over "model"
+# ---------------------------------------------------------------------------
+MESH_TRAIN_SHAPE = (2, 2)
+MESH_TRAIN_STEPS = 3            # each mesh-train phase's steps (and remat's 2)
+MESH_TRAIN_F32_TOL = 1e-4       # the float32 2-layer witness's losses, relative
+
+
+def _train_opt(steps):
+    from repro_torch.training.optimizer import OptimizerConfig
+    return OptimizerConfig(lr=TRAIN_LR, warmup_steps=max(steps // 10, 1),
+                           total_steps=steps)
+
+
+def _leaf_grad_norms(torch, grads, layout):
+    """Every leaf's whole-gradient norm from this rank's shards: each sum
+    of squares over the leaf's replicas, one all_reduce over the mesh."""
+    from repro_torch.distributed import collectives as coll
+
+    def walk(g, pl, path):
+        if isinstance(g, dict):
+            for k in g:
+                yield from walk(g[k], pl[k], path + (k,))
+        else:
+            yield "/".join(path), g, pl.replicas
+
+    leaves = list(walk(grads, layout.placements, ()))
+    sq = torch.stack([g.float().square().sum() / r for _, g, r in leaves])
+    coll.all_reduce(sq, layout.mesh, layout.mesh.axes)
+    return dict(zip([k for k, _, _ in leaves], sq.sqrt().tolist()))
+
+
+def _rank_train_steps(torch, mesh, cfg, layout, params, batches, *,
+                      remat=False, steps_opt=None):
+    """``make_train_step(layout=)`` over ``batches`` on this rank, kernel
+    launch counts set to 0 just before and read just after, each step
+    between CUDA events and under its own collective counter.  Returns
+    (params, state, row)."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.kernels import ops
+    from repro_torch.training import train as T
+    from repro_torch.training.optimizer import init_opt_state
+    state = init_opt_state(params)
+    step_fn = T.make_train_step(cfg, steps_opt or _train_opt(len(batches)),
+                                remat=remat, layout=layout)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    marks, metrics, counted = [], [], []
+    t0 = time.perf_counter()
+    for batch in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with coll.counting(mesh) as cc:
+            start.record()
+            params, state, m = step_fn(params, state, batch)
+            end.record()
+        marks.append((start, end))
+        metrics.append(m)
+        counted.append(cc)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    losses = [float(m["loss"]) for m in metrics]
+    require(all(math.isfinite(x) for x in losses),
+            f"rank {mesh.rank}: non-finite loss {losses}")
+    ms = [s.elapsed_time(e) for s, e in marks]
+    B = batches[0]["tokens"].shape[0]
+    S = batches[0]["tokens"].shape[1]
+    steady = ms[1:] or ms
+    row = {"steps": len(ms), "losses": losses, "loss_first": losses[0],
+           "loss_last": losses[-1], "ms_per_step": sum(steady) / len(steady),
+           "ms_per_step_all": ms, "wall_s": wall,
+           "tokens_per_s": B * S * len(ms) / wall,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "allocated_before_bytes": before, "launches": counts,
+           "collectives": [{"calls": dict(c.calls), "bytes": dict(c.bytes),
+                            "host_seconds": c.seconds} for c in counted],
+           "collective_host_seconds": sum(c.seconds for c in counted),
+           "grad_norms": [float(m["grad_norm"]) for m in metrics]}
+    return params, state, row
+
+
+def _rank_fwd_bwd(torch, cfg, params, batch, layout):
+    """(ms, gradients) of this rank's forward + backward and the
+    gradients' mean over "data" (``step_grads``, no AdamW) between CUDA
+    events."""
+    from repro_torch.training import train as T
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    _, _, grads = T.step_grads(params, cfg, batch, remat=False, layout=layout)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), grads
+
+
+def _rank_mesh_train(rank, world, shape, phase, batches_np):
+    """One mesh-train phase on one rank (``phase_mesh_train``): the
+    config's params from seed 0 cut by ``shard_params(fsdp=True)``, then
+    MESH_TRAIN_STEPS steps (and for moonshot 2 remat steps) of
+    ``make_train_step(layout=)`` on the rank's rows of ``batches_np``; the
+    step's collectives against ``_train_collectives``; every leaf's
+    gradient norm; the launch shapes.  mesh_train adds the float32 2-layer
+    witness: the one-rank plain step on rank 0, then the mesh step."""
+    torch, dev, mesh = _rank_env(shape)
+    from repro_torch.core.offload import tree_leaves, tree_map
+    from repro_torch.launch.mesh import shard_params, train_layout
+    from repro_torch.models import model as M
+    from repro_torch.training import train as T
+    cfg = _mesh_train_cfg(phase)
+    batches = [_on(torch, b, dev) for b in batches_np]
+    full = M.init_params(cfg, 0, device=dev)
+    out = {"rank": rank}
+    if phase == "mesh_train":
+        cfg32 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+        # a copy: an uncut leaf of a float32 cut would share its storage
+        p32 = tree_map(torch.clone, _f32_cut(torch, full))
+        layout32 = train_layout(p32, mesh)
+        if rank == 0:         # the one-rank plain step on a copy
+            from repro_torch.training.optimizer import init_opt_state
+            one = tree_map(torch.clone, p32)
+            state = init_opt_state(one)
+            step = T.make_train_step(cfg32, _train_opt(len(batches)),
+                                     remat=False)
+            ref = []
+            for b in batches:
+                one, state, m = step(one, state, b)
+                ref.append(float(m["loss"]))
+            out["f32_one_rank"] = ref
+            del one, state
+        p32 = shard_params(p32, mesh, fsdp=True)
+    layout = train_layout(full, mesh)
+    params = shard_params(full, mesh, fsdp=True)
+    del full
+    _free(torch)
+    B_loc = batches[0]["tokens"].shape[0] // shape[0]
+    S = batches[0]["tokens"].shape[1]
+    # llama steps on train_slice's schedule, to meet its losses
+    opt = _train_opt(TRAIN_STEPS) if phase == "mesh_train" else None
+    with _MeshRecorder() as rec:
+        params, _, row = _rank_train_steps(torch, mesh, cfg, layout, params,
+                                           batches, steps_opt=opt)
+        row["expected_collectives"] = _train_collectives(cfg, layout, B_loc, S)
+        out["runs"] = {"steps": row}
+        if phase == "mesh_train_moe":
+            params, _, rrow = _rank_train_steps(
+                torch, mesh, cfg, layout, params, batches[:2], remat=True,
+                steps_opt=_train_opt(2))
+            rrow["expected_collectives"] = _train_collectives(
+                cfg, layout, B_loc, S, remat=True)
+            out["runs"]["remat"] = rrow
+    ms_fb, grads = _rank_fwd_bwd(torch, cfg, params, batches[0], layout)
+    out["grad_norms"] = _leaf_grad_norms(torch, grads, layout)
+    del grads
+    out["runs"]["steps"]["ms_forward_backward"] = ms_fb
+    out["params_held"] = sum(t.numel() for t in tree_leaves(params))
+    out.update(ffn_shapes=rec.ffn, scan_shapes=rec.scan,
+               scan_bwd_shapes=rec.scan_bwd, decode_shapes=rec.decode,
+               hop_shapes=rec.hops)
+    del params
+    _free(torch)
+    if phase == "mesh_train":
+        _, _, row32 = _rank_train_steps(torch, mesh, cfg32, layout32, p32,
+                                        batches)
+        out["f32_mesh"] = row32["losses"]
+    return out
+
+
+def _mesh_train_cfg(phase):
+    """mesh_train: llama3.2-1b at full width and depth; mesh_train_moe:
+    moonshot at full width, 2 layers; mesh_train_ssm: falcon-mamba at full
+    width, 4 layers."""
+    from repro_torch.configs.base import get_config
+    if phase == "mesh_train":
+        return get_config(ARCH)
+    if phase == "mesh_train_moe":
+        return dataclasses.replace(get_config(MOE_ARCH),
+                                   num_layers=MOE_TRAIN_LAYERS)
+    return dataclasses.replace(get_config(SSM_ARCH), num_layers=SSM_TRAIN_LAYERS)
+
+
+MESH_TRAIN_BATCH = {"mesh_train": (TRAIN_BATCH, TRAIN_SEQ),
+                    "mesh_train_moe": (MOE_TRAIN_BATCH, MOE_TRAIN_SEQ),
+                    "mesh_train_ssm": (SSM_TRAIN_BATCH, SSM_TRAIN_SEQ)}
+
+
+def phase_mesh_train(torch, dev, phase, one_rank_losses=None):
+    """A mesh-train phase on (2, 2), ranks spawned on the card over gloo:
+    mesh_train (llama3.2-1b at full width and depth, batch 8 x 64, the
+    train launcher's defaults and train_slice's first batches), mesh_train_moe
+    (moonshot, 2 layers, batch 4 x 64: each rank's 32 experts on
+    grouped_ffn with counts, then 2 remat steps), mesh_train_ssm
+    (falcon-mamba, 4 layers, batch 2 x 256: ssm_scan and ssm_scan_bwd on
+    each rank's [1, 256, 4096, 16] chunk).  Checks on every rank: each
+    step's collective calls and bytes by kind equal to _train_collectives;
+    grouped_ffn == layers x steps (2 x under remat), ssm_scan ==
+    ssm_scan_bwd == layers x chunks x steps, none on llama; every leaf's
+    whole gradient finite and non-zero; the ranks' losses identical; llama's
+    losses within TRAIN_TOL of the one-rank train_slice's on the same
+    batches and its float32 2-layer witness within MESH_TRAIN_F32_TOL of
+    the one-rank step's.  Reports ms a step, forward + backward ms,
+    tokens/s, peak memory a rank, losses, the collectives a step and their
+    host seconds against the wall.  Returns ({path: launches}, shapes)."""
+    from repro_torch.distributed.spawn import run_ranks
+    cfg = _mesh_train_cfg(phase)
+    B, S = MESH_TRAIN_BATCH[phase]
+    data = _train_data(cfg, B, S)
+    batches = [next(data) for _ in range(MESH_TRAIN_STEPS)]
+    shape = MESH_TRAIN_SHAPE
+    res = run_ranks(_rank_mesh_train, int(np.prod(shape)), shape, phase,
+                    batches, timeout_s=MESH_TIMEOUT_S)
+    counts = {}
+    chunks = -(-S // 256)
+    for r in res:
+        tag = f"{phase} rank {r['rank']}"
+        for mode, row in r["runs"].items():
+            steps = row["steps"]
+            want = {k: 0 for k in row["launches"]}
+            if cfg.family == "moe":
+                want["grouped_ffn"] = cfg.num_layers * steps * (
+                    2 if mode == "remat" else 1)
+            if cfg.family == "ssm":
+                want["ssm_scan"] = want["ssm_scan_bwd"] = \
+                    cfg.num_layers * chunks * steps
+            require(row["launches"] == want, f"{tag} {mode}: launches "
+                    f"{row['launches']}, expected {want}")
+            exp = row["expected_collectives"]
+            for i, got in enumerate(row["collectives"]):
+                for key in ("calls", "bytes"):
+                    have = {k: got[key][k] for k in exp[key]}
+                    require(have == exp[key], f"{tag} {mode} step {i}: "
+                            f"collective {key} {have}, expected {exp[key]}")
+            require(row["losses"] == res[0]["runs"][mode]["losses"],
+                    f"{tag} {mode}: losses differ from rank 0's")
+            counts[f"{cfg.name} {phase} {shape[0]}x{shape[1]} rank "
+                   f"{r['rank']} {mode}"] = row["launches"]
+            emit({"phase": phase, "mode": mode, "rank": r["rank"],
+                  "arch": cfg.name, "layers": cfg.num_layers,
+                  "mesh": {"data": shape[0], "model": shape[1]},
+                  "batch": B, "seq": S, "rows_a_rank": B // shape[0],
+                  "params_held": r["params_held"],
+                  **{k: v for k, v in row.items()
+                     if k not in ("expected_collectives",)},
+                  "expected_collectives_a_step": exp,
+                  "collective_share_of_wall":
+                      row["collective_host_seconds"] / row["wall_s"]})
+        bad = {k: v for k, v in r["grad_norms"].items()
+               if not (math.isfinite(v) and v > 0)}
+        require(not bad, f"{tag}: leaves without a finite non-zero gradient: "
+                f"{bad}")
+        if cfg.family == "ssm":
+            want = {(1, 256, cfg.d_inner // shape[1], cfg.ssm_state)}
+            require(set(r["scan_shapes"]) == want == set(r["scan_bwd_shapes"]),
+                    f"{tag}: ssm_scan shapes {r['scan_shapes']} / backward "
+                    f"{r['scan_bwd_shapes']}, expected {want}")
+        if cfg.family == "moe":
+            E_loc = cfg.num_experts // shape[1]
+            require(r["ffn_shapes"] and all(k[0] == E_loc and k[5]
+                                            for k in r["ffn_shapes"]),
+                    f"{tag}: grouped_ffn shapes {r['ffn_shapes']}")
+    losses = res[0]["runs"]["steps"]["losses"]
+    extra = {}
+    if one_rank_losses is not None:
+        ref = one_rank_losses[:len(losses)]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+        require(max(rel) <= TRAIN_TOL, f"{phase}: losses {losses} not within "
+                f"{TRAIN_TOL} of the one-rank {ref}")
+        extra.update(one_rank_losses=ref, loss_rel_err=rel)
+    if phase == "mesh_train":
+        ref32 = res[0]["f32_one_rank"]
+        for r in res:
+            rel = [abs(a - b) / abs(b) for a, b in zip(r["f32_mesh"], ref32)]
+            require(max(rel) <= MESH_TRAIN_F32_TOL,
+                    f"{phase} float32 witness rank {r['rank']}: {r['f32_mesh']}"
+                    f" not within {MESH_TRAIN_F32_TOL} of one rank's {ref32}")
+        extra.update(f32_one_rank=ref32, f32_mesh=res[0]["f32_mesh"],
+                     f32_rel_err=[abs(a - b) / abs(b) for a, b in
+                                  zip(res[0]["f32_mesh"], ref32)])
+    emit({"phase": phase, "check": "losses", "losses": losses,
+          "leaves": len(res[0]["grad_norms"]),
+          "grad_norm_min": min(res[0]["grad_norms"].values()),
+          "expert_grad_norms": {k: v for k, v in res[0]["grad_norms"].items()
+                                if "/moe/" in f"/{k}/" and "shared" not in k
+                                and k.split("/")[-1] in ("w_gate", "w_up",
+                                                         "w_down")},
+          **extra})
+    return counts, _merge_shapes(res)
+
+
+def phase_mesh_train_launcher(torch, dev):
+    """``python -m torch.distributed.run --nproc-per-node 4 -m
+    repro_torch.launch.train --mesh 2x2 --dist-backend gloo --steps 3``
+    (llama3.2-1b at full width, four ranks on the card): exits 0 and rank 0
+    prints ``mesh=``."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "4", "-m", "repro_torch.launch.train",
+           "--mesh", "2x2", "--dist-backend", "gloo", "--steps", "3"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)},
+                          capture_output=True, text=True, timeout=MESH_TIMEOUT_S)
+    require(proc.returncode == 0, f"{' '.join(cmd[1:])} exited "
+            f"{proc.returncode}: {proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    require(any(line.startswith("mesh={'data': 2, 'model': 2}") for line in lines),
+            f"the mesh train launcher printed no mesh= line: {lines[:5]}")
+    emit({"phase": "mesh_train_launcher", "argv": cmd[1:], "returncode": 0,
+          "seconds": time.perf_counter() - t0, "stdout": lines})
+
+
+# ---------------------------------------------------------------------------
+# Training across ranks: the collectives of one train step, by formula
+# ---------------------------------------------------------------------------
+def _pl_leaves(tree, names=()):
+    """(names, Placement) of every leaf of a placements tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _pl_leaves(v, names + (k,))
+    else:
+        yield names, tree
+
+
+def _train_collectives(cfg, layout, B, S, *, remat=False):
+    """The collectives one train step issues on each rank, by kind:
+    {"calls": {kind: n}, "bytes": {kind: b}} for the rank's ``B`` rows of
+    ``S`` tokens (``microbatches`` 1), from the params' placements
+    (``layout``, a ``launch.mesh.TrainLayout``) and the config alone:
+
+    * "all-gather" / "reduce-scatter": one FSDP gather per cut leaf per
+      layer (a top-level leaf and the hybrid's shared block once), its
+      gradient's reduce-scatter; bytes the gathered leaf (the rank's model
+      slice of it) and the shard.  Under ``remat`` a stacked leaf's gather
+      runs again in the backward.
+    * "all-reduce", forward (*g*): the
+      vocab embedding [B, S, D] and the vocab gather [m, B, S', V/m] where
+      the vocab splits; a self- or cross-attention sublayer [B, S', D]
+      where the heads split; an MLP [B, S', D] where its width splits; an
+      MoE layer [B S', D]; a Mamba layer its x_proj [B, S, r + 2N] (Mamba-2
+      dt and B/C, [B, S, H + 2N]) and out_proj [B, S, D] products.
+    * "all-reduce", backward (*f*): the gradient of each split's input --
+      the normed x [B, S', D] of attention (and cross-attention's kv_x
+      [B, F, D], the q/k-norm scales [dh] f32), of the MLP, of the Mamba
+      mixer, the vocab logits' x; the MoE's xt [B S', D] and gate values
+      [B S', K] f32 -- and again each Mamba layer's first sum.  Under
+      ``remat`` a layer's forward sums run again in the backward, all but
+      its last (the MLP's, the MoE's, out_proj's): nothing after that one
+      is saved for the backward, so the recomputation stops before it
+      (``torch.utils.checkpoint``'s early stop).
+    * "all-reduce", the step: each leaf that is not FSDP-cut, averaged
+      over "data"; the loss, CE and aux [3] f32; the clipping norm [1] f32
+      over the whole mesh.
+
+    S' = S plus the vlm's F patch rows; the encoder's rows are its F
+    frames.  Every count is 0 over an axis of size 1."""
+    import math as _m
+    import torch
+    mesh = layout.mesh
+    m = mesh.shape.get("model", 1)
+    n = mesh.axes_size(tuple(a for a in ("pod", "data") if a in mesh.shape))
+    es = torch.tensor([], dtype=cfg.torch_dtype).element_size()
+    D = cfg.d_model
+    calls = {"all-gather": 0, "reduce-scatter": 0, "all-reduce": 0}
+    nbytes = dict.fromkeys(calls, 0)
+    pl = layout.placements
+
+    def add(kind, count, size):
+        calls[kind] += count
+        nbytes[kind] += count * size
+
+    # FSDP gathers and scatters; the data mean of every other leaf
+    stacks = {"blocks": cfg.num_layers, "encoder": cfg.encoder_layers}
+    for names, p in _pl_leaves(pl):
+        local = _m.prod(p.shape) // (m if p.model_dim is not None else 1)
+        size = local * torch.tensor([], dtype=_leaf_dtype(cfg, names))\
+            .element_size()
+        if p.fsdp_dim is None:
+            if n > 1:
+                add("all-reduce", 1, size)
+            continue
+        stacked = names[0] in stacks and names[1] != "shared"   # not zamba2's
+        layers = stacks[names[0]] if stacked else 1
+        add("all-gather", layers * (2 if remat and stacked else 1),
+            size // layers)
+        add("reduce-scatter", layers, size // layers // n)
+    if m > 1:
+        _model_all_reduces(cfg, pl, m, B, S, es, remat, add)
+    if n > 1:
+        add("all-reduce", 1, 3 * 4)             # loss, ce, aux
+    if m * n > 1:
+        add("all-reduce", 1, 4)                 # the clipping norm
+    return {"calls": calls, "bytes": nbytes}
+
+
+def _leaf_dtype(cfg, names):
+    """A param leaf's dtype: the norms, the router and the SSM's D /
+    dt_bias / A_log are f32, the rest the config's."""
+    import torch
+    leaf = names[-1]
+    if leaf in ("scale", "bias", "router", "D", "dt_bias", "A_log"):
+        return torch.float32
+    return cfg.torch_dtype
+
+
+def _model_all_reduces(cfg, pl, m, B, S, es, remat, add):
+    """The forward and backward all_reduces over "model" of one step (see
+    :func:`_train_collectives`)."""
+    blocks = pl["blocks"]
+    D, F = cfg.d_model, cfg.frontend_tokens
+    Sx = S + (F if cfg.family == "vlm" else 0)
+    again = 2 if remat else 1       # a layer's sums but its last, under remat
+    row = B * Sx * D * es
+
+    def attention(att, rows, n_layers, cross=False):
+        if att["wk"].model_dim is None:
+            return
+        add("all-reduce", n_layers * again, rows)        # wo (g)
+        add("all-reduce", n_layers, rows)                # the normed x (f)
+        if cross:
+            add("all-reduce", n_layers, B * F * D * es)  # kv_x (f)
+        for k in ("q_norm", "k_norm"):
+            if k in att:
+                add("all-reduce", n_layers, cfg.head_dim * 4)
+
+    def mlp(w, rows, n_layers):
+        if w["w_down"].model_dim is None:
+            return
+        add("all-reduce", n_layers, rows)                # w_down (g)
+        add("all-reduce", n_layers, rows)                # its x (f)
+
+    def mamba(mx, n_layers):
+        if mx["conv_w"].model_dim is None:
+            return
+        n = cfg.ssm_state
+        mid = cfg.ssm_dt_rank + 2 * n if cfg.mamba_version == 1 else \
+            cfg.d_inner // cfg.ssm_head_dim + 2 * n
+        add("all-reduce", n_layers * again, B * S * mid * es)  # first sum
+        add("all-reduce", n_layers, B * S * mid * es)         # its gradient
+        add("all-reduce", n_layers, B * S * D * es)           # out_proj (g)
+        add("all-reduce", n_layers, B * S * D * es)           # in_proj's x (f)
+
+    L = cfg.num_layers
+    if cfg.family == "hybrid":
+        mamba(blocks["backbone"]["mamba"], L)
+        nb = L // cfg.hybrid_attn_every
+        attention(blocks["shared"]["attn"], row, nb)
+        mlp(blocks["shared"]["mlp"], row, nb)
+    elif cfg.family == "ssm":
+        mamba(blocks["mamba"], L)
+    else:
+        attention(blocks["attn"], row, L)
+        if "xattn" in blocks:
+            attention(blocks["xattn"], row, L, cross=True)
+        if "moe" in blocks:
+            T = B * Sx
+            add("all-reduce", L, T * D * es)                      # y (g)
+            add("all-reduce", L, T * D * es)                      # xt (f)
+            add("all-reduce", L, T * cfg.experts_per_token * 4)   # gates (f)
+        else:
+            mlp(blocks["mlp"], row, L)
+    if "encoder" in pl:
+        rows = B * F * D * es
+        attention(pl["encoder"]["attn"], rows, cfg.encoder_layers)
+        mlp(pl["encoder"]["mlp"], rows, cfg.encoder_layers)
+    table = pl["embed"]["table"]
+    if table.model_dim is not None:
+        add("all-reduce", 1, B * S * D * es)                      # the embedding
+    head = table if cfg.tie_embeddings else pl["lm_head"]["table"]
+    if head.model_dim is not None:
+        add("all-reduce", 1, B * Sx * cfg.vocab_size * es)        # the gather
+        add("all-reduce", 1, row)                                 # its x (f)
 
 
 # ---------------------------------------------------------------------------
@@ -4271,7 +4881,8 @@ def main() -> None:
 
     # the training path: llama3.2-1b at full width and depth, then the MoE
     # and SSM kernels forward and backward inside train steps
-    train_counts, _ = timed("train_slice", phase_train_slice, torch, dev)
+    train_counts, train_row = timed("train_slice", phase_train_slice, torch,
+                                    dev)
     moe_train_counts, moe_remat_counts, ffn_shape, _ = timed(
         "train_moe", phase_train_moe, torch, dev)
     ssm_train_counts, scan_shape, _ = timed("train_ssm", phase_train_ssm, torch,
@@ -4300,6 +4911,16 @@ def main() -> None:
                 mesh_shapes[key][k] = mesh_shapes[key].get(k, 0) + n
     mesh_counts.update(timed("mesh_nccl", phase_mesh_nccl, torch, dev,
                              cont_streams))
+    # training across ranks on (2, 2): llama (beside train_slice's losses on
+    # the same batches), moonshot's experts, falcon-mamba's scan
+    for phase, ref in (("mesh_train", train_row["losses"]),
+                       ("mesh_train_moe", None), ("mesh_train_ssm", None)):
+        c, shapes = timed(phase, phase_mesh_train, torch, dev, phase, ref)
+        mesh_counts.update(c)
+        for key in MESH_SHAPE_KINDS:
+            for k, n in shapes[key].items():
+                mesh_shapes[key][k] = mesh_shapes[key].get(k, 0) + n
+    timed("mesh_train_launcher", phase_mesh_train_launcher, torch, dev)
     mesh_errs, _ = timed("mesh_kernels", phase_mesh_kernels, torch, dev,
                          mesh_shapes)
 

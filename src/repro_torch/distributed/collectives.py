@@ -16,6 +16,37 @@ HLO parser uses (``serving/profiling.py``), plus ``broadcast``.  A
 collective over one rank is the identity: it is not issued and counts
 nothing (as XLA drops a psum over an axis of size 1), and neither is any
 on a mesh without process groups (one process, no ``torch.distributed``).
+
+Training differentiates through the collectives (Megatron-LM's *f* and *g*
+operators, and JAX's psum transposes).  On "model" every rank holds the
+same copy of the loss; on the batch axes each rank's loss is its own term
+of the global mean.  So one sum has a backward that depends on where its
+result goes, and each is its own ``torch.autograd.Function``:
+
+====================  ==========================  =======================
+function              forward                     backward
+====================  ==========================  =======================
+``reduce_partial``    sum of rank-partial outputs identity (*g*)
+``enter_partial``     identity: a replicated      sum of the gradient (*f*)
+                      value entering rank-partial
+                      work
+``reduce_to_partial`` sum of partial outputs that sum of the gradient
+                      feed rank-partial work      (*g* then *f*)
+``gather_partial``    ``gather_sum``              this rank's slice
+``fsdp_gather``       all-gather of a leaf's      reduce-scatter: a sum,
+                      FSDP slices                 then this rank's slice
+====================  ==========================  =======================
+
+Each is built on ``all_reduce`` alone, so gloo carries CUDA tensors: a
+gather sums a zero-filled buffer, a reduce-scatter slices a sum.
+``fsdp_gather`` counts as ``"all-gather"`` (the bytes of the gathered
+leaf) and its backward as ``"reduce-scatter"`` (the bytes of the shard),
+the names the JAX package's HLO parser gives them; the others count as
+``"all-reduce"`` wherever they sum.  Off the autograd graph (serving runs
+under ``no_grad``) ``reduce_partial`` / ``reduce_to_partial`` are the
+in-place ``all_reduce``, ``enter_partial`` is the identity and
+``gather_partial`` is ``gather_sum``, so serving issues and counts exactly
+what it did.
 """
 from __future__ import annotations
 
@@ -41,8 +72,8 @@ class CollectiveCounter:
         self.calls: Dict[str, int] = dict.fromkeys(KINDS, 0)
         self.seconds = 0.0
 
-    def add(self, kind: str, t: torch.Tensor) -> None:
-        self.bytes[kind] += float(t.numel() * t.element_size())
+    def add(self, kind: str, n_bytes: float) -> None:
+        self.bytes[kind] += float(n_bytes)
         self.calls[kind] += 1
 
     def totals(self) -> Dict[str, float]:
@@ -63,12 +94,16 @@ def counting(mesh):
         mesh.counters.remove(counter)
 
 
-def _issue(kind: str, t: torch.Tensor, mesh, axes: Sequence[str]):
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _issue(kind: str, n_bytes: float, mesh, axes: Sequence[str]):
     group = mesh.group(axes)
     if group is None or mesh.axes_size(mesh.canon(axes)) == 1:
         return None
     for counter in mesh.counters:
-        counter.add(kind, t)
+        counter.add(kind, n_bytes)
     return group
 
 
@@ -78,11 +113,7 @@ def _spent(mesh, t0: float) -> None:
         counter.seconds += dt
 
 
-def all_reduce(t: torch.Tensor, mesh, axes: Sequence[str],
-               op: str = "sum") -> torch.Tensor:
-    """Reduce ``t`` in place over the ranks that share every coordinate of
-    this rank but those on ``axes``; returns ``t``."""
-    group = _issue("all-reduce", t, mesh, axes)
+def _reduce(t: torch.Tensor, mesh, group, op: str = "sum") -> torch.Tensor:
     if group is not None:
         t0 = time.perf_counter()
         dist.all_reduce(t, op=_OPS[op], group=group)
@@ -90,11 +121,18 @@ def all_reduce(t: torch.Tensor, mesh, axes: Sequence[str],
     return t
 
 
+def all_reduce(t: torch.Tensor, mesh, axes: Sequence[str],
+               op: str = "sum") -> torch.Tensor:
+    """Reduce ``t`` in place over the ranks that share every coordinate of
+    this rank but those on ``axes``; returns ``t``."""
+    return _reduce(t, mesh, _issue("all-reduce", _nbytes(t), mesh, axes), op)
+
+
 def broadcast(t: torch.Tensor, mesh, axes: Sequence[str] = ()) -> torch.Tensor:
     """Overwrite ``t`` in place with its value on the first rank of this
     rank's line along ``axes`` (default: the whole mesh); returns ``t``."""
     axes = tuple(axes) or mesh.axes
-    group = _issue("broadcast", t, mesh, axes)
+    group = _issue("broadcast", _nbytes(t), mesh, axes)
     if group is not None:
         t0 = time.perf_counter()
         dist.broadcast(t, src=mesh.line_ranks(axes)[0], group=group)
@@ -110,3 +148,135 @@ def gather_sum(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     buf = torch.zeros((n, *t.shape), dtype=t.dtype, device=t.device)
     buf[mesh.linear_index(axes)] = t
     return all_reduce(buf, mesh, axes)
+
+
+# ---------------------------------------------------------------------------
+# Differentiable collectives (the module docstring's table)
+# ---------------------------------------------------------------------------
+def _summed(g: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """A contiguous copy of ``g`` summed over ``axes`` (autograd may share
+    the incoming gradient's buffer, so it is never reduced in place)."""
+    return all_reduce(g.clone(memory_format=torch.contiguous_format), mesh,
+                      axes)
+
+
+class _ReducePartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        return all_reduce(t.clone(memory_format=torch.contiguous_format),
+                          mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _EnterPartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.mesh, ctx.axes), None, None
+
+
+class _ReduceToPartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return all_reduce(t.clone(memory_format=torch.contiguous_format),
+                          mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.mesh, ctx.axes), None, None
+
+
+class _GatherPartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.index = mesh.linear_index(axes)
+        return gather_sum(t, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.index], None, None
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim):
+        n, i = mesh.axes_size(axes), mesh.linear_index(axes)
+        k = t.shape[dim]
+        shape = list(t.shape)
+        shape[dim] = n * k
+        buf = torch.zeros(shape, dtype=t.dtype, device=t.device)
+        buf.narrow(dim, i * k, k).copy_(t)
+        ctx.mesh, ctx.axes, ctx.dim, ctx.i, ctx.k = mesh, axes, dim, i, k
+        return _reduce(buf, mesh, _issue("all-gather", _nbytes(buf), mesh, axes))
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        g = g.clone(memory_format=torch.contiguous_format)
+        group = _issue("reduce-scatter", _nbytes(g) // mesh.axes_size(ctx.axes),
+                       mesh, ctx.axes)
+        _reduce(g, mesh, group)
+        shard = g.narrow(ctx.dim, ctx.i * ctx.k, ctx.k)
+        return shard.clone(memory_format=torch.contiguous_format), None, None, None
+
+
+def _on_graph(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def reduce_partial(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """*g*: the sum over ``axes`` of rank-partial outputs, a replicated
+    result; the gradient passes through unchanged.  Off the autograd graph
+    the in-place :func:`all_reduce`."""
+    if _on_graph(t):
+        return _ReducePartial.apply(t, mesh, tuple(axes))
+    return all_reduce(t, mesh, axes)
+
+
+def enter_partial(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """*f*: a value replicated over ``axes`` entering rank-partial work,
+    unchanged; its gradient is summed over ``axes``."""
+    if _on_graph(t):
+        return _EnterPartial.apply(t, mesh, tuple(axes))
+    return t
+
+
+def reduce_to_partial(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """The sum over ``axes`` of rank-partial outputs that feed rank-partial
+    work again (*g* followed by *f*): the gradient is summed too.  Off the
+    autograd graph the in-place :func:`all_reduce`."""
+    if _on_graph(t):
+        return _ReduceToPartial.apply(t, mesh, tuple(axes))
+    return all_reduce(t, mesh, axes)
+
+
+def gather_partial(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """:func:`gather_sum` of rank-partial blocks into a replicated
+    ``[n, *t.shape]``; the gradient of this rank's block is its slice."""
+    if _on_graph(t):
+        return _GatherPartial.apply(t, mesh, tuple(axes))
+    return gather_sum(t, mesh, axes)
+
+
+def fsdp_gather(t: torch.Tensor, mesh, axes: Sequence[str],
+                dim: int) -> torch.Tensor:
+    """The whole leaf from every rank's FSDP slice of it on ``dim`` along
+    ``axes`` (rank i holds slice i, first-axis-major); the gradient is
+    reduce-scattered: summed over ``axes``, then this rank's slice."""
+    return _FsdpGather.apply(t, mesh, tuple(axes), dim)
+
+
+@torch.no_grad()
+def mean(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """The mean over ``axes`` of a detached copy of ``t``."""
+    out = all_reduce(t.detach().clone(memory_format=torch.contiguous_format),
+                     mesh, axes)
+    return out / mesh.axes_size(axes)

@@ -13,8 +13,9 @@ own kernels; ranks meet only in the collectives of
 placement JAX's ``params_shardings`` gives (a tuple standing for the
 ``PartitionSpec``).  ``shard_params`` is the serving counterpart of
 ``params_shardings``: it slices each leaf to this rank's part on the
-"model" axis and leaves the data axes to the batch (FSDP's second split
-waits for the training slice).  Explicit collectives run a layer split on
+"model" axis and, for training (``fsdp=True``), one more dim over the
+batch axes: FSDP's second split (:class:`TrainLayout`; ``gather_params``
+is its inverse).  Explicit collectives run a layer split on
 the dimension it was written for, so a leaf is sliced only on its preferred
 model dimension: where GSPMD would fall back to another dimension (a head
 count the axis does not divide), the leaf stays whole on every rank and the
@@ -31,11 +32,13 @@ from __future__ import annotations
 
 import datetime
 import itertools
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from repro_torch.distributed import collectives as coll
 
 
 GROUP_TIMEOUT_S = 120     # a collective that waits longer fails
@@ -334,18 +337,23 @@ def serving_model_dim(names: Tuple[str, ...], shape: Tuple[int, ...],
     return dim
 
 
-def shard_params(params, mesh: Mesh):
-    """This rank's part of a (full) param tree for serving on ``mesh``: each
-    leaf sliced on its preferred model dim (:func:`serving_model_dim`),
-    every other leaf shared as it is.  MoE experts slice their expert dim,
-    or (``f_parallel``, when the experts do not divide the axis) their
-    hidden width, as ``moe_apply`` reads them.  A Mamba mixer takes its
-    channels [i di/m, (i+1) di/m) of every leaf (``_MAMBA_DIM``; Mamba-2's
-    per-head leaves the matching heads) when :func:`mamba_splits`, else
-    stays whole."""
-    m = mesh.shape.get("model", 1)
-    mi = mesh.axis_index("model") if m > 1 else 0
+class Placement(NamedTuple):
+    """Where one leaf of a param tree lives on a mesh: the whole leaf's
+    ``shape``; ``model_dim``, the dim the port cuts over "model" (None:
+    every rank of a model line holds it whole), ``halves`` when that cut
+    takes each half of the dim (``in_proj``'s u and z channels);
+    ``fsdp_dim``, the dim training cuts over the batch axes (None: not
+    cut); and ``replicas``, the ranks that hold each of its elements."""
+    shape: Tuple[int, ...]
+    model_dim: Optional[int]
+    halves: bool
+    fsdp_dim: Optional[int]
+    replicas: int
 
+
+def _model_cuts(params, m: int):
+    """{leaf: (model dim or None, halves)} of a (full) param tree, as
+    :func:`shard_params` cuts it over a "model" axis of ``m``."""
     def heads_split(tree) -> bool:
         hkv = tree["wk"].shape[-2]
         return hkv % m == 0 and hkv >= m
@@ -354,10 +362,10 @@ def shard_params(params, mesh: Mesh):
         version = 2 if "bc_proj" in tree else 1
         heads = tree["A_log"].shape[-1] if version == 2 else 0
         if not mamba_splits(tree["conv_w"].shape[-1], heads, m):
-            return dict(tree)
+            return {k: (None, False) for k in tree}
         dims = _MAMBA_DIM[version]
-        return {k: _slice_halves(v, m, mi) if k == "in_proj"
-                else _slice(v, dims[k], m, mi) for k, v in tree.items()}
+        return {k: (v.dim() - 1, True) if k == "in_proj"
+                else (v.dim() + dims[k], False) for k, v in tree.items()}
 
     def walk(tree, names):
         if "in_proj" in tree:
@@ -377,10 +385,134 @@ def shard_params(params, mesh: Mesh):
                 f_dim = v.dim() - (2 if k == "w_down" else 1)
                 if v.shape[f_dim] % m == 0 and v.shape[f_dim] >= m:
                     dim = f_dim
-            out[k] = v if dim is None else _slice(v, dim, m, mi)
+            out[k] = (dim, False)
         return out
 
     return walk(params, ())
+
+
+def _fsdp_dim(names: Tuple[str, ...], shape: Tuple[int, ...],
+             model_dim: Optional[int], size: int) -> Optional[int]:
+    """``param_spec``'s FSDP rule given the model dim the port cuts: the
+    largest dim (past a stacked leaf's layer axis) other than ``model_dim``
+    that ``size`` divides with at least 4 rows a rank; None for none, or
+    for batch axes of size 1."""
+    if size == 1:
+        return None
+    nd = len(shape)
+    offset = 1 if (_stacked(names) and nd >= 2) else 0
+    for i in sorted(range(offset, nd), key=lambda j: -shape[j]):
+        if i != model_dim and shape[i] % size == 0 and shape[i] >= 4 * size:
+            return i
+    return None
+
+
+def _placements(params, mesh: Mesh, *, fsdp: bool):
+    """The :class:`Placement` of every leaf of a (full) param tree on
+    ``mesh``: the serving cut over "model" (:func:`shard_params`) and, with
+    ``fsdp``, JAX's ``params_shardings`` FSDP cut of one more dim over the
+    batch axes ("pod" and "data"), chosen given the model dim the port
+    actually cuts (not GSPMD's fallback dim)."""
+    m = mesh.shape.get("model", 1)
+    b = mesh.axes_size(batch_axes(mesh)) if fsdp else 1
+    cuts = _model_cuts(params, m)
+
+    def place(tree, cut, names):
+        if isinstance(tree, dict):
+            return {k: place(v, cut[k], names + (k,)) for k, v in tree.items()}
+        dim, halves = cut
+        shape = tuple(tree.shape)
+        fdim = _fsdp_dim(names, shape, dim, b)
+        replicas = (m if dim is None else 1) * (b if fdim is None else 1)
+        return Placement(shape, dim, halves, fdim, replicas)
+
+    return place(params, cuts, ())
+
+
+class TrainLayout(NamedTuple):
+    """A param tree's training placement on ``mesh``: ``placements``
+    mirrors the params with each leaf's :class:`Placement` (FSDP on)."""
+    mesh: Mesh
+    placements: Any
+
+    def fsdp_dims(self):
+        """The tree of each leaf's FSDP dim (None: not cut): what
+        ``models.model.forward`` gathers over the batch axes."""
+        return _map_placements(lambda pl: pl.fsdp_dim, self.placements)
+
+
+def train_layout(params, mesh: Mesh) -> TrainLayout:
+    """The :class:`TrainLayout` of a full param tree (or a tree of anything
+    with a ``shape`` and ``dim()``) on ``mesh``."""
+    return TrainLayout(mesh, _placements(params, mesh, fsdp=True))
+
+
+def _map_placements(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_placements(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _cut(t: torch.Tensor, pl: Placement, mesh: Mesh) -> torch.Tensor:
+    if pl.model_dim is not None:
+        m, mi = mesh.shape["model"], mesh.axis_index("model")
+        t = _slice_halves(t, m, mi) if pl.halves else _slice(t, pl.model_dim, m, mi)
+    if pl.fsdp_dim is not None:
+        axes = batch_axes(mesh)
+        t = _slice(t, pl.fsdp_dim, mesh.axes_size(axes), mesh.linear_index(axes))
+    return t
+
+
+def shard_params(params, mesh: Mesh, *, fsdp: bool = False):
+    """This rank's part of a (full) param tree on ``mesh`` (the counterpart
+    of ``params_shardings``): each leaf sliced on its preferred model dim
+    (:func:`serving_model_dim`), every other leaf shared as it is.  MoE
+    experts slice their expert dim, or (``f_parallel``, when the experts do
+    not divide the axis) their hidden width, as ``moe_apply`` reads them.
+    A Mamba mixer takes its channels [i di/m, (i+1) di/m) of every leaf
+    (``_MAMBA_DIM``; Mamba-2's per-head leaves the matching heads) when
+    :func:`mamba_splits`, else stays whole.  ``fsdp`` (training) also cuts
+    each leaf's :func:`_fsdp_dim` over the batch axes, slice i to the i-th
+    rank of its line (first axis major).  Also cuts an AdamW moment tree,
+    which has the params' names and shapes."""
+    return _cut_tree(params, _placements(params, mesh, fsdp=fsdp), mesh)
+
+
+def _cut_tree(tree, pl, mesh):
+    if isinstance(tree, dict):
+        return {k: _cut_tree(v, pl[k], mesh) for k, v in tree.items()}
+    return _cut(tree, pl, mesh)
+
+
+def _gather_dim(t: torch.Tensor, dim: int, mesh: Mesh, axes) -> torch.Tensor:
+    """The whole of a tensor cut on ``dim`` over ``axes`` (no autograd)."""
+    blocks = coll.gather_sum(t.contiguous(), mesh, axes)      # [n, ...]
+    return torch.cat(list(blocks.unbind(0)), dim=dim)
+
+
+@torch.no_grad()
+def gather_params(shards, layout: TrainLayout):
+    """The inverse of ``shard_params(..., fsdp=True)``: the whole leaves of
+    a tree of this rank's shards (params, or an AdamW moment tree), on
+    every rank.  Each cut leaf is gathered by SUMs over zero-filled
+    buffers, over the batch axes, then over "model"."""
+    mesh = layout.mesh
+
+    def whole(t, pl):
+        if isinstance(t, dict):
+            return {k: whole(v, pl[k]) for k, v in t.items()}
+        if pl.fsdp_dim is not None:
+            t = _gather_dim(t, pl.fsdp_dim, mesh, batch_axes(mesh))
+        if pl.model_dim is not None:
+            if pl.halves:
+                u, z = t.chunk(2, dim=-1)
+                t = torch.cat([_gather_dim(u, -1, mesh, ("model",)),
+                               _gather_dim(z, -1, mesh, ("model",))], dim=-1)
+            else:
+                t = _gather_dim(t, pl.model_dim, mesh, ("model",))
+        return t
+
+    return whole(shards, layout.placements)
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,11 @@ the heads are split over "model" when the rank holds a slice of them
 (``shard_params`` slices ``wq/wk/wv`` on the head dim and ``wo`` on its
 head dim when the kv heads divide the axis); the partial output
 projections then meet in one all_reduce, in self- and cross-attention
-alike.  A sequence-sharded cache (the
+alike.  In training the split's inputs (the normed ``x``, cross-attention's
+``kv_x`` and the q/k-norm scales, replicated values entering rank-partial
+work) pass ``collectives.enter_partial`` and the output projection
+``reduce_partial``, so autograd sums their gradients over "model".  A
+sequence-sharded cache (the
 layout ``seq_shard_layout`` gives) is written only by the rank that owns
 the row, with no collective (``cache_update``), and decode runs the kernel
 on each rank's own rows with ``lse``; the partial outputs merge across the
@@ -248,10 +252,19 @@ def attn_apply(params, x, cfg, *, positions, mode: str, causal: bool = True,
     cross = cross or kv_x is not None
     # heads split over "model": the partial projections meet in one all_reduce
     split = shard is not None and params["wq"].shape[-2] != cfg.num_heads
+    if split:
+        mesh = shard.mesh
+        x = coll.enter_partial(x, mesh, ("model",))
+        if kv_x is not None:
+            kv_x = coll.enter_partial(kv_x, mesh, ("model",))
+        params = dict(params, **{
+            k: {"scale": coll.enter_partial(params[k]["scale"], mesh,
+                                            ("model",))}
+            for k in ("q_norm", "k_norm") if k in params})
 
     def project(out):
         y = _out_proj(out.to(x.dtype), params["wo"])
-        return coll.all_reduce(y, shard.mesh, ("model",)) if split else y
+        return coll.reduce_partial(y, shard.mesh, ("model",)) if split else y
     if mode == "full":
         if cross:
             q, k, v = _qkv(params, x, kv_x, cfg, positions, kv_positions,

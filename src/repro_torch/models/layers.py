@@ -3,7 +3,11 @@
 Plain functions on tensors; params are dicts in the JAX package's keys and
 layout, so the L-stacked trees of both packages compare like with like.
 On a mesh whose "model" axis splits the vocabulary, ``vocab_embed`` and
-``vocab_logits`` run the embedding table's row slice of this rank.
+``vocab_logits`` run the embedding table's row slice of this rank, and are
+differentiable: the embedding's sum passes the gradient through
+(``collectives.reduce_partial``); the logits' input sums its gradient over
+"model" (``enter_partial``) and the gathered logits hand each rank its
+slice of theirs (``gather_partial``).
 """
 from __future__ import annotations
 
@@ -116,13 +120,13 @@ def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, mesh) -> torch.Tensor
     rel = tokens - mesh.axis_index("model") * V_loc
     mine = (rel >= 0) & (rel < V_loc)
     x = table[rel.clamp(0, V_loc - 1)] * mine[..., None].to(table.dtype)
-    return coll.all_reduce(x, mesh, ("model",))
+    return coll.reduce_partial(x, mesh, ("model",))
 
 
 def vocab_logits(x: torch.Tensor, table: torch.Tensor, mesh) -> torch.Tensor:
     """``x @ table.T`` over the whole vocabulary from this rank's rows of a
     table split over "model": each rank's [.., V_loc] block gathered (one
     all_reduce of a zero-filled buffer) into [.., V]."""
-    part = x @ table.T
-    blocks = coll.gather_sum(part, mesh, ("model",))       # [m, ..., V_loc]
+    part = coll.enter_partial(x, mesh, ("model",)) @ table.T
+    blocks = coll.gather_partial(part, mesh, ("model",))   # [m, ..., V_loc]
     return torch.movedim(blocks, 0, -2).flatten(-2)

@@ -30,6 +30,16 @@ and returns the whole batch's logits, gathered over the "model" axis
 (vocab-parallel head) and the batch axes: every rank ends a step with the
 same logits.  ``frontend_proj`` is whole on every rank, so the vlm's
 prologue rows and the audio encoder's input are too.
+
+In mode "train" on a mesh every family runs the rank's block of the train
+step (``training.train``): ``batch`` holds the rank's rows of the global
+batch (``shard``, its :class:`~repro_torch.models.sharding.RankShard`),
+the logits are those rows' (no gather over the batch axes: each rank's
+loss is its own term of the mean), and the params may be FSDP-cut too
+(``launch.mesh.shard_params(fsdp=True)``; ``fsdp``, the tree of each
+leaf's FSDP dim, ``TrainLayout.fsdp_dims``): the top-level leaves are
+gathered over the batch axes once, each layer's right before it runs.
+The collectives are differentiable (``distributed/collectives.py``).
 """
 from __future__ import annotations
 
@@ -193,18 +203,19 @@ def _embed_inputs(params, cfg, batch, shard=None):
 
 
 def _encode(params, cfg, batch, mode: str = "prefill", remat: bool = False,
-            shard=None):
+            shard=None, fsdp=None):
     """The audio encoder over the stubbed frame embeddings: (enc_out
-    [B,F,D], positions [F]); ``shard``: this rank's block on a mesh."""
+    [B,F,D], positions [F]); ``shard``: this rank's block on a mesh;
+    ``fsdp``: the encoder stack's FSDP dims (training on a mesh)."""
     fe = batch["frontend"].to(cfg.torch_dtype) @ params["frontend_proj"]
     pos = torch.arange(fe.shape[1], device=fe.device)
     enc, _, _ = tfm.stack_apply(params["encoder"], fe, cfg, kind="encoder",
                                 mode=mode, positions=pos, causal=False,
-                                remat=remat, shard=shard)
+                                remat=remat, shard=shard, fsdp=fsdp)
     return norm_apply(params["enc_norm"], enc, cfg), pos
 
 
-def _logits(params, cfg, x, shard=None):
+def _logits(params, cfg, x, shard=None, *, gather_rows: bool = True):
     x = norm_apply(params["final_norm"], x, cfg)
     table = params["embed"]["table"] if cfg.tie_embeddings \
         else params["lm_head"]["table"]
@@ -212,7 +223,7 @@ def _logits(params, cfg, x, shard=None):
         return unembed_apply(None, x, tied_table=table)
     logits = vocab_logits(x, table, shard.mesh) \
         if table.shape[0] != cfg.vocab_size else x @ table.T
-    if shard.b_sharded:    # every rank's batch rows, in rank order
+    if shard.b_sharded and gather_rows:    # every rank's batch rows, in rank order
         logits = coll.gather_sum(logits, shard.mesh, shard.batch_axes) \
             .flatten(0, 1)
     return logits
@@ -233,31 +244,47 @@ def _stack(kind: str):
     return functools.partial(tfm.stack_apply, kind=kind)
 
 
+_STACKS = ("blocks", "encoder")     # gathered a layer at a time
+
+
 def forward(params, cfg, batch, *, mode: str = "prefill", remat: bool = False,
-            use_kernels: bool = False, shard=None) -> ModelOutputs:
+            use_kernels: bool = False, shard=None, fsdp=None) -> ModelOutputs:
     """``remat`` (train) recomputes each layer's activations in the backward
     pass.  Under an active mesh the rank runs its block (module docstring),
-    which goes down to every layer: a prefill's batch rows, or in decode
+    which goes down to every layer: a prefill's batch rows, in decode
     ``shard``, the decode cache's block (:func:`cache_shard`, required on a
-    mesh)."""
+    mesh), in train ``shard``, the rank's block of the global batch, whose
+    rows ``batch`` holds (required on a mesh), with ``fsdp`` the params'
+    FSDP dims when they are FSDP-cut."""
     kind = _kind(cfg)
     mesh = sharding.active_mesh()
-    if mesh is not None:
-        if mode not in ("prefill", "decode"):
-            raise NotImplementedError(
-                f"forward mode {mode!r} on a mesh: training across ranks "
-                "waits for the training slice of the mesh port")
     if mode == "train":
-        x, positions, loss_mask = _embed_inputs(params, cfg, batch)
+        on_mesh = {}
+        if mesh is not None:
+            if shard is None:
+                raise ValueError("train on a mesh takes shard=, the rank's "
+                                 "block of the global batch "
+                                 "(sharding.rank_shard), and its rows")
+            on_mesh = {"shard": shard}
+            if fsdp is not None:
+                params = dict(params, **{
+                    k: sharding.gather_fsdp(v, fsdp[k], mesh)
+                    for k, v in params.items() if k not in _STACKS})
+        x, positions, loss_mask = _embed_inputs(params, cfg, batch, shard)
+        stack_fsdp = {} if fsdp is None else {"fsdp": fsdp["blocks"]}
         enc = {}
         if kind == "decoder_x":
-            enc_out, enc_pos = _encode(params, cfg, batch, "train", remat)
+            enc_out, enc_pos = _encode(
+                params, cfg, batch, "train", remat, shard,
+                None if fsdp is None else fsdp["encoder"])
             enc = {"enc_out": enc_out, "enc_positions": enc_pos}
         x, _, aux = _stack(kind)(params["blocks"], x, cfg, mode="train",
                                  positions=positions, remat=remat,
-                                 use_kernels=use_kernels, **enc)
-        return ModelOutputs(logits=_logits(params, cfg, x), aux_loss=aux,
-                            loss_mask=loss_mask)
+                                 use_kernels=use_kernels, **enc, **on_mesh,
+                                 **stack_fsdp)
+        return ModelOutputs(logits=_logits(params, cfg, x, shard,
+                                           gather_rows=False),
+                            aux_loss=aux, loss_mask=loss_mask)
     on_mesh = {}          # {"shard": this rank's block} on a mesh
     if mode == "prefill":
         if mesh is not None:      # this rank's batch rows

@@ -15,7 +15,13 @@ experts -- E / msize of them (expert-parallel), or all E at a 1/msize slice
 of each one's hidden width (``f_parallel``, when the experts do not divide
 the "model" axis) -- and one all_reduce over "model" merges the partial
 outputs.  The capacity is the shard's (from its own token count), and the
-aux loss is averaged over the batch axes when the batch is split.
+aux loss is averaged over the batch axes when the batch is split -- except
+in training, where each rank's aux is its own term of the loss and the
+train step's mean over the batch axes averages it (the same loss and
+gradients as JAX's pmean).  In training ``xt`` and the gate values enter
+this rank's experts through ``collectives.enter_partial`` and the merged
+output is ``reduce_partial``, so autograd sums their gradients over
+"model"; the experts run through the differentiable ``ops.grouped_ffn``.
 
 Returns the layer output plus the router aux (load-balance) loss term of
 Shazeer et al. / Switch.
@@ -96,18 +102,20 @@ def dispatch(expert_ids: torch.Tensor, E: int, C: int):
 
 
 def moe_apply(params, x: torch.Tensor, cfg, *, use_kernels: bool = False,
-              shard=None):
+              shard=None, train: bool = False):
     """x: [B,S,D] -> (y [B,S,D] in x's dtype, aux scalar f32).  On a mesh
     (``shard``) x is this rank's batch rows and the experts are this rank's
-    slice (``launch.mesh.shard_params``)."""
+    slice (``launch.mesh.shard_params``); ``train``: the aux stays this
+    rank's own term (module docstring)."""
     if shard is not None and "model" in shard.mesh.shape:
         msize = shard.mesh.shape["model"]
         if cfg.num_experts % msize == 0 and cfg.num_experts >= msize:
-            return moe_sharded(params, x, cfg, shard,
-                               use_kernels=use_kernels)   # expert-parallel
+            return moe_sharded(params, x, cfg, shard, use_kernels=use_kernels,
+                               train=train)              # expert-parallel
         if cfg.d_ff % msize == 0 and cfg.d_ff >= msize:
             return moe_sharded(params, x, cfg, shard, f_parallel=True,
-                               use_kernels=use_kernels)   # TP within experts
+                               use_kernels=use_kernels,
+                               train=train)              # TP within experts
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
     T = B * S
@@ -181,13 +189,15 @@ def local_dispatch_ffn(xt, gate_vals, expert_ids, wg, wu, wd, e0: int,
 
 
 def moe_sharded(params, x: torch.Tensor, cfg, shard, *,
-                f_parallel: bool = False, use_kernels: bool = False):
+                f_parallel: bool = False, use_kernels: bool = False,
+                train: bool = False):
     """The JAX package's ``_moe_shardmap`` on this rank: x [B_loc,S,D] (its
     batch rows) -> (y [B_loc,S,D], aux).  Expert-parallel: this rank holds
     experts [i E/msize, (i + 1) E/msize); ``f_parallel``: all E experts at
     a 1/msize slice of the hidden width.  One all_reduce over "model" adds
     the partial outputs (and the shared experts' partial MLP, when their
-    hidden width is split too)."""
+    hidden width is split too).  ``train``: no mean of the aux over the
+    batch axes (the train step takes it)."""
     mesh = shard.mesh
     B, S, D = x.shape
     E = cfg.num_experts
@@ -197,20 +207,22 @@ def moe_sharded(params, x: torch.Tensor, cfg, shard, *,
     C_loc = _capacity(T, cfg)
     xt = x.reshape(T, D)
     gate_vals, expert_ids, aux, _ = route(xt, params["router"], cfg)
-    if shard.batch_axes:
+    if shard.batch_axes and not train:
         # the aux loss is a per-shard mean: average it over the batch shards
         aux = coll.all_reduce(aux.reshape(1), mesh, shard.batch_axes)[0] \
             / mesh.axes_size(shard.batch_axes)
     e0 = 0 if f_parallel else mesh.axis_index("model") * E_loc
-    y = local_dispatch_ffn(xt, gate_vals, expert_ids, params["w_gate"],
-                           params["w_up"], params["w_down"], e0, E_loc, C_loc,
+    xt_loc = coll.enter_partial(xt, mesh, ("model",))
+    y = local_dispatch_ffn(xt_loc, coll.enter_partial(gate_vals, mesh, ("model",)),
+                           expert_ids, params["w_gate"], params["w_up"],
+                           params["w_down"], e0, E_loc, C_loc,
                            use_kernels=use_kernels)
     shared = params.get("shared")
     split_shared = shared is not None and \
         shared["w_down"].shape[-2] != cfg.d_ff * cfg.num_shared_experts
     if split_shared:
-        y = y + mlp_apply(shared, xt, cfg).to(x.dtype)
-    y = coll.all_reduce(y, mesh, ("model",))
+        y = y + mlp_apply(shared, xt_loc, cfg).to(x.dtype)
+    y = coll.reduce_partial(y, mesh, ("model",))
     if shared is not None and not split_shared:
         y = y + mlp_apply(shared, xt, cfg).to(x.dtype)
     return y.reshape(B, S, D), aux

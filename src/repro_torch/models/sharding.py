@@ -8,6 +8,10 @@ explicit collectives every rank computes on exactly the block it holds
 (:class:`RankShard`), so ``constrain`` and ``shard_map_compat`` have no
 counterpart here and are not copied.
 
+In training the params are also FSDP-cut over the batch axes
+(``launch.mesh.shard_params(fsdp=True)``): :func:`gather_fsdp` makes a
+layer's (or a top-level leaf's) whole copy right before it runs.
+
 ``seq_shard_layout`` is the JAX function verbatim: how a [B, S, Hkv, dh]
 KV cache lays out on the mesh.  ``replicate`` is ``put_replicated``: it
 broadcasts the engine's carried decode-state vectors from the mesh's first
@@ -155,3 +159,23 @@ def rank_shard(mesh, B: int, *, Hkv: int = 0,
         return RankShard(mesh, B, b_sharded, b0, B_loc, None, 0, S or 0)
     s0 = mesh.linear_index(seq.s_axes) * seq.s_local
     return RankShard(mesh, B, b_sharded, b0, B_loc, seq, s0, seq.s_local)
+
+
+def gather_fsdp(tree, dims, mesh, *, layer: bool = False):
+    """The whole leaves of a tree of this rank's FSDP slices: each leaf
+    whose dim in ``dims`` (a tree of ints or None, mirroring ``tree``;
+    ``launch.mesh.TrainLayout.fsdp_dims``) is not None is gathered over
+    the batch axes (``collectives.fsdp_gather``: its gradient is
+    reduce-scattered).  ``layer``: ``tree`` is one layer of an L-stacked
+    tree, whose leaves lost the layer axis the dims count.  ``dims`` None
+    returns ``tree``."""
+    if dims is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: gather_fsdp(v, dims[k], mesh, layer=layer)
+                for k, v in tree.items()}
+    if layer and dims == 0:
+        raise ValueError("a leaf FSDP-cut on its layer axis cannot be "
+                         "gathered a layer at a time")
+    return coll.fsdp_gather(tree, mesh, batch_axes(mesh),
+                            dims - 1 if layer else dims)

@@ -19,6 +19,10 @@ layer join the rest -- the partial products of the di-row slices of
 ``x_proj`` (Mamba-1) or of ``dt_proj`` and ``bc_proj`` in one buffer
 (Mamba-2), and those of ``out_proj``.  Every width is read from the
 params, so the same code runs a whole mixer and a rank's slice of one.
+In training the mixer's input enters the split as
+``collectives.enter_partial``, the first sum feeds the rank's channels
+again (``reduce_to_partial``: its gradient is summed too) and the output
+projection's is ``reduce_partial``.
 """
 from __future__ import annotations
 
@@ -214,9 +218,11 @@ def mamba_apply(params, x, cfg, *, state=None, mode: str = "full",
     split = shard is not None and di != cfg.d_inner
     conv_state, ssm_state = state if state is not None else (None, None)
 
-    def reduce(t):
-        return coll.all_reduce(t, shard.mesh, ("model",)) if split else t
+    def reduce(t):       # partial sums feeding this rank's channels
+        return coll.reduce_to_partial(t, shard.mesh, ("model",)) if split else t
 
+    if split:
+        x = coll.enter_partial(x, shard.mesh, ("model",))
     uz = x @ params["in_proj"]
     u, z = uz.chunk(2, dim=-1)                               # [B,S,di] each
     u, conv_new = _causal_conv(u, params["conv_w"], params["conv_b"], conv_state)
@@ -261,5 +267,7 @@ def mamba_apply(params, x, cfg, *, state=None, mode: str = "full",
                                     params["D"], ssm_state)
             y = y.reshape(B, 1, di)
 
-    y = y.to(x.dtype) * F.silu(z)
-    return reduce(y @ params["out_proj"]), (conv_new, h_last)
+    y = (y.to(x.dtype) * F.silu(z)) @ params["out_proj"]
+    if split:
+        y = coll.reduce_partial(y, shard.mesh, ("model",))
+    return y, (conv_new, h_last)

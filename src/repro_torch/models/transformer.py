@@ -15,7 +15,15 @@ block: attention (self and cross) as ``attention.attn_apply`` says, the
 MLP as column (``w_gate``/``w_up``) and row (``w_down``) slices of its
 hidden width meeting in one all_reduce, the MoE layer as
 ``moe.moe_apply`` says, a Mamba mixer as ``ssm.mamba_apply`` says; the
-hybrid stack hands the shard to its backbone and its shared block.
+hybrid stack hands the shard to its backbone and its shared block.  In
+training the MLP's input enters the split as ``collectives.enter_partial``
+and its output is ``reduce_partial``, so autograd sums the input's
+gradient over "model"; with FSDP-cut params (``fsdp``: the tree of each
+leaf's FSDP dim) each layer's leaves are gathered over the batch axes
+right before the layer runs (``sharding.gather_fsdp``; under ``remat``
+inside the recomputed function, so the gather runs again in the backward
+and at most one layer is whole at a time), the hybrid stack's shared block
+once for all its applications.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ from repro_torch.core.offload import tree_map
 from repro_torch.distributed import collectives as coll
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import sharding
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (mlp_apply, norm_apply, norm_init,
                                        normal_stack)
@@ -164,31 +173,46 @@ def block_apply(params, x, cfg, *, kind: str, mode: str, positions,
     h = norm_apply(params["ln2"], x, cfg)
     if kind == "moe":
         y, aux = moe_mod.moe_apply(params["moe"], h, cfg,
-                                   use_kernels=use_kernels, shard=shard)
+                                   use_kernels=use_kernels, shard=shard,
+                                   train=mode == "train")
+    elif shard is not None and params["mlp"]["w_down"].shape[-2] != cfg.d_ff:
+        # the hidden width split over "model": partial outputs
+        h = coll.enter_partial(h, shard.mesh, ("model",))
+        y = coll.reduce_partial(mlp_apply(params["mlp"], h, cfg), shard.mesh,
+                                ("model",))
+        aux = 0.0
     else:
         y, aux = mlp_apply(params["mlp"], h, cfg), 0.0
-        if shard is not None and params["mlp"]["w_down"].shape[-2] != cfg.d_ff:
-            y = coll.all_reduce(y, shard.mesh, ("model",))
     return x + y, new_cache, aux
 
 
-def _block(lp, x, cfg, remat: bool, **kw):
-    """``block_apply``, its activations recomputed in the backward pass
-    under ``remat``."""
-    if remat:
-        return checkpoint(block_apply, lp, x, cfg, use_reentrant=False, **kw)
+def _gathered_block(lp, x, cfg, fsdp=None, **kw):
+    """``block_apply`` on one layer's params, its FSDP slices (``fsdp``:
+    their dims on the L-stacked leaves) gathered first."""
+    if fsdp is not None:
+        lp = sharding.gather_fsdp(lp, fsdp, kw["shard"].mesh, layer=True)
     return block_apply(lp, x, cfg, **kw)
+
+
+def _block(lp, x, cfg, remat: bool, fsdp=None, **kw):
+    """One layer (``_gathered_block``), its activations, and its FSDP
+    gathers, recomputed in the backward pass under ``remat``."""
+    if remat:
+        return checkpoint(_gathered_block, lp, x, cfg, fsdp,
+                          use_reentrant=False, **kw)
+    return _gathered_block(lp, x, cfg, fsdp, **kw)
 
 
 def stack_apply(stacked, x, cfg, *, kind: str, mode: str, positions,
                 caches=None, cache_index=None, enc_out=None, enc_positions=None,
                 causal: bool = True, remat: bool = False,
-                use_kernels: bool = False, shard=None):
+                use_kernels: bool = False, shard=None, fsdp=None):
     """Returns (x, caches, aux summed over the layers).  Mode "decode"
     updates the L-stacked ``caches`` in place and returns them; mode
     "prefill" returns freshly stacked [L, ...] caches, and so does mode
     "resume", whose ``caches`` hold the cached prefix rows.  An encoder
-    stack, and every stack in mode "train", keeps no cache (None)."""
+    stack, and every stack in mode "train", keeps no cache (None).
+    ``fsdp``: the FSDP dims of ``stacked``'s leaves (training on a mesh)."""
     collected = []
     aux = 0.0              # a tensor once an MoE block adds its term
     for i, layer in enumerate(layer_chunks(stacked, 1)):
@@ -197,7 +221,7 @@ def stack_apply(stacked, x, cfg, *, kind: str, mode: str, positions,
             layer_slice(layer, 0), x, cfg, remat, kind=kind, mode=mode,
             positions=positions, cache=lcache, cache_index=cache_index,
             enc_out=enc_out, enc_positions=enc_positions, causal=causal,
-            use_kernels=use_kernels, shard=shard)
+            use_kernels=use_kernels, shard=shard, fsdp=fsdp)
         aux = aux + a
         collected.append(new_cache)
     if not torch.is_tensor(aux):
@@ -211,19 +235,23 @@ def stack_apply(stacked, x, cfg, *, kind: str, mode: str, positions,
 
 def hybrid_apply(params, x, cfg, *, mode: str, positions, caches=None,
                  cache_index=None, remat: bool = False,
-                 use_kernels: bool = False, shard=None):
+                 use_kernels: bool = False, shard=None, fsdp=None):
     """Zamba2-style: nb blocks of k Mamba layers + the shared dense block.
 
     params: {"backbone": L-stacked Mamba layers, "shared": one dense block}.
     caches (decode): {"backbone": (conv, ssm) L-stacked, "shared": {"self":
     nb-stacked kv}}, updated in place and returned; prefill returns fresh
     caches of that layout, train none.  ``shard``: this rank's block on a
-    mesh, for both."""
+    mesh, for both; ``fsdp``: {"backbone", "shared"} FSDP dims (training on
+    a mesh)."""
     k, L = cfg.hybrid_attn_every, cfg.num_layers
     if L % k:
         raise ValueError(f"hybrid stack: {L} layers is not a multiple of "
                          f"hybrid_attn_every={k}")
     decode = mode == "decode"
+    shared = params["shared"]
+    if fsdp is not None:
+        shared = sharding.gather_fsdp(shared, fsdp["shared"], shard.mesh)
     bb_new, sh_new = [], []
     for j, block in enumerate(layer_chunks(params["backbone"], k)):
         layers = slice(j * k, (j + 1) * k)
@@ -232,9 +260,9 @@ def hybrid_apply(params, x, cfg, *, mode: str, positions, caches=None,
             mode=mode, positions=positions,
             caches=layer_slice(caches["backbone"], layers) if decode else None,
             cache_index=cache_index, remat=remat, use_kernels=use_kernels,
-            shard=shard)
+            shard=shard, fsdp=None if fsdp is None else fsdp["backbone"])
         x, sc, _ = _block(
-            params["shared"], x, cfg, remat, kind="dense", mode=mode,
+            shared, x, cfg, remat, kind="dense", mode=mode,
             positions=positions,
             cache=layer_slice(caches["shared"], j) if decode else None,
             cache_index=cache_index, use_kernels=use_kernels, shard=shard)

@@ -12,6 +12,13 @@ without ml_dtypes.  On restore such a leaf is read back by a bit view
 against the template's bf16, which is exact, and which also reads the bf16
 files that JAX's own ``restore_checkpoint`` refuses
 (``jnp.asarray(arr, bfloat16)``: "No cast function available").
+
+On a mesh (``layout``, a ``launch.mesh.TrainLayout``; the trees hold this
+rank's ``shard_params(fsdp=True)`` shards) the save gathers every leaf
+whole (``launch.mesh.gather_params``, every rank takes part) and the
+mesh's first rank writes the file one device would write from the same
+whole params; the restore reads whole leaves on every rank and cuts this
+rank's shards.
 """
 from __future__ import annotations
 
@@ -22,6 +29,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.launch.mesh import gather_params, shard_params
 
 
 def named_leaves(tree, prefix: str = ""):
@@ -62,7 +72,22 @@ def _from_numpy(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
 
 
 def save_checkpoint(path: str, params, opt_state=None,
-                    metadata: Optional[dict] = None) -> None:
+                    metadata: Optional[dict] = None, *, layout=None) -> None:
+    """Write ``params`` (and ``opt_state``) to ``path``; on a mesh
+    (``layout``) gather them whole and write on its first rank only."""
+    if layout is not None:
+        mesh = layout.mesh
+        params = gather_params(params, layout)
+        if opt_state is not None:
+            opt_state = type(opt_state)(opt_state.step,
+                                        gather_params(opt_state.m, layout),
+                                        gather_params(opt_state.v, layout))
+        if mesh.rank == int(mesh.ranks.flat[0]):
+            save_checkpoint(path, params, opt_state, metadata)
+        group = mesh.group(mesh.axes)
+        if group is not None:          # the file exists when any rank returns
+            dist.barrier(group=group)
+        return
     directory = os.path.dirname(path) or "."
     os.makedirs(directory, exist_ok=True)
     payload = {"params/" + k: _to_numpy(v) for k, v in named_leaves(params)}
@@ -103,11 +128,31 @@ def _rebuild(template, flat: Dict[str, np.ndarray], prefix: str, path=""):
     return _from_numpy(arr, template)
 
 
-def restore_checkpoint(path: str, params_like, opt_like=None
+def _whole_like(tree, placements):
+    """Empty tensors of the whole leaves' shapes, in the shards' dtypes and
+    devices (the templates a mesh restore reads into)."""
+    if isinstance(tree, dict):
+        return {k: _whole_like(v, placements[k]) for k, v in tree.items()}
+    return torch.empty(placements.shape, dtype=tree.dtype, device=tree.device)
+
+
+def restore_checkpoint(path: str, params_like, opt_like=None, *, layout=None
                        ) -> Tuple[Any, Any, dict]:
     """Restore into the structure, dtypes and devices of the
     ``params_like`` / ``opt_like`` templates: (params, opt_state or None,
-    metadata)."""
+    metadata).  On a mesh (``layout``) the templates are shards: whole
+    leaves are read and this rank's shards cut from them."""
+    if layout is not None:
+        pl = layout.placements
+        whole_opt = None if opt_like is None else type(opt_like)(
+            opt_like.step, _whole_like(opt_like.m, pl), _whole_like(opt_like.v, pl))
+        params, opt, meta = restore_checkpoint(
+            path, _whole_like(params_like, pl), whole_opt)
+        params = shard_params(params, layout.mesh, fsdp=True)
+        if opt is not None:
+            opt = type(opt)(opt.step, shard_params(opt.m, layout.mesh, fsdp=True),
+                            shard_params(opt.v, layout.mesh, fsdp=True))
+        return params, opt, meta
     with np.load(path, allow_pickle=False) as z:
         manifest = json.loads(str(z["__manifest__"]))
         flat = {k: z[k] for k in z.files if k != "__manifest__"}

@@ -9,6 +9,12 @@ decay follows JAX's rule exactly: a leaf with ``ndim >= 2`` decays, and the
 stacked layer axis counts, so the L-stacked norm scales ``[L,d]`` and the
 SSM's ``D`` / ``dt_bias`` ``[L,di]`` decay while ``final_norm`` ``[d]`` does
 not.
+
+On a mesh (``layout``, a ``launch.mesh.TrainLayout``) every tree holds
+this rank's shards: ``m`` and ``v`` take the params' shapes, the step is
+replicated, the update is leaf-local, and slicing keeps a leaf's ndim, so
+the decay rule still keys on the whole leaf's.  Only the clipping norm
+crosses ranks: :func:`global_norm` counts every element once.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.core.offload import tree_leaves, tree_map
+from repro_torch.distributed import collectives as coll
 
 
 @dataclass(frozen=True)
@@ -60,19 +67,38 @@ def init_opt_state(params) -> OptState:
                     m=zeros, v=tree_map(torch.clone, zeros))
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+def _replicas(layout):
+    """Each leaf's replica count, in ``tree_leaves`` order."""
+    def walk(tree):
+        if isinstance(tree, dict):
+            return [r for v in tree.values() for r in walk(v)]
+        return [tree.replicas]
+    return walk(layout.placements)
+
+
+def global_norm(tree, layout=None) -> torch.Tensor:
+    """The L2 norm of every leaf of ``tree`` together.  On a mesh
+    (``layout``) ``tree`` holds this rank's shards: each leaf's sum of
+    squares is divided by the ranks that hold the same elements, and one
+    all_reduce over the whole mesh adds them (every element once)."""
+    if layout is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in tree_leaves(tree)))
+    sq = sum(torch.sum(torch.square(x.float())) / r
+             for x, r in zip(tree_leaves(tree), _replicas(layout)))
+    mesh = layout.mesh
+    return torch.sqrt(coll.all_reduce(sq.reshape(1), mesh, mesh.axes)[0])
 
 
 @torch.no_grad()
-def adamw_update(cfg: OptimizerConfig, grads, state: OptState, params):
+def adamw_update(cfg: OptimizerConfig, grads, state: OptState, params, *,
+                 layout=None):
     """Returns (params, state, stats) with ``params``, ``state.m`` and
     ``state.v`` updated in place, a new step count, and stats
     {"grad_norm", "lr"} (scalar tensors).  Gradients are clipped to global
-    norm ``grad_clip``."""
+    norm ``grad_clip``; ``layout``: the trees are this rank's shards."""
     step = state.step + 1
-    gn = global_norm(grads)
+    gn = global_norm(grads, layout)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
     b1, b2 = cfg.betas
     lr = lr_at(cfg, step)

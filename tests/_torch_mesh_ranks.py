@@ -451,3 +451,171 @@ def family_engine_rank(rank, world, shape, scenarios):
                 M.init_cache(cfg, sc["slots"], sc["max_len"], device="cpu"))]
         out.append(res)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Training across ranks
+# ---------------------------------------------------------------------------
+def collectives_rank(rank, world, shape, seed):
+    """Each differentiable collective of ``distributed/collectives.py`` on
+    this rank of a (data, model) mesh of ``shape``, on inputs drawn from
+    ``seed`` (the same draws on every rank; each rank takes its own slice
+    where the op wants rank-local values).  Returns every output, input
+    gradient and counter reading; ``tests/test_torch_mesh_collectives.py``
+    holds them against one-process sums."""
+    from repro_torch.distributed import collectives as coll
+    mesh = make_mesh(shape)
+    rng = np.random.default_rng(seed)
+    m, d = mesh.shape["model"], mesh.shape["data"]
+    mi, di = mesh.axis_index("model"), mesh.axis_index("data")
+    x = rng.standard_normal((m, 3, 5)).astype(np.float32)     # per model rank
+    c = rng.standard_normal((m, 5)).astype(np.float32)
+    w = rng.standard_normal((3, 5)).astype(np.float32)
+    full = rng.standard_normal((d, 6, 4)).astype(np.float32)  # per data rank
+    wd = rng.standard_normal((d, d * 6, 4)).astype(np.float32)
+    W = rng.standard_normal((m, 3, 5)).astype(np.float32)
+
+    def leaf(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).requires_grad_(True)
+
+    out = {}
+
+    def run(name, fn, *inputs):
+        with coll.counting(mesh) as cc:
+            y = fn(*inputs)
+            fwd = (dict(cc.calls), dict(cc.bytes))
+            y.backward()
+        out[name] = {"grads": [t.grad.numpy() for t in inputs],
+                     "fwd": fwd, "all": (dict(cc.calls), dict(cc.bytes))}
+
+    wt = torch.from_numpy(w)
+    # g: rank-partial x summed; the replicated loss passes its gradient on
+    run("reduce_partial", lambda t: (coll.reduce_partial(t, mesh, ("model",))
+                                     * wt).sum(), leaf(x[mi]))
+    out["reduce_partial"]["y"] = coll.reduce_partial(
+        torch.from_numpy(x[mi].copy()), mesh, ("model",)).numpy()
+    # f then g: a replicated value through rank-partial work
+    ct = torch.from_numpy(c[mi])
+    run("enter_partial", lambda t: (coll.reduce_partial(
+        coll.enter_partial(t, mesh, ("model",)) * ct, mesh, ("model",))
+        * wt).sum(), leaf(x[0]))
+    # partial sums feeding rank-partial work again
+    run("reduce_to_partial", lambda t: (coll.reduce_partial(
+        coll.reduce_to_partial(t, mesh, ("model",)) * ct, mesh, ("model",))
+        * wt).sum(), leaf(x[mi]))
+    # the vocab gather: each rank's block, a replicated loss
+    Wt = torch.from_numpy(W)
+    run("gather_partial", lambda t: (coll.gather_partial(t, mesh, ("model",))
+                                     * Wt).sum(), leaf(x[mi]))
+    # FSDP over "data": slice di of a [d*6, 4] leaf; each rank's own loss
+    shard = full.reshape(d * 6, 4)[di * 6:(di + 1) * 6]
+    wdt = torch.from_numpy(wd[di])
+    run("fsdp_gather", lambda t: (coll.fsdp_gather(t, mesh, ("data",), 0)
+                                  * wdt).sum(), leaf(shard))
+    out["fsdp_gather"]["y"] = coll.fsdp_gather(
+        torch.from_numpy(shard), mesh, ("data",), 0).detach().numpy()
+    # the mean of each rank's value over "data"
+    with coll.counting(mesh) as cc:
+        mean = coll.mean(torch.tensor([float(di), 2.0 * di + 1.0]), mesh,
+                         ("data",))
+    out["mean"] = {"y": mean.numpy(), "all": (dict(cc.calls), dict(cc.bytes))}
+    # off the autograd graph (serving): the in-place all_reduce, the
+    # identity, gather_sum, each counted as before
+    serving = {}
+    with torch.no_grad(), coll.counting(mesh) as cc:
+        t = torch.from_numpy(x[mi].copy())
+        r = coll.reduce_partial(t, mesh, ("model",))
+        serving["reduce_in_place"] = r is t
+        serving["reduced"] = r.numpy().copy()
+        u = torch.from_numpy(x[0].copy())
+        serving["enter_is_identity"] = coll.enter_partial(u, mesh, ("model",)) is u
+        t2 = torch.from_numpy(x[mi].copy())
+        serving["to_partial_in_place"] = \
+            coll.reduce_to_partial(t2, mesh, ("model",)) is t2
+        serving["gathered"] = coll.gather_partial(
+            torch.from_numpy(x[mi]), mesh, ("model",)).numpy()
+    serving["counts"] = (dict(cc.calls), dict(cc.bytes))
+    out["serving"] = serving
+    out["coords"] = (di, mi)
+    return out
+
+
+def _named(tree):
+    """{JAX key path: numpy array} of a tree of tensors."""
+    from repro_torch.training.checkpoint import named_leaves
+    return {k: v.detach().numpy().copy() for k, v in named_leaves(tree)}
+
+
+def train_rank(rank, world, shape, cases):
+    """Runs every training case on this rank of a (data, model) mesh of
+    ``shape``: JAX's params (numpy) cut by ``shard_params(fsdp=True)``,
+    then ``make_train_step`` over the case's batches.  Returns each step's
+    metrics and collective counts, the whole params after the first step,
+    the first batch's whole gradients (``step_grads``, gathered; with
+    ``remat`` too when the case asks) and their ``global_norm`` on the
+    mesh; ``save`` writes a checkpoint after the last step (and returns the
+    whole state written), ``restore`` reads one into this mesh's shards
+    (and returns them gathered)."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch.mesh import (gather_params, shard_params,
+                                         train_layout)
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train as T
+    torch.manual_seed(0)
+    mesh = make_mesh(shape)
+    out = []
+    for case in cases:
+        cfg = make_cfg(case["arch"])
+        full = params_from_numpy(case["params"], cfg, "cpu")
+        layout = train_layout(full, mesh)
+        params = shard_params(full, mesh, fsdp=True)
+        res = {"rank": rank}
+        if case.get("restore"):
+            state = opt.init_opt_state(params)
+            p, s, meta = ckpt.restore_checkpoint(case["restore"], params,
+                                                 state, layout=layout)
+            res["restored"] = _named(gather_params(p, layout))
+            res["restored_opt"] = {
+                "step": int(s.step), **{f"m/{k}": v for k, v in
+                                         _named(gather_params(s.m, layout)).items()},
+                **{f"v/{k}": v for k, v in
+                   _named(gather_params(s.v, layout)).items()}}
+            res["meta"] = meta
+            out.append(res)
+            continue
+        batches = [{k: torch.from_numpy(v) for k, v in b.items()}
+                   for b in case["batches"]]
+        _, _, g = T.step_grads(params, cfg, batches[0], remat=False,
+                               layout=layout)
+        res["grads"] = _named(gather_params(g, layout))
+        res["global_norm"] = float(opt.global_norm(g, layout))
+        if case.get("remat_grads"):
+            _, _, gr = T.step_grads(params, cfg, batches[0], remat=True,
+                                    layout=layout)
+            res["remat_grads"] = _named(gather_params(gr, layout))
+        del g
+        state = opt.init_opt_state(params)
+        step = T.make_train_step(cfg, opt.OptimizerConfig(**case["opt"]),
+                                 remat=case.get("remat", False),
+                                 microbatches=case.get("microbatches", 1),
+                                 layout=layout)
+        res["metrics"], res["collectives"] = [], []
+        for i, batch in enumerate(batches):
+            with coll.counting(mesh) as cc:
+                params, state, m = step(params, state, batch)
+            res["metrics"].append({k: float(v) for k, v in m.items()})
+            res["collectives"].append({"calls": dict(cc.calls),
+                                       "bytes": dict(cc.bytes)})
+            if i == 0:
+                res["params_step1"] = _named(gather_params(params, layout))
+        res["step"] = int(state.step)
+        if case.get("save"):
+            ckpt.save_checkpoint(case["save"], params, state,
+                                 metadata={"arch": cfg.name}, layout=layout)
+            res["saved"] = {"params": _named(gather_params(params, layout)),
+                            "m": _named(gather_params(state.m, layout)),
+                            "v": _named(gather_params(state.v, layout)),
+                            "step": int(state.step)}
+        out.append(res)
+    return out

@@ -362,8 +362,9 @@ def test_cache_writes_on_rank_blocks_bit_equal(runs, cases, arch, shape, slots):
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_train_mode_on_a_mesh_still_raises(arch):
-    """Serving takes every family on a mesh; training across ranks does not
-    (yet): ``forward(mode="train")`` under a mesh raises."""
+    """Training across ranks runs the rank's block of the train step
+    (``tests/test_torch_mesh_train*.py``): ``forward(mode="train")`` under
+    a mesh without that block (``shard=``) raises."""
     from repro_torch.models import sharding
     cfg = reduced(get_config(arch))
     params = M.init_params(cfg, 0, device="cpu")
@@ -372,5 +373,5 @@ def test_train_mode_on_a_mesh_still_raises(arch):
         batch["frontend"] = torch.zeros((1, cfg.frontend_tokens,
                                          cfg.frontend_dim))
     with sharding.activation_sharding(_rank_mesh(2, 0)), \
-            pytest.raises(NotImplementedError, match="training across ranks"):
+            pytest.raises(ValueError, match="train on a mesh takes shard="):
         M.forward(params, cfg, batch, mode="train")

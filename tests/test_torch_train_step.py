@@ -257,7 +257,9 @@ def _flags(path):
 def test_train_launcher_flags_are_jax_flags_plus_device():
     jax_flags = _flags(ROOT / "src" / "repro" / "launch" / "train.py")
     mine = _flags(ROOT / "src" / "repro_torch" / "launch" / "train.py")
-    assert mine == jax_flags | {"--device"}
+    # plus the mesh flags, the serve launcher's twins (--mesh DATAxMODEL,
+    # --dist-backend): JAX's launcher builds its mesh from the devices
+    assert mine == jax_flags | {"--device", "--mesh", "--dist-backend"}
     assert {"--arch", "--steps", "--microbatches", "--remat", "--ckpt"} <= mine
 
 
