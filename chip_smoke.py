@@ -427,6 +427,14 @@ MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 2, 5, 4, 64
 MOE_REMAT_STEPS = 2
 SSM_TRAIN_LAYERS, SSM_TRAIN_STEPS, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ = 4, 5, 2, 256
 TRAIN_TOL = 1e-2
+DRYRUN_JOBS = 4          # the dry run's processes, beside the card's phases
+DRYRUN_TIMEOUT_S = 1000  # from its start, before the first phase
+ROOFLINE_REPS = {"decode": 20, "train": 5}
+# PERF.md §6's bound column (ms, chip run 2, PR 20): costs.py must give it
+SECTION6_BOUNDS = {"decode_attention": 0.00100, "masked_compact": 0.00298,
+                   "grouped_ffn": 0.218, "ssm_scan": 0.665,
+                   "ssm_scan_bwd": 0.401}
+BOUND_RTOL = 5e-3        # three figures
 GRAD_TOL = {"bfloat16": 3e-2, "float32": 1e-5}
 
 # nvidia-smi's name + power limit, stamped on every line after env so each
@@ -1014,7 +1022,7 @@ def _time_decode_attention(torch, dev, gen, gname, B, H, Hkv, dh, S=S_MAIN,
     ``int_len``: the kernel is handed cache_len as a Python int, as the
     audio decoder's cross-attention hands it."""
     import torch.nn.functional as F
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import costs, ref
     from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                       num_splits)
 
@@ -1050,10 +1058,8 @@ def _time_decode_attention(torch, dev, gen, gname, B, H, Hkv, dh, S=S_MAIN,
     times.update({f"{p}device_ms": _device_ms(torch, fn, sets, iters=iters[p],
                                               need_ahead=not p)
                   for p, fn in fns.items()})
-    n_bytes = (2 * B * cl_mid * Hkv * dh * esize    # K and V rows read
-               + 2 * B * H * dh * esize             # q read, out written
-               + 4 * B)                             # cache_len
-    n_ops = 4 * B * H * cl_mid * dh                 # q.k and p.v
+    cost = costs.decode_attention(B, H, Hkv, dh, B * cl_mid, esize)
+    n_bytes, n_ops = cost["bytes"], cost["flops"]
     bound_ms, bound_by = _bound(n_bytes, n_ops, None if dtype == torch.bfloat16
                                 else H100_PEAK_FLOPS_F32)
     return {"kernel": "decode_attention", "group": gname, "B": B, "S": S,
@@ -1093,8 +1099,8 @@ def _time_masked_compact(torch, dev, gen, gname, B, S, D, kind):
     every block counts the mask before its tile; long rows: a count pass
     into a workspace first) is timed too."""
     from repro_torch.core.profiler import H100_HBM_BW
+    from repro_torch.kernels import costs, ref
     from repro_torch.kernels import masked_compact as mc
-    from repro_torch.kernels import ref
 
     esize = 2
     sets = [_mc_case(torch, gen, dev, B, S, D, kind)
@@ -1115,10 +1121,7 @@ def _time_masked_compact(torch, dev, gen, gname, B, S, D, kind):
                 torch, lambda *a: mc.masked_compact_cuda(*a, plan=forced), sets, iters=50)
         plan = dataclasses.asdict(plan)
     kept = int(torch.clamp(sets[0][1].sum(dim=1), max=K).sum())
-    n_bytes = (B * S                               # mask
-               + kept * D * esize                  # kept rows read
-               + B * K * D * esize                 # out written
-               + B * K * 4 + B * 4)                # idx, count
+    n_bytes = costs.masked_compact(B, S, D, K, esize, kept)["bytes"]
     return {"kernel": "masked_compact", "group": gname, "B": B, "S": S, "D": D,
             "K": K, "dtype": "bfloat16", "mask": kind, "kept_rows": kept,
             "plan": plan, **times, "library_ms": None,
@@ -1348,7 +1351,7 @@ def phase_moe_timing(torch, dev, cfg, params, slice_summary):
     silu*mul over every row; two bounds, one over every expert's weights
     and one over the experts and rows these inputs route (``bound_ms``)."""
     import torch.nn.functional as F
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import costs, ref
     from repro_torch.kernels.grouped_ffn import grouped_ffn_cuda
     from repro_torch.models import moe as moe_mod
 
@@ -1388,12 +1391,11 @@ def phase_moe_timing(torch, dev, cfg, params, slice_summary):
         times.update({f"{p}device_ms": _device_ms(torch, fn, sets, iters=iters[p],
                                                   need_ahead=not p)
                       for p, fn in fns.items()})
-        w_bytes = 3 * D * Fd * 2                          # one expert, bf16
-        all_bytes = 2 * (2 * E * C * D) + E * w_bytes     # buf, out, every expert
-        all_ms, all_by = _bound(all_bytes, 6 * E * C * D * Fd)
-        n_bytes = (2 * routed_rows * D + 2 * E * C * D    # routed rows read, out
-                   + used * w_bytes + 4 * E)              # routed experts, counts
-        n_ops = 6 * routed_rows * D * Fd                  # three products
+        every = costs.grouped_ffn(E, C, D, Fd, 2)          # all rows and experts
+        all_ms, all_by = _bound(every["bytes"], every["flops"])
+        routed = costs.grouped_ffn(E, C, D, Fd, 2, routed_rows=routed_rows,
+                                   experts_used=used, counts=True)
+        n_bytes, n_ops = routed["bytes"], routed["flops"]
         bound_ms, bound_by = _bound(n_bytes, n_ops)
         rows.append({"kernel": "grouped_ffn", "step": step, "group": "auxiliary",
                      "B": B, "tokens": T, "E": E, "C": C, "D": D, "F": Fd,
@@ -1555,7 +1557,7 @@ def phase_ssm_timing(torch, dev, cfg, slice_summary):
     shape (B=11: [11,128,8192,16] f32, 1.48 GB of inputs a call), cycling
     through more input sets than L2 holds; ``device_ms`` from ``_device_ms``
     (the plain version's 384 launches a call allow one call a loop)."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import costs, ref
     from repro_torch.kernels.ssm_scan import ssm_scan_cuda
 
     gen = torch.Generator(device=dev)
@@ -1572,8 +1574,8 @@ def phase_ssm_timing(torch, dev, cfg, slice_summary):
     times["device_ms"] = _device_ms(torch, ssm_scan_cuda, sets, iters=10)
     times["plain_device_ms"] = _device_ms(torch, ref.ssm_scan_ref, sets, iters=1,
                                           need_ahead=False)
-    n_bytes = 4 * B * C * (3 * S + 2)     # decay, bx, h_all; h0, h_last (f32)
-    n_ops = 2 * B * S * C                 # a multiply and an add per element
+    cost = costs.ssm_scan(B, S, di, N)    # decay, bx, h_all; h0, h_last (f32)
+    n_bytes, n_ops = cost["bytes"], cost["flops"]
     bound_ms, bound_by = _bound(n_bytes, n_ops, H100_PEAK_FLOPS_F32)
     row = {"kernel": "ssm_scan", "step": "prefill", "group": "auxiliary",
            "B": B, "S": S, "di": di, "N": N, "dtype": "float32", **times,
@@ -2899,7 +2901,7 @@ def phase_train_kernels(torch, dev, ffn_shape, scan_shape):
     ssm_scan_bwd_ref.  Every kernel-path call twice, bit-equal.  Then
     ssm_scan_bwd timed beside its bound and the plain reverse loop.
     Returns ({"ssm_scan_bwd": main-path max abs err}, [timing row])."""
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import costs, ops, ref
     from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda
 
     gen = torch.Generator(device=dev)
@@ -2979,8 +2981,8 @@ def phase_train_kernels(torch, dev, ffn_shape, scan_shape):
              "plain_device_ms": _device_ms(torch, plain, sets, iters=1,
                                            need_ahead=False)}
     # reads decay, h_all, G and h0; writes d_decay, d_bx and d_h0 (f32)
-    n_bytes = 4 * B * Cn * (5 * S + 2)
-    n_ops = 3 * B * S * Cn                # lam: a multiply and an add; d_decay
+    cost = costs.ssm_scan_bwd(B, S, di, N)
+    n_bytes, n_ops = cost["bytes"], cost["flops"]
     bound_ms, bound_by = _bound(n_bytes, n_ops, H100_PEAK_FLOPS_F32)
     row = {"kernel": "ssm_scan_bwd", "step": "train", "group": "train",
            "B": B, "S": S, "di": di, "N": N, "dtype": "float32", **times,
@@ -3708,20 +3710,25 @@ def _family_traffic(cfg, phase):
 
 def _all_reduces_per_decode_step(cfg, shape, B):
     """The all_reduces one decode step runs on a rank of a (data, model)
-    mesh whose "model" axis divides the kv heads and the mixer's channels
-    (PERF.md §6; tests/test_torch_mesh_families.py holds the CPU ranks to
-    the same count): the embedding and the vocab gather when the axis
-    splits the vocab (internvl2-1b's 151655 rows stay whole), a gather of
-    the batch rows when the batch splits over "data" > 1; two a Mamba
-    layer; a self-attention sublayer one, three when its cache's sequence
-    is sharded (the lse merge); a cross-attention sublayer one; an MLP
-    one."""
-    data, model = shape
-    b_split = B % data == 0
+    or (pod, data, model) mesh ``shape`` whose "model" axis divides the kv
+    heads and the mixer's channels (PERF.md §6; tests/test_torch_mesh_families.py
+    and tests/test_torch_dryrun.py hold the ranks to the same count), the
+    batch axes taken together: the embedding and the vocab gather when the
+    axis splits the vocab (internvl2-1b's 151655 rows stay whole), a gather
+    of the batch rows when the batch splits over batch axes > 1; two a
+    Mamba layer; a self-attention sublayer one, three when its cache's
+    sequence is sharded (the lse merge); a cross-attention sublayer one; an
+    MLP one; an MoE layer one, and one more (its aux loss's mean) when the
+    batch splits over batch axes > 1."""
+    *batch, model = shape
+    data = math.prod(batch)
+    b_split = B % data == 0 and B >= data
     attn = 1 if b_split else 3
     n = (2 if cfg.vocab_size % model == 0 else 0) \
         + (1 if b_split and data > 1 else 0)
     per_layer = {"ssm": 2, "audio": attn + 2}.get(cfg.family, attn + 1)
+    if cfg.num_experts and b_split and data > 1:
+        per_layer += 1
     n += per_layer * cfg.num_layers
     if cfg.family == "hybrid":
         n += (cfg.num_layers // cfg.hybrid_attn_every) * (attn + 1)
@@ -4076,14 +4083,15 @@ def _time_scan_rank(torch, dev, gen, key):
     prefill, or its train chunk, on di / 2 channels): ms a call, device ms
     and the plain version's ms, beside the bytes bound (decay, bx and
     h_all of every element, h0 and h_last, f32, each once)."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import costs, ref
     from repro_torch.kernels.ssm_scan import ssm_scan_cuda
     B, S, di, N = key
     C = di * N
     sets = [_scan_case(torch, gen, B, S, di, N, dev)
             for _ in range(_sets_for(4 * B * C * (2 * S + 1)))]
-    n_bytes = 4 * B * C * (3 * S + 2)
-    bound_ms, bound_by = _bound(n_bytes, 2 * B * S * C, H100_PEAK_FLOPS_F32)
+    cost = costs.ssm_scan(B, S, di, N)
+    n_bytes = cost["bytes"]
+    bound_ms, bound_by = _bound(n_bytes, cost["flops"], H100_PEAK_FLOPS_F32)
     row = {"phase": "mesh_kernels_timing", "kernel": "ssm_scan",
            "group": "mesh rank", "B": B, "S": S, "di": di, "N": N,
            "dtype": "float32",
@@ -4105,7 +4113,7 @@ def _time_scan_bwd_rank(torch, dev, gen, key):
     calls it (the gradient of h_all only): ms, device ms and the plain
     reverse loop's ms, beside the bytes bound (decay, h_all, G and h0 read,
     d_decay, d_bx and d_h0 written, f32, each once)."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import costs, ref
     from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda
     B, S, di, N = key
     Cn = di * N
@@ -4115,8 +4123,9 @@ def _time_scan_bwd_rank(torch, dev, gen, key):
         sets.append((decay, ref.ssm_scan_ref(decay, bx, h0)[0], h0,
                      torch.randn_like(decay), None))
         del bx
-    n_bytes = 4 * B * Cn * (5 * S + 2)
-    bound_ms, bound_by = _bound(n_bytes, 3 * B * S * Cn, H100_PEAK_FLOPS_F32)
+    cost = costs.ssm_scan_bwd(B, S, di, N)
+    n_bytes = cost["bytes"]
+    bound_ms, bound_by = _bound(n_bytes, cost["flops"], H100_PEAK_FLOPS_F32)
     row = {"phase": "mesh_kernels_timing", "kernel": "ssm_scan_bwd",
            "group": "mesh_train_ssm rank", "B": B, "S": S, "di": di, "N": N,
            "dtype": "float32",
@@ -4138,7 +4147,7 @@ def _time_ffn_rank(torch, dev, gen, key):
     counts) with random counts: ms, device ms and the plain version's ms,
     beside the bound over these counts' experts and rows (rows read, the
     output written, the used experts' weights, the counts)."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import costs, ref
     from repro_torch.kernels.grouped_ffn import grouped_ffn_cuda
     E, C, D, F, dt, _ = key
     dtype = getattr(torch, dt)
@@ -4151,8 +4160,10 @@ def _time_ffn_rank(torch, dev, gen, key):
         sets.append((buf, wg, wu, wd, counts))
     rows = sum(int(c.sum()) for *_, c in sets) / len(sets)
     used = sum(int((c > 0).sum()) for *_, c in sets) / len(sets)
-    n_bytes = es * (rows * D + E * C * D + used * 3 * D * F) + 4 * E
-    bound_ms, bound_by = _bound(n_bytes, 6 * rows * D * F)
+    cost = costs.grouped_ffn(E, C, D, F, es, routed_rows=rows,
+                             experts_used=used, counts=True)
+    n_bytes = cost["bytes"]
+    bound_ms, bound_by = _bound(n_bytes, cost["flops"])
     row = {"phase": "mesh_kernels_timing", "kernel": "grouped_ffn",
            "group": "mesh rank", "E": E, "C": C, "D": D, "F": F, "dtype": dt,
            "routed_rows_mean": rows, "experts_used_mean": used,
@@ -4175,7 +4186,7 @@ def _time_lse(torch, dev, gen, shapes):
     beside the bytes bound (q, the K/V rows of the windows -- here every
     row --, lengths, starts, output and lse, each once), the plain
     version's ms and the same call without lse."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import costs, ref
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     key = max((k for k in shapes["decode"] if k[7]),
               key=lambda k: (k[5] == "bfloat16", k[0] * k[1] * k[3]))
@@ -4193,9 +4204,9 @@ def _time_lse(torch, dev, gen, shapes):
     plain_call = lambda q, k, v, cl, st: decode_attention_cuda(q, k, v, cl)  # noqa: E731
     ref_call = lambda q, k, v, cl, st: ref.decode_attention_ref(  # noqa: E731
         q, k, v, cl, start=st, lse=True)
-    n_bytes = (2 * B * H * dh * es + 2 * B * S * Hkv * dh * es + 2 * B * 4
-               + B * H * 4)
-    bound_ms, bound_by = _bound(n_bytes, 4 * B * H * S * dh)
+    cost = costs.decode_attention(B, H, Hkv, dh, B * S, es, start=True,
+                                  lse=True)
+    bound_ms, bound_by = _bound(cost["bytes"], cost["flops"])
     row = {"phase": "mesh_kernels_timing", "kernel": "decode_attention",
            "variant": "lse+start", "group": "mesh_seq shard",
            "B": B, "S": S, "H": H, "Hkv": Hkv, "dh": dh, "dtype": key[5],
@@ -4691,6 +4702,248 @@ def _model_all_reduces(cfg, pl, m, B, S, es, remat, add):
 
 
 # ---------------------------------------------------------------------------
+# The dry run, the roofline and the example twins
+# ---------------------------------------------------------------------------
+DRYRUN_CHILD = """
+import sys
+from repro_torch.configs.base import get_config, list_configs
+from repro_torch.launch import dryrun
+out, jobs = sys.argv[1], int(sys.argv[2])
+todo = dryrun.combos(True) + [(a, "train_4k", True) for a in list_configs()]
+order = {"train_4k": 0, "prefill_32k": 1, "decode_32k": 2, "long_500k": 3}
+todo.sort(key=lambda c: (order[c[1]], -get_config(c[0]).num_layers))
+dryrun.sweep(todo, jobs=jobs, out=out)
+"""
+
+
+def phase_dryrun_start():
+    """Start the dry run in a child process on the meta device (it needs no
+    card; ``CUDA_VISIBLE_DEVICES`` empty): every (arch x shape) on (16, 16)
+    and train_4k on (2, 16, 16), ``DRYRUN_JOBS`` processes, one JSON file a
+    combo under build/dryrun.  It runs at the lowest CPU priority (nice
+    19), on the cycles the card's phases leave idle, so it does not slow
+    them.  Its process group is killed at exit."""
+    import atexit
+    import shutil
+    import signal
+    out = ROOT / "build" / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    log = open(out / "sweep.log", "w")
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    proc = subprocess.Popen([sys.executable, "-c", DRYRUN_CHILD, str(out),
+                             str(DRYRUN_JOBS)], env=env, cwd=str(ROOT),
+                            stdout=log, stderr=subprocess.STDOUT,
+                            start_new_session=True,
+                            preexec_fn=lambda: os.nice(19))
+
+    def stop():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        log.close()
+
+    atexit.register(stop)
+    return {"proc": proc, "out": out, "t0": time.perf_counter(), "stop": stop}
+
+
+def phase_dryrun_finish(run):
+    """Wait for the dry run; every combo OK, or skipped where
+    ``applicable`` skips it (long_500k without sub-quadratic attention),
+    0 failures; one line a combo (flops, collective bytes, temp and
+    argument GB, whether they fit the card's 80 GB, the roofline terms) and
+    the phase's seconds (its own wall, beside the card's phases)."""
+    from repro_torch.configs.base import get_config, list_configs
+    from repro_torch.configs.shapes import INPUT_SHAPES
+    from repro_torch.launch import roofline
+    from repro_torch.launch.dryrun import fits
+    proc = run["proc"]
+    left = DRYRUN_TIMEOUT_S - (time.perf_counter() - run["t0"])
+    try:
+        rc = proc.wait(timeout=max(left, 1.0))
+    except subprocess.TimeoutExpired:
+        run["stop"]()
+        fail(f"dryrun: the sweep did not finish within {DRYRUN_TIMEOUT_S} s")
+    wall = time.perf_counter() - run["t0"]
+    run["stop"]()
+    tail = (run["out"] / "sweep.log").read_text()[-3000:]
+    require(rc == 0, f"dryrun: the sweep exited {rc}: {tail}")
+    results = [json.loads(p.read_text()) for p in sorted(run["out"].glob("*.json"))]
+    want = len(list_configs()) * (len(INPUT_SHAPES) + 1)
+    require(len(results) == want, f"dryrun: {len(results)} results of {want}")
+    bad = [(r["arch"], r["shape"], r["error"]) for r in results if r.get("error")]
+    require(not bad, f"dryrun: failures {bad}")
+    n_skip = 0
+    for r in results:
+        mesh = "2x16x16" if r["multi_pod"] else "16x16"
+        if r["skipped"]:
+            n_skip += 1
+            require(r["shape"] == "long_500k"
+                    and not get_config(r["arch"]).supports_long_context,
+                    f"dryrun: {r['arch']} x {r['shape']} skipped")
+            emit({"phase": "dryrun", "arch": r["arch"], "shape": r["shape"],
+                  "mesh": mesh, "skipped": True})
+            continue
+        t = roofline.terms(r)
+        emit({"phase": "dryrun", "arch": r["arch"], "shape": r["shape"],
+              "mesh": mesh, "flops": r["flops"],
+              "coll_bytes": r["collective_bytes"]["total"],
+              "temp_gb": r["temp_size_in_bytes"] / 1e9,
+              "args_gb": r["argument_size_in_bytes"] / 1e9,
+              "fits_80gb": fits(r), "t_compute_ms": 1e3 * t.t_compute,
+              "t_memory_ms": 1e3 * t.t_memory,
+              "t_collective_ms": 1e3 * t.t_collective,
+              "model_flops_per_chip": t.model_flops / t.chips,
+              "trace_s": r["trace_s"]})
+    emit({"phase": "dryrun", "combos": len(results), "skipped": n_skip,
+          "failures": 0, "jobs": DRYRUN_JOBS, "seconds": wall,
+          "trace_s_sum": sum(r.get("trace_s", 0.0) for r in results)})
+
+
+def _roofline_programs(torch, cfg, B, dev):
+    """llama3.2-1b's static-slice decode step (B rows over a full S_MAIN
+    cache: cache_index S_MAIN - 1) and train_slice's first step, on ``dev``
+    (the card or the meta device): {name: (fn, args)}."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import make_serve_step
+    from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.training.train import make_train_step
+    params = M.init_params(cfg, 0, device=dev)
+    cache = M.init_cache(cfg, B, S_MAIN, device=dev)
+    tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    idx = torch.full((), S_MAIN - 1, dtype=torch.int32, device=dev)
+    serve = make_serve_step(cfg)
+    state = init_opt_state(params)
+    batch = _on(torch, next(_train_data(cfg, TRAIN_BATCH, TRAIN_SEQ)), dev)
+    train = make_train_step(cfg, OptimizerConfig(
+        lr=TRAIN_LR, warmup_steps=max(TRAIN_STEPS // 10, 1),
+        total_steps=TRAIN_STEPS), remat=False)
+    return {"decode": (lambda: serve(params, cache, tok, idx),
+                       (params, cache, tok, idx)),
+            "train": (lambda: train(params, state, batch),
+                      (params, state, batch))}
+
+
+def phase_roofline(torch, dev, B, timing_rows):
+    """The roofline on the card: llama3.2-1b's decode step at the slice's
+    auxiliary batch and train_slice's 8 x 64 step, each counted on the meta
+    device and on the card under ``profiling.measure``: flops, bytes
+    accessed, kernel calls, flops and bytes equal.  Beside each, the
+    program's ms (CUDA events), its compute and memory terms on the H100's
+    rates and the share of the step they make.  Then every kernel's bound
+    at the timing phases' shapes (``kernels/costs.py``) against PERF.md
+    §6's column."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.profiler import H100_PEAK_FLOPS_BF16
+    from repro_torch.kernels import ops
+    from repro_torch.launch.roofline import RooflineTerms
+    from repro_torch.models import model as M
+    from repro_torch.serving.profiling import measure
+    cfg = get_config(ARCH)
+    n = M.count_params_analytic(cfg)
+    model_flops = {"decode": 2.0 * n * B,
+                   "train": 6.0 * n * TRAIN_BATCH * TRAIN_SEQ}
+    on_meta, launched = {}, {}
+    for where in (torch.device("meta"), dev):
+        progs = _roofline_programs(torch, cfg, B, where)
+        for name, (fn, args) in progs.items():
+            ops.reset_launch_counts()
+            with torch.set_grad_enabled(name == "train"):
+                rec = measure(fn, None, args)
+            if where.type == "meta":
+                on_meta[name] = rec
+                continue
+            torch.cuda.synchronize()
+            launches = launched[name] = ops.launch_counts()
+            meta = on_meta[name]
+            for key in ("flops", "bytes_accessed", "kernels"):
+                require(rec[key] == meta[key], f"roofline {name}: {key} on the "
+                        f"card {rec[key]} != on the meta device {meta[key]}")
+            for k, v in rec["kernels"].items():
+                require(launches[k] == v["calls"], f"roofline {name}: {k} "
+                        f"launched {launches[k]}, recorded {v['calls']}")
+            with torch.set_grad_enabled(name == "train"):
+                ms = _time_ms(torch, fn, [()], iters=ROOFLINE_REPS[name],
+                              warmup=2)
+            t = RooflineTerms(ARCH, name, name, 1, rec["flops"],
+                              rec["bytes_accessed"], 0.0, model_flops[name])
+            emit({"phase": "roofline", "program": name, "arch": ARCH,
+                  "B": B if name == "decode" else TRAIN_BATCH,
+                  "S": S_MAIN if name == "decode" else TRAIN_SEQ,
+                  "flops": rec["flops"], "bytes_accessed": rec["bytes_accessed"],
+                  "kernels": rec["kernels"], "meta_equal": True,
+                  "temp_gb": rec["temp_size_in_bytes"] / 1e9,
+                  "args_gb": rec["argument_size_in_bytes"] / 1e9,
+                  "model_flops": model_flops[name],
+                  "t_compute_ms": 1e3 * t.t_compute,
+                  "t_memory_ms": 1e3 * t.t_memory, "ms": ms,
+                  "share_compute": 1e3 * t.t_compute / ms,
+                  "share_memory": 1e3 * t.t_memory / ms,
+                  "t_model_flops_ms": 1e3 * model_flops[name]
+                  / H100_PEAK_FLOPS_BF16})
+        del progs
+        _free(torch)
+    picked = _picked_rows(timing_rows)
+    for kname, want in SECTION6_BOUNDS.items():
+        got = picked[kname]["bound_ms"]
+        require(abs(got - want) <= BOUND_RTOL * want, f"roofline: {kname}'s "
+                f"bound {got} ms is not PERF.md §6's {want}")
+        emit({"phase": "roofline", "kernel": kname, "bound_ms": got,
+              "section6_bound_ms": want})
+    return launched["decode"], launched["train"]
+
+
+def phase_examples(torch, dev):
+    """``examples/serve_offload_torch.py`` on the card, in this process:
+    its six steps at the JAX example's reduced() config; the §VI payload on
+    masked_compact and every decode on decode_attention, and no plain
+    version of any kernel called (each raises while it runs)."""
+    import contextlib
+    import importlib.util
+    import io
+    from repro_torch.kernels import ops, ref
+    spec = importlib.util.spec_from_file_location(
+        "serve_offload_torch", ROOT / "examples" / "serve_offload_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    names = ("decode_attention_ref", "masked_compact_ref", "grouped_ffn_ref",
+             "ssm_scan_ref", "ssm_scan_bwd_ref")
+    saved = {n: getattr(ref, n) for n in names}
+
+    def refuse(name):
+        def plain(*a, **k):
+            raise RuntimeError(f"examples: {name} ran on the card's path")
+        return plain
+
+    printed = io.StringIO()
+    ops.reset_launch_counts()
+    try:
+        for n in names:
+            setattr(ref, n, refuse(n))
+        with contextlib.redirect_stdout(printed):
+            out = mod.run("llama3.2-1b", 24, dev)
+    finally:
+        for n, fn in saved.items():
+            setattr(ref, n, fn)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    require(counts["masked_compact"] >= 1, "examples: no masked_compact launch")
+    require(counts["decode_attention"] > 0, "examples: no decode_attention launch")
+    packed, _, count, mask = out["payload"]
+    require(packed.device.type == dev.type and int(count.sum()) == int(mask.sum()),
+            "examples: the §VI payload was not compacted on the card")
+    shapes = {r: tuple(rep.outputs.shape) for r, rep in out["reports"].items()}
+    require(all(s == (24, 8) for s in shapes.values()),
+            f"examples: split outputs {shapes}")
+    emit({"phase": "examples", "script": "examples/serve_offload_torch.py",
+          "launches": counts, "splits": sorted(shapes),
+          "payload_rows": int(count.sum()),
+          "printed_tail": printed.getvalue().strip().splitlines()[-3:]})
+    return counts
+
+
+# ---------------------------------------------------------------------------
 KERNEL_META = {
     "decode_attention": {
         "route": "cuda", "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -4712,6 +4965,18 @@ KERNEL_META = {
 }
 
 
+def _picked_rows(rows):
+    """Each kernel's first row timed at an auxiliary group, else its first:
+    the row the kernels line reports."""
+    pick = {}
+    for row in rows:
+        if row["group"] == "auxiliary":
+            pick.setdefault(row["kernel"], row)
+    for row in rows:
+        pick.setdefault(row["kernel"], row)
+    return pick
+
+
 def kernels_line(rows, counts_by_path, errs):
     """One entry per kernel: decode_attention and masked_compact timed at
     llama's auxiliary group, grouped_ffn at moonshot's auxiliary group's
@@ -4720,12 +4985,7 @@ def kernels_line(rows, counts_by_path, errs):
     main path (and listed per path: each static slice, each continuous mode,
     each train path); max_abs_err the largest main-path error of any
     path."""
-    pick = {}   # each kernel's first row timed at an auxiliary group, else its first
-    for row in rows:
-        if row["group"] == "auxiliary":
-            pick.setdefault(row["kernel"], row)
-    for row in rows:
-        pick.setdefault(row["kernel"], row)
+    pick = _picked_rows(rows)
     kernels = []
     for kname, meta in KERNEL_META.items():
         row = pick[kname]
@@ -4776,6 +5036,7 @@ def main() -> None:
     torch.cuda.set_device(dev)
 
     name, card = phase_env(torch)
+    dry = phase_dryrun_start()        # the dry run on the CPU, beside the card
     timed("build", phase_build)
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M
@@ -4924,6 +5185,15 @@ def main() -> None:
     mesh_errs, _ = timed("mesh_kernels", phase_mesh_kernels, torch, dev,
                          mesh_shapes)
 
+    # the roofline on the card, the example twins, then the dry run's sweep
+    timing_rows = rows + moe_rows + ssm_rows + long_rows + fam_rows + train_rows
+    roof_decode, roof_train = timed(
+        "roofline", phase_roofline, torch, dev,
+        dict(zip(slice_summary["group_names"], slice_summary["n_group"]))
+        ["auxiliary"] or REQUESTS, timing_rows)
+    example_counts = timed("examples", phase_examples, torch, dev)
+    timed("dryrun", phase_dryrun_finish, dry)
+
     by_path = {ARCH: counts}
     by_path.update({f"{ARCH} continuous {m}": c for m, c in cont_counts.items()})
     by_path.update({f"{ARCH} {f}": c for f, c in fleet_counts.items()})
@@ -4943,8 +5213,10 @@ def main() -> None:
     by_path[f"{MOE_ARCH} train remat"] = moe_remat_counts
     by_path[f"{SSM_ARCH} train ({SSM_TRAIN_LAYERS} layers)"] = ssm_train_counts
     by_path.update(mesh_counts)
-    kernels = kernels_line(rows + moe_rows + ssm_rows + long_rows + fam_rows
-                           + train_rows, by_path,
+    by_path[f"{ARCH} roofline decode"] = roof_decode
+    by_path[f"{ARCH} roofline train"] = roof_train
+    by_path["examples/serve_offload_torch.py"] = example_counts
+    kernels = kernels_line(timing_rows, by_path,
                            [errs, cont_errs, fleet_static_errs, fleet_errs,
                             dense_errs, moe_errs, ssm_errs, hyb_errs, fam_errs,
                             train_errs, mesh_errs])

@@ -16,6 +16,9 @@ HLO parser uses (``serving/profiling.py``), plus ``broadcast``.  A
 collective over one rank is the identity: it is not issued and counts
 nothing (as XLA drops a psum over an axis of size 1), and neither is any
 on a mesh without process groups (one process, no ``torch.distributed``).
+On a rank view (``Mesh(view=True)``, the dry run's stand-in for one rank
+of a grid) every collective over more than one rank is counted as issued
+and moves nothing: the group is :data:`VIEW`.
 
 Training differentiates through the collectives (Megatron-LM's *f* and *g*
 operators, and JAX's psum transposes).  On "model" every rank holds the
@@ -57,6 +60,8 @@ from typing import Dict, Sequence
 import torch
 import torch.distributed as dist
 
+VIEW = object()   # the group of every line of a rank view: counted, not moved
+
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
          "collective-permute", "broadcast")
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
@@ -71,10 +76,25 @@ class CollectiveCounter:
         self.bytes: Dict[str, float] = dict.fromkeys(KINDS, 0.0)
         self.calls: Dict[str, int] = dict.fromkeys(KINDS, 0)
         self.seconds = 0.0
+        self._marks: list = []
 
     def add(self, kind: str, n_bytes: float) -> None:
         self.bytes[kind] += float(n_bytes)
         self.calls[kind] += 1
+
+    # a counter of ``kernels/costs.py``: no kernel is a collective; the
+    # counts inside ``costs.repeats`` are scaled by its trips
+    def kernel(self, name: str, cost, outputs=()) -> None:
+        pass
+
+    def begin_repeat(self, n: int) -> None:
+        self._marks.append((n, dict(self.bytes), dict(self.calls)))
+
+    def end_repeat(self) -> None:
+        n, b0, c0 = self._marks.pop()
+        for k in KINDS:
+            self.bytes[k] += (n - 1) * (self.bytes[k] - b0[k])
+            self.calls[k] += (n - 1) * (self.calls[k] - c0[k])
 
     def totals(self) -> Dict[str, float]:
         """Bytes by kind and their ``"total"`` (the JAX profile's schema)."""
@@ -114,7 +134,7 @@ def _spent(mesh, t0: float) -> None:
 
 
 def _reduce(t: torch.Tensor, mesh, group, op: str = "sum") -> torch.Tensor:
-    if group is not None:
+    if group is not None and group is not VIEW:
         t0 = time.perf_counter()
         dist.all_reduce(t, op=_OPS[op], group=group)
         _spent(mesh, t0)
@@ -133,7 +153,7 @@ def broadcast(t: torch.Tensor, mesh, axes: Sequence[str] = ()) -> torch.Tensor:
     rank's line along ``axes`` (default: the whole mesh); returns ``t``."""
     axes = tuple(axes) or mesh.axes
     group = _issue("broadcast", _nbytes(t), mesh, axes)
-    if group is not None:
+    if group is not None and group is not VIEW:
         t0 = time.perf_counter()
         dist.broadcast(t, src=mesh.line_ranks(axes)[0], group=group)
         _spent(mesh, t0)

@@ -19,14 +19,35 @@ written out, so the CPU tests run the same backward arithmetic as the card.
   kernel ``repro_ssm_scan_bwd`` on the card (where JAX differentiates its
   associative scan in XLA), :func:`ref.ssm_scan_bwd_ref` elsewhere.  Either
   output's gradient may be absent.
+
+On the meta device (the dry run) each forward and the recurrence's
+backward return empty outputs of the kernel's shapes, as the card's
+wrappers would, and record the call's ``kernels/costs.py`` cost
+(``ops``' module docstring); ``GroupedFFN``'s backward is operators, which
+run on the meta device as they are.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import costs, ref
 from repro_torch.kernels.grouped_ffn import grouped_ffn_cuda
 from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda, ssm_scan_cuda
+
+
+def ffn_cost(buf, wg, counts) -> costs.Cost:
+    """A ``grouped_ffn`` call's cost: over the rows below ``counts`` and the
+    experts with a row (read back on the card, only while a counter is
+    active), over every row of the buffer without counts or on the meta
+    device (whose counts hold no data)."""
+    E, C, D = buf.shape
+    rows = used = None
+    if counts is not None and not counts.is_meta:
+        c = counts.clamp(0, C)
+        rows, used = int(c.sum()), int((c > 0).sum())
+    return costs.grouped_ffn(E, C, D, wg.shape[2], buf.element_size(),
+                             routed_rows=rows, experts_used=used,
+                             counts=counts is not None)
 
 
 class GroupedFFN(torch.autograd.Function):
@@ -34,8 +55,12 @@ class GroupedFFN(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, buf, wg, wu, wd, counts, use_kernels: bool):
-        if use_kernels and buf.is_cuda:
-            out = grouped_ffn_cuda(buf, wg, wu, wd, counts)
+        if use_kernels and (buf.is_cuda or buf.is_meta):
+            out = costs.counted(
+                "grouped_ffn",
+                lambda: torch.empty_like(buf) if buf.is_meta
+                else grouped_ffn_cuda(buf, wg, wu, wd, counts),
+                lambda _: ffn_cost(buf, wg, counts))
         else:
             out = ref.grouped_ffn_ref(buf, wg, wu, wd, counts)
         ctx.save_for_backward(buf, wg, wu, wd, counts)
@@ -71,9 +96,13 @@ class SSMScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, decay, bx, h0, use_kernels: bool):
-        ctx.kernel = bool(use_kernels and decay.is_cuda)
+        ctx.kernel = bool(use_kernels and (decay.is_cuda or decay.is_meta))
         if ctx.kernel:
-            h_all, h_last = ssm_scan_cuda(decay, bx, h0)
+            h_all, h_last = costs.counted(
+                "ssm_scan",
+                lambda: (torch.empty_like(decay), torch.empty_like(h0))
+                if decay.is_meta else ssm_scan_cuda(decay, bx, h0),
+                lambda _: costs.ssm_scan(*decay.shape))
         else:
             h_all, h_last = ref.ssm_scan_ref(decay, bx, h0)
         ctx.set_materialize_grads(False)
@@ -86,9 +115,16 @@ class SSMScan(torch.autograd.Function):
             return None, None, None, None
         decay, h0, h_all = ctx.saved_tensors
         if ctx.kernel:
-            d_decay, d_bx, d_h0 = ssm_scan_bwd_cuda(
-                decay, h_all, h0, None if G is None else G.contiguous(),
-                None if g is None else g.contiguous())
+            def run():
+                if decay.is_meta:
+                    return (torch.empty_like(decay), torch.empty_like(decay),
+                            torch.empty_like(h0))
+                return ssm_scan_bwd_cuda(
+                    decay, h_all, h0, None if G is None else G.contiguous(),
+                    None if g is None else g.contiguous())
+            d_decay, d_bx, d_h0 = costs.counted(
+                "ssm_scan_bwd", run, lambda _: costs.ssm_scan_bwd(
+                    *decay.shape, G=G is not None, g=g is not None))
         else:
             d_decay, d_bx, d_h0 = ref.ssm_scan_bwd_ref(decay, h_all, h0, G, g)
         return d_decay, d_bx, d_h0, None

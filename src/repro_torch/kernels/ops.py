@@ -7,7 +7,14 @@ version.  There is no fallback from the kernel to the plain version.
 (``kernels/autograd.py``); ``ssm_scan``'s backward on the card is the
 hand-written ``repro_ssm_scan_bwd``, counted as ``ssm_scan_bwd``.
 ``use_kernels`` is the port's counterpart of the JAX package's
-``use_pallas``: ``"auto"`` means "the tensors are on CUDA".
+``use_pallas``: ``"auto"`` means "the tensors are on CUDA" (or on the meta
+device, which stands for the card).
+
+On the meta device (the dry run, ``launch/dryrun.py``) each kernel entry
+returns empty outputs of the kernel's shapes and dtypes and never runs the
+plain version (the recurrence's loops over S in Python).  Every kernel
+call, a launch on the card or its meta stand-in, is recorded with its
+``kernels/costs.py`` cost in the active counters (``costs.counted``).
 
 ``admit_state`` / ``admit_slots`` and ``splice_blocks`` are the continuous
 engine's admission ops.  In the JAX package they are XLA scatters, not
@@ -20,7 +27,7 @@ from typing import Dict, Union
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import costs, ref
 from repro_torch.kernels.autograd import GroupedFFN, SSMScan
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.grouped_ffn import check_counts, grouped_ffn_cuda
@@ -36,10 +43,34 @@ _WRAPPERS = {"decode_attention": decode_attention_cuda,
 
 def resolve_use_kernels(use_kernels: Union[bool, str],
                         device: torch.device) -> bool:
-    """``"auto"`` -> kernels exactly when ``device`` is a CUDA device."""
+    """``"auto"`` -> kernels exactly when ``device`` is a CUDA device or
+    the meta device (which stands for the card)."""
     if use_kernels == "auto":
-        return torch.device(device).type == "cuda"
+        return torch.device(device).type in ("cuda", "meta")
     return bool(use_kernels)
+
+
+def attended_rows(cache_len, start, window: int, B: int, S: int,
+                  device: torch.device) -> int:
+    """The K/V rows a decode call attends, summed over its ``B`` slots:
+    each slot's rows ``max(start, len - window, 0) <= pos < min(len, S)``.
+    On the meta device the lengths hold no data: every row of each slot's
+    window (of a Python-int length, its rows exactly).  On the card this
+    reads the lengths back (a sync; only while a counter is active)."""
+    if isinstance(cache_len, int) and (start is None or device.type == "meta"):
+        hi = min(max(cache_len, 0), S)
+        lo = max(cache_len - window, 0) if window else 0
+        return B * max(hi - lo, 0)
+    if device.type == "meta":
+        return B * (min(S, window) if window else S)
+    cl = torch.as_tensor(cache_len, device=device).to(torch.int64)
+    cl = cl.reshape(-1).expand(B)
+    lo = torch.zeros_like(cl)
+    if window:
+        lo = torch.maximum(lo, cl - window)
+    if start is not None:
+        lo = torch.maximum(lo, start.to(torch.int64).reshape(-1))
+    return int((cl.clamp(max=S) - lo).clamp(min=0).sum())
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
@@ -49,20 +80,46 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
     also returns the f32 log-sum-exp [B,H] of the scores attended (the
     sequence-sharded decode merges shards by it).  ``use_kernels=False``
     takes the plain version on any device."""
-    if use_kernels and q.is_cuda:
+    if not (use_kernels and (q.is_cuda or q.is_meta)):
+        return ref.decode_attention_ref(q, k_cache, v_cache, cache_len,
+                                        window=window, start=start, lse=lse)
+    B, _, H, dh = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+
+    def run():
+        if q.is_meta:
+            out = torch.empty(q.shape, dtype=v_cache.dtype, device=q.device)
+            return (out, torch.empty((B, H), dtype=torch.float32,
+                                     device=q.device)) if lse else out
         return decode_attention_cuda(q.contiguous(), k_cache, v_cache,
                                      cache_len, window=window, start=start,
                                      lse=lse)
-    return ref.decode_attention_ref(q, k_cache, v_cache, cache_len,
-                                    window=window, start=start, lse=lse)
+
+    return costs.counted("decode_attention", run, lambda _: costs.decode_attention(
+        B, H, Hkv, dh, attended_rows(cache_len, start, window, B, S, q.device),
+        k_cache.element_size(), start=start is not None, lse=lse))
 
 
 def masked_compact(tokens, mask, capacity: int, *, use_kernels: bool = True):
     """tokens: [B,S,D]; mask: [B,S] bool -> (out [B,K,D], idx [B,K], count [B]).
     ``use_kernels=False`` takes the plain version on any device."""
-    if use_kernels and tokens.is_cuda:
+    if not (use_kernels and (tokens.is_cuda or tokens.is_meta)):
+        return ref.masked_compact_ref(tokens, mask, capacity)
+    B, S, D = tokens.shape
+    K = int(capacity)
+
+    def run():
+        if tokens.is_meta:
+            return (torch.empty((B, K, D), dtype=tokens.dtype, device="meta"),
+                    torch.empty((B, K), dtype=torch.int32, device="meta"),
+                    torch.empty((B,), dtype=torch.int32, device="meta"))
         return masked_compact_cuda(tokens, mask, capacity)
-    return ref.masked_compact_ref(tokens, mask, capacity)
+
+    def cost(outs):      # the rows kept: the count the kernel wrote
+        kept = None if tokens.is_meta else int(outs[2].sum())
+        return costs.masked_compact(B, S, D, K, tokens.element_size(), kept)
+
+    return costs.counted("masked_compact", run, cost)
 
 
 def grouped_ffn(buf, wg, wu, wd, *, counts=None, use_kernels: bool = True):

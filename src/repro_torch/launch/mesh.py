@@ -53,10 +53,17 @@ class Mesh:
     the same order (``new_group``'s rule), members or not.  Without one,
     or with ``groups=False``, the mesh has no process groups: it then
     stands for one process (the collectives are identities) or only states
-    a shape (the rules)."""
+    a shape (the rules).
+
+    With ``view=True`` the mesh stands for one rank of the grid, the
+    first of ``ranks`` (rank 0 of the production mesh in the dry run), in
+    one process: it makes no process group, and every collective is
+    counted by kind and bytes as that rank would issue it and moves
+    nothing (``collectives.VIEW``)."""
 
     def __init__(self, ranks, axes: Sequence[str], *,
-                 timeout_s: float = GROUP_TIMEOUT_S, groups: bool = True):
+                 timeout_s: float = GROUP_TIMEOUT_S, groups: bool = True,
+                 view: bool = False):
         self.ranks = np.asarray(ranks, dtype=np.int64)
         self.axes = tuple(axes)
         if self.ranks.ndim != len(self.axes):
@@ -64,13 +71,14 @@ class Mesh:
                              f"{self.axes}")
         self.shape: Dict[str, int] = dict(zip(self.axes, self.ranks.shape))
         self.counters: list = []          # active CollectiveCounters
-        self.rank = dist.get_rank() if dist.is_initialized() \
+        self.view = bool(view)
+        self.rank = dist.get_rank() if dist.is_initialized() and not view \
             else int(self.ranks.flat[0])
         where = np.argwhere(self.ranks == self.rank)
         self.coords: Optional[Tuple[int, ...]] = \
             tuple(int(c) for c in where[0]) if len(where) else None
         self._groups: Dict[Tuple[str, ...], Any] = {}
-        if groups and dist.is_initialized():
+        if groups and dist.is_initialized() and not view:
             timeout = datetime.timedelta(seconds=timeout_s)
             for n in range(1, len(self.axes) + 1):
                 for sub in itertools.combinations(self.axes, n):
@@ -120,9 +128,12 @@ class Mesh:
 
     def group(self, axes: Sequence[str]):
         """The process group of this rank's line along ``axes`` (None for
-        no axes, or a mesh without process groups)."""
+        no axes, or a mesh without process groups; ``collectives.VIEW`` on
+        a rank view)."""
         axes = self.canon(axes)
-        return self._groups.get(axes) if axes else None
+        if not axes:
+            return None
+        return coll.VIEW if self.view else self._groups.get(axes)
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank={self.rank})"
@@ -134,10 +145,18 @@ def world_ranks() -> List[int]:
         else [0]
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False,
+                         view: bool = False) -> Mesh:
+    """The production mesh: (data, model) = (16, 16), or (pod, data, model)
+    = (2, 16, 16) with ``multi_pod``, over the first 256 or 512 ranks of
+    the process group.  ``view``: rank 0's view of it in this process
+    (:class:`Mesh`'s ``view``), which needs no process group -- the dry
+    run's counterpart of JAX's 512 placeholder host devices."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     n = int(np.prod(shape))
+    if view:
+        return Mesh(np.arange(n).reshape(shape), axes, view=True)
     ranks = world_ranks()
     if len(ranks) < n:
         raise RuntimeError(
@@ -441,10 +460,12 @@ class TrainLayout(NamedTuple):
         return _map_placements(lambda pl: pl.fsdp_dim, self.placements)
 
 
-def train_layout(params, mesh: Mesh) -> TrainLayout:
+def train_layout(params, mesh: Mesh, *, fsdp: bool = True) -> TrainLayout:
     """The :class:`TrainLayout` of a full param tree (or a tree of anything
-    with a ``shape`` and ``dim()``) on ``mesh``."""
-    return TrainLayout(mesh, _placements(params, mesh, fsdp=True))
+    with a ``shape`` and ``dim()``) on ``mesh``; ``fsdp=False`` cuts no
+    leaf over the batch axes (every FSDP dim None), as the dry run's
+    ``--no-fsdp`` asks."""
+    return TrainLayout(mesh, _placements(params, mesh, fsdp=fsdp))
 
 
 def _map_placements(fn, tree):

@@ -32,7 +32,7 @@ import math
 import torch
 
 from repro_torch.distributed import collectives as coll
-from repro_torch.kernels import ops
+from repro_torch.kernels import costs, ops
 from repro_torch.models.layers import apply_rope, norm_apply, normal_stack
 
 
@@ -85,6 +85,39 @@ def _qkv(params, x, kv_x, cfg, q_positions, kv_positions, *, rope: bool):
 
 
 # ---------------------------------------------------------------------------
+def _query_chunk(qc, qpos, k, v, kv_positions, once: bool, kv_chunk: int,
+                 causal: bool, window: int):
+    """One query chunk's online softmax over every key chunk: qc [B,Cq,H,dh]
+    f32 at ``qpos`` [Cq] -> [B,Cq,H,dh] f32.  ``once``: two key chunks run
+    and count for all (``costs.trips``)."""
+    B, Cq, H, dh = qc.shape
+    nk = k.shape[1] // kv_chunk
+    scale = 1.0 / math.sqrt(dh)
+    m = torch.full((B, H, Cq), -math.inf, device=qc.device)
+    l = torch.zeros((B, H, Cq), device=qc.device)
+    acc = torch.zeros((B, H, Cq, dh), device=qc.device)
+    for ki in costs.trips(nk, once):
+        sl = slice(ki * kv_chunk, (ki + 1) * kv_chunk)
+        kc, vc, kpos = k[:, sl].float(), v[:, sl].float(), kv_positions[sl]
+        s = torch.einsum("bqhd,bkhd->bhqk", qc, kc) * scale
+        mask = kpos[None, :] < 2**30                          # padding keys
+        if causal:
+            mask = mask & (qpos[:, None] >= kpos[None, :])
+        if window:
+            mask = mask & ((qpos[:, None] - kpos[None, :]) < window)
+        s = s.masked_fill(~mask, -math.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(s - m_safe[..., None])
+        p = torch.where(torch.isfinite(s), p, 0.0)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vc)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-20)[..., None]              # [B,H,Cq,dh]
+    return out.permute(0, 2, 1, 3)
+
+
 def chunked_attention(q, k, v, *, causal: bool, window: int,
                       q_positions, kv_positions,
                       q_chunk: int = 512, kv_chunk: int = 1024):
@@ -93,6 +126,10 @@ def chunked_attention(q, k, v, *, causal: bool, window: int,
     q: [B,Sq,H,dh]; k,v: [B,Sk,Hkv,dh]; positions give global indices used
     for the causal / sliding-window mask (padded queries carry -1, padded
     keys 2**30).  Returns [B,Sq,H,dh] in v's dtype.
+
+    Every (query chunk, key chunk) pair has the same shapes, so on the meta
+    device with no gradient recorded (the dry run's prefill) two chunks of
+    each run and count for all (``kernels/costs.py:trips``).
     """
     B, Sq, H, dh = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -112,35 +149,15 @@ def chunked_attention(q, k, v, *, causal: bool, window: int,
         kv_positions = torch.nn.functional.pad(kv_positions, (0, pk),
                                                value=2**30)
     nq, nk = q.shape[1] // q_chunk, k.shape[1] // kv_chunk
-    scale = 1.0 / math.sqrt(dh)
-
-    outs = []
-    for qi in range(nq):
-        qc = q[:, qi * q_chunk:(qi + 1) * q_chunk].float()       # [B,Cq,H,dh]
-        qpos = q_positions[qi * q_chunk:(qi + 1) * q_chunk]       # [Cq]
-        m = torch.full((B, H, q_chunk), -math.inf, device=q.device)
-        l = torch.zeros((B, H, q_chunk), device=q.device)
-        acc = torch.zeros((B, H, q_chunk, dh), device=q.device)
-        for ki in range(nk):
-            sl = slice(ki * kv_chunk, (ki + 1) * kv_chunk)
-            kc, vc, kpos = k[:, sl].float(), v[:, sl].float(), kv_positions[sl]
-            s = torch.einsum("bqhd,bkhd->bhqk", qc, kc) * scale
-            mask = kpos[None, :] < 2**30                          # padding keys
-            if causal:
-                mask = mask & (qpos[:, None] >= kpos[None, :])
-            if window:
-                mask = mask & ((qpos[:, None] - kpos[None, :]) < window)
-            s = s.masked_fill(~mask, -math.inf)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
-            p = torch.exp(s - m_safe[..., None])
-            p = torch.where(torch.isfinite(s), p, 0.0)
-            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
-            l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vc)
-            m = m_new
-        out = acc / torch.clamp(l, min=1e-20)[..., None]          # [B,H,Cq,dh]
-        outs.append(out.permute(0, 2, 1, 3))
+    once = costs.once(q, k, v)
+    outs = [t.permute(0, 2, 1, 3) for t in costs.stand_ins(
+        nq - costs.ran(nq, once), (B, H, q_chunk, dh), torch.float32,
+        q.device)]
+    for qi in costs.trips(nq, once):
+        rows = slice(qi * q_chunk, (qi + 1) * q_chunk)
+        outs.append(_query_chunk(q[:, rows].float(), q_positions[rows], k, v,
+                                 kv_positions, once, kv_chunk, causal,
+                                 window))
     return torch.cat(outs, dim=1)[:, :Sq].to(v.dtype)
 
 

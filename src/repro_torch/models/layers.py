@@ -25,8 +25,11 @@ def normal_stack(gen: torch.Generator, shape, scale: float, dtype,
     """N(0, scale**2) draws of ``shape`` in ``dtype``, made one slice of the
     leading (layer) axis at a time into a preallocated tensor, so the f32
     transient is one layer's and not the whole stack's (moonshot's
-    [48,64,2048,1408] expert stacks would need 35 GB each in f32)."""
+    [48,64,2048,1408] expert stacks would need 35 GB each in f32).  On the
+    meta device, which holds no values, the empty tensor itself."""
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta:
+        return out
     for i in range(shape[0]):
         out[i] = torch.randn(shape[1:], generator=gen, device=device) * scale
     return out

@@ -82,11 +82,12 @@ def init_params(cfg, seed: int = 0, *, device: DeviceLike = None) -> Dict[str, A
     """Random params from ``seed`` at the JAX package's init scales (the
     numbers differ from JAX's: a test hands JAX params over with
     ``repro_torch.convert``).  Runs on the card unless ``device`` says
-    otherwise."""
+    otherwise; on the meta device (the dry run) the draws come from a CPU
+    generator, as a generator cannot live on it, and hold no data."""
     dev = resolve_device(device)
     kind = _kind(cfg)
     dtype = cfg.torch_dtype
-    gen = torch.Generator(device=dev)
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
     gen.manual_seed(seed)
     table = (torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
                          device=dev) * 0.02).to(dtype)

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import collectives as coll
-from repro_torch.kernels import ops
+from repro_torch.kernels import costs, ops
 from repro_torch.launch.mesh import mamba_splits
 from repro_torch.models.layers import normal_stack
 
@@ -122,7 +122,9 @@ def mamba1_scan(u, delta, A, Bm, Cm, D, h0=None, chunk: int = 256,
 
     decay = exp(Δ·A) and bx = (Δ·u)⊗B are built in f32 one chunk at a time,
     so the [B,·,di,N] expansion exists for one chunk only; each chunk's
-    recurrence is one ``ops.ssm_scan`` call."""
+    recurrence is one ``ops.ssm_scan`` call.  Every chunk has the same
+    shapes: on the meta device with no gradient recorded two run and
+    count for all (``kernels/costs.py:trips``)."""
     B, S, di = u.shape
     N = A.shape[1]
     if h0 is None:
@@ -130,14 +132,18 @@ def mamba1_scan(u, delta, A, Bm, Cm, D, h0=None, chunk: int = 256,
     chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"mamba1_scan: S={S} is not a multiple of chunk={chunk}")
+    once = costs.once(u, delta, Bm, Cm)
+    n = S // chunk
+    ys = costs.stand_ins(n - costs.ran(n, once), (B, chunk, di), out_dtype,
+                         u.device)
     h = h0
-    ys = []
-    for c0 in range(0, S, chunk):
-        sl = slice(c0, c0 + chunk)
+    for i in costs.trips(n, once):
+        sl = slice(i * chunk, (i + 1) * chunk)
         uc, dc, bc, cc = u[:, sl], delta[:, sl], Bm[:, sl], Cm[:, sl]
         decay = torch.exp(dc[..., None] * A[None, None])     # [B,C,di,N]
         bx = (dc * uc)[..., None] * bc[:, :, None, :]        # [B,C,di,N]
-        h_all, h = ops.ssm_scan(decay, bx, h.contiguous(), use_kernels=use_kernels)
+        h_all, h = ops.ssm_scan(decay, bx, h.contiguous(),
+                                use_kernels=use_kernels)
         del decay, bx
         y = torch.einsum("bsdn,bsn->bsd", h_all, cc) + D * uc
         del h_all
@@ -159,7 +165,9 @@ def mamba1_step(u, delta, A, Bm, Cm, D, h):
 def mamba2_ssd(x, dt, A, Bm, Cm, D, h0=None, chunk: int = 256,
                out_dtype=torch.float32):
     """x: [B,S,H,P]; dt: [B,S,H] (post-softplus); A: [H] (negative);
-    Bm,Cm: [B,S,N]; h0: [B,H,P,N].  Returns (y [B,S,H,P], h_last)."""
+    Bm,Cm: [B,S,N]; h0: [B,H,P,N].  Returns (y [B,S,H,P], h_last).  On the
+    meta device with no gradient recorded two chunks run and count for
+    all (``kernels/costs.py:trips``)."""
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     chunk = min(chunk, S)
@@ -169,10 +177,13 @@ def mamba2_ssd(x, dt, A, Bm, Cm, D, h0=None, chunk: int = 256,
         h0 = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
     tri = torch.ones((chunk, chunk), dtype=torch.bool,
                      device=x.device).tril()[None, :, :, None]
+    once = costs.once(x, dt, Bm, Cm)
+    n = S // chunk
+    ys = costs.stand_ins(n - costs.ran(n, once), (B, chunk, H, P), out_dtype,
+                         x.device)
     h = h0
-    ys = []
-    for c0 in range(0, S, chunk):
-        sl = slice(c0, c0 + chunk)
+    for i in costs.trips(n, once):
+        sl = slice(i * chunk, (i + 1) * chunk)
         xc, dtc = x[:, sl].float(), dt[:, sl]
         bc, cc = Bm[:, sl].float(), Cm[:, sl].float()
         cum = torch.cumsum(dtc * A, dim=1)                   # [B,C,H] (<=0)

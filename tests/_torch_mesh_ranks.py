@@ -29,8 +29,10 @@ def make_cfg(arch: str, **replace):
 
 
 def make_mesh(shape):
+    """(data, model) for a 2-d ``shape``, (pod, data, model) for a 3-d one."""
     world = int(np.prod(shape))
-    return Mesh(np.arange(world).reshape(shape), ("data", "model"))
+    axes = ("pod", "data", "model")[-len(shape):]
+    return Mesh(np.arange(world).reshape(shape), axes)
 
 
 def _heads(mesh, hkv: int, h: int):

@@ -16,7 +16,8 @@ PKG = ROOT / "src" / "repro_torch"
 
 
 def _port_files():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+        + sorted((ROOT / "examples").glob("*_torch.py"))
 
 
 def _forbidden(name: str) -> bool:
@@ -59,7 +60,9 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.kernels.autograd", "repro_torch.launch.mesh",
             "repro_torch.models.sharding", "repro_torch.distributed.spawn",
             "repro_torch.distributed.collectives",
-            "repro_torch.serving.profiling"} <= set(mods)
+            "repro_torch.serving.profiling", "repro_torch.kernels.costs",
+            "repro_torch.launch.dryrun",
+            "repro_torch.launch.roofline"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
