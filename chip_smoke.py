@@ -37,7 +37,8 @@ each; any failure exits non-zero before the result line:
            logits over 8 teacher-forced decode steps within 1e-3; greedy
            streams agree up to the plain path's first top-2 gap < 1e-3;
            macro_steps=8 and 0 streams identical (bf16, kernels on)
-  trace    one group's generate() under torch.profiler: device busy and
+  trace    one group's generate() of 16 new tokens under torch.profiler
+           (TRACE_NEW; the slices decode 32): device busy and
            idle share, the kernels that take the device time
   timing   each kernel, its plain version and the PyTorch library call at
            the main path's shapes, beside the bound: "ms" from CUDA events
@@ -131,7 +132,7 @@ Then llama3.2-1b's params are freed and the MoE path runs:
            within 1e-3 (a larger gap is excused only where a routing choice
            flipped at a top-k margin below 1e-6), the smallest router
            margin; macro_steps=8 and 0 streams identical (bf16, full depth)
-  moe trace    one group's generate() of 16 new tokens under torch.profiler
+  moe trace    one group's generate() of 8 new tokens under torch.profiler
   moe continuous  ContinuousServingEngine on moonshot's loaded params
            (slots 4, 6 requests x 128 tokens, max_new <= 8) per-step,
            boundary and overlapped: streams identical, grouped_ffn ==
@@ -257,7 +258,8 @@ kernels built above, the ranks only load them; this process holds no model:
            agree with the one-rank continuous run, ms a model decode step
            and tokens/s beside the one-rank run's, the all_reduce count a
            step and the host wall inside the collectives
-  mesh_seq     the same model on (data=2, model=2), four ranks, 3 slots:
+  mesh_seq     the same model, its depth cut to 8 layers (the script's time
+           limit), on (data=2, model=2), four ranks, 3 slots:
            the batch does not divide "data", so it spills onto the sequence
            (``seq_shard_layout``): the sequence-sharded cache_update and
            splice_blocks, decode_attention with lse on each rank's rows,
@@ -289,21 +291,25 @@ kernels built above, the ranks only load them; this process holds no model:
            decode step's all_reduces == 130; reports the streams that agree
            with the one-rank ssm_continuous run, ms a model decode step and
            tokens/s beside its, the host wall inside the collectives
-  mesh_hybrid  zamba2-2.7b at full width and depth on (1, 2): Mamba-2 on 40
-           heads a rank (dt and B/C of its d_inner rows in one all_reduce),
-           the shared block's 16 heads and their KV cache; the hybrid
-           slice's 4 requests of 128 tokens, 16 new, slots 4.
-           decode_attention == 9 x model decode steps, 128 all_reduces a
-           step; the streams that agree with the hybrid slice's reported
-  mesh_vlm     internvl2-1b at full width and depth on (data=2, model=2)
-           with 3 slots: the batch spills onto the sequence, so the 256
+  mesh_hybrid  zamba2-2.7b at full width on (1, 2), its depth cut to 18
+           of 54 layers (MESH_LAYERS, the script's time limit): Mamba-2 on
+           40 heads a rank (dt and B/C of its d_inner rows in one
+           all_reduce), the shared block's 16 heads and their KV cache; the
+           hybrid slice's 4 requests of 128 tokens, 16 new, slots 4.
+           decode_attention == 3 x model decode steps, 44 all_reduces a
+           step
+  mesh_vlm     internvl2-1b at full width, 12 of its 24 layers (MESH_LAYERS),
+           on (data=2, model=2) with 3 slots: the batch spills onto the
+           sequence, so the 256
            prologue rows sit in the sequence-sharded cache; vlm_continuous'
            12 requests per-step with a PrefixCache (block 8: the prologue
            root) and overlapped with a PrefillWorker and a PrefixCache (each
            rank compacts its own KV tail rows).  Checks both arms' streams
            identical, 8 prefix hits each, KV tails on the disaggregated arm
-           only, masked_compact == 2 x the tails, 96 all_reduces a step
-           (its vocab of 151655 rows stays whole on every rank)
+           only, masked_compact == 2 x the tails, 50 all_reduces a step
+           (its vocab of 151655 rows, which "model" does not divide, on
+           448 of the 896 D columns: the embedding's gather and the
+           logits' sum)
   mesh_audio   seamless-m4t-medium at full width and depth on (1, 2): the
            encoder's and the decoder's heads split (8 a rank), the cross
            cache of 1024 rows on the rank's heads; 6 requests of 128
@@ -312,6 +318,34 @@ kernels built above, the ranks only load them; this process holds no model:
            step.  Each family phase also serves its reduced() float32 copy
            on the same mesh: greedy streams within the parity rule of the
            one-rank plain path
+  mesh_dcut    JAX's param_spec fallback, Case D: internvl2-1b at full
+           width and depth on (data=1, model=4), whose 14 / 2 heads the
+           axis divides neither, so wq/wk/wv take 224 of their 896 D rows
+           (q, k and v partial sums, one all_reduce), wo 224 of its D
+           columns (gathered along D), the tied table and frontend_proj
+           224 D columns; the cache sequence-sharded over "model"; the
+           vlm's 12 requests overlapped (K=8) with a PrefillWorker and a
+           PrefixCache, mesh_vlm's second arm (each rank compacts its KV
+           tail rows), 4 slots.  Checks every leaf's bytes against
+           param_spec, the launches, every rank's streams identical, 8
+           prefix hits, 122 all_reduces a step; the reduced() f32 copy
+           with 6 / 2 heads of 32 and a 509-row vocab (Case D too)
+  mesh_gqa16   JAX's param_spec fallback, Case Q: llama3.2-1b at full width
+           on (data=1, model=16), its depth cut to one layer (MESH_LAYERS)
+           (16 ranks on the card over gloo, 60-90 ms a call), the weights
+           built once on the host and each rank loading its shard from
+           the file: 2 query heads a rank,
+           wk/wv on 128 of their 2048 D rows, the MLP on 512 of 8192, 8016
+           vocab rows; a decode gathers the 32 query heads in the
+           all_reduce that sums k and v, attends over the rank's 32 of 512
+           cache rows with lse, keeps its 2 heads.  The first 8 of
+           mesh_dense's requests, at most 16 new tokens each (16 decode
+           steps), 4 slots, K=8, beside the one-rank run on the same
+           weights.  Checks the held shapes, every leaf against
+           param_spec, the launches, the ranks' streams, the all_reduces a
+           step (5 a layer + 2: 7), and a reduced() f32 copy with 32 / 8
+           heads of 16 (Case Q), one layer, over the short traffic of
+           mesh_ssm within the parity rule
   mesh_nccl    the mesh_dense path at world size 1 over NCCL: streams
            identical to the one-rank continuous run; NCCL's own all_reduce
            and broadcast right
@@ -326,9 +360,11 @@ kernels built above, the ranks only load them; this process holds no model:
            grouped_ffn at every local-expert shape with counts;
            masked_compact bit for bit (both branches) at every KV tail a
            rank compacted; ssm_scan bit for bit at every shape a rank
-           launched; the lse call's device ms at mesh_seq's shard shape
-           beside its bound and the call without lse, and ssm_scan's at
-           falcon-mamba's rank shape beside its bound
+           launched (the fallback cuts' shapes among them: mesh_gqa16's 32
+           query heads over a rank's 32 rows, mesh_dcut's 14 over 102);
+           the lse call's device ms at mesh_seq's and mesh_gqa16's shard
+           shapes beside its bound and the call without lse, and
+           ssm_scan's at falcon-mamba's rank shape beside its bound
 
 The float32 2-layer copy of llama's weights runs through mesh_dense and
 mesh_seq: its greedy streams agree with the one-rank plain path up to the
@@ -358,7 +394,7 @@ host seconds inside collectives against the wall:
            launch at [1, 256, 4096, 16]
   mesh_train_launcher  ``torch.distributed.run --nproc-per-node 4 -m
            repro_torch.launch.train --mesh 2x2 --dist-backend gloo --steps
-           3`` exits 0 and prints mesh=
+           1`` exits 0 and prints mesh=
 
 mesh_kernels then also holds ssm_scan_bwd bit for bit against
 ssm_scan_bwd_ref at the rank shape, and times ssm_scan, ssm_scan_bwd and
@@ -398,7 +434,10 @@ HYBRID_ARCH = "zamba2-2.7b"
 VLM_ARCH, AUDIO_ARCH = "internvl2-1b", "seamless-m4t-medium"
 REQUESTS, PROMPT_LEN, MAX_NEW, MACRO = 16, 128, 32, 8
 HYBRID_REQUESTS, HYBRID_MAX_NEW = 4, 16
-MOE_TRACE_NEW = 16                  # moonshot's traced generate(): new tokens
+# the traced generate()'s new tokens: llama's and falcon-mamba's, moonshot's
+# (the traces' per-step shares need two macro-steps; their event walks cost
+# seconds a step)
+TRACE_NEW, MOE_TRACE_NEW = 16, 8
 S_MAIN = PROMPT_LEN + MAX_NEW + 8   # the engines' cache length
 S_SPLIT = 2000                      # a cache that decode_attention splits
 KV_HOP = (16, 2048, 512)            # llama3.2-1b's K (or V) tail of one
@@ -904,7 +943,7 @@ def _check_offload_streams(torch, dev, cfg, params, prompts):
             "t_parallel_s": rep.t_parallel_s, "max_abs_err": err}
 
 
-def phase_trace(torch, dev, cfg, params, prompts, B, max_new=MAX_NEW):
+def phase_trace(torch, dev, cfg, params, prompts, B, max_new=TRACE_NEW):
     """Where one group's generate() spends its time: device busy share and
     the kernels that take it, from a torch.profiler trace of a warm run of
     ``max_new`` new tokens."""
@@ -2416,7 +2455,8 @@ def phase_vlm_continuous(torch, dev):
     no cache (every prefill cold) against those streams, and one resumed
     prefill against its cold one (bf16 logits and tail K/V).  Returns
     ({mode: launch counts}, {KV tail shape}, {decode shape: launches}, the
-    per-step cached mode's streams {uid: tokens})."""
+    per-step cached mode's streams {uid: tokens}, {cached mode: its
+    row})."""
     import repro_torch.core as C
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M
@@ -2431,7 +2471,7 @@ def phase_vlm_continuous(torch, dev):
     modes = [("per-step-cached", 0, True, False),
              ("overlapped-disaggregated", MACRO, True, True),
              ("per-step-uncached", 0, False, False)]
-    ref, counts_by_mode, hops = None, {}, set()
+    ref, counts_by_mode, rows, hops = None, {}, {}, set()
     with _DecodeRecorder() as drec:
         for name, k, cached, remote in modes:
             pc = PrefixCache(cfg, block_size=8, budget_blocks=256, device=dev) \
@@ -2487,7 +2527,7 @@ def phase_vlm_continuous(torch, dev):
             emit(row)
             hops |= set(rec.hops)
             if name != "per-step-uncached":
-                counts_by_mode[name] = counts
+                counts_by_mode[name], rows[name] = counts, row
             del outs, pc, worker
             torch.cuda.empty_cache()
     emit({"phase": "vlm_continuous_resume", **_resume_vs_cold(
@@ -2495,7 +2535,7 @@ def phase_vlm_continuous(torch, dev):
     del params
     torch.cuda.empty_cache()
     return counts_by_mode, hops, dict(drec.shapes), \
-        {u: t.tolist() for u, t in ref.items()}
+        {u: t.tolist() for u, t in ref.items()}, rows
 
 
 def _resume_vs_cold(torch, dev, cfg, params, req, q_rows):
@@ -3003,6 +3043,8 @@ def phase_train_kernels(torch, dev, ffn_shape, scan_shape):
 # ---------------------------------------------------------------------------
 MESH_TIMEOUT_S = 480            # a mesh phase's whole spawn
 MESH_SEQ_SLOTS, MESH_SEQ_REQUESTS = 3, 12
+MESH_SEQ_LAYERS = 8             # llama's depth on mesh_seq (of 16): the
+                                # script's time limit
 MESH_F32_REQUESTS = 8           # the float32 2-layer copies' requests
 MESH_MOE_LAYERS = 4             # moonshot's depth on its mesh (of 48)
 MESH_LOGIT_TOL = 5e-2           # bf16 prefill logits, of max|logit|: each
@@ -3250,7 +3292,8 @@ def _rank_mesh_dense(rank, world, shape, reqs):
 
 
 def _rank_mesh_seq(rank, world, shape, reqs):
-    """mesh_seq on one rank: llama3.2-1b (bf16, seed 0) on a (2, 2) mesh
+    """mesh_seq on one rank: llama3.2-1b (bf16, seed 0, MESH_SEQ_LAYERS
+    deep) on a (2, 2) mesh
     with 3 slots (the batch spills onto the sequence over "data", the
     heads split over "model"); the local arm, the disaggregated arm (a
     mesh-wide PrefillWorker and a PrefixCache: the KV hops compact this
@@ -3264,7 +3307,7 @@ def _rank_mesh_seq(rank, world, shape, reqs):
     from repro_torch.serving.prefill import PrefillWorker
     from repro_torch.serving.prefix_cache import PrefixCache
     from repro_torch.serving.profiling import profile_engine_programs
-    cfg = get_config(ARCH)
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=MESH_SEQ_LAYERS)
     full = M.init_params(cfg, 0, device=dev)
     p32 = _f32_cut(torch, full)
     params = shard_params(full, mesh)
@@ -3533,7 +3576,8 @@ def phase_mesh_dense(torch, dev, ref_streams, ref_rows):
 
 
 def phase_mesh_seq(torch, dev):
-    """llama3.2-1b at full width and depth on a (data=2, model=2) mesh:
+    """llama3.2-1b at full width, MESH_SEQ_LAYERS = 8 of its 16 layers, on
+    a (data=2, model=2) mesh:
     four ranks, 3 slots, so the batch spills onto the sequence (over
     "data") and the heads split (over "model"): the sequence-sharded
     cache_update and splice_blocks, decode_attention with lse merged
@@ -3547,7 +3591,7 @@ def phase_mesh_seq(torch, dev):
     programs, zero collective bytes on splice and slot_write."""
     from repro_torch.configs.base import get_config
     from repro_torch.distributed.spawn import run_ranks
-    cfg = get_config(ARCH)
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=MESH_SEQ_LAYERS)
     reqs = _continuous_requests(cfg)[:MESH_SEQ_REQUESTS]
     res = run_ranks(_rank_mesh_seq, 4, (2, 2), reqs, timeout_s=MESH_TIMEOUT_S)
     _mesh_checks("mesh_seq", cfg, res)
@@ -3664,28 +3708,74 @@ def phase_mesh_nccl(torch, dev, ref_streams):
 # ---------------------------------------------------------------------------
 # phase -> (arch, mesh, slots): falcon-mamba at full depth, the others at
 # full width and depth too; the vlm's 3 slots on (2, 2) spill its batch onto
-# the cache's sequence (the 256 prologue rows in the sequence shards)
+# the cache's sequence (the 256 prologue rows in the sequence shards).
+# mesh_dcut and mesh_gqa16 run JAX's param_spec fallback cuts
+# (launch.mesh.ATTN_CUTS): internvl2-1b's 14 / 2 heads on a "model" axis of
+# 4 are Case D (every projection, the tied table and frontend_proj on D);
+# llama3.2-1b's 32 / 8 heads on 16 are Case Q (2 query heads a rank, wk/wv
+# on 128 of their 2048 D rows); both caches sequence-sharded over "model"
 MESH_FAMILIES = {"mesh_ssm": (SSM_ARCH, (1, 2), SIDE_SLOTS),
                  "mesh_hybrid": (HYBRID_ARCH, (1, 2), HYBRID_REQUESTS),
                  "mesh_vlm": (VLM_ARCH, (2, 2), MESH_SEQ_SLOTS),
-                 "mesh_audio": (AUDIO_ARCH, (1, 2), SIDE_SLOTS)}
+                 "mesh_audio": (AUDIO_ARCH, (1, 2), SIDE_SLOTS),
+                 "mesh_dcut": (VLM_ARCH, (1, 4), SIDE_SLOTS),
+                 "mesh_gqa16": (ARCH, (1, 16), SIDE_SLOTS)}
+# each phase's cut of the attention and the tables
+MESH_CUTS = {"mesh_ssm": (None, "vocab"), "mesh_hybrid": ("heads", "vocab"),
+             "mesh_vlm": ("heads", "d"), "mesh_audio": ("heads", "vocab"),
+             "mesh_dcut": ("d", "d"), "mesh_gqa16": ("q", "vocab")}
+# the cache's sequence axes and whether the batch splits
+MESH_LAYOUT = {"mesh_vlm": (("data",), False), "mesh_dcut": (("model",), True),
+               "mesh_gqa16": (("model",), True)}
+# the reduced() float32 copy's heads and vocabulary, chosen to hit the
+# phase's cut: Case D (6 / 2 heads of 32 on 4, a 509-row vocab on D), Case Q
+# (32 / 8 heads of 16 on 16)
+MESH_F32_REPLACE = {"mesh_dcut": dict(num_heads=6, num_kv_heads=2,
+                                      head_dim=32, vocab_size=509),
+                    "mesh_gqa16": dict(num_heads=32, num_kv_heads=8,
+                                       head_dim=16, num_layers=1)}
+# params built on the host once, each rank loading its shard from the file
+# (mmap): 16 whole copies would not fit on the card together
+MESH_HOST_PARAMS = ("mesh_gqa16",)
+# depth cuts of the family phases, for the script's time limit: mesh_gqa16
+# (a gloo all_reduce over 16 ranks on the one card's host takes 60-90 ms,
+# PERF.md §5, so llama's 16 layers, 82 a decode step, would hold the
+# 168 decode steps of its traffic for ~15 minutes; one layer at full width
+# runs every piece of Case Q), mesh_vlm and mesh_hybrid (mesh_dcut keeps
+# internvl2-1b's full depth)
+MESH_LAYERS = {"mesh_gqa16": 1, "mesh_vlm": 12, "mesh_hybrid": 18}
+# mesh_gqa16's traffic: the first 8 of mesh_dense's requests, at most 16
+# new tokens each (16 decode steps)
+MESH_GQA16_REQUESTS, MESH_GQA16_MAX_NEW = 8, 16
 VLM_MESH_ARMS = (("per-step-cached", 0, False),
                  ("overlapped-disaggregated", MACRO, True))
+# the arms a vlm phase serves: mesh_dcut the disaggregated one only (its
+# KV tails on masked_compact; over four ranks the arms' bf16 streams may
+# round apart, so a second arm would only be reported)
+MESH_VLM_ARMS = {"mesh_vlm": VLM_MESH_ARMS, "mesh_dcut": VLM_MESH_ARMS[1:]}
 
 
-def _family_traffic(cfg, phase):
+def _family_traffic(cfg, phase, short=False):
     """(requests, cache rows) of a family phase, made for
     ``cfg`` (the full config or its reduced() copy): ssm_continuous's 6
     requests of 128 tokens for falcon-mamba; the hybrid slice's 4 requests
     of 128 tokens and 16 new; vlm_continuous's 12 requests in 4 image
-    groups; for seamless request_stream(seed=0)'s first 6 prompts of 128
-    tokens with their frame embeddings and ssm_continuous's max_new."""
+    groups for internvl2-1b; the first MESH_GQA16_REQUESTS of mesh_dense's
+    continuous requests, at most MESH_GQA16_MAX_NEW new tokens each (512
+    cache rows) for mesh_gqa16, or with ``short`` the 6 of the others; for
+    seamless request_stream(seed=0)'s first 6 prompts of 128 tokens with
+    their frame embeddings and ssm_continuous's max_new."""
     from repro_torch.data.pipeline import request_stream
     from repro_torch.models import model as M
     from repro_torch.serving.engine import ServeRequest
-    if phase == "mesh_vlm":
+    if cfg.family == "vlm":
         rows = M.frontend_offset(cfg) + VLM_CONT_P + VLM_CONT_MAX_NEW + 8
         return _vlm_continuous_requests(cfg), rows
+    if phase == "mesh_gqa16" and not short:
+        return [dataclasses.replace(r, max_new=min(r.max_new,
+                                                   MESH_GQA16_MAX_NEW))
+                for r in _continuous_requests(cfg)[:MESH_GQA16_REQUESTS]], \
+            CONT_MAX_LEN
     if phase == "mesh_hybrid":
         prompts = _prompts(cfg)
         return ([ServeRequest(uid=i, prompt=prompts[i], max_new=HYBRID_MAX_NEW)
@@ -3708,31 +3798,61 @@ def _family_traffic(cfg, phase):
             PROMPT_LEN + SIDE_MAX_NEW + 8)
 
 
-def _all_reduces_per_decode_step(cfg, shape, B):
+# all_reduces of one decode step of an attention sublayer over "model" by
+# its cut (``launch.mesh.ATTN_CUTS``), before the lse merge of a
+# sequence-sharded cache: "heads" the output projection; "q" k and v with
+# the query heads' gather, and the output projection; "d" q, k and v, and
+# the output's D gather.  A cross-attention sublayer's: "q" the query
+# heads' gather and the output projection, "d" q and the output's D gather
+ATTN_DECODE_ALL_REDUCES = {None: 0, "heads": 1, "q": 2, "d": 2}
+CROSS_DECODE_ALL_REDUCES = {None: 0, "heads": 1, "q": 2, "d": 2}
+
+
+def _all_reduces_per_decode_step(cfg, shape, B, S=None):
     """The all_reduces one decode step runs on a rank of a (data, model)
-    or (pod, data, model) mesh ``shape`` whose "model" axis divides the kv
-    heads and the mixer's channels (PERF.md §6; tests/test_torch_mesh_families.py
+    or (pod, data, model) mesh ``shape`` over a cache of ``S`` rows (None:
+    a length every sequence split divides) (PERF.md §6;
+    tests/test_torch_mesh_families.py, tests/test_torch_mesh_fallback.py
     and tests/test_torch_dryrun.py hold the ranks to the same count), the
-    batch axes taken together: the embedding and the vocab gather when the
-    axis splits the vocab (internvl2-1b's 151655 rows stay whole), a gather
-    of the batch rows when the batch splits over batch axes > 1; two a
-    Mamba layer; a self-attention sublayer one, three when its cache's
-    sequence is sharded (the lse merge); a cross-attention sublayer one; an
-    MLP one; an MoE layer one, and one more (its aux loss's mean) when the
+    batch axes taken together, the cuts those of ``launch.mesh.model_cuts``:
+    the embedding and the LM head where "model" cuts their table (on its
+    vocab rows or its D columns), a gather of the batch rows when the batch
+    splits over batch axes > 1; two a Mamba layer (the mixer's channels
+    split); a self-attention sublayer ``ATTN_DECODE_ALL_REDUCES`` of its
+    cut, two more when its cache's sequence is sharded (the lse merge: the
+    batch spills onto the sequence, or "model" does not divide the kv
+    heads); a cross-attention sublayer ``CROSS_DECODE_ALL_REDUCES``; an MLP
+    one; an MoE layer one, and one more (its aux loss's mean) when the
     batch splits over batch axes > 1."""
+    from repro_torch.launch.mesh import model_cuts
     *batch, model = shape
     data = math.prod(batch)
     b_split = B % data == 0 and B >= data
-    attn = 1 if b_split else 3
-    n = (2 if cfg.vocab_size % model == 0 else 0) \
+    if model == 1 and data == 1:
+        return 0
+    cuts = model_cuts(cfg, model)
+    n = (cuts.embed is not None) + (cuts.head is not None) \
         + (1 if b_split and data > 1 else 0)
-    per_layer = {"ssm": 2, "audio": attn + 2}.get(cfg.family, attn + 1)
+    attn = 0
+    if cfg.num_heads:
+        hkv = cfg.num_kv_heads
+        sdiv = (1 if b_split else data) \
+            * (model if hkv % model or hkv < model else 1)
+        seq = sdiv > 1 and (S is None or (S % sdiv == 0 and S >= sdiv))
+        attn = ATTN_DECODE_ALL_REDUCES[cuts.attn] + (2 if seq else 0)
+    mlp = 1 if model > 1 else 0
+    mamba = 2 if model > 1 else 0
+    if cfg.family == "ssm":
+        return n + mamba * cfg.num_layers
+    if cfg.family == "hybrid":
+        return n + mamba * cfg.num_layers \
+            + (cfg.num_layers // cfg.hybrid_attn_every) * (attn + mlp)
+    per_layer = attn + mlp
+    if cfg.family == "audio":
+        per_layer += CROSS_DECODE_ALL_REDUCES[cuts.attn]
     if cfg.num_experts and b_split and data > 1:
         per_layer += 1
-    n += per_layer * cfg.num_layers
-    if cfg.family == "hybrid":
-        n += (cfg.num_layers // cfg.hybrid_attn_every) * (attn + 1)
-    return n
+    return n + per_layer * cfg.num_layers
 
 
 def _decode_step_all_reduces(torch, dev, mesh, cfg, params, slots, max_len):
@@ -3752,17 +3872,67 @@ def _decode_step_all_reduces(torch, dev, mesh, cfg, params, slots, max_len):
     return cc.calls["all-reduce"]
 
 
+def _phase_config(phase):
+    """The phase's config at full width, its depth cut as ``MESH_LAYERS``
+    says (full depth elsewhere)."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(MESH_FAMILIES[phase][0])
+    layers = MESH_LAYERS.get(phase)
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+
+def _f32_config(phase):
+    """The phase's reduced() float32 config (``MESH_F32_REPLACE``)."""
+    from repro_torch.configs.base import get_config, reduced
+    return dataclasses.replace(reduced(get_config(MESH_FAMILIES[phase][0])),
+                               **MESH_F32_REPLACE.get(phase, {}))
+
+
+def _spec_mismatches(cfg, shard, mesh):
+    """{leaf: (bytes held, bytes by param_spec)} of every leaf of this
+    rank's serving shard whose bytes differ from the port's ``param_spec``
+    (JAX's rule, ``fsdp=False``) on ``mesh``; the router, the MoE layer's
+    shared experts and a Mamba mixer's leaves keep cuts of their own and
+    are not held to it."""
+    from repro_torch.launch.mesh import _stacked, param_spec
+    from repro_torch.models import model as M
+    sizes = dict(mesh.shape)
+    out = {}
+
+    def walk(full, part, names):
+        if isinstance(full, dict):
+            for k in full:
+                walk(full[k], part[k], names + (k,))
+            return
+        if names[-1] == "router" or "shared" in names and "moe" in names \
+                or "mamba" in names:
+            return
+        spec = param_spec(names, tuple(full.shape), model_size=sizes["model"],
+                          data_size=sizes.get("data", 1),
+                          stacked=_stacked(names), fsdp=False)
+        want = full.numel() * part.element_size()
+        for e in spec:
+            want //= sizes[e] if e else 1
+        got = part.numel() * part.element_size()
+        if got != want:
+            out["/".join(names)] = (got, want)
+
+    walk(M.init_params(cfg, 0, device="meta"), shard, ())
+    return out
+
+
 def _rank_family_f32(torch, dev, mesh, phase, slots):
     """The phase's reduced() float32 copy (seed 0): the one-rank plain
     streams (rank 0, off the mesh), then the mesh engine (kernels on,
     K=8) on this rank's shard over the phase's traffic made for it."""
-    from repro_torch.configs.base import get_config, reduced
     from repro_torch.launch.mesh import shard_params
     from repro_torch.models import model as M
     from repro_torch.models.sharding import activation_sharding
-    cfg = reduced(get_config(MESH_FAMILIES[phase][0]))
+    cfg = _f32_config(phase)
     params = M.init_params(cfg, 0, device=dev)
-    reqs, max_len = _family_traffic(cfg, phase)
+    # 16 ranks' gloo calls cost ~60-90 ms each: mesh_gqa16's copy serves
+    # the short traffic
+    reqs, max_len = _family_traffic(cfg, phase, short=phase == "mesh_gqa16")
     reqs = reqs[:MESH_F32_REQUESTS]
     plain = _plain_streams(torch, dev, cfg, params, reqs, max_len) \
         if mesh.rank == 0 else None
@@ -3778,30 +3948,56 @@ def _rank_family_f32(torch, dev, mesh, phase, slots):
     return out
 
 
+def _host_params_path(arch):
+    """Where a phase of ``MESH_HOST_PARAMS`` keeps the config's seed-0
+    params built on the host (under the git-ignored build/)."""
+    return ROOT / "build" / "mesh_params" / f"{arch}-seed0.pt"
+
+
 def _rank_mesh_family(rank, world, shape, phase):
     """One family phase on one rank: the config at full width and depth
-    (bf16, seed 0) sharded over the mesh, its continuous traffic (the vlm:
-    per-step with a PrefixCache, then overlapped with a PrefillWorker and a
-    PrefixCache), each decode step's all_reduces, then the reduced()
-    float32 copy."""
+    (bf16, seed 0; on the card, or for ``MESH_HOST_PARAMS`` from the
+    host-built file) sharded over the mesh, its continuous traffic (the
+    vlm: per-step with a PrefixCache, then overlapped with a PrefillWorker
+    and a PrefixCache), each decode step's all_reduces, the leaves against
+    ``param_spec``, then the reduced() float32 copy."""
+    t0 = time.perf_counter()
     torch, dev, mesh = _rank_env(shape)
     import repro_torch.core as C
-    from repro_torch.configs.base import get_config
+    from repro_torch.core.offload import tree_map
     from repro_torch.launch.mesh import shard_params
     from repro_torch.models import model as M
     from repro_torch.models.sharding import activation_sharding
     from repro_torch.serving.prefill import PrefillWorker
     from repro_torch.serving.prefix_cache import PrefixCache
     arch, _, slots = MESH_FAMILIES[phase]
-    cfg = get_config(arch)
-    params = shard_params(M.init_params(cfg, 0, device=dev), mesh)
+    cfg = _phase_config(phase)
+    if phase in MESH_HOST_PARAMS:
+        full = torch.load(_host_params_path(arch), mmap=True,
+                          weights_only=True)
+        params = tree_map(lambda t: t.to(dev), shard_params(full, mesh))
+        del full
+    else:
+        params = shard_params(M.init_params(cfg, 0, device=dev), mesh)
     _free(torch)
+    spec_mismatches = _spec_mismatches(cfg, params, mesh)
+    held = {}
+    if "attn" in params["blocks"]:
+        attn, mlp = params["blocks"]["attn"], params["blocks"].get("mlp", {})
+        held = {"wq": list(attn["wq"].shape), "wk": list(attn["wk"].shape),
+                "wo": list(attn["wo"].shape),
+                "table": list(params["embed"]["table"].shape)}
+        if "w_down" in mlp:
+            held["w_down"] = list(mlp["w_down"].shape)
+        if "frontend_proj" in params:
+            held["frontend_proj"] = list(params["frontend_proj"].shape)
     reqs, max_len = _family_traffic(cfg, phase)
     kw = dict(slots=slots, max_len=max_len)
     runs = {}
+    walls = {"setup_s": time.perf_counter() - t0}
     with _MeshRecorder() as rec, activation_sharding(mesh):
-        if phase == "mesh_vlm":
-            for name, k, remote in VLM_MESH_ARMS:
+        if cfg.family == "vlm":
+            for name, k, remote in MESH_VLM_ARMS[phase]:
                 pc = PrefixCache(cfg, block_size=8, budget_blocks=256,
                                  device=dev)
                 worker = PrefillWorker(cfg, params, device=dev,
@@ -3815,22 +4011,60 @@ def _rank_mesh_family(rank, world, shape, phase):
             _, runs["fused"] = _rank_run(torch, dev, mesh, cfg, params, reqs,
                                          rec, macro_steps=MACRO, **kw)
         eng_shard = M.cache_shard(cfg, slots, max_len)
+    walls["runs_s"] = time.perf_counter() - t0 - walls["setup_s"]
     layout = eng_shard._asdict()
     layout.pop("mesh")
     layout["seq"] = layout["seq"]._asdict() if layout["seq"] else None
     with activation_sharding(mesh):
         calls = _decode_step_all_reduces(torch, dev, mesh, cfg, params, slots,
                                          max_len)
-    held = {"mixer_channels": int(params["blocks"]["mamba"]["conv_w"].shape[-1])
-            } if cfg.family == "ssm" else {}
+    if cfg.family == "ssm":
+        held["mixer_channels"] = int(
+            params["blocks"]["mamba"]["conv_w"].shape[-1])
     del params
     _free(torch)
-    out = {"rank": rank, "runs": runs, "layout": layout,
-           "decode_step_all_reduces": calls, **held,
+    out = {"rank": rank, "runs": runs, "layout": layout, "max_len": max_len,
+           "decode_step_all_reduces": calls, "held": held,
+           "spec_mismatches": spec_mismatches,
            "decode_shapes": rec.decode, "ffn_shapes": rec.ffn,
            "hop_shapes": rec.hops, "scan_shapes": rec.scan}
+    t1 = time.perf_counter()
     out["f32"] = _rank_family_f32(torch, dev, mesh, phase, slots)
+    out["walls"] = dict(walls, f32_s=time.perf_counter() - t1,
+                        total_s=time.perf_counter() - t0)
     return out
+
+
+def _one_rank_gqa16(torch, dev):
+    """mesh_gqa16's weights built on the host (seed 0) and saved for the
+    ranks (``_host_params_path``), and its one-rank run:
+    those weights on the card, the phase's traffic and slots, fused (K=8).
+    Returns (streams {uid: tokens}, {"fused": row})."""
+    from repro_torch.core.offload import tree_map
+    from repro_torch.models import model as M
+    cfg = _phase_config("mesh_gqa16")
+    path = _host_params_path(cfg.name)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    host = M.init_params(cfg, 0, device="cpu")
+    torch.save(host, path)
+    built_s = time.perf_counter() - t0
+    params = tree_map(lambda t: t.to(dev), host)
+    del host
+    reqs, max_len = _family_traffic(cfg, "mesh_gqa16")
+    outs, stats, counts, wall, peak = _run_engine(
+        torch, dev, cfg, params, reqs, slots=MESH_FAMILIES["mesh_gqa16"][2],
+        max_len=max_len, macro_steps=MACRO)
+    row = _stats_row(stats, wall, peak, counts, MACRO)
+    require(counts["decode_attention"] == cfg.num_layers
+            * row["model_decode_steps"],
+            f"mesh_gqa16 one rank: decode_attention {counts}")
+    emit({"phase": "mesh_gqa16_one_rank", "arch": cfg.name,
+          "host_params_s": built_s, **row})
+    streams = {o.uid: o.tokens.tolist() for o in outs}
+    del params, outs
+    _free(torch)
+    return streams, {"fused": row}
 
 
 def phase_mesh_family(torch, dev, phase, one_rank=None, one_rank_rows=None):
@@ -3840,61 +4074,96 @@ def phase_mesh_family(torch, dev, phase, one_rank=None, one_rank_rows=None):
     Mamba-2 on 40 heads a rank, the shared block's 16 heads and their KV
     cache), mesh_vlm (internvl2-1b on (2, 2), 3 slots: the prologue rows in
     the sequence-sharded cache, the local and the disaggregated arm with
-    the prologue root) and mesh_audio (seamless-m4t-medium on (1, 2): the
-    encoder and the cross cache split by heads).  Checks every run's
+    the prologue root, the vocab on D), mesh_audio (seamless-m4t-medium on
+    (1, 2): the encoder and the cross cache split by heads), mesh_dcut
+    (internvl2-1b on (1, 4): Case D, every projection, the tied table and
+    frontend_proj on 224 of the 896 D columns, the disaggregated arm) and
+    mesh_gqa16 (llama3.2-1b on (1, 16): Case Q, 2 query heads a rank,
+    wk/wv on 128 of their 2048 rows, the MLP on 512 of 8192, 8016 vocab
+    rows; mesh_dense's first 8 requests, 4 slots, fused); ``MESH_LAYERS``
+    cuts some depths.  Checks every run's
     launches on every rank (``_mesh_checks``), every rank's streams
-    identical, one decode step's all_reduces equal to
-    ``_all_reduces_per_decode_step``; the vlm's arms identical, with 8
-    prefix hits each and KV tails on the disaggregated one; falcon's
-    ssm_scan shapes on di / 2 channels; the reduced() float32 copy within
-    the parity rule.  Reports each run beside ``one_rank_rows`` (the same
-    traffic on one rank, where a phase ran it) and the streams that agree
-    with ``one_rank``.  Returns ({path: launch counts}, recorded shapes)."""
-    from repro_torch.configs.base import get_config, reduced
+    identical, every leaf's bytes against ``param_spec`` (``MESH_CUTS``
+    names the cuts), one decode step's all_reduces equal to
+    ``_all_reduces_per_decode_step``; the cache layout (``MESH_LAYOUT``);
+    the vlm's arms identical, with 8 prefix hits each and KV tails on the
+    disaggregated one; falcon's ssm_scan shapes on di / 2 channels; the
+    reduced() float32 copy within the parity rule.  Reports each run
+    beside ``one_rank_rows`` (the same traffic on one rank, where a phase
+    ran it) and the streams that agree with ``one_rank``.  Returns
+    ({path: launch counts}, recorded shapes)."""
     from repro_torch.distributed.spawn import run_ranks
+    from repro_torch.launch.mesh import model_cuts
     arch, shape, slots = MESH_FAMILIES[phase]
-    cfg = get_config(arch)
-    prompt_len = VLM_CONT_P if phase == "mesh_vlm" else PROMPT_LEN
+    cfg = _phase_config(phase)
+    m = shape[-1]
+    cuts = model_cuts(cfg, m)
+    require((cuts.attn, cuts.embed) == MESH_CUTS[phase],
+            f"{phase}: cuts {cuts}, expected {MESH_CUTS[phase]}")
+    prompt_len = VLM_CONT_P if cfg.family == "vlm" else \
+        CONT_P if phase == "mesh_gqa16" else PROMPT_LEN
     res = run_ranks(_rank_mesh_family, int(np.prod(shape)), shape, phase,
                     timeout_s=MESH_TIMEOUT_S)
     _mesh_checks(phase, cfg, res, prompt_len)
-    want_calls = _all_reduces_per_decode_step(cfg, shape, slots)
+    want_calls = _all_reduces_per_decode_step(cfg, shape, slots,
+                                              res[0]["max_len"])
     counts = {}
     for r in res:
         require(r["decode_step_all_reduces"] == want_calls,
                 f"{phase} rank {r['rank']}: {r['decode_step_all_reduces']} "
                 f"all_reduces a decode step, expected {want_calls}")
+        require(not r["spec_mismatches"],
+                f"{phase} rank {r['rank']}: leaves off param_spec "
+                f"{r['spec_mismatches']}")
         if cfg.family == "ssm":
-            require(r["mixer_channels"] == cfg.d_inner // shape[1]
+            held = r["held"]["mixer_channels"]
+            require(held == cfg.d_inner // shape[1]
                     and r["scan_shapes"]
                     and all(k[2] == cfg.d_inner // shape[1]
                             for k in r["scan_shapes"]),
                     f"{phase} rank {r['rank']}: ssm_scan shapes "
-                    f"{r['scan_shapes']} on {r['mixer_channels']} channels")
-        if phase == "mesh_vlm":
+                    f"{r['scan_shapes']} on {held} channels")
+        if phase == "mesh_gqa16":      # 2 query heads, 128 D rows, 512, 8016
+            want = {"wq": [cfg.num_layers, cfg.d_model, cfg.num_heads // m,
+                           cfg.head_dim],
+                    "wk": [cfg.num_layers, cfg.d_model // m, cfg.num_kv_heads,
+                           cfg.head_dim],
+                    "wo": [cfg.num_layers, cfg.num_heads // m, cfg.head_dim,
+                           cfg.d_model],
+                    "table": [cfg.vocab_size // m, cfg.d_model],
+                    "w_down": [cfg.num_layers, cfg.d_ff // m, cfg.d_model]}
+            require(r["held"] == want, f"{phase} rank {r['rank']}: held "
+                    f"{r['held']}, expected {want}")
+        if phase in MESH_LAYOUT:
             lay = r["layout"]
-            require(lay["seq"] is not None and lay["seq"]["s_axes"] == ("data",)
-                    and not lay["b_sharded"],
+            s_axes, b_sharded = MESH_LAYOUT[phase]
+            require(lay["seq"] is not None and lay["seq"]["s_axes"] == s_axes
+                    and lay["b_sharded"] == b_sharded,
                     f"{phase} rank {r['rank']}: cache layout {lay}")
-            names = [a[0] for a in VLM_MESH_ARMS]
-            loc, dis = (r["runs"][n] for n in names)
-            require(loc["streams"] == dis["streams"],
-                    f"{phase} rank {r['rank']}: the arms' streams differ")
-            n_req = len(loc["streams"])
-            require(loc["prefix_hits"] == dis["prefix_hits"] == n_req - 4,
+        if cfg.family == "vlm":
+            runs = [r["runs"][a[0]] for a in MESH_VLM_ARMS[phase]]
+            if len(runs) == 2:
+                loc = runs[0]
+                require(loc["streams"] == runs[1]["streams"],
+                        f"{phase} rank {r['rank']}: the arms' streams differ")
+                require(loc["kv_tail_hops"] == 0,
+                        f"{phase} rank {r['rank']}: KV tails on the local arm")
+            dis = runs[-1]
+            n_req = len(dis["streams"])
+            require(all(run["prefix_hits"] == n_req - 4 for run in runs),
                     f"{phase} rank {r['rank']}: prefix hits "
-                    f"{loc['prefix_hits']} / {dis['prefix_hits']}, expected "
+                    f"{[run['prefix_hits'] for run in runs]}, expected "
                     f"{n_req - 4}")
-            require(dis["kv_tail_hops"] > 0 and loc["kv_tail_hops"] == 0
-                    and dis["prefill_offloaded"] > 0,
-                    f"{phase} rank {r['rank']}: KV tails {loc['kv_tail_hops']}"
-                    f" / {dis['kv_tail_hops']}, offloaded "
-                    f"{dis['prefill_offloaded']}")
+            require(dis["kv_tail_hops"] > 0 and dis["prefill_offloaded"] > 0,
+                    f"{phase} rank {r['rank']}: KV tails {dis['kv_tail_hops']}"
+                    f", offloaded {dis['prefill_offloaded']}")
         for mode, row in r["runs"].items():
             one = one_rank_rows.get(mode) if one_rank_rows else None
             out = _mesh_row(phase, r, mode, row, one)
             out.update(arch=arch, mesh={"data": shape[0], "model": shape[1]},
-                       slots=slots, layout=r["layout"],
+                       slots=slots, layout=r["layout"], held=r["held"],
+                       rank_walls=r["walls"],
+                       cuts=cuts._asdict(),
                        decode_step_all_reduces=r["decode_step_all_reduces"],
                        expected_decode_step_all_reduces=want_calls,
                        scan_shapes=[list(k) + [n] for k, n in
@@ -3905,9 +4174,20 @@ def phase_mesh_family(torch, dev, phase, one_rank=None, one_rank_rows=None):
             emit(out)
             counts[f"{arch} {phase} {shape[0]}x{shape[1]} rank {r['rank']} "
                    f"{mode}"] = row["launches"]
-    _check_f32(phase, res, reduced(cfg), prompt_len,
+    _check_f32(phase, res, _f32_config(phase), prompt_len,
                run="reduced() float32 copy")
     return counts, _merge_shapes(res)
+
+
+def phase_mesh_gqa16(torch, dev):
+    """JAX's fallback cut Case Q on 16 ranks: the one-rank run on the
+    host-built weights (``_one_rank_gqa16``), then ``phase_mesh_family``'s
+    mesh_gqa16 on them; the weights' file removed after."""
+    ref = timed("mesh_gqa16_one_rank", _one_rank_gqa16, torch, dev)
+    try:
+        return phase_mesh_family(torch, dev, "mesh_gqa16", *ref)
+    finally:
+        _host_params_path(ARCH).unlink(missing_ok=True)
 
 
 MESH_SHAPE_KINDS = ("decode", "ffn", "hops", "scan", "scan_bwd")
@@ -4071,6 +4351,14 @@ def phase_mesh_kernels(torch, dev, shapes):
     emit({"phase": "mesh_kernels", "kernel": "ssm_scan_bwd",
           "tolerance": "exact", "cases": bwd})
     timing = [_time_lse(torch, dev, gen, shapes)]
+    # mesh_gqa16's: every one of llama's 32 query heads over a rank's
+    # 512 / 16 cache rows
+    gqa = [k for k in shapes["decode"] if k[7] and k[2:6] == (32, 8, 64,
+                                                              "bfloat16")
+           and k[1] == CONT_MAX_LEN // 16]
+    if gqa:
+        timing.append(_time_lse(torch, dev, gen, shapes, key=max(gqa),
+                                group="mesh_gqa16 shard"))
     timing += [_time_scan_rank(torch, dev, gen, k) for k in sorted(shapes["scan"])]
     timing += [_time_scan_bwd_rank(torch, dev, gen, k)
                for k in sorted(shapes["scan_bwd"])]
@@ -4180,16 +4468,16 @@ def _time_ffn_rank(torch, dev, gen, key):
     return row
 
 
-def _time_lse(torch, dev, gen, shapes):
+def _time_lse(torch, dev, gen, shapes, key=None, group="mesh_seq shard"):
     """decode_attention with lse and start at the largest shard shape the
-    mesh phases launched with lse (mesh_seq's, bf16): device ms and ms
-    beside the bytes bound (q, the K/V rows of the windows -- here every
-    row --, lengths, starts, output and lse, each once), the plain
-    version's ms and the same call without lse."""
+    mesh phases launched with lse (mesh_seq's, bf16), or at ``key``:
+    device ms and ms beside the bytes bound (q, the K/V rows of the windows
+    -- here every row --, lengths, starts, output and lse, each once), the
+    plain version's ms and the same call without lse."""
     from repro_torch.kernels import costs, ref
     from repro_torch.kernels.decode_attention import decode_attention_cuda
-    key = max((k for k in shapes["decode"] if k[7]),
-              key=lambda k: (k[5] == "bfloat16", k[0] * k[1] * k[3]))
+    key = key or max((k for k in shapes["decode"] if k[7]),
+                     key=lambda k: (k[5] == "bfloat16", k[0] * k[1] * k[3]))
     B, S, H, Hkv, dh = key[:5]
     dtype = getattr(torch, key[5])
     es = torch.tensor([], dtype=dtype).element_size()
@@ -4208,7 +4496,7 @@ def _time_lse(torch, dev, gen, shapes):
                                   lse=True)
     bound_ms, bound_by = _bound(cost["bytes"], cost["flops"])
     row = {"phase": "mesh_kernels_timing", "kernel": "decode_attention",
-           "variant": "lse+start", "group": "mesh_seq shard",
+           "variant": "lse+start", "group": group,
            "B": B, "S": S, "H": H, "Hkv": Hkv, "dh": dh, "dtype": key[5],
            "ms": _time_ms(torch, lse_call, sets),
            "device_ms": _device_ms(torch, lse_call, sets),
@@ -4521,12 +4809,12 @@ def phase_mesh_train(torch, dev, phase, one_rank_losses=None):
 
 def phase_mesh_train_launcher(torch, dev):
     """``python -m torch.distributed.run --nproc-per-node 4 -m
-    repro_torch.launch.train --mesh 2x2 --dist-backend gloo --steps 3``
+    repro_torch.launch.train --mesh 2x2 --dist-backend gloo --steps 1``
     (llama3.2-1b at full width, four ranks on the card): exits 0 and rank 0
     prints ``mesh=``."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", "4", "-m", "repro_torch.launch.train",
-           "--mesh", "2x2", "--dist-backend", "gloo", "--steps", "3"]
+           "--mesh", "2x2", "--dist-backend", "gloo", "--steps", "1"]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)},
                           capture_output=True, text=True, timeout=MESH_TIMEOUT_S)
@@ -4562,17 +4850,23 @@ def _train_collectives(cfg, layout, B, S, *, remat=False):
       gradient's reduce-scatter; bytes the gathered leaf (the rank's model
       slice of it) and the shard.  Under ``remat`` a stacked leaf's gather
       runs again in the backward.
-    * "all-reduce", forward (*g*): the
-      vocab embedding [B, S, D] and the vocab gather [m, B, S', V/m] where
-      the vocab splits; a self- or cross-attention sublayer [B, S', D]
-      where the heads split; an MLP [B, S', D] where its width splits; an
-      MoE layer [B S', D]; a Mamba layer its x_proj [B, S, r + 2N] (Mamba-2
-      dt and B/C, [B, S, H + 2N]) and out_proj [B, S, D] products.
+    * "all-reduce", forward (*g*): the embedding [B, S, D] and the
+      logits ([m, B, S', V/m] gathered, or [B, S', V] summed) where
+      "model" cuts the table (its vocab rows or its D columns);
+      ``frontend_proj``'s D gather [m, B, F, D/m]; a self- or
+      cross-attention sublayer's output [B, S', D] (its heads' partial
+      projection, or its D columns gathered) and, under the "q" and "d"
+      cuts (``launch.mesh.ATTN_CUTS``), its summed partial projections (k
+      and v [B, S'k, Hkv, dh] each, and q [B, S', H, dh] under "d"); an
+      MLP [B, S', D] where its width splits; an MoE layer [B S', D]; a
+      Mamba layer its x_proj [B, S, r + 2N] (Mamba-2 dt and B/C, [B, S, H
+      + 2N]) and out_proj [B, S, D] products.
     * "all-reduce", backward (*f*): the gradient of each split's input --
       the normed x [B, S', D] of attention (and cross-attention's kv_x
-      [B, F, D], the q/k-norm scales [dh] f32), of the MLP, of the Mamba
-      mixer, the vocab logits' x; the MoE's xt [B S', D] and gate values
-      [B S', K] f32 -- and again each Mamba layer's first sum.  Under
+      [B, F, D], the q/k-norm scales [dh] f32, the summed projections
+      again), of the MLP, of the Mamba mixer, the vocab logits' x; the
+      MoE's xt [B S', D] and gate values [B S', K] f32 -- and again each
+      Mamba layer's first sum.  Under
       ``remat`` a layer's forward sums run again in the backward, all but
       its last (the MLP's, the MoE's, out_proj's): nothing after that one
       is saved for the backward, so the recomputation stops before it
@@ -4635,19 +4929,32 @@ def _leaf_dtype(cfg, names):
 def _model_all_reduces(cfg, pl, m, B, S, es, remat, add):
     """The forward and backward all_reduces over "model" of one step (see
     :func:`_train_collectives`)."""
+    from repro_torch.launch.mesh import model_cuts
     blocks = pl["blocks"]
     D, F = cfg.d_model, cfg.frontend_tokens
     Sx = S + (F if cfg.family == "vlm" else 0)
     again = 2 if remat else 1       # a layer's sums but its last, under remat
     row = B * Sx * D * es
 
-    def attention(att, rows, n_layers, cross=False):
-        if att["wk"].model_dim is None:
+    cut = model_cuts(cfg, m).attn
+    H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def attention(att, T, n_layers, Tk=None):
+        """T query rows (Tk key rows: a cross-attention's)."""
+        if cut is None:
             return
-        add("all-reduce", n_layers * again, rows)        # wo (g)
-        add("all-reduce", n_layers, rows)                # the normed x (f)
+        cross = Tk is not None
+        Tk = T if Tk is None else Tk
+        # the partial projections summed (forward g, backward f)
+        summed = {"heads": 0, "q": 2 * Tk * Hkv * dh,
+                  "d": T * H * dh + 2 * Tk * Hkv * dh}[cut] * es
+        if summed:
+            add("all-reduce", n_layers * again, summed)
+            add("all-reduce", n_layers, summed)
+        add("all-reduce", n_layers * again, T * D * es)  # wo (g) / D gather
+        add("all-reduce", n_layers, T * D * es)          # the normed x (f)
         if cross:
-            add("all-reduce", n_layers, B * F * D * es)  # kv_x (f)
+            add("all-reduce", n_layers, Tk * D * es)     # kv_x (f)
         for k in ("q_norm", "k_norm"):
             if k in att:
                 add("all-reduce", n_layers, cfg.head_dim * 4)
@@ -4673,14 +4980,14 @@ def _model_all_reduces(cfg, pl, m, B, S, es, remat, add):
     if cfg.family == "hybrid":
         mamba(blocks["backbone"]["mamba"], L)
         nb = L // cfg.hybrid_attn_every
-        attention(blocks["shared"]["attn"], row, nb)
+        attention(blocks["shared"]["attn"], B * Sx, nb)
         mlp(blocks["shared"]["mlp"], row, nb)
     elif cfg.family == "ssm":
         mamba(blocks["mamba"], L)
     else:
-        attention(blocks["attn"], row, L)
+        attention(blocks["attn"], B * Sx, L)
         if "xattn" in blocks:
-            attention(blocks["xattn"], row, L, cross=True)
+            attention(blocks["xattn"], B * Sx, L, Tk=B * F)
         if "moe" in blocks:
             T = B * Sx
             add("all-reduce", L, T * D * es)                      # y (g)
@@ -4690,8 +4997,11 @@ def _model_all_reduces(cfg, pl, m, B, S, es, remat, add):
             mlp(blocks["mlp"], row, L)
     if "encoder" in pl:
         rows = B * F * D * es
-        attention(pl["encoder"]["attn"], rows, cfg.encoder_layers)
+        attention(pl["encoder"]["attn"], B * F, cfg.encoder_layers)
         mlp(pl["encoder"]["mlp"], rows, cfg.encoder_layers)
+    front = pl.get("frontend_proj")
+    if front is not None and front.model_dim is not None:
+        add("all-reduce", 1, B * F * D * es)                      # its D gather
     table = pl["embed"]["table"]
     if table.model_dim is not None:
         add("all-reduce", 1, B * S * D * es)                      # the embedding
@@ -5121,7 +5431,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # the hybrid path: zamba2-2.7b at full width, decode_attention at dh=80
-    hyb_counts, hyb_errs, hyb_streams = timed("hybrid", phase_hybrid, torch, dev)
+    hyb_counts, hyb_errs, _ = timed("hybrid", phase_hybrid, torch, dev)
 
     # the vlm and audio families and the int8 KV cache at full width
     fam_counts, fam_shapes, payloads = {}, {}, set()
@@ -5134,7 +5444,7 @@ def main() -> None:
         payloads |= {(f"payload-{phase}-{g}", n, get_config(arch).d_model)
                      for g, n in zip(s["group_names"][1:], s["n_group"][1:]) if n}
         torch.cuda.empty_cache()
-    vlm_cont_counts, vlm_hops, shapes, vlm_streams = timed(
+    vlm_cont_counts, vlm_hops, shapes, vlm_streams, vlm_rows = timed(
         "vlm_continuous", phase_vlm_continuous, torch, dev)
     fam_shapes.update(shapes)
     fam_errs, fam_rows = timed("families_kernels", phase_families_kernels, torch,
@@ -5159,11 +5469,13 @@ def main() -> None:
     # the SSM, hybrid, vlm and audio families, each beside its one-rank run
     # where an earlier phase served the same traffic
     family_refs = {"mesh_ssm": (ssm_streams, {"fused": ssm_cont_rows["overlapped"]}),
-                   "mesh_hybrid": (hyb_streams, None),
-                   "mesh_vlm": (vlm_streams, None), "mesh_audio": (None, None)}
+                   "mesh_hybrid": (None, None), "mesh_vlm": (None, None),
+                   "mesh_audio": (None, None),
+                   "mesh_dcut": (vlm_streams, vlm_rows)}
     mesh_runs = [("mesh_seq", phase_mesh_seq, ()), ("mesh_moe", phase_mesh_moe, ())]
     mesh_runs += [(phase, phase_mesh_family, (phase, *refs))
                   for phase, refs in family_refs.items()]
+    mesh_runs += [("mesh_gqa16", phase_mesh_gqa16, ())]
     for phase, fn, args in mesh_runs:
         c, shapes = timed(phase, fn, torch, dev, *args)
         mesh_counts.update(c)

@@ -15,12 +15,16 @@ placement JAX's ``params_shardings`` gives (a tuple standing for the
 ``params_shardings``: it slices each leaf to this rank's part on the
 "model" axis and, for training (``fsdp=True``), one more dim over the
 batch axes: FSDP's second split (:class:`TrainLayout`; ``gather_params``
-is its inverse).  Explicit collectives run a layer split on
-the dimension it was written for, so a leaf is sliced only on its preferred
-model dimension: where GSPMD would fall back to another dimension (a head
-count the axis does not divide), the leaf stays whole on every rank and the
-layer runs replicated.  ``data_specs`` / ``shard_batch`` are the
-counterpart of ``data_shardings``.
+is its inverse).  The attention projections, the vocab tables and
+``frontend_proj`` are cut on ``param_spec``'s own dim, its fallback
+included: where the axis does not divide the preferred dim (a head count)
+the leaf goes on the largest other dim it divides, and the layer code runs
+that cut with explicit collectives (:class:`ModelCuts`: Case Q puts
+``wk``/``wv`` on their D rows, Case D every projection on D, a table on D
+where the vocabulary does not divide).  Three leaves keep a cut of their
+own: the router (whole), the MoE layer's shared experts (their hidden
+width) and a Mamba mixer's leaves (its channels).  ``data_specs`` /
+``shard_batch`` are the counterpart of ``data_shardings``.
 
 Sharding strategy (the JAX package's DESIGN.md §5):
   * "model" axis: tensor/expert parallel -- attention heads, MLP hidden,
@@ -31,12 +35,14 @@ Sharding strategy (the JAX package's DESIGN.md §5):
 from __future__ import annotations
 
 import datetime
+import functools
 import itertools
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.distributed import collectives as coll
 
@@ -330,26 +336,33 @@ def _slice_halves(t: torch.Tensor, n: int, i: int) -> torch.Tensor:
     return torch.cat([_slice(u, -1, n, i), _slice(z, -1, n, i)], dim=-1)
 
 
+# leaves cut on ``param_spec``'s dim, its fallback included
+_SPEC_LEAVES = ("wq", "wk", "wv", "wo", "table", "frontend_proj")
+
+
 def serving_model_dim(names: Tuple[str, ...], shape: Tuple[int, ...],
-                      model_size: int, *, heads_split: bool = True):
-    """The dim a serving rank slices a leaf on ("model" axis), or None:
-    the leaf's preferred dim when the axis divides it, never the router
-    (the JAX shard_map takes it whole) nor ``frontend_proj`` (every rank
-    projects the whole patch or frame embedding, as it holds the whole
-    router), the attention projections only together (``heads_split``:
-    the kv heads divide the axis), and the MoE layer's shared experts on
-    their hidden width, as a dense MLP.  A Mamba mixer's leaves are
+                      model_size: int):
+    """The dim a serving rank slices a leaf on ("model" axis), or None.
+    The attention projections, the vocab tables and ``frontend_proj``:
+    ``param_spec``'s model dim, the fallback included (:data:`ATTN_CUTS`
+    and :data:`TABLE_CUTS` name the cuts the layer code runs).  The router
+    never (the JAX shard_map takes it whole); the MoE layer's shared
+    experts on their hidden width, as a dense MLP; any other leaf on its
+    preferred dim when the axis divides it.  A Mamba mixer's leaves are
     :func:`shard_params`' (``_MAMBA_DIM``): one rule does not fit both
     versions' ``dt_proj``."""
     leaf = names[-1]
-    if model_size == 1 or leaf in ("router", "frontend_proj"):
+    if model_size == 1 or leaf == "router":
         return None
-    if leaf in ("wq", "wk", "wv", "wo") and not heads_split:
-        return None
+    stacked = _stacked(names)
+    if leaf in _SPEC_LEAVES:
+        spec = param_spec(names, shape, model_size=model_size, data_size=1,
+                          stacked=stacked, fsdp=False)
+        return next((i for i, e in enumerate(spec) if e == "model"), None)
     if "moe" in names and "shared" in names:
         # the shared experts are one dense MLP, split on its hidden width
         names = tuple(n for n in names if n != "moe")
-    dim = _preferred_dim(names, len(shape), _stacked(names))
+    dim = _preferred_dim(names, len(shape), stacked)
     if dim is None or not (shape[dim] % model_size == 0
                            and shape[dim] >= model_size):
         return None
@@ -370,13 +383,80 @@ class Placement(NamedTuple):
     replicas: int
 
 
-def _model_cuts(params, m: int):
-    """{leaf: (model dim or None, halves)} of a (full) param tree, as
-    :func:`shard_params` cuts it over a "model" axis of ``m``."""
-    def heads_split(tree) -> bool:
-        hkv = tree["wk"].shape[-2]
-        return hkv % m == 0 and hkv >= m
+# The cuts of an attention sublayer the layer code runs
+# (``models/attention.py``), by case: each projection's "model" dim counted
+# from the end (wq/wk/wv [.., D, H, dh], wo [.., H, dh, D]).  "heads": the
+# axis divides the kv heads; "q": it divides the query heads only, so
+# wk/wv go on their D rows; "d": it divides neither, so every projection
+# goes on D (wo on its output columns).
+ATTN_CUTS = {
+    "heads": {"wq": -2, "wk": -2, "wv": -2, "wo": -3},
+    "q": {"wq": -2, "wk": -3, "wv": -3, "wo": -3},
+    "d": {"wq": -3, "wk": -3, "wv": -3, "wo": -1},
+}
+# a vocab table [V, D] on its rows or on its D columns; frontend_proj
+# [F_in, D] on its D columns
+TABLE_CUTS = {-2: "vocab", -1: "d"}
+FRONTEND_CUTS = {-1: "d"}
 
+
+class ModelCuts(NamedTuple):
+    """How a model's sublayers are cut over "model", as the layer code
+    reads them: ``attn`` a key of :data:`ATTN_CUTS` (every attention
+    sublayer of the model, self and cross, encoder and decoder, takes the
+    same), ``embed`` / ``head`` (the input table, the LM head's: the tied
+    table's when tied) and ``frontend`` a value of :data:`TABLE_CUTS` /
+    :data:`FRONTEND_CUTS`; None: whole on every rank."""
+    attn: Optional[str]
+    embed: Optional[str]
+    head: Optional[str]
+    frontend: Optional[str]
+
+
+WHOLE = ModelCuts(None, None, None, None)
+
+
+def _from_end(dim: Optional[int], nd: int) -> Optional[int]:
+    return None if dim is None else dim - nd
+
+
+def _attn_case(tree, cut, names) -> Optional[str]:
+    """The :data:`ATTN_CUTS` case of an attention sublayer's cuts (None:
+    whole); NotImplementedError for a cut the layer code does not run."""
+    dims = {k: _from_end(cut[k][0], tree[k].dim())
+            for k in ("wq", "wk", "wv", "wo")}
+    if all(d is None for d in dims.values()):
+        return None
+    case = next((c for c, want in ATTN_CUTS.items() if dims == want), None)
+    if case is None:
+        path = "/".join(names)
+        raise NotImplementedError(
+            f"{path}/{{wq,wk,wv,wo}} cut over \"model\" on dims {dims} "
+            f"(from the end; shapes { {k: tuple(tree[k].shape) for k in dims} })"
+            ": the attention runs heads, Q and D cuts only")
+    return case
+
+
+def _leaf_cut(names, leaf, dim, cuts) -> Optional[str]:
+    """A table's or ``frontend_proj``'s cut name; NotImplementedError for
+    a dim the layer code does not run."""
+    if dim is None:
+        return None
+    d = _from_end(dim, leaf.dim())
+    if d not in cuts:
+        raise NotImplementedError(
+            f"{'/'.join(names)} of shape {tuple(leaf.shape)} cut over "
+            f"\"model\" on dim {dim}: only {sorted(cuts)} (from the end) run")
+    return cuts[d]
+
+
+def _model_cuts(params, m: int, attn_cases=None):
+    """{leaf: (model dim or None, halves)} of a (full) param tree, as
+    :func:`shard_params` cuts it over a "model" axis of ``m``; raises
+    NotImplementedError for an attention sublayer, a table or
+    ``frontend_proj`` on a dim the layer code does not run.  Adds each
+    attention sublayer's :data:`ATTN_CUTS` case to the set
+    ``attn_cases``, when given."""
     def mamba(tree):
         version = 2 if "bc_proj" in tree else 1
         heads = tree["A_log"].shape[-1] if version == 2 else 0
@@ -389,14 +469,13 @@ def _model_cuts(params, m: int):
     def walk(tree, names):
         if "in_proj" in tree:
             return mamba(tree)
-        split = heads_split(tree) if "wk" in tree else True
         out = {}
         for k, v in tree.items():
             if isinstance(v, dict):
                 out[k] = walk(v, names + (k,))
                 continue
             sub = names + (k,)
-            dim = serving_model_dim(sub, tuple(v.shape), m, heads_split=split)
+            dim = serving_model_dim(sub, tuple(v.shape), m)
             if dim is None and "moe" in names and k in _EXPERT_LEAVES:
                 # f_parallel: every rank holds all experts, a slice of
                 # each one's hidden width (w_gate/w_up [.., D, F],
@@ -404,10 +483,51 @@ def _model_cuts(params, m: int):
                 f_dim = v.dim() - (2 if k == "w_down" else 1)
                 if v.shape[f_dim] % m == 0 and v.shape[f_dim] >= m:
                     dim = f_dim
+            if k == "table":
+                _leaf_cut(sub, v, dim, TABLE_CUTS)
+            elif k == "frontend_proj":
+                _leaf_cut(sub, v, dim, FRONTEND_CUTS)
             out[k] = (dim, False)
+        if "wq" in tree:
+            case = _attn_case(tree, out, names)
+            if attn_cases is not None:
+                attn_cases.add(case)
         return out
 
     return walk(params, ())
+
+
+@functools.lru_cache(maxsize=None)
+def model_cuts(cfg, model_size: int) -> ModelCuts:
+    """The :class:`ModelCuts` of ``cfg``'s params over a "model" axis of
+    ``model_size``: read off the placements :func:`shard_params` gives its
+    (abstract, meta-device) param tree, once per config and size."""
+    if model_size == 1:
+        return WHOLE
+    from repro_torch.models import model as M
+    # the abstract tree is made outside any dispatch mode: a program
+    # being counted (``serving.profiling.measure``) that reaches this first
+    # must not count it as its own operators and temporaries
+    with _disable_current_modes():
+        full = M.init_params(cfg, 0, device="meta")
+    attn = set()
+    cuts = _model_cuts(full, model_size, attn)
+    if len(attn) > 1:
+        raise NotImplementedError(f"{cfg.name}: attention sublayers cut "
+                                  f"differently over \"model\": {attn}")
+
+    def table(key):
+        if key not in full:
+            return None
+        return _leaf_cut((key, "table"), full[key]["table"],
+                         cuts[key]["table"][0], TABLE_CUTS)
+
+    embed = table("embed")
+    front = _leaf_cut(("frontend_proj",), full["frontend_proj"],
+                      cuts["frontend_proj"][0], FRONTEND_CUTS) \
+        if "frontend_proj" in full else None
+    return ModelCuts(attn.pop() if attn else None, embed,
+                     embed if cfg.tie_embeddings else table("lm_head"), front)
 
 
 def _fsdp_dim(names: Tuple[str, ...], shape: Tuple[int, ...],
@@ -431,7 +551,8 @@ def _placements(params, mesh: Mesh, *, fsdp: bool):
     ``mesh``: the serving cut over "model" (:func:`shard_params`) and, with
     ``fsdp``, JAX's ``params_shardings`` FSDP cut of one more dim over the
     batch axes ("pod" and "data"), chosen given the model dim the port
-    actually cuts (not GSPMD's fallback dim)."""
+    cuts -- ``param_spec``'s own model dim wherever the port cuts that
+    dim, so the FSDP dim lands where JAX's does."""
     m = mesh.shape.get("model", 1)
     b = mesh.axes_size(batch_axes(mesh)) if fsdp else 1
     cuts = _model_cuts(params, m)
@@ -486,7 +607,7 @@ def _cut(t: torch.Tensor, pl: Placement, mesh: Mesh) -> torch.Tensor:
 
 def shard_params(params, mesh: Mesh, *, fsdp: bool = False):
     """This rank's part of a (full) param tree on ``mesh`` (the counterpart
-    of ``params_shardings``): each leaf sliced on its preferred model dim
+    of ``params_shardings``): each leaf sliced on its model dim
     (:func:`serving_model_dim`), every other leaf shared as it is.  MoE
     experts slice their expert dim, or (``f_parallel``, when the experts do
     not divide the axis) their hidden width, as ``moe_apply`` reads them.

@@ -10,20 +10,35 @@ rows are dequantized to f32 and attended with an f32 query.  A prefill can
 resume from cached post-RoPE prefix K/V.
 
 On a mesh (``shard``, a :class:`~repro_torch.models.sharding.RankShard`)
-the heads are split over "model" when the rank holds a slice of them
-(``shard_params`` slices ``wq/wk/wv`` on the head dim and ``wo`` on its
-head dim when the kv heads divide the axis); the partial output
-projections then meet in one all_reduce, in self- and cross-attention
-alike.  In training the split's inputs (the normed ``x``, cross-attention's
-``kv_x`` and the q/k-norm scales, replicated values entering rank-partial
-work) pass ``collectives.enter_partial`` and the output projection
-``reduce_partial``, so autograd sums their gradients over "model".  A
-sequence-sharded cache (the
-layout ``seq_shard_layout`` gives) is written only by the rank that owns
-the row, with no collective (``cache_update``), and decode runs the kernel
-on each rank's own rows with ``lse``; the partial outputs merge across the
-sequence axes by their log-sum-exps (``merge_shards``), the only
-cross-shard data of the decode.
+the projections are cut over "model" as ``launch.mesh.param_spec`` places
+them (``shard.cuts(cfg).attn``, one of ``launch.mesh.ATTN_CUTS``):
+
+* "heads" (the axis divides the kv heads): each rank attends its query
+  and kv heads; the partial output projections meet in one all_reduce.
+* "q" (it divides the query heads only): ``wk``/``wv`` hold D rows, so k
+  and v are partial sums over the rank's D columns of the input, summed in
+  one all_reduce; a prefill attends the rank's query heads over the kv
+  heads they map to (a rank's heads may span two), a decode gathers the
+  query heads over "model" (in the same all_reduce as k and v), attends
+  them all over the rank's cache rows, and keeps its own; the output
+  projection is partial, as with "heads".
+* "d" (it divides neither): q, k and v are partial sums over D rows, summed
+  in one all_reduce; the attention runs whole on every rank (on its cache
+  rows in decode) and ``wo``'s D columns give the rank's columns of the
+  output, gathered along D.
+
+Self- and cross-attention alike.  In training the split's inputs (the
+normed ``x``, cross-attention's ``kv_x`` and the q/k-norm scales,
+replicated values entering rank-partial work) pass
+``collectives.enter_partial``, a partial projection that feeds the
+attention passes ``reduce_to_partial`` (its gradient is partial too and is
+summed), the output projection ``reduce_partial`` and the D gather
+``gather_partial``, so autograd sums every gradient over "model" once.  A
+sequence-sharded cache (the layout ``seq_shard_layout`` gives) is written
+only by the rank that owns the row, with no collective
+(``cache_update``), and decode runs the kernel on each rank's own rows
+with ``lse``; the partial outputs merge across the sequence axes by their
+log-sum-exps (``merge_shards``).
 """
 from __future__ import annotations
 
@@ -33,7 +48,8 @@ import torch
 
 from repro_torch.distributed import collectives as coll
 from repro_torch.kernels import costs, ops
-from repro_torch.models.layers import apply_rope, norm_apply, normal_stack
+from repro_torch.models.layers import (apply_rope, gather_cols, norm_apply,
+                                       normal_stack)
 
 
 def attn_init(gen: torch.Generator, cfg, dtype, device, n_layers: int, *,
@@ -71,10 +87,24 @@ class _RMS:  # rmsnorm over head_dim (qk-norm)
     norm_type = "rmsnorm"
 
 
-def _qkv(params, x, kv_x, cfg, q_positions, kv_positions, *, rope: bool):
-    q = _proj(x, params["wq"])
-    k = _proj(kv_x, params["wk"])
-    v = _proj(kv_x, params["wv"])
+def _qkv(params, x, kv_x, cfg, q_positions, kv_positions, *, rope: bool,
+         cut=None, mesh=None):
+    """q, k and v of ``x`` (queries) and ``kv_x`` (keys and values) under
+    ``cut`` (the module docstring's cases; None or "heads": the rank's own
+    heads, no collective)."""
+    if cut == "q":
+        q = _proj(x, params["wq"])
+        k, v = _sum_partial([_proj(_d_cols(kv_x, params["wk"], mesh), params[w])
+                             for w in ("wk", "wv")], mesh)
+    elif cut == "d":
+        q, k, v = _sum_partial(
+            [_proj(_d_cols(x, params["wq"], mesh), params["wq"])]
+            + [_proj(_d_cols(kv_x, params["wk"], mesh), params[w])
+               for w in ("wk", "wv")], mesh)
+    else:
+        q = _proj(x, params["wq"])
+        k = _proj(kv_x, params["wk"])
+        v = _proj(kv_x, params["wv"])
     if "q_norm" in params:
         q = norm_apply(params["q_norm"], q, _RMS)
         k = norm_apply(params["k_norm"], k, _RMS)
@@ -82,6 +112,65 @@ def _qkv(params, x, kv_x, cfg, q_positions, kv_positions, *, rope: bool):
         q = apply_rope(q, q_positions, cfg.rope_theta)
         k = apply_rope(k, kv_positions, cfg.rope_theta)
     return q, k, v
+
+
+def _d_cols(x, w, mesh):
+    """This rank's D columns of ``x`` [.., D]: the rows of a projection
+    ``w`` [D_loc, ..] cut on D (rank i holds [i D_loc, (i + 1) D_loc))."""
+    D_loc = w.shape[0]
+    return x.narrow(-1, mesh.axis_index("model") * D_loc, D_loc)
+
+
+def _sum_partial(parts, mesh):
+    """The sums over "model" of rank-partial projections, in one
+    all_reduce; they feed the attention, which in training hands back a
+    partial gradient (``reduce_to_partial``)."""
+    flat = torch.cat([p.reshape(-1) for p in parts])
+    flat = coll.reduce_to_partial(flat, mesh, ("model",))
+    return [t.view(p.shape)
+            for t, p in zip(flat.split([p.numel() for p in parts]), parts)]
+
+
+def _rank_heads(cfg, mesh):
+    """(h0, H_loc): this rank's query heads under the "q" cut."""
+    H_loc = cfg.num_heads // mesh.shape["model"]
+    return mesh.axis_index("model") * H_loc, H_loc
+
+
+def _kv_for_heads(t, cfg, h0, H_loc):
+    """The kv head each query head [h0, h0 + H_loc) reads, one per query
+    head: t [B,S,Hkv,dh] -> [B,S,H_loc,dh] (the rank's heads may span two
+    kv heads)."""
+    g = cfg.num_heads // cfg.num_kv_heads
+    idx = torch.arange(h0, h0 + H_loc, device=t.device) // g
+    return t.index_select(2, idx)
+
+
+def _decode_qkv_q(params, x, cfg, positions, mesh):
+    """A "q" cut's decode projections: this rank's query heads (normed and
+    RoPE'd) gathered over "model" in the one all_reduce that sums k's and
+    v's partial projections.  Returns q [B,1,H,dh], k and v [B,1,Hkv,dh]."""
+    q = _proj(x, params["wq"])
+    if "q_norm" in params:
+        q = norm_apply(params["q_norm"], q, _RMS)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    slots = torch.zeros((mesh.shape["model"], *q.shape), dtype=q.dtype,
+                        device=q.device)
+    slots[mesh.axis_index("model")] = q
+    x_r = _d_cols(x, params["wk"], mesh)
+    qs, k, v = _sum_partial([slots, _proj(x_r, params["wk"]),
+                             _proj(x_r, params["wv"])], mesh)
+    if "k_norm" in params:
+        k = norm_apply(params["k_norm"], k, _RMS)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return torch.movedim(qs, 0, 2).flatten(2, 3), k, v
+
+
+def _all_heads(q, mesh):
+    """Every rank's query heads [B,1,H_loc,dh] gathered along the head dim
+    over "model": [B,1,H,dh]."""
+    blocks = coll.gather_partial(q.contiguous(), mesh, ("model",))
+    return torch.movedim(blocks, 0, 2).flatten(2, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -265,12 +354,12 @@ def attn_apply(params, x, cfg, *, positions, mode: str, causal: bool = True,
     "decode" (``cross=True``) the query attends over the cache's F rows,
     which the decode never writes.  ``shard``: this rank's block on a mesh
     (see the module docstring); a cross cache holds the rank's batch rows
-    and kv heads of all F rows, never a sequence shard."""
+    and kv heads ("heads"; every kv head otherwise) of all F rows, never a
+    sequence shard."""
     cross = cross or kv_x is not None
-    # heads split over "model": the partial projections meet in one all_reduce
-    split = shard is not None and params["wq"].shape[-2] != cfg.num_heads
-    if split:
-        mesh = shard.mesh
+    cut = shard.cuts(cfg).attn if shard is not None else None
+    mesh = shard.mesh if cut is not None else None
+    if cut is not None:
         x = coll.enter_partial(x, mesh, ("model",))
         if kv_x is not None:
             kv_x = coll.enter_partial(kv_x, mesh, ("model",))
@@ -281,35 +370,59 @@ def attn_apply(params, x, cfg, *, positions, mode: str, causal: bool = True,
 
     def project(out):
         y = _out_proj(out.to(x.dtype), params["wo"])
-        return coll.reduce_partial(y, shard.mesh, ("model",)) if split else y
+        if cut == "d":            # this rank's D columns, gathered along D
+            return gather_cols(y, mesh)
+        return coll.reduce_partial(y, mesh, ("model",)) if cut else y
+
+    def attend(q, k_cache, v_cache, cache_len, window, seq_shard):
+        """Decode over a cache; under "q" ``q`` holds every query head and
+        the rank keeps its own."""
+        out = decode_attend(q, k_cache, v_cache, cache_len, window=window,
+                            use_kernels=use_kernels, shard=seq_shard)
+        return out.narrow(2, *_rank_heads(cfg, mesh)) if cut == "q" else out
+
+    def full(q, k, v, **kw):
+        if cut == "q":
+            h0, H_loc = _rank_heads(cfg, mesh)
+            k, v = (_kv_for_heads(t, cfg, h0, H_loc) for t in (k, v))
+        return chunked_attention(q, k, v, **kw)
+
     if mode == "full":
         if cross:
             q, k, v = _qkv(params, x, kv_x, cfg, positions, kv_positions,
-                           rope=False)
-            out = chunked_attention(q, k, v, causal=False, window=0,
-                                    q_positions=positions,
-                                    kv_positions=kv_positions)
+                           rope=False, cut=cut, mesh=mesh)
+            out = full(q, k, v, causal=False, window=0, q_positions=positions,
+                       kv_positions=kv_positions)
             return project(out), (k, v)
-        q, k, v = _qkv(params, x, x, cfg, positions, positions, rope=True)
+        q, k, v = _qkv(params, x, x, cfg, positions, positions, rope=True,
+                       cut=cut, mesh=mesh)
         kv_positions = positions
         if prefix_kv is not None:
             pk, pv = prefix_kv
             k = torch.cat([pk.to(k.dtype), k], dim=1)
             v = torch.cat([pv.to(v.dtype), v], dim=1)
             kv_positions = torch.arange(k.shape[1], device=k.device)
-        out = chunked_attention(q, k, v, causal=causal,
-                                window=cfg.sliding_window,
-                                q_positions=positions, kv_positions=kv_positions)
+        out = full(q, k, v, causal=causal, window=cfg.sliding_window,
+                   q_positions=positions, kv_positions=kv_positions)
         return project(out), (k, v)
 
     if mode != "decode":
         raise ValueError(f"unknown attention mode {mode!r}")
     if cross:
-        q = _proj(x, params["wq"])
-        out = ops.decode_attention(q, cache["k"], cache["v"], cache["k"].shape[1],
-                                   window=0, use_kernels=use_kernels)
+        if cut == "d":
+            (q,) = _sum_partial([_proj(_d_cols(x, params["wq"], mesh),
+                                       params["wq"])], mesh)
+        else:
+            q = _proj(x, params["wq"])
+            if cut == "q":
+                q = _all_heads(q, mesh)
+        out = attend(q, cache["k"], cache["v"], cache["k"].shape[1], 0, None)
         return project(out), cache
-    q, k, v = _qkv(params, x, x, cfg, positions, positions, rope=True)
+    if cut == "q":
+        q, k, v = _decode_qkv_q(params, x, cfg, positions, mesh)
+    else:
+        q, k, v = _qkv(params, x, x, cfg, positions, positions, rope=True,
+                       cut=cut, mesh=mesh)
     if "k_scale" in cache:
         new_cache = {}
         for name, t in (("k", k), ("v", v)):
@@ -319,13 +432,11 @@ def attn_apply(params, x, cfg, *, positions, mode: str, causal: bool = True,
                                                       cache_index, shard)
         k_f32 = new_cache["k"].float() * new_cache["k_scale"]
         v_f32 = new_cache["v"].float() * new_cache["v_scale"]
-        out = decode_attend(q.float(), k_f32, v_f32, cache_index + 1,
-                            window=cfg.sliding_window, use_kernels=use_kernels,
-                            shard=shard)
+        out = attend(q.float(), k_f32, v_f32, cache_index + 1,
+                     cfg.sliding_window, shard)
         return project(out), new_cache
     k_cache = cache_update(cache["k"], k, cache_index, shard)
     v_cache = cache_update(cache["v"], v, cache_index, shard)
-    out = decode_attend(q, k_cache, v_cache, cache_index + 1,
-                        window=cfg.sliding_window, use_kernels=use_kernels,
-                        shard=shard)
+    out = attend(q, k_cache, v_cache, cache_index + 1, cfg.sliding_window,
+                 shard)
     return project(out), {"k": k_cache, "v": v_cache}

@@ -2,12 +2,17 @@
 
 Plain functions on tensors; params are dicts in the JAX package's keys and
 layout, so the L-stacked trees of both packages compare like with like.
-On a mesh whose "model" axis splits the vocabulary, ``vocab_embed`` and
-``vocab_logits`` run the embedding table's row slice of this rank, and are
-differentiable: the embedding's sum passes the gradient through
-(``collectives.reduce_partial``); the logits' input sums its gradient over
+On a mesh whose "model" axis cuts a vocab table, ``vocab_embed`` and
+``vocab_logits`` run this rank's part of it, on its vocab rows
+(``launch.mesh.TABLE_CUTS`` "vocab") or, where the axis does not divide
+the vocabulary, on its D columns ("d"), and are differentiable.  On rows:
+the embedding's sum passes the gradient through
+(``collectives.reduce_partial``), the logits' input sums its gradient over
 "model" (``enter_partial``) and the gathered logits hand each rank its
-slice of theirs (``gather_partial``).
+slice of theirs (``gather_partial``).  On D: the embedding's columns are
+gathered (``gather_partial``), the logits are a partial sum over the
+rank's D columns of the input (``enter_partial``, then
+``reduce_partial``).  ``gather_cols`` joins any rank's columns.
 """
 from __future__ import annotations
 
@@ -114,11 +119,24 @@ def unembed_apply(params, x: torch.Tensor, *, tied_table=None) -> torch.Tensor:
     return x @ table.T
 
 
-def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, mesh) -> torch.Tensor:
-    """The embedding of ``tokens`` from this rank's rows of a table split
-    over "model" (rank i holds rows [i V_loc, (i + 1) V_loc)): a masked
-    lookup, then one all_reduce (each row comes from exactly one rank, the
-    rest add zeros, so the result is exact)."""
+def gather_cols(part: torch.Tensor, mesh) -> torch.Tensor:
+    """Every rank's columns [.., n] gathered along the last dim over
+    "model" (rank i's are [i n, (i + 1) n)): one all_reduce of a
+    zero-filled buffer; each rank's gradient is its columns'."""
+    blocks = coll.gather_partial(part, mesh, ("model",))   # [m, ..., n]
+    return torch.movedim(blocks, 0, -2).flatten(-2)
+
+
+def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, mesh, *,
+                cut: str = "vocab") -> torch.Tensor:
+    """The embedding of ``tokens`` from this rank's part of a table cut
+    over "model".  ``cut`` "vocab": rank i holds rows [i V_loc, (i + 1)
+    V_loc): a masked lookup, then one all_reduce (each row comes from
+    exactly one rank, the rest add zeros, so the result is exact).  "d": it
+    holds every row's D columns [i D_loc, (i + 1) D_loc): a lookup, then
+    the columns gathered (:func:`gather_cols`, exact too)."""
+    if cut == "d":
+        return gather_cols(table[tokens], mesh)
     V_loc = table.shape[0]
     rel = tokens - mesh.axis_index("model") * V_loc
     mine = (rel >= 0) & (rel < V_loc)
@@ -126,10 +144,16 @@ def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, mesh) -> torch.Tensor
     return coll.reduce_partial(x, mesh, ("model",))
 
 
-def vocab_logits(x: torch.Tensor, table: torch.Tensor, mesh) -> torch.Tensor:
-    """``x @ table.T`` over the whole vocabulary from this rank's rows of a
-    table split over "model": each rank's [.., V_loc] block gathered (one
-    all_reduce of a zero-filled buffer) into [.., V]."""
-    part = coll.enter_partial(x, mesh, ("model",)) @ table.T
-    blocks = coll.gather_partial(part, mesh, ("model",))   # [m, ..., V_loc]
-    return torch.movedim(blocks, 0, -2).flatten(-2)
+def vocab_logits(x: torch.Tensor, table: torch.Tensor, mesh, *,
+                 cut: str = "vocab") -> torch.Tensor:
+    """``x @ table.T`` over the whole vocabulary from this rank's part of
+    a table cut over "model".  ``cut`` "vocab": each rank's [.., V_loc]
+    block gathered (one all_reduce of a zero-filled buffer) into [.., V].
+    "d": ``x``'s D columns of this rank against the table's, a partial
+    [.., V] summed in one all_reduce."""
+    x = coll.enter_partial(x, mesh, ("model",))
+    if cut == "d":
+        D_loc = table.shape[1]
+        part = x.narrow(-1, mesh.axis_index("model") * D_loc, D_loc) @ table.T
+        return coll.reduce_partial(part, mesh, ("model",))
+    return gather_cols(x @ table.T, mesh)

@@ -28,8 +28,13 @@ batch's tokens, frontend embeddings and indices (replicated), computes its
 own batch rows (all of them when the batch does not divide the batch axes)
 and returns the whole batch's logits, gathered over the "model" axis
 (vocab-parallel head) and the batch axes: every rank ends a step with the
-same logits.  ``frontend_proj`` is whole on every rank, so the vlm's
-prologue rows and the audio encoder's input are too.
+same logits.  The tables and ``frontend_proj`` are cut as
+``launch.mesh.model_cuts`` says (``shard.cuts(cfg)``): a table on its
+vocab rows, or on its D columns where the axis does not divide the
+vocabulary (``layers.vocab_embed`` / ``vocab_logits``); ``frontend_proj``
+on its D columns, the projected patch or frame rows gathered along D, so
+the vlm's prologue rows and the audio encoder's input are whole on every
+rank.
 
 In mode "train" on a mesh every family runs the rank's block of the train
 step (``training.train``): ``batch`` holds the rank's rows of the global
@@ -55,8 +60,8 @@ from repro_torch.distributed import collectives as coll
 from repro_torch.models import sharding
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import (embed_apply, norm_apply, norm_init,
-                                       unembed_apply, vocab_embed,
+from repro_torch.models.layers import (embed_apply, gather_cols, norm_apply,
+                                       norm_init, unembed_apply, vocab_embed,
                                        vocab_logits)
 
 
@@ -197,8 +202,7 @@ def _embed_inputs(params, cfg, batch, shard=None):
     tokens = batch["tokens"]
     x = _embed(params, cfg, tokens, shard)
     if cfg.frontend and cfg.family == "vlm":
-        fe = batch["frontend"].to(x.dtype) @ params["frontend_proj"]
-        x = torch.cat([fe, x], dim=1)
+        x = torch.cat([_frontend(params, cfg, batch, shard), x], dim=1)
     positions = torch.arange(x.shape[1], device=tokens.device)
     return x, positions, positions >= frontend_offset(cfg)
 
@@ -208,12 +212,22 @@ def _encode(params, cfg, batch, mode: str = "prefill", remat: bool = False,
     """The audio encoder over the stubbed frame embeddings: (enc_out
     [B,F,D], positions [F]); ``shard``: this rank's block on a mesh;
     ``fsdp``: the encoder stack's FSDP dims (training on a mesh)."""
-    fe = batch["frontend"].to(cfg.torch_dtype) @ params["frontend_proj"]
+    fe = _frontend(params, cfg, batch, shard)
     pos = torch.arange(fe.shape[1], device=fe.device)
     enc, _, _ = tfm.stack_apply(params["encoder"], fe, cfg, kind="encoder",
                                 mode=mode, positions=pos, causal=False,
                                 remat=remat, shard=shard, fsdp=fsdp)
     return norm_apply(params["enc_norm"], enc, cfg), pos
+
+
+def _frontend(params, cfg, batch, shard):
+    """The stubbed frontend's embeddings projected to d_model [B,F,D]: on a
+    mesh that cuts ``frontend_proj`` on its D columns, this rank's columns
+    gathered along D."""
+    fe = batch["frontend"].to(cfg.torch_dtype) @ params["frontend_proj"]
+    if shard is not None and shard.cuts(cfg).frontend == "d":
+        return gather_cols(fe, shard.mesh)
+    return fe
 
 
 def _logits(params, cfg, x, shard=None, *, gather_rows: bool = True):
@@ -222,8 +236,9 @@ def _logits(params, cfg, x, shard=None, *, gather_rows: bool = True):
         else params["lm_head"]["table"]
     if shard is None:
         return unembed_apply(None, x, tied_table=table)
-    logits = vocab_logits(x, table, shard.mesh) \
-        if table.shape[0] != cfg.vocab_size else x @ table.T
+    cut = shard.cuts(cfg).head
+    logits = vocab_logits(x, table, shard.mesh, cut=cut) if cut \
+        else x @ table.T
     if shard.b_sharded and gather_rows:    # every rank's batch rows, in rank order
         logits = coll.gather_sum(logits, shard.mesh, shard.batch_axes) \
             .flatten(0, 1)
@@ -231,9 +246,10 @@ def _logits(params, cfg, x, shard=None, *, gather_rows: bool = True):
 
 
 def _embed(params, cfg, tokens, shard):
-    table = params["embed"]["table"]
-    if shard is not None and table.shape[0] != cfg.vocab_size:
-        return vocab_embed(table, tokens, shard.mesh)
+    cut = shard.cuts(cfg).embed if shard is not None else None
+    if cut:
+        return vocab_embed(params["embed"]["table"], tokens, shard.mesh,
+                           cut=cut)
     return embed_apply(params["embed"], tokens)
 
 

@@ -27,7 +27,8 @@ import torch
 
 from repro_torch.core.offload import mesh_axis_sizes, tree_map
 from repro_torch.distributed import collectives as coll
-from repro_torch.launch.mesh import Mesh, batch_axes, world_ranks
+from repro_torch.launch.mesh import (Mesh, ModelCuts, batch_axes, model_cuts,
+                                     world_ranks)
 
 _STATE = {"mesh": None}
 
@@ -129,6 +130,13 @@ class RankShard(NamedTuple):
     @property
     def batch_axes(self) -> Tuple[str, ...]:
         return batch_axes(self.mesh) if self.b_sharded else ()
+
+    def cuts(self, cfg) -> ModelCuts:
+        """How ``cfg``'s params are cut over this mesh's "model" axis
+        (``launch.mesh.model_cuts``: made once per config and axis size
+        from the placements ``shard_params`` gives): the attention case,
+        the tables' and ``frontend_proj``'s cuts the layers run."""
+        return model_cuts(cfg, self.mesh.shape.get("model", 1))
 
     def held_rows(self, n_src: int, kv: bool = True) -> slice:
         """The rows of an ``n_src``-row source block (axis 2 of a prefill

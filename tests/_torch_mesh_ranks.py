@@ -621,3 +621,111 @@ def train_rank(rank, world, shape, cases):
                             "step": int(state.step)}
         out.append(res)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The attention, vocab and frontend cuts of JAX's param_spec fallback
+# ---------------------------------------------------------------------------
+def _leaf_bytes(tree):
+    """{JAX key path: bytes} of a tree of tensors."""
+    from repro_torch.training.checkpoint import named_leaves
+    return {k: v.numel() * v.element_size() for k, v in named_leaves(tree)}
+
+
+def _np_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_np_tree(v) for v in tree)
+    return tree.detach().numpy().copy()
+
+
+def fallback_rank(rank, world, shape, cases):
+    """Serving under the "q" / "d" attention cuts and a table or
+    ``frontend_proj`` on D: each case's config (``arch`` + ``replace``)
+    with JAX's params cut by ``shard_params`` on this rank of a mesh of
+    ``shape``.  A greedy stream of ``new`` tokens from the case's prompts:
+    returns the cuts, each leaf's bytes, the prefill's and each decode
+    step's logits, each step's all_reduces, the stream, and this rank's
+    cache block after the last step beside the same block of the case's
+    reference cache (``cache``, whole)."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch.mesh import model_cuts
+    from repro_torch.serving.engine import seed_cache
+    mesh = make_mesh(shape)
+    out = []
+    for case in cases:
+        cfg = make_cfg(case["arch"], **case["replace"])
+        params = shard_params(params_from_numpy(case["params"], cfg, "cpu"),
+                              mesh)
+        batch = {"tokens": torch.from_numpy(case["prompts"])}
+        if case["frontend"] is not None:
+            batch["frontend"] = torch.from_numpy(case["frontend"])
+        B, P = case["prompts"].shape
+        rows, S = P + M.frontend_offset(cfg), case["max_len"]
+        res = {"cuts": model_cuts(cfg, mesh.shape["model"])._asdict(),
+               "param_bytes": _leaf_bytes(params), "logits": [], "calls": []}
+        with torch.no_grad(), sharding.activation_sharding(mesh):
+            pre = M.forward(params, cfg, batch, mode="prefill")
+            res["logits"].append(pre.logits[:, -1].numpy())
+            shard = M.cache_shard(cfg, B, S)
+            cache = M.init_cache(cfg, B, S, device="cpu")
+            seed_cache(cfg, cache, pre.cache, rows, shard)
+            stream = [pre.logits[:, -1].argmax(-1).to(torch.int32)]
+            for i in range(case["new"] - 1):
+                with coll.counting(mesh) as cc:
+                    o = M.forward(params, cfg,
+                                  {"token": stream[-1][:, None],
+                                   "cache": cache,
+                                   "cache_index": torch.tensor(rows + i)},
+                                  mode="decode", shard=shard)
+                res["calls"].append(cc.calls["all-reduce"])
+                res["logits"].append(o.logits[:, 0].numpy())
+                stream.append(o.logits[:, 0].argmax(-1).to(torch.int32))
+            want = tree_from_numpy(case["cache"], "cpu")
+            res["cache"] = _np_tree(cache)
+            res["cache_want"] = _np_tree(cache_block(cfg, want, mesh, shard))
+        res["stream"] = torch.stack(stream, 1).numpy()
+        res["seq"] = shard.seq is not None
+        res["b_sharded"] = shard.b_sharded
+        out.append(res)
+    return out
+
+
+def fallback_train_rank(rank, world, shape, cases):
+    """Training under the fallback cuts: each case's config with JAX's
+    params cut by ``shard_params(fsdp=)``; the first batch's loss and whole
+    gradients (``step_grads``, gathered; with ``remat`` too when the case
+    asks), then one ``make_train_step`` step's collectives by kind."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch.mesh import gather_params, train_layout
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train as T
+    torch.manual_seed(0)
+    mesh = make_mesh(shape)
+    out = []
+    for case in cases:
+        cfg = make_cfg(case["arch"], **case["replace"])
+        full = params_from_numpy(case["params"], cfg, "cpu")
+        layout = train_layout(full, mesh, fsdp=case["fsdp"])
+        params = shard_params(full, mesh, fsdp=case["fsdp"])
+        batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+        res = {"rank": rank, "param_bytes": _leaf_bytes(params)}
+        loss, parts, g = T.step_grads(params, cfg, batch, remat=False,
+                                      layout=layout)
+        res["loss"], res["ce"] = float(loss), float(parts["ce"])
+        res["grads"] = _named(gather_params(g, layout))
+        del g
+        if case.get("remat"):
+            _, _, g = T.step_grads(params, cfg, batch, remat=True,
+                                   layout=layout)
+            res["remat_grads"] = _named(gather_params(g, layout))
+            del g
+        step = T.make_train_step(cfg, opt.OptimizerConfig(
+            lr=1e-3, warmup_steps=1, total_steps=2), remat=False,
+            layout=layout)
+        with coll.counting(mesh) as cc:
+            step(params, opt.init_opt_state(params), batch)
+        res["collectives"] = {"calls": dict(cc.calls), "bytes": dict(cc.bytes)}
+        out.append(res)
+    return out

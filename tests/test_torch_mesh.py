@@ -215,7 +215,9 @@ def test_shard_params_slices_preferred_dims():
     """Rank 0 of a (1, 2) mesh: the attention heads (kv heads divide), the
     MLP width, the vocab and the experts are halved on the dims the
     model code reads; norms and the router stay whole; with one kv head
-    the attention stays whole."""
+    (Case Q: the axis divides the query heads only) the query heads and
+    ``wo``'s are halved and ``wk``/``wv`` take half their D rows, every
+    kv head."""
     mesh = _port_mesh((1, 2))
     for arch, hkv in (("llama3.2-1b", None), ("moonshot-v1-16b-a3b", None),
                       ("llama3.2-1b", 1)):
@@ -226,8 +228,18 @@ def test_shard_params_slices_preferred_dims():
         full = M.init_params(cfg, 0, device="cpu")
         part = tmesh.shard_params(full, mesh)
         attn = part["blocks"]["attn"]
-        heads = cfg.num_heads // (1 if hkv else 2)
+        heads = cfg.num_heads // 2
         assert attn["wq"].shape[2] == heads and attn["wo"].shape[1] == heads
+        for w in ("wk", "wv"):
+            if hkv:
+                assert attn[w].shape[1:] == (cfg.d_model // 2, hkv,
+                                             cfg.head_dim)
+                torch.testing.assert_close(
+                    attn[w], full["blocks"]["attn"][w][:, :cfg.d_model // 2])
+            else:
+                assert attn[w].shape[1:] == (cfg.d_model,
+                                             cfg.num_kv_heads // 2,
+                                             cfg.head_dim)
         assert part["embed"]["table"].shape[0] == cfg.vocab_size // 2
         assert part["final_norm"]["scale"].shape == full["final_norm"]["scale"].shape
         if cfg.num_experts:

@@ -8,7 +8,8 @@ In one process: ``shard_params`` on every leaf of the four families at
 rank's slices reassemble to the whole leaf -- ``in_proj``'s u and z
 halves each from its channel slices, Mamba-2's ``dt_proj`` and
 ``bc_proj`` from their d_inner rows, its per-head leaves from their heads
--- and ``frontend_proj``, the norms and the router stay whole.
+-- and ``frontend_proj`` is cut on its D columns (JAX's
+``P(None, "model")``), the norms and the router stay whole.
 
 Across ranks (``tests/_torch_mesh_ranks.py``; one spawn per mesh): one
 Mamba-1 and one Mamba-2 mixer on (1, 2) and (1, 4), prefill and a decode
@@ -24,6 +25,9 @@ the Mamba-1 (4-dim) and Mamba-2 (5-dim) states, the hybrid's shared K/V,
 the vlm's K/V and the audio decoder's self and cross K/V, with 4 slots
 (the batch splits over "data") and 3 (it does not).
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -42,6 +46,9 @@ from repro_torch.configs.base import get_config, reduced  # noqa: E402
 from repro_torch.distributed.spawn import run_ranks  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 FALCON, ZAMBA = "falcon-mamba-7b", "zamba2-2.7b"
 VLM, AUDIO = "internvl2-1b", "seamless-m4t-medium"
@@ -109,12 +116,14 @@ def test_shard_params_reassembles_every_leaf(arch, m):
             # whole on every rank: the same tensor
             for g in got:
                 torch.testing.assert_close(g, leaf, rtol=0, atol=0)
-            assert names[-1] not in ("in_proj", "out_proj", "w_down"), names
-            if names[-1] == "wq":       # kv heads that do not divide m
-                assert cfg.num_kv_heads % m, names
+            assert names[-1] not in ("in_proj", "out_proj", "w_down", "wq",
+                                     "wk", "wv", "wo", "table",
+                                     "frontend_proj"), names
             continue
         split += 1
-        assert names[-1] not in ("frontend_proj", "router", "scale", "bias"), names
+        assert names[-1] not in ("router", "scale", "bias"), names
+        if names[-1] == "frontend_proj":     # [F_in, D] on its D columns
+            assert got[0].shape == (leaf.shape[0], leaf.shape[1] // m), names
         torch.testing.assert_close(_reassemble(names, got, leaf), leaf,
                                    rtol=0, atol=0)
         if "mamba" in names:
@@ -293,22 +302,54 @@ def test_family_logits_on_mesh_match_jax_forward(runs, cases, jax_logits,
             np.testing.assert_array_equal(g0, g)
 
 
+def _divides(n, m):
+    return n % m == 0 and n >= m
+
+
+def attn_cut(cfg, m):
+    """The attention's cut over a "model" axis of ``m`` as JAX's
+    ``param_spec`` places it, from the head counts: "heads" when the kv
+    heads divide, "q" when only the query heads do (wk/wv on their D
+    rows), else "d" (every projection on D, which the axis divides at these
+    configs); None without attention or without the axis."""
+    if m == 1 or not cfg.num_heads:
+        return None
+    if _divides(cfg.num_kv_heads, m):
+        return "heads"
+    return "q" if _divides(cfg.num_heads, m) else "d"
+
+
+def table_cut(cfg, m):
+    """A vocab table's cut: its rows when the axis divides the vocabulary,
+    else its D columns when it divides d_model, else whole."""
+    if m == 1:
+        return None
+    if _divides(cfg.vocab_size, m):
+        return "vocab"
+    return "d" if _divides(cfg.d_model, m) else None
+
+
 def all_reduces_per_decode_step(cfg, mesh_shape, B):
     """The all_reduces one decode step runs on a rank of a (data, model)
-    mesh when the kv heads and the mixer's channels divide "model"
-    (``PERF.md`` §6 writes the same count): the embedding and the vocab
-    gather when "model" splits the vocab, one more gather of the batch
-    rows when the batch splits over a "data" axis > 1; two a Mamba layer
-    (x_proj / dt+B/C, out_proj); a self-attention sublayer one (its output
-    projection), two more when its cache's sequence is sharded (the lse
-    merge); a cross-attention sublayer one; an MLP one."""
+    mesh whose "model" axis divides the mixer's channels and the MLP width
+    (``PERF.md`` §6 writes the same count): the embedding and the LM head
+    when "model" cuts their table (rows or D columns), one more gather of
+    the batch rows when the batch splits over a "data" axis > 1; two a
+    Mamba layer (x_proj / dt+B/C, out_proj); a self-attention sublayer, by
+    its cut: "heads" one (its output projection), "q" two (k and v with
+    the query heads' gather; the output projection), "d" two (q, k and v;
+    the output's D gather), two more when its cache's sequence is sharded (the
+    lse merge: the batch spills onto it, or the kv heads do not divide); a
+    cross-attention sublayer one ("heads") or two; an MLP one."""
     data, model = mesh_shape
     if model == 1:
         return 0
     b_split = B % data == 0 and B >= data
-    seq = not b_split               # the batch spills onto the sequence
-    attn = 1 + (2 if seq else 0)
-    n = (2 if cfg.vocab_size % model == 0 else 0) \
+    cut = attn_cut(cfg, model)
+    seq = not b_split or cut in ("q", "d")
+    attn = {"heads": 1, "q": 2, "d": 2}.get(cut, 0) + (2 if seq else 0)
+    cross = {"heads": 1, "q": 2, "d": 2}.get(cut, 0)
+    n = (2 if table_cut(cfg, model) else 0) \
         + (1 if b_split and data > 1 else 0)
     if cfg.family == "ssm":
         return n + 2 * cfg.num_layers
@@ -316,7 +357,7 @@ def all_reduces_per_decode_step(cfg, mesh_shape, B):
         return n + 2 * cfg.num_layers \
             + (cfg.num_layers // cfg.hybrid_attn_every) * (attn + 1)
     if cfg.family == "audio":
-        return n + cfg.num_layers * (attn + 2)
+        return n + cfg.num_layers * (attn + cross + 1)
     return n + cfg.num_layers * (attn + 1)
 
 
@@ -335,12 +376,15 @@ def test_all_reduces_per_decode_step_match_the_formula(runs, cases, arch, shape)
 def test_full_width_all_reduce_counts():
     """The counts ``chip_smoke.py``'s mesh phases hold at full width:
     falcon-mamba on (1, 2) 130 a step, zamba2 128, internvl2-1b on (2, 2)
-    with 3 slots 96 (its 151655-row vocab does not split: no embedding or
-    vocab all_reduce), seamless 38."""
-    assert all_reduces_per_decode_step(get_config(FALCON), (1, 2), 4) == 130
-    assert all_reduces_per_decode_step(get_config(ZAMBA), (1, 2), 4) == 128
-    assert all_reduces_per_decode_step(get_config(VLM), (2, 2), 3) == 96
-    assert all_reduces_per_decode_step(get_config(AUDIO), (1, 2), 4) == 38
+    with 3 slots 98 (its 151655-row vocab goes on D: the embedding's
+    gather and the logits' sum), seamless 38; and chip_smoke's own
+    formula agrees."""
+    want = {(FALCON, (1, 2), 4): 130, (ZAMBA, (1, 2), 4): 128,
+            (VLM, (2, 2), 3): 98, (AUDIO, (1, 2), 4): 38}
+    for (arch, shape, B), n in want.items():
+        assert all_reduces_per_decode_step(get_config(arch), shape, B) == n
+        assert chip_smoke._all_reduces_per_decode_step(get_config(arch),
+                                                       shape, B) == n
 
 
 @pytest.mark.parametrize("slots", [4, 3])

@@ -1,7 +1,8 @@
 """``repro_torch.serving.profiling.profile_engine_programs``: the JAX
 package's schema, the flops of the programs against their analytic count,
 and, on (1, 2) gloo meshes, every program's collective bytes against the
-collectives the sharded model issues (head-parallel, and sequence-sharded
+collectives the sharded model issues (head-parallel, and with one kv head
+Case Q: the query heads split, k and v summed, the cache sequence-sharded
 with the lse merge), with none on the splice and the slot write."""
 import dataclasses
 
@@ -110,14 +111,17 @@ def mesh_profiles():
 def _decode_all_reduce_bytes(cfg, name, K):
     """The all_reduce bytes one rank issues in K decode steps on (1, 2):
     the vocab-parallel embedding and logits gather, and per layer the MLP's
-    row-slice reduction plus, with the heads split, the output projection's
-    (``heads``), or, with the sequence split instead, the lse merge's max
-    and weighted sum (``seq``)."""
+    row-slice reduction and the output projection's, with the heads split
+    (``heads``) nothing more; with one kv head (``seq``: Case Q, the query
+    heads split, wk/wv on their D rows, the cache's sequence split) also
+    k and v summed, the query heads gathered and the lse merge's max and
+    weighted sum."""
     B, D, V, H, dh = SLOTS, cfg.d_model, cfg.vocab_size, cfg.num_heads, \
         cfg.head_dim
-    per_layer = B * D * F32
-    per_layer += B * D * F32 if name == "heads" \
-        else B * H * F32 + B * H * (dh + 1) * F32
+    per_layer = 2 * B * D * F32
+    if name == "seq":
+        per_layer += 2 * B * cfg.num_kv_heads * dh * F32 + B * H * dh * F32 \
+            + B * H * F32 + B * H * (dh + 1) * F32
     step = B * D * F32 + cfg.num_layers * per_layer + B * V * F32
     return K * step
 
@@ -134,7 +138,9 @@ def test_mesh_profile_collective_bytes(mesh_profiles, name):
         assert dec["all-reduce"] == _decode_all_reduce_bytes(cfg, name, 4)
         assert dec["total"] == dec["all-reduce"]
         pre = progs["prefill"]["collective_bytes"]
-        per_layer = 2 if name == "heads" else 1     # wo + MLP, or MLP only
+        # wo + MLP a layer, and under Case Q k and v summed
+        kv = 2 * P * cfg.num_kv_heads * cfg.head_dim * F32 \
+            if name == "seq" else 0
         assert pre["all-reduce"] == (
-            P * cfg.d_model * F32 * (1 + per_layer * cfg.num_layers)
-            + cfg.vocab_size * F32)
+            P * cfg.d_model * F32 * (1 + 2 * cfg.num_layers)
+            + cfg.num_layers * kv + cfg.vocab_size * F32)
