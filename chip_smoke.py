@@ -3411,7 +3411,11 @@ def _rank_mesh_moe(rank, world, shape, reqs):
     _free(torch)
     with _MeshRecorder() as rec, activation_sharding(mesh):
         _, row = _rank_run(torch, dev, mesh, cfg, params, reqs, rec, **kw)
+        calls = _decode_step_all_reduces(torch, dev, mesh, cfg, params,
+                                         SIDE_SLOTS, CONT_MAX_LEN)
     out = {"rank": rank, "runs": {"fused": row}, "one_rank": one_rank,
+           "decode_step_all_reduces": calls,
+           "spec_mismatches": _spec_mismatches(cfg, params, mesh),
            "experts_held": int(params["blocks"]["moe"]["w_gate"].shape[1]),
            "decode_shapes": rec.decode, "ffn_shapes": rec.ffn,
            "hop_shapes": rec.hops}
@@ -3642,7 +3646,10 @@ def phase_mesh_moe(torch, dev):
     teacher-forced decode steps' logits within MESH_MOE_F32_TOL of the
     one-rank model (moe_parity's rule: excused only by a router margin
     below 1e-6; the parity gap rule does not apply, since the static
-    batch's and the engine's prefills route under different capacities)."""
+    batch's and the engine's prefills route under different capacities).
+    One decode step's all_reduces equal ``_all_reduces_per_decode_step``
+    (the router's gather a layer among them) and every leaf's bytes
+    ``param_spec``'s (``_spec_mismatches``)."""
     from repro_torch.configs.base import get_config
     from repro_torch.distributed.spawn import run_ranks
     cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MESH_MOE_LAYERS)
@@ -3660,8 +3667,15 @@ def phase_mesh_moe(torch, dev):
           "steps": ["prefill"] + [f"decode {i}" for i in range(MESH_MOE_F32_STEPS)],
           **f32, "tolerance": MESH_MOE_F32_TOL,
           "excused_by_router_margin": excused})
+    want_calls = _all_reduces_per_decode_step(cfg, (1, 2), SIDE_SLOTS,
+                                              CONT_MAX_LEN)
     counts = {}
     for r in res:
+        require(r["decode_step_all_reduces"] == want_calls,
+                f"mesh_moe rank {r['rank']}: {r['decode_step_all_reduces']} "
+                f"all_reduces a decode step, expected {want_calls}")
+        require(not r["spec_mismatches"], f"mesh_moe rank {r['rank']}: "
+                f"leaves off param_spec {r['spec_mismatches']}")
         require(r["experts_held"] == cfg.num_experts // 2,
                 f"mesh_moe rank {r['rank']}: holds {r['experts_held']} experts")
         require(r["ffn_shapes"] and all(k[0] == cfg.num_experts // 2 and k[-1]
@@ -3671,6 +3685,8 @@ def phase_mesh_moe(torch, dev):
         out = _mesh_row("mesh_moe", r, "fused", row)
         out.update(layers=MESH_MOE_LAYERS, layers_of=get_config(MOE_ARCH).num_layers,
                    experts_held=r["experts_held"],
+                   decode_step_all_reduces=r["decode_step_all_reduces"],
+                   expected_decode_step_all_reduces=want_calls,
                    agreement_with_one_rank=_agreement(row["streams"],
                                                       res[0]["one_rank"]))
         emit(out)
@@ -3818,13 +3834,15 @@ def _all_reduces_per_decode_step(cfg, shape, B, S=None):
     the embedding and the LM head where "model" cuts their table (on its
     vocab rows or its D columns), a gather of the batch rows when the batch
     splits over batch axes > 1; two a Mamba layer (the mixer's channels
-    split); a self-attention sublayer ``ATTN_DECODE_ALL_REDUCES`` of its
+    split), and a Mamba-2 layer one more (``dt_proj``'s gather: it is held
+    on its heads); a self-attention sublayer ``ATTN_DECODE_ALL_REDUCES`` of its
     cut, two more when its cache's sequence is sharded (the lse merge: the
     batch spills onto the sequence, or "model" does not divide the kv
     heads); a cross-attention sublayer ``CROSS_DECODE_ALL_REDUCES``; an MLP
-    one; an MoE layer one, and one more (its aux loss's mean) when the
-    batch splits over batch axes > 1."""
-    from repro_torch.launch.mesh import model_cuts
+    one; an MoE layer one, one more (its aux loss's mean) when the batch
+    splits over batch axes > 1, and one more (its router's gather) where
+    "model" cuts the router."""
+    from repro_torch.launch.mesh import model_cuts, serving_model_dim
     *batch, model = shape
     data = math.prod(batch)
     b_split = B % data == 0 and B >= data
@@ -3841,7 +3859,7 @@ def _all_reduces_per_decode_step(cfg, shape, B, S=None):
         seq = sdiv > 1 and (S is None or (S % sdiv == 0 and S >= sdiv))
         attn = ATTN_DECODE_ALL_REDUCES[cuts.attn] + (2 if seq else 0)
     mlp = 1 if model > 1 else 0
-    mamba = 2 if model > 1 else 0
+    mamba = (2 + (cfg.mamba_version == 2)) if model > 1 else 0
     if cfg.family == "ssm":
         return n + mamba * cfg.num_layers
     if cfg.family == "hybrid":
@@ -3851,6 +3869,10 @@ def _all_reduces_per_decode_step(cfg, shape, B, S=None):
     if cfg.family == "audio":
         per_layer += CROSS_DECODE_ALL_REDUCES[cuts.attn]
     if cfg.num_experts and b_split and data > 1:
+        per_layer += 1
+    if cfg.num_experts and serving_model_dim(
+            ("blocks", "moe", "router"),
+            (cfg.num_layers, cfg.d_model, cfg.num_experts), model) is not None:
         per_layer += 1
     return n + per_layer * cfg.num_layers
 
@@ -3891,9 +3913,8 @@ def _f32_config(phase):
 def _spec_mismatches(cfg, shard, mesh):
     """{leaf: (bytes held, bytes by param_spec)} of every leaf of this
     rank's serving shard whose bytes differ from the port's ``param_spec``
-    (JAX's rule, ``fsdp=False``) on ``mesh``; the router, the MoE layer's
-    shared experts and a Mamba mixer's leaves keep cuts of their own and
-    are not held to it."""
+    (JAX's rule, ``fsdp=False``) on ``mesh``: every leaf, the MoE layer's
+    shared experts too (cut on another dim than JAX's, with its bytes)."""
     from repro_torch.launch.mesh import _stacked, param_spec
     from repro_torch.models import model as M
     sizes = dict(mesh.shape)
@@ -3903,9 +3924,6 @@ def _spec_mismatches(cfg, shard, mesh):
         if isinstance(full, dict):
             for k in full:
                 walk(full[k], part[k], names + (k,))
-            return
-        if names[-1] == "router" or "shared" in names and "moe" in names \
-                or "mamba" in names:
             return
         spec = param_spec(names, tuple(full.shape), model_size=sizes["model"],
                           data_size=sizes.get("data", 1),
@@ -4719,8 +4737,9 @@ def phase_mesh_train(torch, dev, phase, one_rank_losses=None):
     losses within TRAIN_TOL of the one-rank train_slice's on the same
     batches and its float32 2-layer witness within MESH_TRAIN_F32_TOL of
     the one-rank step's.  Reports ms a step, forward + backward ms,
-    tokens/s, peak memory a rank, losses, the collectives a step and their
-    host seconds against the wall.  Returns ({path: launches}, shapes)."""
+    tokens/s, peak memory a rank, losses, the collectives a step (the
+    all-reduce bytes beside the formula's) and their host seconds against
+    the wall.  Returns ({path: launches}, shapes)."""
     from repro_torch.distributed.spawn import run_ranks
     cfg = _mesh_train_cfg(phase)
     B, S = MESH_TRAIN_BATCH[phase]
@@ -4762,6 +4781,9 @@ def phase_mesh_train(torch, dev, phase, one_rank_losses=None):
                   **{k: v for k, v in row.items()
                      if k not in ("expected_collectives",)},
                   "expected_collectives_a_step": exp,
+                  "all_reduce_bytes_a_step":
+                      [c["bytes"]["all-reduce"] for c in row["collectives"]],
+                  "all_reduce_bytes_formula": exp["bytes"]["all-reduce"],
                   "collective_share_of_wall":
                       row["collective_host_seconds"] / row["wall_s"]})
         bad = {k: v for k, v in r["grad_norms"].items()
@@ -4850,17 +4872,22 @@ def _train_collectives(cfg, layout, B, S, *, remat=False):
       gradient's reduce-scatter; bytes the gathered leaf (the rank's model
       slice of it) and the shard.  Under ``remat`` a stacked leaf's gather
       runs again in the backward.
-    * "all-reduce", forward (*g*): the embedding [B, S, D] and the
-      logits ([m, B, S', V/m] gathered, or [B, S', V] summed) where
-      "model" cuts the table (its vocab rows or its D columns);
+    * "all-reduce", forward (*g*): the embedding [B, S, D] where "model"
+      cuts the table (its vocab rows or its D columns); where it cuts the
+      LM head's, the vocab-parallel loss: the blocks' logsumexps gathered
+      [m, B, S''] f32 and the gold logit summed [B, S''] f32 (S'' the
+      loss's positions: S - 1, the vlm's S), and on D columns the table
+      gathered [m, V, D/m] (and its gradient summed in the backward);
       ``frontend_proj``'s D gather [m, B, F, D/m]; a self- or
       cross-attention sublayer's output [B, S', D] (its heads' partial
       projection, or its D columns gathered) and, under the "q" and "d"
       cuts (``launch.mesh.ATTN_CUTS``), its summed partial projections (k
       and v [B, S'k, Hkv, dh] each, and q [B, S', H, dh] under "d"); an
-      MLP [B, S', D] where its width splits; an MoE layer [B S', D]; a
+      MLP [B, S', D] where its width splits; an MoE layer [B S', D] and
+      its router's gather [m, D, E/m] f32 where the router is cut; a
       Mamba layer its x_proj [B, S, r + 2N] (Mamba-2 dt and B/C, [B, S, H
-      + 2N]) and out_proj [B, S, D] products.
+      + 2N]) and out_proj [B, S, D] products, and Mamba-2's dt_proj
+      gathered [m, di, H/m] (its gradient summed in the backward).
     * "all-reduce", backward (*f*): the gradient of each split's input --
       the normed x [B, S', D] of attention (and cross-attention's kv_x
       [B, F, D], the q/k-norm scales [dh] f32, the summed projections
@@ -4971,6 +4998,10 @@ def _model_all_reduces(cfg, pl, m, B, S, es, remat, add):
         n = cfg.ssm_state
         mid = cfg.ssm_dt_rank + 2 * n if cfg.mamba_version == 1 else \
             cfg.d_inner // cfg.ssm_head_dim + 2 * n
+        if cfg.mamba_version == 2:                   # dt_proj's gather
+            w = cfg.d_inner * (cfg.d_inner // cfg.ssm_head_dim) * es
+            add("all-reduce", n_layers * again, w)
+            add("all-reduce", n_layers, w)           # its gradient's sum
         add("all-reduce", n_layers * again, B * S * mid * es)  # first sum
         add("all-reduce", n_layers, B * S * mid * es)         # its gradient
         add("all-reduce", n_layers, B * S * D * es)           # out_proj (g)
@@ -4990,6 +5021,8 @@ def _model_all_reduces(cfg, pl, m, B, S, es, remat, add):
             attention(blocks["xattn"], B * Sx, L, Tk=B * F)
         if "moe" in blocks:
             T = B * Sx
+            if blocks["moe"]["router"].model_dim is not None:
+                add("all-reduce", L * again, D * cfg.num_experts * 4)  # router
             add("all-reduce", L, T * D * es)                      # y (g)
             add("all-reduce", L, T * D * es)                      # xt (f)
             add("all-reduce", L, T * cfg.experts_per_token * 4)   # gates (f)
@@ -5007,7 +5040,11 @@ def _model_all_reduces(cfg, pl, m, B, S, es, remat, add):
         add("all-reduce", 1, B * S * D * es)                      # the embedding
     head = table if cfg.tie_embeddings else pl["lm_head"]["table"]
     if head.model_dim is not None:
-        add("all-reduce", 1, B * Sx * cfg.vocab_size * es)        # the gather
+        T = B * (S if cfg.family == "vlm" else S - 1)             # the loss's
+        add("all-reduce", 1, m * T * 4)                           # lse gather
+        add("all-reduce", 1, T * 4)                               # gold sum
+        if head.model_dim == len(head.shape) - 1:                 # on D
+            add("all-reduce", 2, cfg.vocab_size * D * es)         # table, grad
         add("all-reduce", 1, row)                                 # its x (f)
 
 

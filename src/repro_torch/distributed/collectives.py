@@ -36,6 +36,8 @@ function              forward                     backward
 ``reduce_to_partial`` sum of partial outputs that sum of the gradient
                       feed rank-partial work      (*g* then *f*)
 ``gather_partial``    ``gather_sum``              this rank's slice
+``gather_to_partial`` ``gather_sum`` of blocks    sum of the gradient,
+                      feeding rank-partial work   then this rank's slice
 ``fsdp_gather``       all-gather of a leaf's      reduce-scatter: a sum,
                       FSDP slices                 then this rank's slice
 ====================  ==========================  =======================
@@ -225,6 +227,18 @@ class _GatherPartial(torch.autograd.Function):
         return g[ctx.index], None, None
 
 
+class _GatherToPartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        ctx.index = mesh.linear_index(axes)
+        return gather_sum(t, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.mesh, ctx.axes)[ctx.index], None, None
+
+
 class _FsdpGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, mesh, axes, dim):
@@ -283,6 +297,17 @@ def gather_partial(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     ``[n, *t.shape]``; the gradient of this rank's block is its slice."""
     if _on_graph(t):
         return _GatherPartial.apply(t, mesh, tuple(axes))
+    return gather_sum(t, mesh, axes)
+
+
+def gather_to_partial(t: torch.Tensor, mesh,
+                      axes: Sequence[str]) -> torch.Tensor:
+    """:func:`gather_sum` of blocks whose replicated ``[n, *t.shape]``
+    feeds rank-partial work (each rank computes with its own part of it):
+    the gradient is summed over ``axes``, then this rank's slice is taken.
+    Off the autograd graph :func:`gather_sum`."""
+    if _on_graph(t):
+        return _GatherToPartial.apply(t, mesh, tuple(axes))
     return gather_sum(t, mesh, axes)
 
 

@@ -21,9 +21,13 @@ included: where the axis does not divide the preferred dim (a head count)
 the leaf goes on the largest other dim it divides, and the layer code runs
 that cut with explicit collectives (:class:`ModelCuts`: Case Q puts
 ``wk``/``wv`` on their D rows, Case D every projection on D, a table on D
-where the vocabulary does not divide).  Three leaves keep a cut of their
-own: the router (whole), the MoE layer's shared experts (their hidden
-width) and a Mamba mixer's leaves (its channels).  ``data_specs`` /
+where the vocabulary does not divide).  So is the MoE router (on its
+experts, or D), which each MoE layer gathers whole.  A Mamba mixer's
+leaves are cut on their channels (Mamba-2's per-head leaves and its
+``dt_proj`` on their heads), the dims of JAX's spec.  The MoE layer's
+shared experts keep a cut of their own: their hidden width, where JAX's
+spec (which takes them for the hybrid's unstacked shared block) cuts
+their layer axis; the same bytes a rank.  ``data_specs`` /
 ``shard_batch`` are the counterpart of ``data_shardings``.
 
 Sharding strategy (the JAX package's DESIGN.md §5):
@@ -318,13 +322,15 @@ def mamba_splits(d_inner: int, heads: int, model_size: int) -> bool:
 # per-head leaves its head dim, counted from the end; ``in_proj`` [.., D,
 # 2 di] is the u and z halves side by side, so a rank takes its channels
 # of each half (:func:`_slice_halves`).  Mamba-1's ``x_proj`` and both
-# versions' ``out_proj`` (and Mamba-2's ``bc_proj`` and ``dt_proj``) are
-# split on their di rows: their products are partial sums the mixer
-# all_reduces.
+# versions' ``out_proj`` (and Mamba-2's ``bc_proj``) are split on their di
+# rows: their products are partial sums the mixer all_reduces.  Mamba-2's
+# ``dt_proj`` [.., di, H] is stored on its heads, as JAX's spec places it;
+# the mixer gathers it and computes with its di rows
+# (``models/ssm.py``).
 _MAMBA_DIM = {
     1: {"conv_w": -1, "conv_b": -1, "x_proj": -2, "dt_proj": -1,
         "dt_bias": -1, "A_log": -2, "D": -1, "out_proj": -2},
-    2: {"conv_w": -1, "conv_b": -1, "bc_proj": -2, "dt_proj": -2,
+    2: {"conv_w": -1, "conv_b": -1, "bc_proj": -2, "dt_proj": -1,
         "dt_bias": -1, "A_log": -1, "D": -1, "out_proj": -2},
 }
 
@@ -337,22 +343,22 @@ def _slice_halves(t: torch.Tensor, n: int, i: int) -> torch.Tensor:
 
 
 # leaves cut on ``param_spec``'s dim, its fallback included
-_SPEC_LEAVES = ("wq", "wk", "wv", "wo", "table", "frontend_proj")
+_SPEC_LEAVES = ("wq", "wk", "wv", "wo", "table", "frontend_proj", "router")
 
 
 def serving_model_dim(names: Tuple[str, ...], shape: Tuple[int, ...],
                       model_size: int):
     """The dim a serving rank slices a leaf on ("model" axis), or None.
-    The attention projections, the vocab tables and ``frontend_proj``:
-    ``param_spec``'s model dim, the fallback included (:data:`ATTN_CUTS`
-    and :data:`TABLE_CUTS` name the cuts the layer code runs).  The router
-    never (the JAX shard_map takes it whole); the MoE layer's shared
-    experts on their hidden width, as a dense MLP; any other leaf on its
-    preferred dim when the axis divides it.  A Mamba mixer's leaves are
-    :func:`shard_params`' (``_MAMBA_DIM``): one rule does not fit both
-    versions' ``dt_proj``."""
+    The attention projections, the vocab tables, ``frontend_proj`` and the
+    MoE router: ``param_spec``'s model dim, the fallback included
+    (:data:`ATTN_CUTS` and :data:`TABLE_CUTS` name the cuts the layer code
+    runs; the MoE layer gathers the router whole, as the JAX shard_map
+    takes it); the MoE layer's shared experts on their hidden width, as a
+    dense MLP; any other leaf on its preferred dim when the axis divides
+    it.  A Mamba mixer's leaves are :func:`shard_params`'
+    (``_MAMBA_DIM``)."""
     leaf = names[-1]
-    if model_size == 1 or leaf == "router":
+    if model_size == 1:
         return None
     stacked = _stacked(names)
     if leaf in _SPEC_LEAVES:
@@ -612,11 +618,12 @@ def shard_params(params, mesh: Mesh, *, fsdp: bool = False):
     experts slice their expert dim, or (``f_parallel``, when the experts do
     not divide the axis) their hidden width, as ``moe_apply`` reads them.
     A Mamba mixer takes its channels [i di/m, (i+1) di/m) of every leaf
-    (``_MAMBA_DIM``; Mamba-2's per-head leaves the matching heads) when
-    :func:`mamba_splits`, else stays whole.  ``fsdp`` (training) also cuts
-    each leaf's :func:`_fsdp_dim` over the batch axes, slice i to the i-th
-    rank of its line (first axis major).  Also cuts an AdamW moment tree,
-    which has the params' names and shapes."""
+    (``_MAMBA_DIM``; Mamba-2's per-head leaves and ``dt_proj`` the
+    matching heads) when :func:`mamba_splits`, else stays whole.
+    ``fsdp`` (training) also cuts each leaf's :func:`_fsdp_dim` over the
+    batch axes, slice i to the i-th rank of its line (first axis major).
+    Also cuts an AdamW moment tree, which has the params' names and
+    shapes."""
     return _cut_tree(params, _placements(params, mesh, fsdp=fsdp), mesh)
 
 

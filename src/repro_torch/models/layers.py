@@ -13,8 +13,18 @@ slice of theirs (``gather_partial``).  On D: the embedding's columns are
 gathered (``gather_partial``), the logits are a partial sum over the
 rank's D columns of the input (``enter_partial``, then
 ``reduce_partial``).  ``gather_cols`` joins any rank's columns.
+
+Training keeps the logits vocab-parallel: ``vocab_block_logits`` gives
+this rank its block of ⌈V/m⌉ vocabulary columns and no rank builds a
+[.., V] tensor (``models.model.cross_entropy`` reduces the blocks).  On
+rows the block is ``x @ table.T`` of the rank's rows; on D the table's
+rows of the block are gathered with every D column (one gather of the
+table, ``gather_to_partial``: each rank's gradient sums over "model"
+before it takes its columns).
 """
 from __future__ import annotations
+
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -142,6 +152,42 @@ def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, mesh, *,
     mine = (rel >= 0) & (rel < V_loc)
     x = table[rel.clamp(0, V_loc - 1)] * mine[..., None].to(table.dtype)
     return coll.reduce_partial(x, mesh, ("model",))
+
+
+class VocabBlock(NamedTuple):
+    """Where a rank's block of vocab-parallel logits lies: columns
+    [start, start + n) of a vocabulary of ``size`` over the "model" axis
+    of ``mesh`` (n, the block's last dim, is ⌈size/m⌉ on every rank: the
+    last block's columns past ``size`` are padding and hold no token)."""
+    mesh: Any
+    start: int
+    size: int
+
+
+def vocab_block_logits(x: torch.Tensor, table: torch.Tensor, mesh, *,
+                       cut: str = "vocab"):
+    """(logits [.., ⌈V/m⌉], its :class:`VocabBlock`): ``x @ table.T`` on
+    this rank's block of the vocabulary from its part of a table cut over
+    "model".  ``cut`` "vocab": the rank's own rows.  "d": the table's rows
+    of the block, every D column, from one gather of the table (the last
+    block padded with zero columns when m does not divide V).  ``x``'s
+    gradient is summed over "model"."""
+    x = coll.enter_partial(x, mesh, ("model",))
+    mi = mesh.axis_index("model")
+    if cut != "d":
+        V_loc = table.shape[0]
+        return x @ table.T, VocabBlock(mesh, mi * V_loc,
+                                       V_loc * mesh.shape["model"])
+    V = table.shape[0]
+    n = -(-V // mesh.shape["model"])
+    start = mi * n
+    rows = max(min(n, V - start), 0)
+    blocks = coll.gather_to_partial(table, mesh, ("model",))  # [m, V, D/m]
+    w = torch.movedim(blocks.narrow(1, min(start, V), rows), 0, -2).flatten(-2)
+    logits = x @ w.T
+    if rows < n:
+        logits = F.pad(logits, (0, n - rows))
+    return logits, VocabBlock(mesh, start, V)
 
 
 def vocab_logits(x: torch.Tensor, table: torch.Tensor, mesh, *,

@@ -6,7 +6,8 @@ Public API (the JAX package's ``repro/models/model.py`` counterpart)
 init_params(cfg, seed, device=None)          -> params (dict of tensors)
 init_cache(cfg, batch, seq_len, dtype, device) -> the JAX cache layout
 forward(params, cfg, batch, mode=...)        -> ModelOutputs
-cross_entropy(logits, labels, mask=None)     -> mean next-token NLL (f32)
+cross_entropy(logits, labels, mask=None, *, vocab=None)
+                                             -> mean next-token NLL (f32)
 
 ``batch`` is a dict:
   train:   {"tokens": [B,S]} (+"frontend" as in prefill): logits over every
@@ -40,7 +41,11 @@ In mode "train" on a mesh every family runs the rank's block of the train
 step (``training.train``): ``batch`` holds the rank's rows of the global
 batch (``shard``, its :class:`~repro_torch.models.sharding.RankShard`),
 the logits are those rows' (no gather over the batch axes: each rank's
-loss is its own term of the mean), and the params may be FSDP-cut too
+loss is its own term of the mean) and, where "model" cuts the LM head's
+table, only this rank's block of ⌈V/m⌉ vocabulary columns
+(``layers.vocab_block_logits``; ``ModelOutputs.vocab`` says where it
+lies), which :func:`cross_entropy` reduces over "model" as JAX's loss
+reduces its vocab-sharded logits; and the params may be FSDP-cut too
 (``launch.mesh.shard_params(fsdp=True)``; ``fsdp``, the tree of each
 leaf's FSDP dim, ``TrainLayout.fsdp_dims``): the top-level leaves are
 gathered over the batch axes once, each layer's right before it runs.
@@ -61,7 +66,8 @@ from repro_torch.models import sharding
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (embed_apply, gather_cols, norm_apply,
-                                       norm_init, unembed_apply, vocab_embed,
+                                       norm_init, unembed_apply,
+                                       vocab_block_logits, vocab_embed,
                                        vocab_logits)
 
 
@@ -71,6 +77,8 @@ class ModelOutputs:
     aux_loss: Any         # scalar router aux (0 for a dense model)
     cache: Any = None     # decode/prefill caches
     loss_mask: Any = None # train: [S'] bool, the positions that carry loss
+    vocab: Any = None     # train on a mesh: the logits' layers.VocabBlock
+                          # (None: the whole vocabulary)
 
 
 def _kind(cfg) -> str:
@@ -230,19 +238,36 @@ def _frontend(params, cfg, batch, shard):
     return fe
 
 
-def _logits(params, cfg, x, shard=None, *, gather_rows: bool = True):
-    x = norm_apply(params["final_norm"], x, cfg)
+def _head(params, cfg, x):
+    """(the final-normed x, the LM head's table: the tied one when tied)."""
     table = params["embed"]["table"] if cfg.tie_embeddings \
         else params["lm_head"]["table"]
+    return norm_apply(params["final_norm"], x, cfg), table
+
+
+def _logits(params, cfg, x, shard=None):
+    """Serving: the whole vocabulary's logits of every batch row."""
+    x, table = _head(params, cfg, x)
     if shard is None:
         return unembed_apply(None, x, tied_table=table)
     cut = shard.cuts(cfg).head
     logits = vocab_logits(x, table, shard.mesh, cut=cut) if cut \
         else x @ table.T
-    if shard.b_sharded and gather_rows:    # every rank's batch rows, in rank order
+    if shard.b_sharded:    # every rank's batch rows, in rank order
         logits = coll.gather_sum(logits, shard.mesh, shard.batch_axes) \
             .flatten(0, 1)
     return logits
+
+
+def _train_logits(params, cfg, x, shard=None):
+    """(logits, vocab): the rank's rows' logits; where "model" cuts the LM
+    head's table only this rank's vocabulary block and its
+    ``layers.VocabBlock`` (else the whole vocabulary and None)."""
+    x, table = _head(params, cfg, x)
+    cut = shard.cuts(cfg).head if shard is not None else None
+    if cut:
+        return vocab_block_logits(x, table, shard.mesh, cut=cut)
+    return unembed_apply(None, x, tied_table=table), None
 
 
 def _embed(params, cfg, tokens, shard):
@@ -299,9 +324,9 @@ def forward(params, cfg, batch, *, mode: str = "prefill", remat: bool = False,
                                  positions=positions, remat=remat,
                                  use_kernels=use_kernels, **enc, **on_mesh,
                                  **stack_fsdp)
-        return ModelOutputs(logits=_logits(params, cfg, x, shard,
-                                           gather_rows=False),
-                            aux_loss=aux, loss_mask=loss_mask)
+        logits, vocab = _train_logits(params, cfg, x, shard)
+        return ModelOutputs(logits=logits, aux_loss=aux, loss_mask=loss_mask,
+                            vocab=vocab)
     on_mesh = {}          # {"shard": this rank's block} on a mesh
     if mode == "prefill":
         if mesh is not None:      # this rank's batch rows
@@ -363,18 +388,68 @@ def forward(params, cfg, batch, *, mode: str = "prefill", remat: bool = False,
                         aux_loss=aux, cache=caches)
 
 
-def cross_entropy(logits, labels, mask=None):
+def cross_entropy(logits, labels, mask=None, *, vocab=None):
     """Mean next-token NLL in f32: logsumexp over the vocab minus the gold
     logit (picked with a gather where JAX contracts a one-hot; adding zeros
     is exact, so the two agree).  ``mask`` (broadcast to the NLL's shape)
-    averages over the positions it keeps."""
-    lf = logits.float()
-    gold = lf.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
-    nll = torch.logsumexp(lf, dim=-1) - gold
+    averages over the positions it keeps.  ``vocab`` (a
+    ``layers.VocabBlock``): ``logits`` are this rank's block of the
+    vocabulary (``forward(mode="train")`` on a mesh), reduced over "model"
+    without a whole-vocabulary tensor: the blocks' logsumexps
+    (:class:`_BlockTerms`) gathered as [m, ..] and merged by a logsumexp
+    (``gather_partial``: each rank's gradient is its slice), the gold
+    logit from the rank whose block holds the label, summed
+    (``reduce_partial``: the gradient passes through)."""
+    if vocab is not None:
+        mesh, start, size = vocab
+        lse, gold = _BlockTerms.apply(logits, labels, start, size)
+        blocks = coll.gather_partial(lse, mesh, ("model",))    # [m, ..]
+        nll = torch.logsumexp(blocks, dim=0) \
+            - coll.reduce_partial(gold, mesh, ("model",))
+    else:
+        lf = logits.float()
+        gold = lf.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
+        nll = torch.logsumexp(lf, dim=-1) - gold
     if mask is not None:
         m = torch.broadcast_to(mask, nll.shape).float()
         return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
     return nll.mean()
+
+
+class _BlockTerms(torch.autograd.Function):
+    """(lse, gold) [..] of a block of logits [.., n] holding vocabulary
+    columns [start, start + n) of ``size``: the block's own logsumexp in
+    f32 (the columns past ``size`` left out) and the label's logit where the
+    block holds it (0 elsewhere).  The backward rebuilds the softmax from
+    the saved block in one f32 buffer, where autograd through ``logsumexp``
+    would keep an f32 copy of the block and make three more."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, start: int, size: int):
+        n = logits.shape[-1]
+        lf = logits.float()
+        pad = None
+        if start + n > size:
+            pad = torch.arange(n, device=logits.device) >= size - start
+            lf = lf.masked_fill(pad, torch.finfo(torch.float32).min)
+        lse = torch.logsumexp(lf, dim=-1)
+        rel = labels.long() - start
+        mine = (rel >= 0) & (rel < n)
+        idx = rel.clamp(0, n - 1).unsqueeze(-1)
+        gold = torch.where(mine, lf.gather(-1, idx).squeeze(-1), 0.0)
+        ctx.save_for_backward(logits, lse, idx, mine)
+        ctx.pad = pad
+        return lse, gold
+
+    @staticmethod
+    def backward(ctx, g_lse, g_gold):
+        logits, lse, idx, mine = ctx.saved_tensors
+        p = logits.to(torch.float32, copy=True)
+        if ctx.pad is not None:
+            p.masked_fill_(ctx.pad, -math.inf)
+        p.sub_(lse.unsqueeze(-1)).exp_().mul_(g_lse.unsqueeze(-1))
+        p.scatter_add_(-1, idx, (g_gold * mine).unsqueeze(-1))
+        return p.to(logits.dtype), None, None, None
 
 
 # ---------------------------------------------------------------------------

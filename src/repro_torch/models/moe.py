@@ -10,7 +10,10 @@ CUDA kernel on the card, its plain version elsewhere.
 
 On a mesh ``moe_apply`` takes the JAX package's ``_moe_shardmap`` path, as
 JAX's does: every rank routes its (batch shard of) tokens with the whole
-router and dispatches them locally (``local_dispatch_ffn``) into its own
+router -- held cut as JAX's ``param_spec`` places it (on its experts, or
+on D) and gathered over "model" once a layer, as the shard_map's ``P()``
+takes it (``collectives.gather_partial``: each rank's gradient is its
+slice) -- and dispatches them locally (``local_dispatch_ffn``) into its own
 experts -- E / msize of them (expert-parallel), or all E at a 1/msize slice
 of each one's hidden width (``f_parallel``, when the experts do not divide
 the "model" axis) -- and one all_reduce over "model" merges the partial
@@ -107,6 +110,9 @@ def moe_apply(params, x: torch.Tensor, cfg, *, use_kernels: bool = False,
     (``shard``) x is this rank's batch rows and the experts are this rank's
     slice (``launch.mesh.shard_params``); ``train``: the aux stays this
     rank's own term (module docstring)."""
+    if shard is not None:
+        params = dict(params, router=_whole_router(params["router"], cfg,
+                                                   shard.mesh))
     if shard is not None and "model" in shard.mesh.shape:
         msize = shard.mesh.shape["model"]
         if cfg.num_experts % msize == 0 and cfg.num_experts >= msize:
@@ -147,6 +153,18 @@ def moe_apply(params, x: torch.Tensor, cfg, *, use_kernels: bool = False,
     if "shared" in params:
         y = y + mlp_apply(params["shared"], xt, cfg).to(x.dtype)
     return y.reshape(B, S, D), aux
+
+
+def _whole_router(router: torch.Tensor, cfg, mesh) -> torch.Tensor:
+    """The router [D, E] from this rank's cut of it (``launch.mesh.
+    shard_params``: E over "model", or D where the axis does not divide
+    E), gathered on the dim it is cut on; the whole router as it is."""
+    dims = [i for i, n in enumerate((cfg.d_model, cfg.num_experts))
+            if router.shape[i] != n]
+    if not dims:
+        return router
+    blocks = coll.gather_partial(router, mesh, ("model",))   # [m, ...]
+    return torch.movedim(blocks, 0, dims[0]).flatten(dims[0], dims[0] + 1)
 
 
 def local_dispatch_ffn(xt, gate_vals, expert_ids, wg, wu, wd, e0: int,

@@ -17,8 +17,13 @@ this rank's d_inner / m channels (Mamba-2: its H / m heads): the conv, the
 scan and the gate are channel-local, and two all_reduces over "model" a
 layer join the rest -- the partial products of the di-row slices of
 ``x_proj`` (Mamba-1) or of ``dt_proj`` and ``bc_proj`` in one buffer
-(Mamba-2), and those of ``out_proj``.  Every width is read from the
-params, so the same code runs a whole mixer and a rank's slice of one.
+(Mamba-2), and those of ``out_proj``.  Mamba-2's ``dt_proj`` is held on
+its heads (JAX's ``param_spec``), so the mixer first gathers it (one
+more all_reduce a layer) and takes its di rows of every head; in
+training that gather's gradient is summed over "model" before each rank
+takes its heads (``collectives.gather_to_partial``).  Every width is read
+from the params, so the same code runs a whole mixer and a rank's slice
+of one.
 In training the mixer's input enters the split as
 ``collectives.enter_partial``, the first sum feeds the rank's channels
 again (``reduce_to_partial``: its gradient is summed too) and the output
@@ -258,7 +263,13 @@ def mamba_apply(params, x, cfg, *, state=None, mode: str = "full",
         P = cfg.ssm_head_dim
         H = di // P                                          # this rank's heads
         A = -torch.exp(params["A_log"])                      # [H]
-        dtp, bc = u @ params["dt_proj"], u @ params["bc_proj"]
+        dt_w = params["dt_proj"]
+        if split:           # [di_all, H/m] on its heads -> [di, H], its rows
+            mesh = shard.mesh
+            blocks = coll.gather_to_partial(dt_w, mesh, ("model",))
+            dt_w = torch.movedim(blocks.narrow(
+                1, mesh.axis_index("model") * di, di), 0, -2).flatten(-2)
+        dtp, bc = u @ dt_w, u @ params["bc_proj"]
         if split:
             # dt of every head and B/C are partial sums here: one
             # all_reduce of both, then this rank's heads of dt

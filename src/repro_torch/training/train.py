@@ -47,16 +47,19 @@ def loss_fn(params, cfg, batch, *, remat: bool = True, shard=None,
     before each, so its window starts at F-1 (the frontend's last row
     predicts the first text token).  On a mesh (``shard``, ``fsdp``: as
     ``model.forward`` takes them) ``batch`` holds this rank's rows and the
-    loss is this rank's term."""
+    loss is this rank's term; where "model" cuts the LM head the logits are
+    the rank's vocabulary block and the CE is vocab-parallel."""
     tokens = batch["tokens"]
     out = M.forward(params, cfg, batch, mode="train", remat=remat,
                     use_kernels=resolve_use_kernels("auto", tokens.device),
                     shard=shard, fsdp=fsdp)
     if cfg.family == "vlm":
         F = cfg.frontend_tokens
-        ce = M.cross_entropy(out.logits[:, F - 1:-1], tokens)
+        ce = M.cross_entropy(out.logits[:, F - 1:-1], tokens,
+                             vocab=out.vocab)
     else:
-        ce = M.cross_entropy(out.logits[:, :-1], tokens[:, 1:])
+        ce = M.cross_entropy(out.logits[:, :-1], tokens[:, 1:],
+                             vocab=out.vocab)
     return ce + out.aux_loss, {"ce": ce, "aux": out.aux_loss}
 
 

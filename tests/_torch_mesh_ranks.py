@@ -13,6 +13,8 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.convert import params_from_numpy, tree_from_numpy
@@ -729,3 +731,90 @@ def fallback_train_rank(rank, world, shape, cases):
         res["collectives"] = {"calls": dict(cc.calls), "bytes": dict(cc.bytes)}
         out.append(res)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The vocab-parallel cross-entropy
+# ---------------------------------------------------------------------------
+class _LastDims(TorchDispatchMode):
+    """The last dim of every tensor an operator returns while active."""
+
+    def __init__(self):
+        super().__init__()
+        self.dims = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor) and t.dim():
+                self.dims.add(int(t.shape[-1]))
+        return out
+
+
+def _block_ce_case(mesh, case):
+    """``layers.vocab_block_logits`` + ``cross_entropy(vocab=)`` on this
+    rank's cut of a [V, D] table (its vocab rows or its D columns): the
+    loss, the block's width and the gradients of x and of the rank's part
+    of the table."""
+    from repro_torch.models.layers import vocab_block_logits
+    m, mi = mesh.shape["model"], mesh.axis_index("model")
+    table = torch.from_numpy(case["table"])
+    V, D = table.shape
+    if case["cut"] == "d":
+        part = table[:, mi * (D // m):(mi + 1) * (D // m)]
+    else:
+        part = table[mi * (V // m):(mi + 1) * (V // m)]
+    part = part.clone().requires_grad_(True)
+    x = torch.from_numpy(case["x"]).requires_grad_(True)
+    mask = None if case["mask"] is None else torch.from_numpy(case["mask"])
+    logits, vocab = vocab_block_logits(x, part, mesh, cut=case["cut"])
+    loss = M.cross_entropy(logits, torch.from_numpy(case["labels"]), mask,
+                           vocab=vocab)
+    gx, gt = torch.autograd.grad(loss, (x, part))
+    return dict(loss=float(loss), width=int(logits.shape[-1]),
+                start=vocab.start, gx=gx.numpy(), gt=gt.numpy(), mi=mi)
+
+
+def _model_ce_case(mesh, case):
+    """A train step's loss on this rank: the train-mode logits' shape, the
+    last dims of every tensor ``step_grads`` makes, its loss and whole
+    gradients, then one ``make_train_step`` step's collectives."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch.mesh import gather_params, train_layout
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train as T
+    cfg = make_cfg(case["arch"], **case["replace"])
+    full = params_from_numpy(case["params"], cfg, "cpu")
+    layout = train_layout(full, mesh, fsdp=case["fsdp"])
+    params = shard_params(full, mesh, fsdp=case["fsdp"])
+    batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+    shard = sharding.rank_shard(mesh, batch["tokens"].shape[0])
+    rows = {k: v[shard.b0:shard.b0 + shard.B_loc] for k, v in batch.items()}
+    with torch.no_grad(), sharding.activation_sharding(mesh):
+        out = M.forward(params, cfg, rows, mode="train", shard=shard,
+                        fsdp=layout.fsdp_dims())
+    res = {"logits_shape": tuple(out.logits.shape)}
+    with _LastDims() as seen:
+        loss, parts, g = T.step_grads(params, cfg, batch, remat=False,
+                                      layout=layout)
+    res["last_dims"] = sorted(seen.dims)
+    res["loss"], res["ce"] = float(loss), float(parts["ce"])
+    res["grads"] = _named(gather_params(g, layout))
+    del g
+    step = T.make_train_step(cfg, opt.OptimizerConfig(
+        lr=1e-3, warmup_steps=1, total_steps=2), remat=False, layout=layout)
+    with coll.counting(mesh) as cc:
+        step(params, opt.init_opt_state(params), batch)
+    res["collectives"] = {"calls": dict(cc.calls), "bytes": dict(cc.bytes)}
+    return res
+
+
+def vocab_ce_rank(rank, world, shape, cases):
+    """Each case on this rank of a (data, model) mesh of ``shape``: a
+    ``block`` case (:func:`_block_ce_case`) or a ``model`` one
+    (:func:`_model_ce_case`)."""
+    torch.manual_seed(0)
+    mesh = make_mesh(shape)
+    return [dict(rank=rank, **(_block_ce_case(mesh, c) if c["kind"] == "block"
+                               else _model_ce_case(mesh, c)))
+            for c in cases]

@@ -213,8 +213,9 @@ def test_mesh_constructors():
 
 def test_shard_params_slices_preferred_dims():
     """Rank 0 of a (1, 2) mesh: the attention heads (kv heads divide), the
-    MLP width, the vocab and the experts are halved on the dims the
-    model code reads; norms and the router stay whole; with one kv head
+    MLP width, the vocab, the experts and the router's experts (JAX's
+    ``param_spec``; the MoE layer gathers it) are halved on the dims the
+    model code reads; norms stay whole; with one kv head
     (Case Q: the axis divides the query heads only) the query heads and
     ``wo``'s are halved and ``wk``/``wv`` take half their D rows, every
     kv head."""
@@ -245,7 +246,11 @@ def test_shard_params_slices_preferred_dims():
         if cfg.num_experts:
             moe = part["blocks"]["moe"]
             assert moe["w_gate"].shape[1] == cfg.num_experts // 2
-            assert moe["router"].shape == full["blocks"]["moe"]["router"].shape
+            router = full["blocks"]["moe"]["router"]
+            assert moe["router"].shape == (*router.shape[:2],
+                                           cfg.num_experts // 2)
+            torch.testing.assert_close(
+                moe["router"], router[..., :cfg.num_experts // 2])
             assert moe["shared"]["w_down"].shape[1] == \
                 cfg.d_ff * cfg.num_shared_experts // 2
         else:

@@ -6,10 +6,10 @@ the outputs are compared).
 In one process: ``shard_params`` on every leaf of the four families at
 ``reduced()`` size, on each rank of a "model" axis of 2 and 4: each
 rank's slices reassemble to the whole leaf -- ``in_proj``'s u and z
-halves each from its channel slices, Mamba-2's ``dt_proj`` and
-``bc_proj`` from their d_inner rows, its per-head leaves from their heads
--- and ``frontend_proj`` is cut on its D columns (JAX's
-``P(None, "model")``), the norms and the router stay whole.
+halves each from its channel slices, Mamba-2's ``bc_proj`` from its
+d_inner rows, its per-head leaves and ``dt_proj`` from their heads --
+and ``frontend_proj`` is cut on its D columns (JAX's
+``P(None, "model")``), the norms stay whole.
 
 Across ranks (``tests/_torch_mesh_ranks.py``; one spawn per mesh): one
 Mamba-1 and one Mamba-2 mixer on (1, 2) and (1, 4), prefill and a decode
@@ -99,7 +99,7 @@ MAMBA_CUTS = {
     1: {"in_proj": -1, "conv_w": -1, "conv_b": -1, "x_proj": -2,
         "dt_proj": -1, "dt_bias": -1, "A_log": -2, "D": -1, "out_proj": -2},
     2: {"in_proj": -1, "conv_w": -1, "conv_b": -1, "bc_proj": -2,
-        "dt_proj": -2, "dt_bias": -1, "A_log": -1, "D": -1, "out_proj": -2},
+        "dt_proj": -1, "dt_bias": -1, "A_log": -1, "D": -1, "out_proj": -2},
 }
 
 
@@ -133,7 +133,8 @@ def test_shard_params_reassembles_every_leaf(arch, m):
             di = cfg.d_inner // m
             heads = cfg.d_inner // cfg.ssm_head_dim // m
             want = {"in_proj": 2 * di}.get(names[-1], di)
-            if cfg.mamba_version == 2 and names[-1] in ("dt_bias", "A_log", "D"):
+            if cfg.mamba_version == 2 and names[-1] in ("dt_proj", "dt_bias",
+                                                        "A_log", "D"):
                 want = heads
             assert got[0].shape[dim] == want, (names, got[0].shape)
     assert split
@@ -335,7 +336,9 @@ def all_reduces_per_decode_step(cfg, mesh_shape, B):
     (``PERF.md`` §6 writes the same count): the embedding and the LM head
     when "model" cuts their table (rows or D columns), one more gather of
     the batch rows when the batch splits over a "data" axis > 1; two a
-    Mamba layer (x_proj / dt+B/C, out_proj); a self-attention sublayer, by
+    Mamba layer (x_proj / dt+B/C, out_proj) and a Mamba-2 layer one more
+    (its ``dt_proj``'s gather: it is held on its heads); a self-attention
+    sublayer, by
     its cut: "heads" one (its output projection), "q" two (k and v with
     the query heads' gather; the output projection), "d" two (q, k and v;
     the output's D gather), two more when its cache's sequence is sharded (the
@@ -354,7 +357,7 @@ def all_reduces_per_decode_step(cfg, mesh_shape, B):
     if cfg.family == "ssm":
         return n + 2 * cfg.num_layers
     if cfg.family == "hybrid":
-        return n + 2 * cfg.num_layers \
+        return n + (2 + (cfg.mamba_version == 2)) * cfg.num_layers \
             + (cfg.num_layers // cfg.hybrid_attn_every) * (attn + 1)
     if cfg.family == "audio":
         return n + cfg.num_layers * (attn + cross + 1)
@@ -375,11 +378,12 @@ def test_all_reduces_per_decode_step_match_the_formula(runs, cases, arch, shape)
 
 def test_full_width_all_reduce_counts():
     """The counts ``chip_smoke.py``'s mesh phases hold at full width:
-    falcon-mamba on (1, 2) 130 a step, zamba2 128, internvl2-1b on (2, 2)
+    falcon-mamba on (1, 2) 130 a step, zamba2 182 (128 before its Mamba-2
+    ``dt_proj`` went on its heads: one gather a layer), internvl2-1b on (2, 2)
     with 3 slots 98 (its 151655-row vocab goes on D: the embedding's
     gather and the logits' sum), seamless 38; and chip_smoke's own
     formula agrees."""
-    want = {(FALCON, (1, 2), 4): 130, (ZAMBA, (1, 2), 4): 128,
+    want = {(FALCON, (1, 2), 4): 130, (ZAMBA, (1, 2), 4): 182,
             (VLM, (2, 2), 3): 98, (AUDIO, (1, 2), 4): 38}
     for (arch, shape, B), n in want.items():
         assert all_reduces_per_decode_step(get_config(arch), shape, B) == n

@@ -3,7 +3,8 @@
 
     python3 tools/rehearse_mesh_phases.py [PHASE ...]
 
-PHASE is mesh_seq, mesh_gqa16 or any family phase of
+PHASE is mesh_seq, mesh_gqa16, mesh_moe, a mesh-train phase (mesh_train,
+mesh_train_moe, mesh_train_ssm) or any family phase of
 ``chip_smoke.MESH_FAMILIES`` (default: mesh_dcut and mesh_gqa16).  Every
 rank process (spawned over gloo, one intra-op thread each) and this one
 first apply the same patches: ``configs.base.get_config`` hands out the
@@ -11,11 +12,13 @@ first apply the same patches: ``configs.base.get_config`` hands out the
 chosen so the "model" cuts are the card's (llama3.2-1b 32 / 8 heads of
 16: Case Q on 16 ranks; internvl2-1b 14 / 2 heads of 16 and a 509-row
 vocabulary: Case D on 4); the kernel wrappers route CPU tensors to their
-plain versions and count the launches as the CUDA ones do; the
-``torch.cuda`` calls are no-ops; ``chip_smoke._rank_env`` builds the mesh
-on the CPU.  Prints chip_smoke's JSON lines (launch counts, all_reduces a
-step, each rank's walls and collective seconds) and the seconds of each
-phase.  A check that fails exits non-zero as on the card.
+plain versions and count the launches as the CUDA ones do (grouped_ffn
+and ssm_scan through the forwards of ``kernels/autograd.py``, which test
+``is_cuda``); the ``torch.cuda`` calls are no-ops and its events read the
+host clock; ``chip_smoke._rank_env`` builds the mesh on the CPU.  Prints
+chip_smoke's JSON lines (launch counts, all_reduces a step, each rank's
+walls and collective seconds) and the seconds of each phase.  A check
+that fails exits non-zero as on the card.
 """
 from __future__ import annotations
 
@@ -40,11 +43,14 @@ def patch() -> None:
 
     import chip_smoke
     from repro_torch.configs import base
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import autograd, ops, ref
     from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.grouped_ffn import grouped_ffn_cuda
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda, ssm_scan_cuda
     from repro_torch.kernels.masked_compact import masked_compact_cuda
     from repro_torch.launch import mesh as lmesh
     from repro_torch.serving import engine, prefill
+    from repro_torch.training import train
     if getattr(base, "_rehearsed", False):
         return
     base._rehearsed = True
@@ -61,6 +67,42 @@ def patch() -> None:
     def masked_compact_counted(tokens, mask, capacity):
         masked_compact_cuda.launches += 1
         return ref.masked_compact_ref(tokens, mask, capacity)
+
+    def grouped_ffn_counted(buf, wg, wu, wd, counts):
+        grouped_ffn_cuda.launches += 1
+        return ref.grouped_ffn_ref(buf, wg, wu, wd, counts)
+
+    def ssm_scan_counted(decay, bx, h0):
+        ssm_scan_cuda.launches += 1
+        return ref.ssm_scan_ref(decay, bx, h0)
+
+    def ssm_scan_bwd_counted(decay, h_all, h0, G, g):
+        ssm_scan_bwd_cuda.launches += 1
+        return ref.ssm_scan_bwd_ref(decay, h_all, h0, G, g)
+
+    def ffn_forward(ctx, buf, wg, wu, wd, counts, use_kernels):
+        out = autograd.grouped_ffn_cuda(buf, wg, wu, wd, counts) \
+            if use_kernels else ref.grouped_ffn_ref(buf, wg, wu, wd, counts)
+        ctx.save_for_backward(buf, wg, wu, wd, counts)
+        return out
+
+    def scan_forward(ctx, decay, bx, h0, use_kernels):
+        ctx.kernel = bool(use_kernels)
+        h_all, h_last = autograd.ssm_scan_cuda(decay, bx, h0) \
+            if use_kernels else ref.ssm_scan_ref(decay, bx, h0)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(decay, h0, h_all)
+        return h_all, h_last
+
+    class Event:                      # torch.cuda.Event on the host clock
+        def __init__(self, *a, **k):
+            self.t = 0.0
+
+        def record(self, *a):
+            self.t = time.perf_counter()
+
+        def elapsed_time(self, end):
+            return 1e3 * (end.t - self.t)
 
     def decode_attention(q, k, v, cache_len, *, window=0, start=None,
                          lse=False, use_kernels=True):
@@ -89,7 +131,13 @@ def patch() -> None:
     ops.masked_compact_cuda = masked_compact_counted
     ops.decode_attention = decode_attention
     ops.masked_compact = masked_compact
-    for mod in (ops, engine, prefill):
+    autograd.grouped_ffn_cuda = grouped_ffn_counted
+    autograd.ssm_scan_cuda = ssm_scan_counted
+    autograd.ssm_scan_bwd_cuda = ssm_scan_bwd_counted
+    autograd.GroupedFFN.forward = staticmethod(ffn_forward)
+    autograd.SSMScan.forward = staticmethod(scan_forward)
+    torch.cuda.Event = Event
+    for mod in (ops, engine, prefill, train):
         mod.resolve_use_kernels = resolve
     for name in ("synchronize", "reset_peak_memory_stats", "empty_cache",
                  "set_device"):
@@ -126,6 +174,11 @@ def main() -> None:
             chip_smoke.timed(phase, chip_smoke.phase_mesh_seq, torch, dev)
         elif phase == "mesh_gqa16":
             chip_smoke.timed(phase, chip_smoke.phase_mesh_gqa16, torch, dev)
+        elif phase == "mesh_moe":
+            chip_smoke.timed(phase, chip_smoke.phase_mesh_moe, torch, dev)
+        elif phase.startswith("mesh_train"):
+            chip_smoke.timed(phase, chip_smoke.phase_mesh_train, torch, dev,
+                             phase)
         else:
             chip_smoke.timed(phase, chip_smoke.phase_mesh_family, torch, dev,
                              phase)
