@@ -79,9 +79,22 @@ class ModelConfig:
         return self.ssm_expand * self.d_model
 
     @property
+    def is_attention_free(self) -> bool:
+        return self.num_heads == 0 and self.hybrid_attn_every == 0
+
+    @property
     def supports_long_context(self) -> bool:
         """Sub-quadratic sequence handling (SSM / hybrid / sliding window)."""
         return self.family in ("ssm", "hybrid") or self.sliding_window > 0
+
+    def param_count(self) -> int:
+        """Total parameters N (analytic, matches ``models.model.init_params``)."""
+        from repro_torch.models.model import count_params_analytic
+        return count_params_analytic(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models.model import count_params_analytic
+        return count_params_analytic(self, active_only=True)
 
 
 # ---------------------------------------------------------------------------

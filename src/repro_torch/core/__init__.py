@@ -29,9 +29,11 @@ from repro_torch.core.network import (DCN_LINK, ICI_LINK, WIFI_2_4GHZ,
 from repro_torch.core.offload import (GroupHealth, GroupTimeoutError,
                                       GroupUnavailableError, NodeGroup,
                                       OffloadEngine, OffloadReport,
+                                      mesh_axis_sizes, padded_quota_batch,
                                       split_counts, split_sizes)
 from repro_torch.core.profiler import (JETSON_NANO, JETSON_XAVIER,
                                        DeviceProfile, MeasuredProfile,
+                                       WorkloadCost, analytic_profile,
                                        paper_profiles)
 from repro_torch.core.scheduler import (Backoff, ControllerConfig,
                                         OffloadDecision, PrefillRoute,

@@ -356,6 +356,19 @@ class OffloadEngine:
         self.group_timeout_s = group_timeout_s
         self._streams: Dict[str, torch.cuda.Stream] = {}
 
+    # --- 2-node legacy accessors ------------------------------------------
+    @property
+    def primary(self) -> NodeGroup:
+        return self.topology.groups[0]
+
+    @property
+    def auxiliary(self) -> NodeGroup:
+        return self.topology.groups[1]
+
+    @property
+    def link(self) -> LinkModel:
+        return self.topology.links[1]
+
     @staticmethod
     def _slice_batch(batch, lo, hi):
         return tree_map(lambda a: a[lo:hi], batch)

@@ -12,13 +12,14 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs.base import get_config as jget_config  # noqa: E402
+from repro.configs.base import list_configs as jlist_configs  # noqa: E402
 from repro.configs.base import reduced as jreduced  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro.models import model as jM  # noqa: E402
 from repro.serving.engine import seed_cache as jseed_cache  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.configs.base import get_config, reduced  # noqa: E402
+from repro_torch.configs.base import get_config, list_configs, reduced  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -48,6 +49,44 @@ def test_configs_match_field_for_field(pair):
     full, jfull = get_config("llama3.2-1b"), jget_config("llama3.2-1b")
     assert dataclasses.asdict(full) == dataclasses.asdict(jfull)
     assert full.torch_dtype == torch.bfloat16 and cfg.torch_dtype == torch.float32
+
+
+@pytest.mark.parametrize("arch", list_configs())
+def test_param_counts_and_attention_free_match_jax(arch):
+    """param_count / active_param_count equal JAX's as integers, and
+    is_attention_free agrees, at full width and on reduced() copies."""
+    assert list_configs() == jlist_configs()
+    for cfg, jcfg in ((get_config(arch), jget_config(arch)),
+                      (reduced(get_config(arch)), jreduced(jget_config(arch)))):
+        assert type(cfg.param_count()) is int
+        assert cfg.param_count() == jcfg.param_count()
+        assert cfg.active_param_count() == jcfg.active_param_count()
+        assert cfg.is_attention_free == jcfg.is_attention_free
+
+
+def test_param_counts_scale():
+    """The twin of tests/test_arch_smoke.py's order-of-magnitude check
+    against the public specs, on the port's configs."""
+    expect = {
+        "qwen3-moe-235b-a22b": (180e9, 300e9),
+        "mixtral-8x22b": (120e9, 180e9),
+        "nemotron-4-15b": (12e9, 18e9),
+        "llama3.2-1b": (0.9e9, 1.8e9),
+        "falcon-mamba-7b": (5e9, 9e9),
+        "olmo-1b": (0.9e9, 1.6e9),
+        "moonshot-v1-16b-a3b": (20e9, 32e9),
+        "internvl2-1b": (0.4e9, 1.2e9),
+        "zamba2-2.7b": (2e9, 4e9),
+        "seamless-m4t-medium": (0.5e9, 2e9),
+    }
+    assert sorted(expect) == list_configs()
+    for arch, (lo, hi) in expect.items():
+        n = get_config(arch).param_count()
+        assert lo <= n <= hi, (arch, n)
+    q = get_config("qwen3-moe-235b-a22b")
+    assert q.active_param_count() < 0.2 * q.param_count()
+    assert get_config("falcon-mamba-7b").is_attention_free
+    assert not get_config("zamba2-2.7b").is_attention_free
 
 
 @pytest.mark.parametrize("norm_type", ["rmsnorm", "layernorm", "nonparametric"])
