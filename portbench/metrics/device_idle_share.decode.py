@@ -1,0 +1,11 @@
+"""The traced window's share in which the device was idle and the gap is
+charged to a program ``engine.macro_step`` span or a span nested in it
+(``program_trace.reduce``'s ``idle_under``)."""
+from portbench import program_trace
+
+LAYER, UNIT, SOURCE = "device", "%", "device_trace"
+MOVES = "tokens_per_s"
+
+
+def read(run):
+    return program_trace.idle_share(run, "engine.macro_step")

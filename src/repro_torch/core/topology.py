@@ -32,6 +32,7 @@ from typing import (TYPE_CHECKING, Any, Callable, Dict, List, Optional,
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.admission import (AdmissionController, GroupBudget,
                                         kv_cache_bytes)
 from repro_torch.core.mobility import LinkTrace
@@ -561,498 +562,502 @@ class HeteroRuntime:
         survivor (bit-identical prefix) can be deduplicated by position
         — the :class:`~repro_torch.serving.frontend.ServingFrontend` is the
         intended consumer.  Warmup runs never stream."""
-        if not self.tasks:
-            raise RuntimeError("no tasks registered — call add_task first")
-        decode = self._decode
-        D = len(decode)
-        wave = wave or 2 * self.slots * max(D - 1, 1)
-        requests = list(requests)
-        if warm and requests:
-            self.warmup(requests[:max(len(self.tasks) * 2, 4)])
+        with tracing.span("runtime.serve"):
+            if not self.tasks:
+                raise RuntimeError("no tasks registered — call add_task first")
+            decode = self._decode
+            D = len(decode)
+            wave = wave or 2 * self.slots * max(D - 1, 1)
+            requests = list(requests)
+            if warm and requests:
+                self.warmup(requests[:max(len(self.tasks) * 2, 4)])
 
-        outputs: Dict[str, List[RequestOutput]] = {t: [] for t in self.tasks}
-        waves_tel: List[dict] = []
-        total_tokens = 0
-        total_syncs = 0
-        total_decode_s = 0.0
-        total_dispatches = 0
-        total_wave_launches = 0
-        total_stalls = 0
-        total_overlap_s = 0.0
-        total_offloaded = 0
-        total_kv_s = 0.0
-        total_fallbacks = 0
-        total_prefix_hits = 0
-        total_prefix_blocks = 0
-        total_flops_avoided = 0.0
-        total_flops = 0.0
-        total_kv_raw = 0.0
-        total_kv_wire = 0.0
-        total_buckets = {"t_splice_s": 0.0, "t_slot_write_s": 0.0,
-                         "t_dispatch_s": 0.0, "t_await_s": 0.0}
-        total_requeued = 0
-        total_retries = 0
-        total_latched = 0
-        total_rerouted = 0
-        adm_tel: List = []           # last wave's per-group assessment
-        retried_uids: set = set()
-        dead: Dict[int, Backoff] = {}     # topology group index → re-probe
-        group_alive_tel: Dict[str, bool] = {}
-        link_bw: Dict[str, float] = {}
-        queue: List[ServeRequest] = list(requests)
-        t_start = time.perf_counter()
-        while queue:
-            wave_idx = len(waves_tel)
-            chunk = queue[:wave]
-            queue = queue[wave:]
+            outputs: Dict[str, List[RequestOutput]] = {t: [] for t in self.tasks}
+            waves_tel: List[dict] = []
+            total_tokens = 0
+            total_syncs = 0
+            total_decode_s = 0.0
+            total_dispatches = 0
+            total_wave_launches = 0
+            total_stalls = 0
+            total_overlap_s = 0.0
+            total_offloaded = 0
+            total_kv_s = 0.0
+            total_fallbacks = 0
+            total_prefix_hits = 0
+            total_prefix_blocks = 0
+            total_flops_avoided = 0.0
+            total_flops = 0.0
+            total_kv_raw = 0.0
+            total_kv_wire = 0.0
+            total_buckets = {"t_splice_s": 0.0, "t_slot_write_s": 0.0,
+                             "t_dispatch_s": 0.0, "t_await_s": 0.0}
+            total_requeued = 0
+            total_retries = 0
+            total_latched = 0
+            total_rerouted = 0
+            adm_tel: List = []           # last wave's per-group assessment
+            retried_uids: set = set()
+            dead: Dict[int, Backoff] = {}     # topology group index → re-probe
+            group_alive_tel: Dict[str, bool] = {}
+            link_bw: Dict[str, float] = {}
+            queue: List[ServeRequest] = list(requests)
+            t_start = time.perf_counter()
+            while queue:
+                wave_idx = len(waves_tel)
+                chunk = queue[:wave]
+                queue = queue[wave:]
 
-            # --- fleet fault domain ------------------------------------
-            # 1) bounded-backoff re-probe of dead decode groups: a
-            # restored group rejoins on the wave clock, a still-dead
-            # probe doubles the wait (the PrefillRouter's Backoff)
-            for gi, bo in list(dead.items()):
-                if bo.tick():
-                    if self.topology.groups[gi].health.alive:
-                        del dead[gi]
+                # --- fleet fault domain ------------------------------------
+                # 1) bounded-backoff re-probe of dead decode groups: a
+                # restored group rejoins on the wave clock, a still-dead
+                # probe doubles the wait (the PrefillRouter's Backoff)
+                for gi, bo in list(dead.items()):
+                    if bo.tick():
+                        if self.topology.groups[gi].health.alive:
+                            del dead[gi]
+                        else:
+                            bo.fail()
+
+                # 2) the prefill spoke's NodeGroup health runs on the same
+                # wave clock: a group-level kill (or armed fault firing now)
+                # propagates to its workers so the router latches local this
+                # wave; a group-level restore revives exactly the workers
+                # this path killed, and the router's own backoff re-probes
+                pfg = self.topology.prefill_group
+                if pfg is not None:
+                    try:
+                        pfg.health.check("dispatch", pfg.name)
+                    except GroupUnavailableError:
+                        pass
+                    workers = [spec.prefill_worker
+                               for spec in self.tasks.values()
+                               if spec.prefill_worker is not None]
+                    if not pfg.health.alive and not self._pf_group_killed:
+                        for w in workers:
+                            w.kill()
+                        self._pf_group_killed = True
+                    elif pfg.health.alive and self._pf_group_killed:
+                        for w in workers:
+                            w.restore()
+                        self._pf_group_killed = False
+
+                # 3) mobility-driven link churn (paper §V-A.5): replay every
+                # traced edge at this wave — live LinkModel, β latch, and the
+                # traced bandwidth the telemetry and hop prices follow
+                latched: Dict[int, bool] = {}
+                wave_links: Dict[int, Tuple[LinkModel, float]] = {}
+                link_bw = {g.name: 0.0 for g in self.topology.groups}
+                for gi in range(1, len(self.topology.groups)):
+                    name = self.topology.groups[gi].name
+                    tr = self.link_traces.get(gi)
+                    if tr is None:
+                        link_bw[name] = float(data_rate(
+                            self.topology.links[gi], self.link_distance))
+                        continue
+                    eff = tr.link_at(self.topology.links[gi], wave_idx)
+                    d_m = tr.distance_at(wave_idx)
+                    feasible = tr.feasible(wave_idx)
+                    wave_links[gi] = (eff, d_m)
+                    link_bw[name] = float(data_rate(eff, d_m))
+                    if gi == self.topology.prefill_spoke:
+                        if self.prefill_router is not None:
+                            self.prefill_router.link = eff
+                            self.prefill_router.distance = d_m
+                            self.prefill_router.mobility_latched = not feasible
+                        for spec in self.tasks.values():
+                            if spec.prefill_worker is not None:
+                                spec.prefill_worker.set_link(eff, d_m)
                     else:
-                        bo.fail()
+                        latched[gi] = not feasible
+                n_latched = sum(latched.values()) + (
+                    1 if self.prefill_router is not None
+                    and self.prefill_router.mobility_latched else 0)
+                total_latched += n_latched
 
-            # 2) the prefill spoke's NodeGroup health runs on the same
-            # wave clock: a group-level kill (or armed fault firing now)
-            # propagates to its workers so the router latches local this
-            # wave; a group-level restore revives exactly the workers
-            # this path killed, and the router's own backoff re-probes
-            pfg = self.topology.prefill_group
-            if pfg is not None:
-                try:
-                    pfg.health.check("dispatch", pfg.name)
-                except GroupUnavailableError:
-                    pass
-                workers = [spec.prefill_worker
-                           for spec in self.tasks.values()
-                           if spec.prefill_worker is not None]
-                if not pfg.health.alive and not self._pf_group_killed:
-                    for w in workers:
-                        w.kill()
-                    self._pf_group_killed = True
-                elif pfg.health.alive and self._pf_group_killed:
-                    for w in workers:
-                        w.restore()
-                    self._pf_group_killed = False
+                # 4) surviving simplex: dead groups mask to exactly 0; the β
+                # latch additionally zeroes priced-out edges while at least
+                # one unlatched live group remains (death is hard, the latch
+                # is advisory — an all-latched fleet still has to decode)
+                alive_mask = tuple(gi not in dead for gi in decode)
+                if not any(alive_mask):
+                    raise GroupUnavailableError(
+                        "all", "every decode group is dead — restore one "
+                        "before serving")
+                eff_mask = tuple(a and not latched.get(gi, False)
+                                 for a, gi in zip(alive_mask, decode))
+                if not any(eff_mask):
+                    eff_mask = alive_mask
 
-            # 3) mobility-driven link churn (paper §V-A.5): replay every
-            # traced edge at this wave — live LinkModel, β latch, and the
-            # traced bandwidth the telemetry and hop prices follow
-            latched: Dict[int, bool] = {}
-            wave_links: Dict[int, Tuple[LinkModel, float]] = {}
-            link_bw = {g.name: 0.0 for g in self.topology.groups}
-            for gi in range(1, len(self.topology.groups)):
-                name = self.topology.groups[gi].name
-                tr = self.link_traces.get(gi)
-                if tr is None:
-                    link_bw[name] = float(data_rate(
-                        self.topology.links[gi], self.link_distance))
-                    continue
-                eff = tr.link_at(self.topology.links[gi], wave_idx)
-                d_m = tr.distance_at(wave_idx)
-                feasible = tr.feasible(wave_idx)
-                wave_links[gi] = (eff, d_m)
-                link_bw[name] = float(data_rate(eff, d_m))
-                if gi == self.topology.prefill_spoke:
-                    if self.prefill_router is not None:
-                        self.prefill_router.link = eff
-                        self.prefill_router.distance = d_m
-                        self.prefill_router.mobility_latched = not feasible
+                # 5) power/memory/busy-factor admission: groups whose
+                # budget runs hot mask out of the split — the same masked-
+                # simplex path that removes dead groups — and their share
+                # re-routes to the cold survivors.  Like the β latch, hotness
+                # is advisory: an all-hot fleet still decodes (the frontend
+                # sheds in that regime instead)
+                adm = self.admission.assess()
+                adm_mask = tuple(e and not a.hot
+                                 for e, a in zip(eff_mask, adm))
+                wave_rerouted = 0
+                if any(adm_mask) and adm_mask != eff_mask:
+                    _, counts_base = self._split_for(len(chunk), split,
+                                                     eff_mask)
+                    eff_mask = adm_mask
+                    sv, counts = self._split_for(len(chunk), split, eff_mask)
+                    wave_rerouted = sum(c for c, keep
+                                        in zip(counts_base, eff_mask)
+                                        if not keep)
+                else:
+                    sv, counts = self._split_for(len(chunk), split, eff_mask)
+                total_rerouted += wave_rerouted
+                counts = list(counts)
+
+                route = None
+                if self.prefill_router is not None:
+                    # a worker that died outside a counted wave (warmup, or a
+                    # direct engine run) must still flip the route to local
+                    alive = any(spec.prefill_worker is not None
+                                and spec.prefill_worker.healthy
+                                for spec in self.tasks.values())
+                    if not alive:
+                        self.prefill_router.healthy = False
+                    # bounded-backoff auto re-probe: a latched-local
+                    # router flips back on its own once a probe wave finds
+                    # the prefill group restored — no operator revive()
+                    self.prefill_router.maybe_revive(alive)
+                    route = self.prefill_router.route()
                     for spec in self.tasks.values():
-                        if spec.prefill_worker is not None:
-                            spec.prefill_worker.set_link(eff, d_m)
-                else:
-                    latched[gi] = not feasible
-            n_latched = sum(latched.values()) + (
-                1 if self.prefill_router is not None
-                and self.prefill_router.mobility_latched else 0)
-            total_latched += n_latched
+                        for eng in spec.engines.values():
+                            eng.prefill_remote = route.remote
 
-            # 4) surviving simplex: dead groups mask to exactly 0; the β
-            # latch additionally zeroes priced-out edges while at least
-            # one unlatched live group remains (death is hard, the latch
-            # is advisory — an all-latched fleet still has to decode)
-            alive_mask = tuple(gi not in dead for gi in decode)
-            if not any(alive_mask):
-                raise GroupUnavailableError(
-                    "all", "every decode group is dead — restore one "
-                    "before serving")
-            eff_mask = tuple(a and not latched.get(gi, False)
-                             for a, gi in zip(alive_mask, decode))
-            if not any(eff_mask):
-                eff_mask = alive_mask
+                # partition: decode spokes take the front of the wave in
+                # topology order, the hub keeps the tail (the [aux; pri]
+                # layout of OffloadEngine); the prefill spoke takes no decode
+                # share
+                shares: List[List[ServeRequest]] = [None] * D
+                lo = 0
+                for d in range(1, D):
+                    shares[d] = chunk[lo:lo + counts[d]]
+                    lo += counts[d]
+                shares[0] = chunk[lo:]
 
-            # 5) power/memory/busy-factor admission: groups whose
-            # budget runs hot mask out of the split — the same masked-
-            # simplex path that removes dead groups — and their share
-            # re-routes to the cold survivors.  Like the β latch, hotness
-            # is advisory: an all-hot fleet still decodes (the frontend
-            # sheds in that regime instead)
-            adm = self.admission.assess()
-            adm_mask = tuple(e and not a.hot
-                             for e, a in zip(eff_mask, adm))
-            wave_rerouted = 0
-            if any(adm_mask) and adm_mask != eff_mask:
-                _, counts_base = self._split_for(len(chunk), split,
-                                                 eff_mask)
-                eff_mask = adm_mask
-                sv, counts = self._split_for(len(chunk), split, eff_mask)
-                wave_rerouted = sum(c for c, keep
-                                    in zip(counts_base, eff_mask)
-                                    if not keep)
-            else:
-                sv, counts = self._split_for(len(chunk), split, eff_mask)
-            total_rerouted += wave_rerouted
-            counts = list(counts)
+                per_group: Dict[str, dict] = {}
+                t_group = [0.0] * D
+                t_link = [0.0] * D
+                toks_group = [0] * D
+                syncs_group = [0] * D
+                decode_s_group = [0.0] * D
+                dispatches_group = [0] * D
+                launches_group = [0] * D
+                stalls_group = [0] * D
+                overlap_s_group = [0.0] * D
+                offloaded_group = [0] * D
+                kv_s_group = [0.0] * D
+                fallback_group = [0] * D
+                shadow_group = [0] * D
+                hits_group = [0] * D
+                pblocks_group = [0] * D
+                favoid_group = [0.0] * D
+                ftotal_group = [0.0] * D
+                kv_raw_group = [0.0] * D
+                kv_wire_group = [0.0] * D
+                splice_s_group = [0.0] * D
+                slot_write_s_group = [0.0] * D
+                dispatch_s_group = [0.0] * D
+                await_s_group = [0.0] * D
+                requeue: List[ServeRequest] = []
+                with tracing.timed("runtime.wave", wave=wave_idx) as sp_w:
+                    for d, gi in enumerate(decode):
+                        grp = self.topology.groups[gi]
+                        share = shares[d]
+                        by_task: Dict[str, List[ServeRequest]] = {}
+                        for req in share:
+                            by_task.setdefault(self._task_of(req), []).append(req)
+                        payload = 0.0
+                        # outputs are STAGED until the group's await-side health
+                        # check passes: a mid-wave death discards the stage, so a
+                        # re-queued request's tokens are only ever emitted once
+                        staged: List[Tuple[str, List[RequestOutput], Any]] = []
+                        failed = False
+                        with tracing.timed("runtime.group",
+                                           group=grp.name) as sp_g:
+                            try:
+                                if share:
+                                    grp.health.check("dispatch", grp.name)
+                                for task, reqs_t in by_task.items():
+                                    spec = self.tasks[task]
+                                    outs, st = spec.engines[grp.name].run(
+                                        self._capped(spec, reqs_t),
+                                        on_tokens=on_tokens)
+                                    staged.append((task, outs, st))
+                                    payload += len(reqs_t) \
+                                        * spec.payload_bytes_per_item
+                                if share:
+                                    grp.health.check("await", grp.name)
+                            except GroupUnavailableError:
+                                # the group died mid-wave: its slice re-queues
+                                # onto the survivors and its re-probe clock starts
+                                dead[gi] = Backoff(self.reprobe_after,
+                                                   self.reprobe_max)
+                                requeue.extend(share)
+                                counts[d] = 0
+                                staged = []
+                                by_task = {}
+                                failed = True
+                        t_group[d] = 0.0 if failed else sp_g.seconds
+                        for task, outs, st in staged:
+                            outputs[task].extend(outs)
+                            toks_group[d] += sum(len(o.tokens) for o in outs)
+                            syncs_group[d] += st.host_syncs
+                            decode_s_group[d] += st.decode_s
+                            dispatches_group[d] += st.macro_dispatches
+                            launches_group[d] += st.wave_launches
+                            stalls_group[d] += st.admission_stalls
+                            overlap_s_group[d] += st.t_prefill_overlap_s
+                            offloaded_group[d] += st.prefill_offloaded
+                            kv_s_group[d] += st.t_kv_transfer_s
+                            fallback_group[d] += st.prefill_fallbacks
+                            shadow_group[d] += st.shadow_prefills
+                            hits_group[d] += st.prefix_hits
+                            pblocks_group[d] += st.prefix_blocks_reused
+                            favoid_group[d] += st.prefill_flops_avoided
+                            ftotal_group[d] += st.prefill_flops_total
+                            kv_raw_group[d] += st.kv_hop_bytes_raw
+                            kv_wire_group[d] += st.kv_hop_bytes_wire
+                            splice_s_group[d] += st.t_splice_s
+                            slot_write_s_group[d] += st.t_slot_write_s
+                            dispatch_s_group[d] += st.t_dispatch_s
+                            await_s_group[d] += st.t_await_s
+                        if gi > 0 and share and not failed:
+                            eff_link, eff_dist = wave_links.get(
+                                gi, (self.topology.links[gi], self.link_distance))
+                            t_link[d] = float(offload_latency(
+                                eff_link, payload, eff_dist))
+                        per_group[grp.name] = {
+                            "n": 0 if failed else len(share), "wall_s": t_group[d],
+                            "link_s": t_link[d], "tokens": toks_group[d],
+                            "host_syncs": syncs_group[d],
+                            "wave_launches": launches_group[d],
+                            "t_per_macro_step_s": decode_s_group[d]
+                            / dispatches_group[d] if dispatches_group[d] else 0.0,
+                            "t_prefill_overlap_s": overlap_s_group[d],
+                            "admission_stalls": stalls_group[d],
+                            "prefill_offloaded": offloaded_group[d],
+                            "t_kv_transfer_s": kv_s_group[d],
+                            "prefill_fallbacks": fallback_group[d],
+                            "prefix_hits": hits_group[d],
+                            "prefix_blocks_reused": pblocks_group[d],
+                            "prefill_flops_avoided": favoid_group[d],
+                            "kv_hop_bytes_raw": kv_raw_group[d],
+                            "kv_hop_bytes_wire": kv_wire_group[d],
+                            "t_splice_s": splice_s_group[d],
+                            "t_slot_write_s": slot_write_s_group[d],
+                            "t_dispatch_s": dispatch_s_group[d],
+                            "t_await_s": await_s_group[d],
+                            "tasks": {t: len(r) for t, r in by_task.items()}}
+                wall = sp_w.seconds
+                # the measured group walls drain the admission controller's
+                # battery clocks (Eq. 5's t_dnn) for the NEXT wave's headroom
+                for d, gi in enumerate(decode):
+                    self.admission.charge(self.topology.groups[gi].name,
+                                          t_group[d])
+                adm_tel = adm
+                # commit the wave's failures: requests from dead groups go
+                # back to the FRONT of the queue (same serve call, next wave)
+                requeue_uids = {r.uid for r in requeue}
+                wave_retries = sum(1 for r in chunk
+                                   if r.uid in retried_uids
+                                   and r.uid not in requeue_uids)
+                retried_uids.update(requeue_uids)
+                total_requeued += len(requeue)
+                total_retries += wave_retries
+                queue = requeue + queue
+                alive_after = tuple(gi not in dead for gi in decode)
+                group_alive_tel = {}
+                for gi, g in enumerate(self.topology.groups):
+                    if gi == self.topology.prefill_spoke:
+                        # the routing-effective liveness: group health AND
+                        # worker health, as the router saw it this wave
+                        group_alive_tel[g.name] = bool(
+                            self.prefill_router is not None
+                            and self.prefill_router.healthy)
+                    else:
+                        group_alive_tel[g.name] = bool(
+                            alive_after[decode.index(gi)])
+                total_tokens += sum(toks_group)
+                total_syncs += sum(syncs_group)
+                total_decode_s += sum(decode_s_group)
+                total_dispatches += sum(dispatches_group)
+                total_wave_launches += sum(launches_group)
+                total_stalls += sum(stalls_group)
+                total_overlap_s += sum(overlap_s_group)
+                total_offloaded += sum(offloaded_group)
+                total_kv_s += sum(kv_s_group)
+                total_fallbacks += sum(fallback_group)
+                total_prefix_hits += sum(hits_group)
+                total_prefix_blocks += sum(pblocks_group)
+                total_flops_avoided += sum(favoid_group)
+                total_flops += sum(ftotal_group)
+                total_kv_raw += sum(kv_raw_group)
+                total_kv_wire += sum(kv_wire_group)
+                total_buckets["t_splice_s"] += sum(splice_s_group)
+                total_buckets["t_slot_write_s"] += sum(slot_write_s_group)
+                total_buckets["t_dispatch_s"] += sum(dispatch_s_group)
+                total_buckets["t_await_s"] += sum(await_s_group)
 
-            route = None
-            if self.prefill_router is not None:
-                # a worker that died outside a counted wave (warmup, or a
-                # direct engine run) must still flip the route to local
-                alive = any(spec.prefill_worker is not None
-                            and spec.prefill_worker.healthy
-                            for spec in self.tasks.values())
-                if not alive:
-                    self.prefill_router.healthy = False
-                # bounded-backoff auto re-probe: a latched-local
-                # router flips back on its own once a probe wave finds
-                # the prefill group restored — no operator revive()
-                self.prefill_router.maybe_revive(alive)
-                route = self.prefill_router.route()
-                for spec in self.tasks.values():
-                    for eng in spec.engines.values():
-                        eng.prefill_remote = route.remote
+                rep = OffloadReport(
+                    r=sv.r, n_local=counts[0],
+                    n_offloaded=sum(counts[1:]),
+                    t_local_s=t_group[0],
+                    t_remote_s=max(t_group[1:], default=0.0),
+                    t_offload_s=max(t_link[1:], default=0.0),
+                    payload_bytes=0.0, e_offload_j=0.0,
+                    group_names=tuple(self.topology.groups[gi].name
+                                      for gi in decode),
+                    n_group=tuple(counts), t_group_s=tuple(t_group),
+                    t_link_s=tuple(t_link), host_syncs=sum(syncs_group),
+                    admission_stalls=sum(stalls_group),
+                    t_prefill_overlap_s=sum(overlap_s_group),
+                    prefill_offloaded=sum(offloaded_group),
+                    t_kv_transfer_s=sum(kv_s_group),
+                    prefill_fallbacks=sum(fallback_group),
+                    prefix_hits=sum(hits_group),
+                    prefix_blocks_reused=sum(pblocks_group),
+                    prefill_flops_avoided=sum(favoid_group),
+                    prefill_flops_total=sum(ftotal_group),
+                    kv_hop_bytes_raw=sum(kv_raw_group),
+                    kv_hop_bytes_wire=sum(kv_wire_group),
+                    t_splice_s=sum(splice_s_group),
+                    t_slot_write_s=sum(slot_write_s_group),
+                    t_dispatch_s=sum(dispatch_s_group),
+                    t_await_s=sum(await_s_group),
+                    group_alive=alive_after,
+                    wave_requeued=len(requeue),
+                    wave_retries=wave_retries,
+                    link_bw_hz=tuple(link_bw[self.topology.groups[gi].name]
+                                     for gi in decode),
+                    mobility_latched=n_latched,
+                    admission_hot=tuple(a.hot for a in adm),
+                    admission_rerouted=wave_rerouted,
+                    power_headroom_w=tuple(a.power_headroom_w for a in adm),
+                    mem_headroom_frac=tuple(a.mem_headroom_frac for a in adm))
+                if split is None and self.controller is not None:
+                    self.controller.observe(rep)
+                if self.prefill_router is not None:
+                    # feed the router the wave's live prices.  The engines'
+                    # t_prefill_overlap_s wall covers exactly the TOP-UP
+                    # shadow dispatches (shadow_prefills), local and remote
+                    # alike — so both rates divide that wall by the top-up
+                    # count; inline boundary dispatches are excluded from
+                    # both sides.  KV hops are per TRANSFERRED block
+                    # (prefill_offloaded, inline offloads included).
+                    n_off = sum(offloaded_group)
+                    n_topup = sum(shadow_group)
+                    wave_ftotal = sum(ftotal_group)
+                    self.prefill_router.observe(
+                        local_s=sum(overlap_s_group) if n_off == 0 else 0.0,
+                        n_local=n_topup if n_off == 0 else 0,
+                        remote_s=sum(overlap_s_group) if n_off else 0.0,
+                        n_remote=n_topup if n_off else 0,
+                        transfer_s=sum(kv_s_group), n_transfers=n_off,
+                        # price hops on WIRE bytes — what the link carried —
+                        # and the residual prefill fraction the cache left
+                        payload_bytes=sum(kv_wire_group),
+                        prefix_residual=(1.0 - sum(favoid_group) / wave_ftotal)
+                        if wave_ftotal > 0 else None,
+                        fallbacks=sum(fallback_group))
+                waves_tel.append({
+                    "wave": len(waves_tel), "n": len(chunk),
+                    "split": [round(float(f), 4) for f in sv.fractions],
+                    "counts": [int(c) for c in counts], "wall_s": wall,
+                    "tokens": sum(toks_group),
+                    "host_syncs": sum(syncs_group),
+                    "admission_stalls": sum(stalls_group),
+                    "prefill_route": ("remote" if route is not None
+                                      and route.remote else "local"),
+                    "prefill_offloaded": sum(offloaded_group),
+                    "t_kv_transfer_s": sum(kv_s_group),
+                    "prefill_fallbacks": sum(fallback_group),
+                    "prefix_hits": sum(hits_group),
+                    "prefix_blocks_reused": sum(pblocks_group),
+                    "prefill_flops_avoided": sum(favoid_group),
+                    "kv_hop_bytes_raw": sum(kv_raw_group),
+                    "kv_hop_bytes_wire": sum(kv_wire_group),
+                    "group_alive": group_alive_tel,
+                    "wave_requeued": len(requeue),
+                    "wave_retries": wave_retries,
+                    "link_bw_hz": dict(link_bw),
+                    "mobility_latched": n_latched,
+                    "admission_hot": {a.name: a.hot for a in adm},
+                    "admission_rerouted": wave_rerouted,
+                    "power_headroom_w": {a.name: round(a.power_headroom_w, 6)
+                                         for a in adm},
+                    "mem_headroom_frac": {a.name: round(a.mem_headroom_frac, 6)
+                                          for a in adm},
+                    "per_group": per_group})
+                if verbose:
+                    counts_str = "/".join(str(c) for c in counts)
+                    print(f"wave {len(waves_tel) - 1}: {len(chunk):2d} reqs "
+                          f"split={counts_str} {sum(toks_group)} toks in "
+                          f"{wall:.2f}s "
+                          f"({sum(toks_group) / max(wall, 1e-9):.1f} tok/s)")
 
-            # partition: decode spokes take the front of the wave in
-            # topology order, the hub keeps the tail (the [aux; pri]
-            # layout of OffloadEngine); the prefill spoke takes no decode
-            # share
-            shares: List[List[ServeRequest]] = [None] * D
-            lo = 0
-            for d in range(1, D):
-                shares[d] = chunk[lo:lo + counts[d]]
-                lo += counts[d]
-            shares[0] = chunk[lo:]
-
-            per_group: Dict[str, dict] = {}
-            t_group = [0.0] * D
-            t_link = [0.0] * D
-            toks_group = [0] * D
-            syncs_group = [0] * D
-            decode_s_group = [0.0] * D
-            dispatches_group = [0] * D
-            launches_group = [0] * D
-            stalls_group = [0] * D
-            overlap_s_group = [0.0] * D
-            offloaded_group = [0] * D
-            kv_s_group = [0.0] * D
-            fallback_group = [0] * D
-            shadow_group = [0] * D
-            hits_group = [0] * D
-            pblocks_group = [0] * D
-            favoid_group = [0.0] * D
-            ftotal_group = [0.0] * D
-            kv_raw_group = [0.0] * D
-            kv_wire_group = [0.0] * D
-            splice_s_group = [0.0] * D
-            slot_write_s_group = [0.0] * D
-            dispatch_s_group = [0.0] * D
-            await_s_group = [0.0] * D
-            requeue: List[ServeRequest] = []
-            t0 = time.perf_counter()
-            for d, gi in enumerate(decode):
-                grp = self.topology.groups[gi]
-                share = shares[d]
-                by_task: Dict[str, List[ServeRequest]] = {}
-                for req in share:
-                    by_task.setdefault(self._task_of(req), []).append(req)
-                tg0 = time.perf_counter()
-                payload = 0.0
-                # outputs are STAGED until the group's await-side health
-                # check passes: a mid-wave death discards the stage, so a
-                # re-queued request's tokens are only ever emitted once
-                staged: List[Tuple[str, List[RequestOutput], Any]] = []
-                failed = False
-                try:
-                    if share:
-                        grp.health.check("dispatch", grp.name)
-                    for task, reqs_t in by_task.items():
-                        spec = self.tasks[task]
-                        outs, st = spec.engines[grp.name].run(
-                            self._capped(spec, reqs_t),
-                            on_tokens=on_tokens)
-                        staged.append((task, outs, st))
-                        payload += len(reqs_t) * spec.payload_bytes_per_item
-                    if share:
-                        grp.health.check("await", grp.name)
-                except GroupUnavailableError:
-                    # the group died mid-wave: its slice re-queues onto
-                    # the survivors and its re-probe clock starts
-                    dead[gi] = Backoff(self.reprobe_after, self.reprobe_max)
-                    requeue.extend(share)
-                    counts[d] = 0
-                    staged = []
-                    by_task = {}
-                    failed = True
-                for task, outs, st in staged:
-                    outputs[task].extend(outs)
-                    toks_group[d] += sum(len(o.tokens) for o in outs)
-                    syncs_group[d] += st.host_syncs
-                    decode_s_group[d] += st.decode_s
-                    dispatches_group[d] += st.macro_dispatches
-                    launches_group[d] += st.wave_launches
-                    stalls_group[d] += st.admission_stalls
-                    overlap_s_group[d] += st.t_prefill_overlap_s
-                    offloaded_group[d] += st.prefill_offloaded
-                    kv_s_group[d] += st.t_kv_transfer_s
-                    fallback_group[d] += st.prefill_fallbacks
-                    shadow_group[d] += st.shadow_prefills
-                    hits_group[d] += st.prefix_hits
-                    pblocks_group[d] += st.prefix_blocks_reused
-                    favoid_group[d] += st.prefill_flops_avoided
-                    ftotal_group[d] += st.prefill_flops_total
-                    kv_raw_group[d] += st.kv_hop_bytes_raw
-                    kv_wire_group[d] += st.kv_hop_bytes_wire
-                    splice_s_group[d] += st.t_splice_s
-                    slot_write_s_group[d] += st.t_slot_write_s
-                    dispatch_s_group[d] += st.t_dispatch_s
-                    await_s_group[d] += st.t_await_s
-                t_group[d] = 0.0 if failed else time.perf_counter() - tg0
-                if gi > 0 and share and not failed:
-                    eff_link, eff_dist = wave_links.get(
-                        gi, (self.topology.links[gi], self.link_distance))
-                    t_link[d] = float(offload_latency(
-                        eff_link, payload, eff_dist))
-                per_group[grp.name] = {
-                    "n": 0 if failed else len(share), "wall_s": t_group[d],
-                    "link_s": t_link[d], "tokens": toks_group[d],
-                    "host_syncs": syncs_group[d],
-                    "wave_launches": launches_group[d],
-                    "t_per_macro_step_s": decode_s_group[d]
-                    / dispatches_group[d] if dispatches_group[d] else 0.0,
-                    "t_prefill_overlap_s": overlap_s_group[d],
-                    "admission_stalls": stalls_group[d],
-                    "prefill_offloaded": offloaded_group[d],
-                    "t_kv_transfer_s": kv_s_group[d],
-                    "prefill_fallbacks": fallback_group[d],
-                    "prefix_hits": hits_group[d],
-                    "prefix_blocks_reused": pblocks_group[d],
-                    "prefill_flops_avoided": favoid_group[d],
-                    "kv_hop_bytes_raw": kv_raw_group[d],
-                    "kv_hop_bytes_wire": kv_wire_group[d],
-                    "t_splice_s": splice_s_group[d],
-                    "t_slot_write_s": slot_write_s_group[d],
-                    "t_dispatch_s": dispatch_s_group[d],
-                    "t_await_s": await_s_group[d],
-                    "tasks": {t: len(r) for t, r in by_task.items()}}
-            wall = time.perf_counter() - t0
-            # the measured group walls drain the admission controller's
-            # battery clocks (Eq. 5's t_dnn) for the NEXT wave's headroom
-            for d, gi in enumerate(decode):
-                self.admission.charge(self.topology.groups[gi].name,
-                                      t_group[d])
-            adm_tel = adm
-            # commit the wave's failures: requests from dead groups go
-            # back to the FRONT of the queue (same serve call, next wave)
-            requeue_uids = {r.uid for r in requeue}
-            wave_retries = sum(1 for r in chunk
-                               if r.uid in retried_uids
-                               and r.uid not in requeue_uids)
-            retried_uids.update(requeue_uids)
-            total_requeued += len(requeue)
-            total_retries += wave_retries
-            queue = requeue + queue
-            alive_after = tuple(gi not in dead for gi in decode)
-            group_alive_tel = {}
-            for gi, g in enumerate(self.topology.groups):
-                if gi == self.topology.prefill_spoke:
-                    # the routing-effective liveness: group health AND
-                    # worker health, as the router saw it this wave
-                    group_alive_tel[g.name] = bool(
-                        self.prefill_router is not None
-                        and self.prefill_router.healthy)
-                else:
-                    group_alive_tel[g.name] = bool(
-                        alive_after[decode.index(gi)])
-            total_tokens += sum(toks_group)
-            total_syncs += sum(syncs_group)
-            total_decode_s += sum(decode_s_group)
-            total_dispatches += sum(dispatches_group)
-            total_wave_launches += sum(launches_group)
-            total_stalls += sum(stalls_group)
-            total_overlap_s += sum(overlap_s_group)
-            total_offloaded += sum(offloaded_group)
-            total_kv_s += sum(kv_s_group)
-            total_fallbacks += sum(fallback_group)
-            total_prefix_hits += sum(hits_group)
-            total_prefix_blocks += sum(pblocks_group)
-            total_flops_avoided += sum(favoid_group)
-            total_flops += sum(ftotal_group)
-            total_kv_raw += sum(kv_raw_group)
-            total_kv_wire += sum(kv_wire_group)
-            total_buckets["t_splice_s"] += sum(splice_s_group)
-            total_buckets["t_slot_write_s"] += sum(slot_write_s_group)
-            total_buckets["t_dispatch_s"] += sum(dispatch_s_group)
-            total_buckets["t_await_s"] += sum(await_s_group)
-
-            rep = OffloadReport(
-                r=sv.r, n_local=counts[0],
-                n_offloaded=sum(counts[1:]),
-                t_local_s=t_group[0],
-                t_remote_s=max(t_group[1:], default=0.0),
-                t_offload_s=max(t_link[1:], default=0.0),
-                payload_bytes=0.0, e_offload_j=0.0,
-                group_names=tuple(self.topology.groups[gi].name
-                                  for gi in decode),
-                n_group=tuple(counts), t_group_s=tuple(t_group),
-                t_link_s=tuple(t_link), host_syncs=sum(syncs_group),
-                admission_stalls=sum(stalls_group),
-                t_prefill_overlap_s=sum(overlap_s_group),
-                prefill_offloaded=sum(offloaded_group),
-                t_kv_transfer_s=sum(kv_s_group),
-                prefill_fallbacks=sum(fallback_group),
-                prefix_hits=sum(hits_group),
-                prefix_blocks_reused=sum(pblocks_group),
-                prefill_flops_avoided=sum(favoid_group),
-                prefill_flops_total=sum(ftotal_group),
-                kv_hop_bytes_raw=sum(kv_raw_group),
-                kv_hop_bytes_wire=sum(kv_wire_group),
-                t_splice_s=sum(splice_s_group),
-                t_slot_write_s=sum(slot_write_s_group),
-                t_dispatch_s=sum(dispatch_s_group),
-                t_await_s=sum(await_s_group),
-                group_alive=alive_after,
-                wave_requeued=len(requeue),
-                wave_retries=wave_retries,
-                link_bw_hz=tuple(link_bw[self.topology.groups[gi].name]
-                                 for gi in decode),
-                mobility_latched=n_latched,
-                admission_hot=tuple(a.hot for a in adm),
-                admission_rerouted=wave_rerouted,
-                power_headroom_w=tuple(a.power_headroom_w for a in adm),
-                mem_headroom_frac=tuple(a.mem_headroom_frac for a in adm))
-            if split is None and self.controller is not None:
-                self.controller.observe(rep)
-            if self.prefill_router is not None:
-                # feed the router the wave's live prices.  The engines'
-                # t_prefill_overlap_s wall covers exactly the TOP-UP
-                # shadow dispatches (shadow_prefills), local and remote
-                # alike — so both rates divide that wall by the top-up
-                # count; inline boundary dispatches are excluded from
-                # both sides.  KV hops are per TRANSFERRED block
-                # (prefill_offloaded, inline offloads included).
-                n_off = sum(offloaded_group)
-                n_topup = sum(shadow_group)
-                wave_ftotal = sum(ftotal_group)
-                self.prefill_router.observe(
-                    local_s=sum(overlap_s_group) if n_off == 0 else 0.0,
-                    n_local=n_topup if n_off == 0 else 0,
-                    remote_s=sum(overlap_s_group) if n_off else 0.0,
-                    n_remote=n_topup if n_off else 0,
-                    transfer_s=sum(kv_s_group), n_transfers=n_off,
-                    # price hops on WIRE bytes — what the link carried —
-                    # and the residual prefill fraction the cache left
-                    payload_bytes=sum(kv_wire_group),
-                    prefix_residual=(1.0 - sum(favoid_group) / wave_ftotal)
-                    if wave_ftotal > 0 else None,
-                    fallbacks=sum(fallback_group))
-            waves_tel.append({
-                "wave": len(waves_tel), "n": len(chunk),
-                "split": [round(float(f), 4) for f in sv.fractions],
-                "counts": [int(c) for c in counts], "wall_s": wall,
-                "tokens": sum(toks_group),
-                "host_syncs": sum(syncs_group),
-                "admission_stalls": sum(stalls_group),
-                "prefill_route": ("remote" if route is not None
-                                  and route.remote else "local"),
-                "prefill_offloaded": sum(offloaded_group),
-                "t_kv_transfer_s": sum(kv_s_group),
-                "prefill_fallbacks": sum(fallback_group),
-                "prefix_hits": sum(hits_group),
-                "prefix_blocks_reused": sum(pblocks_group),
-                "prefill_flops_avoided": sum(favoid_group),
-                "kv_hop_bytes_raw": sum(kv_raw_group),
-                "kv_hop_bytes_wire": sum(kv_wire_group),
-                "group_alive": group_alive_tel,
-                "wave_requeued": len(requeue),
-                "wave_retries": wave_retries,
-                "link_bw_hz": dict(link_bw),
-                "mobility_latched": n_latched,
-                "admission_hot": {a.name: a.hot for a in adm},
-                "admission_rerouted": wave_rerouted,
-                "power_headroom_w": {a.name: round(a.power_headroom_w, 6)
-                                     for a in adm},
-                "mem_headroom_frac": {a.name: round(a.mem_headroom_frac, 6)
-                                      for a in adm},
-                "per_group": per_group})
-            if verbose:
-                counts_str = "/".join(str(c) for c in counts)
-                print(f"wave {len(waves_tel) - 1}: {len(chunk):2d} reqs "
-                      f"split={counts_str} {sum(toks_group)} toks in "
-                      f"{wall:.2f}s "
-                      f"({sum(toks_group) / max(wall, 1e-9):.1f} tok/s)")
-
-        wall_total = time.perf_counter() - t_start
-        for outs in outputs.values():
-            outs.sort(key=lambda o: o.uid)
-        pg = self.topology.prefill_group
-        telemetry = {
-            "topology": self.topology.kind,
-            "groups": [g.name for g in self.topology.groups],
-            "prefill_group": pg.name if pg is not None else "",
-            "slots": self.slots,
-            "macro_steps": self.macro_steps,
-            "wave_steps": self.wave_steps,
-            "overlap_admission": self.overlap_admission,
-            "tasks": sorted(self.tasks),
-            "waves": waves_tel,
-            "totals": {
-                "requests": len(requests), "tokens": total_tokens,
-                "wall_s": wall_total,
-                "tok_per_s": total_tokens / max(wall_total, 1e-9),
-                "host_syncs": total_syncs,
-                "host_syncs_per_token": total_syncs / max(total_tokens, 1),
-                "wave_launches": total_wave_launches,
-                "t_per_macro_step_s": total_decode_s / total_dispatches
-                if total_dispatches else 0.0,
-                "t_prefill_overlap_s": total_overlap_s,
-                "admission_stalls": total_stalls,
-                "prefill_offloaded": total_offloaded,
-                "t_kv_transfer_s": total_kv_s,
-                "prefill_fallbacks": total_fallbacks,
-                "prefix_hits": total_prefix_hits,
-                "prefix_blocks_reused": total_prefix_blocks,
-                "prefill_flops_avoided": total_flops_avoided,
-                "prefill_flops_total": total_flops,
-                "prefill_flops_avoided_frac": total_flops_avoided
-                / total_flops if total_flops else 0.0,
-                "kv_hop_bytes_raw": total_kv_raw,
-                "kv_hop_bytes_wire": total_kv_wire,
-                "t_splice_s": total_buckets["t_splice_s"],
-                "t_slot_write_s": total_buckets["t_slot_write_s"],
-                "t_dispatch_s": total_buckets["t_dispatch_s"],
-                "t_await_s": total_buckets["t_await_s"],
-                "wave_requeued": total_requeued,
-                "wave_retries": total_retries,
-                "mobility_latched": total_latched,
-                "admission_rerouted": total_rerouted,
-                "admission_hot": {a.name: a.hot for a in adm_tel},
-                "power_headroom_w": {a.name: round(a.power_headroom_w, 6)
-                                     for a in adm_tel},
-                "mem_headroom_frac": {a.name: round(a.mem_headroom_frac, 6)
-                                      for a in adm_tel},
-                "group_alive": group_alive_tel,
-                "link_bw_hz": dict(link_bw),
-                "final_split": [round(float(f), 4) for f in (
-                    self.controller.fractions
-                    if split is None and self.controller is not None
-                    else self._split_for(max(len(requests), 1),
-                                         split)[0].fractions)],
-            },
-        }
-        return ServeResult(outputs=outputs, telemetry=telemetry)
+            wall_total = time.perf_counter() - t_start
+            for outs in outputs.values():
+                outs.sort(key=lambda o: o.uid)
+            pg = self.topology.prefill_group
+            telemetry = {
+                "topology": self.topology.kind,
+                "groups": [g.name for g in self.topology.groups],
+                "prefill_group": pg.name if pg is not None else "",
+                "slots": self.slots,
+                "macro_steps": self.macro_steps,
+                "wave_steps": self.wave_steps,
+                "overlap_admission": self.overlap_admission,
+                "tasks": sorted(self.tasks),
+                "waves": waves_tel,
+                "totals": {
+                    "requests": len(requests), "tokens": total_tokens,
+                    "wall_s": wall_total,
+                    "tok_per_s": total_tokens / max(wall_total, 1e-9),
+                    "host_syncs": total_syncs,
+                    "host_syncs_per_token": total_syncs / max(total_tokens, 1),
+                    "wave_launches": total_wave_launches,
+                    "t_per_macro_step_s": total_decode_s / total_dispatches
+                    if total_dispatches else 0.0,
+                    "t_prefill_overlap_s": total_overlap_s,
+                    "admission_stalls": total_stalls,
+                    "prefill_offloaded": total_offloaded,
+                    "t_kv_transfer_s": total_kv_s,
+                    "prefill_fallbacks": total_fallbacks,
+                    "prefix_hits": total_prefix_hits,
+                    "prefix_blocks_reused": total_prefix_blocks,
+                    "prefill_flops_avoided": total_flops_avoided,
+                    "prefill_flops_total": total_flops,
+                    "prefill_flops_avoided_frac": total_flops_avoided
+                    / total_flops if total_flops else 0.0,
+                    "kv_hop_bytes_raw": total_kv_raw,
+                    "kv_hop_bytes_wire": total_kv_wire,
+                    "t_splice_s": total_buckets["t_splice_s"],
+                    "t_slot_write_s": total_buckets["t_slot_write_s"],
+                    "t_dispatch_s": total_buckets["t_dispatch_s"],
+                    "t_await_s": total_buckets["t_await_s"],
+                    "wave_requeued": total_requeued,
+                    "wave_retries": total_retries,
+                    "mobility_latched": total_latched,
+                    "admission_rerouted": total_rerouted,
+                    "admission_hot": {a.name: a.hot for a in adm_tel},
+                    "power_headroom_w": {a.name: round(a.power_headroom_w, 6)
+                                         for a in adm_tel},
+                    "mem_headroom_frac": {a.name: round(a.mem_headroom_frac, 6)
+                                          for a in adm_tel},
+                    "group_alive": group_alive_tel,
+                    "link_bw_hz": dict(link_bw),
+                    "final_split": [round(float(f), 4) for f in (
+                        self.controller.fractions
+                        if split is None and self.controller is not None
+                        else self._split_for(max(len(requests), 1),
+                                             split)[0].fractions)],
+                },
+            }
+            return ServeResult(outputs=outputs, telemetry=telemetry)

@@ -27,6 +27,7 @@ from typing import Dict, Union
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import costs, ref
 from repro_torch.kernels.autograd import GroupedFFN, SSMScan
 from repro_torch.kernels.decode_attention import decode_attention_cuda
@@ -80,24 +81,29 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
     also returns the f32 log-sum-exp [B,H] of the scores attended (the
     sequence-sharded decode merges shards by it).  ``use_kernels=False``
     takes the plain version on any device."""
-    if not (use_kernels and (q.is_cuda or q.is_meta)):
-        return ref.decode_attention_ref(q, k_cache, v_cache, cache_len,
-                                        window=window, start=start, lse=lse)
-    B, _, H, dh = q.shape
-    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    with tracing.span("kernels.decode_attention"):
+        if not (use_kernels and (q.is_cuda or q.is_meta)):
+            return ref.decode_attention_ref(q, k_cache, v_cache, cache_len,
+                                            window=window, start=start,
+                                            lse=lse)
+        B, _, H, dh = q.shape
+        S, Hkv = k_cache.shape[1], k_cache.shape[2]
 
-    def run():
-        if q.is_meta:
-            out = torch.empty(q.shape, dtype=v_cache.dtype, device=q.device)
-            return (out, torch.empty((B, H), dtype=torch.float32,
-                                     device=q.device)) if lse else out
-        return decode_attention_cuda(q.contiguous(), k_cache, v_cache,
-                                     cache_len, window=window, start=start,
-                                     lse=lse)
+        def run():
+            if q.is_meta:
+                out = torch.empty(q.shape, dtype=v_cache.dtype,
+                                  device=q.device)
+                return (out, torch.empty((B, H), dtype=torch.float32,
+                                         device=q.device)) if lse else out
+            return decode_attention_cuda(q.contiguous(), k_cache, v_cache,
+                                         cache_len, window=window,
+                                         start=start, lse=lse)
 
-    return costs.counted("decode_attention", run, lambda _: costs.decode_attention(
-        B, H, Hkv, dh, attended_rows(cache_len, start, window, B, S, q.device),
-        k_cache.element_size(), start=start is not None, lse=lse))
+        return costs.counted(
+            "decode_attention", run, lambda _: costs.decode_attention(
+                B, H, Hkv, dh,
+                attended_rows(cache_len, start, window, B, S, q.device),
+                k_cache.element_size(), start=start is not None, lse=lse))
 
 
 def masked_compact(tokens, mask, capacity: int, *, use_kernels: bool = True):

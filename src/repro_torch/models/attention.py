@@ -46,6 +46,7 @@ import math
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.distributed import collectives as coll
 from repro_torch.kernels import costs, ops
 from repro_torch.models.layers import (apply_rope, gather_cols, norm_apply,
@@ -385,7 +386,8 @@ def attn_apply(params, x, cfg, *, positions, mode: str, causal: bool = True,
         if cut == "q":
             h0, H_loc = _rank_heads(cfg, mesh)
             k, v = (_kv_for_heads(t, cfg, h0, H_loc) for t in (k, v))
-        return chunked_attention(q, k, v, **kw)
+        with tracing.span("attention.full"):
+            return chunked_attention(q, k, v, **kw)
 
     if mode == "full":
         if cross:

@@ -44,6 +44,7 @@ from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.offload import tree_leaves, tree_map
 from repro_torch.device import DeviceLike, resolve_device, synchronize, upload
 from repro_torch.kernels import ops
@@ -60,9 +61,10 @@ def _use(use_kernels: Union[bool, str], t: torch.Tensor) -> bool:
 def make_prefill_step(cfg, *, use_kernels: Union[bool, str] = "auto"):
     """(params, batch) -> (last_logits [B,V], caches)."""
     def prefill_step(params, batch):
-        out = M.forward(params, cfg, batch, mode="prefill",
-                        use_kernels=_use(use_kernels, batch["tokens"]))
-        return out.logits[:, -1], out.cache
+        with tracing.span("model.prefill"):
+            out = M.forward(params, cfg, batch, mode="prefill",
+                            use_kernels=_use(use_kernels, batch["tokens"]))
+            return out.logits[:, -1], out.cache
     return prefill_step
 
 
@@ -71,12 +73,13 @@ def make_serve_step(cfg, *, use_kernels: Union[bool, str] = "auto"):
     [B,V], cache); the cache is updated in place.  ``shard``: the cache's
     block on a mesh (``model.cache_shard``)."""
     def serve_step(params, cache, token, cache_index, shard=None):
-        out = M.forward(params, cfg,
-                        {"token": token, "cache": cache,
-                         "cache_index": cache_index},
-                        mode="decode", use_kernels=_use(use_kernels, token),
-                        shard=shard)
-        return out.logits[:, 0], out.cache
+        with tracing.span("model.decode_step"):
+            out = M.forward(params, cfg,
+                            {"token": token, "cache": cache,
+                             "cache_index": cache_index},
+                            mode="decode",
+                            use_kernels=_use(use_kernels, token), shard=shard)
+            return out.logits[:, 0], out.cache
     return serve_step
 
 
@@ -103,18 +106,19 @@ def make_decode_loop(cfg, *, macro_steps: int, eos_id: Optional[int] = None,
         toks = torch.empty((macro_steps, cur_tok.shape[0]), dtype=torch.int32,
                            device=cur_tok.device)
         for i in range(macro_steps):
-            out = M.forward(params, cfg,
-                            {"token": cur_tok[:, None], "cache": cache,
-                             "cache_index": lengths},
-                            mode="decode", use_kernels=kern, shard=shard)
-            new_tok = out.logits[:, 0].argmax(dim=-1).to(torch.int32)
-            active = ~done
-            step = active.to(torch.int32)
-            cur_tok.copy_(torch.where(active, new_tok, cur_tok))
-            lengths += step
-            remaining -= step
-            done |= active & ((remaining <= 0) | (cur_tok == eos))
-            toks[i] = cur_tok
+            with tracing.span("model.decode_step"):
+                out = M.forward(params, cfg,
+                                {"token": cur_tok[:, None], "cache": cache,
+                                 "cache_index": lengths},
+                                mode="decode", use_kernels=kern, shard=shard)
+                new_tok = out.logits[:, 0].argmax(dim=-1).to(torch.int32)
+                active = ~done
+                step = active.to(torch.int32)
+                cur_tok.copy_(torch.where(active, new_tok, cur_tok))
+                lengths += step
+                remaining -= step
+                done |= active & ((remaining <= 0) | (cur_tok == eos))
+                toks[i] = cur_tok
         return toks, cache, cur_tok, lengths, remaining, done
 
     return decode_loop
@@ -144,6 +148,13 @@ def make_wave_driver(cfg, *, macro_steps: int, wave_steps: int,
         return toks, cache, cur_tok, lengths, remaining, done
 
     return wave_driver
+
+
+def _macro_step(fn, args, parent: Optional[int] = None):
+    """One launch of a fused decode program under its span (``parent``:
+    the submitting thread's span, when it runs on the launcher thread)."""
+    with tracing.span("engine.macro_step", parent=parent):
+        return fn(*args)
 
 
 class _DecodeLauncher:
@@ -177,23 +188,24 @@ class _DecodeLauncher:
             torch.cuda.set_device(self._device)
 
     @staticmethod
-    def _launch(stream, fn, args):
+    def _launch(stream, fn, args, parent=None):
         with torch.no_grad(), torch.cuda.stream(stream):
-            return fn(*args)
+            return _macro_step(fn, args, parent)
 
     def submit(self, fn, *args):
         if sharding.active_mesh() is not None:
-            return fn(*args)
+            return _macro_step(fn, args)
         if id(fn) not in self._warm:
             self._warm.add(id(fn))
-            return fn(*args)
+            return _macro_step(fn, args)
         if self._pool is None:
             self._pool = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="decode-launch",
                 initializer=self._enter_device)
         stream = torch.cuda.current_stream(self._device) \
             if self._device.type == "cuda" else None
-        return self._pool.submit(self._launch, stream, fn, args)
+        return self._pool.submit(self._launch, stream, fn, args,
+                                 tracing.current())
 
 
 # ---------------------------------------------------------------------------
@@ -739,11 +751,12 @@ class ContinuousServingEngine:
         for slot, s in enumerate(slot_states):
             if not s.busy and pending:
                 req = pending.popleft()
-                last_logits, pre_cache = self._prefill_via_cache(req)
-                tw0 = time.perf_counter()
-                cache = write_slot_cache(self.cfg, cache, pre_cache, slot,
-                                         self._shard)
-                t_write += time.perf_counter() - tw0
+                with tracing.span("engine.prefill", req.uid, exposed=True):
+                    last_logits, pre_cache = self._prefill_via_cache(req)
+                with tracing.timed("engine.splice") as sp:
+                    cache = write_slot_cache(self.cfg, cache, pre_cache, slot,
+                                             self._shard)
+                t_write += sp.seconds
                 admitted.append((slot, req, last_logits))
         syncs = 0
         if admitted:
@@ -793,9 +806,10 @@ class ContinuousServingEngine:
         self._pc_hits = self._pc_blocks = 0
         self._pc_flops_avoided = self._pc_flops_total = 0.0
         self._kv_raw = self._kv_wire = 0.0
-        if self.macro_steps > 0 and self.overlap_admission:
-            return self._run_overlapped(requests)
-        return self._run_boundary(requests)
+        with tracing.span("engine.run"):
+            if self.macro_steps > 0 and self.overlap_admission:
+                return self._run_overlapped(requests)
+            return self._run_boundary(requests)
 
     def _stats(self, outputs, step_no, busy_acc, t_prefill, t_decode,
                wall, **kw) -> ContinuousStats:
@@ -839,16 +853,17 @@ class ContinuousServingEngine:
 
         while pending or any(s.busy for s in slot_states):
             # --- admit into every free slot ---------------------------
-            t0 = time.perf_counter()
-            live_before = any(s.busy for s in slot_states)
-            cache, cur_tok, lengths, remaining, done, n_sync, tw = \
-                self._admit_free_slots(pending, slot_states, cache, cur_tok,
-                                       lengths, remaining, done, step_no)
+            with tracing.timed("engine.boundary") as sp:
+                live_before = any(s.busy for s in slot_states)
+                cache, cur_tok, lengths, remaining, done, n_sync, tw = \
+                    self._admit_free_slots(pending, slot_states, cache,
+                                           cur_tok, lengths, remaining, done,
+                                           step_no)
             t_slot_write += tw
             host_syncs += n_sync
             if n_sync and live_before:
                 stalls += 1     # live slots sat idle through this prefill
-            t_prefill += time.perf_counter() - t0
+            t_prefill += sp.seconds
 
             # --- evict completed slots ---------------------------------
             freed = False
@@ -869,11 +884,11 @@ class ContinuousServingEngine:
 
             if K == 0:
                 # --- per-token loop: one step, one sync per token ------
-                t0 = time.perf_counter()
-                cache, cur_tok, lengths, new_tok = self._per_step_advance(
-                    cache, cur_tok, lengths, done)
+                with tracing.timed("engine.per_step") as sp:
+                    cache, cur_tok, lengths, new_tok = self._per_step_advance(
+                        cache, cur_tok, lengths, done)
                 host_syncs += 1
-                t_decode += time.perf_counter() - t0
+                t_decode += sp.seconds
                 step_no += 1
                 busy_acc += sum(1 for s in slot_states if s.busy) / self.slots
                 for i, s in enumerate(slot_states):
@@ -887,20 +902,20 @@ class ContinuousServingEngine:
             # --- one fused macro-step (or wave of W) over all slots ----
             W = self.wave_steps
             fn = self._get_wave(K, W) if W > 1 else self._get_loop(K)
-            t0 = time.perf_counter()
-            toks, cache, cur_tok, lengths, remaining, done = \
-                fn(self.params, cache, cur_tok, lengths, remaining, done,
-                   self._shard)
-            t1 = time.perf_counter()
-            block = _fetch(toks).reshape(-1, self.slots)   # the one sync
-            t2 = time.perf_counter()
-            t_dispatch += t1 - t0
-            t_await += t2 - t1
+            with tracing.timed("engine.dispatch") as sp_d:
+                toks, cache, cur_tok, lengths, remaining, done = _macro_step(
+                    fn, (self.params, cache, cur_tok, lengths, remaining,
+                         done, self._shard))
+            with tracing.timed("engine.await") as sp_a:
+                block = _fetch(toks).reshape(-1, self.slots)   # the one sync
+            t_dispatch += sp_d.seconds
+            t_await += sp_a.seconds
             host_syncs += 1
             dispatches += W
             wave_launches += 1
-            steps_used, busy_inc = self._consume_block(
-                block, slot_states, W * K, step_no)
+            with tracing.span("engine.consume"):
+                steps_used, busy_inc = self._consume_block(
+                    block, slot_states, W * K, step_no)
             busy_acc += busy_inc
             step_no += steps_used
 
@@ -988,9 +1003,10 @@ class ContinuousServingEngine:
             return (worker is not None and self.prefill_remote
                     and worker.healthy)
 
-        def _dispatch_shadow():
+        def _dispatch_shadow(exposed: bool):
             req = pending.popleft()
-            with torch.cuda.stream(side):
+            with torch.cuda.stream(side), tracing.span(
+                    "engine.prefill", req.uid, exposed=exposed):
                 sh = _shadow_prefill(req)
                 sh.ready = _ready()
             shadows.append(sh)
@@ -1057,7 +1073,9 @@ class ContinuousServingEngine:
                     batch = self._make_batch(sh.req)
                     if prefix is not None:
                         batch = dict(batch, prefix=prefix)
-                    logits, pre = self._prefill(batch)
+                    with tracing.span("engine.prefill", sh.req.uid,
+                                      exposed=True):
+                        logits, pre = self._prefill(batch)
                     if pc is not None:
                         pc.insert(sh.req.prompt, logits, pre,
                                   frontend=sh.req.frontend)
@@ -1071,129 +1089,137 @@ class ContinuousServingEngine:
 
         while pending or shadows or any(s.busy for s in slot_states):
             # --- 1. splice shadows into free slots (macro boundary) -----
-            t0 = time.perf_counter()
-            boundary_step = step_no
-            live_before = any(s.busy for s in slot_states)
-            inline = 0
-            newly: List[Tuple[int, ServeRequest, Any]] = []
-            blocks: List[Any] = []
-            # singles need no slot: flush every parked one at each boundary
-            singles: List[_Shadow] = [sh for sh in shadows
-                                      if sh.req.max_new <= 1]
-            if singles:
-                fillers = [sh for sh in shadows if sh.req.max_new > 1]
-                shadows.clear()
-                shadows.extend(fillers)
-            free = (i for i, s in enumerate(slot_states) if not s.busy)
-            slot = next(free, None)
-            while slot is not None:
-                if not shadows:
-                    if not pending:
-                        break
-                    _dispatch_shadow()   # shadow miss: prefill exposed
-                    inline += 1
-                sh = shadows.popleft()
-                if sh.req.max_new <= 1:
-                    singles.append(sh)   # completes from its prefill logits
-                    continue
-                sh, exposed = _localize(sh)
-                inline += exposed
-                _consume(sh)
-                newly.append((slot, sh.req, sh.logits))
-                blocks.append(sh.cache)
+            with tracing.timed("engine.boundary") as sp_b:
+                boundary_step = step_no
+                live_before = any(s.busy for s in slot_states)
+                inline = 0
+                newly: List[Tuple[int, ServeRequest, Any]] = []
+                blocks: List[Any] = []
+                # singles need no slot: flush every parked one at each
+                # boundary
+                singles: List[_Shadow] = [sh for sh in shadows
+                                          if sh.req.max_new <= 1]
+                if singles:
+                    fillers = [sh for sh in shadows if sh.req.max_new > 1]
+                    shadows.clear()
+                    shadows.extend(fillers)
+                free = (i for i, s in enumerate(slot_states) if not s.busy)
                 slot = next(free, None)
-            if singles:
-                flushed = []
-                for sh in singles:
-                    sh, exposed = _localize(sh)   # logits-only transfer
+                while slot is not None:
+                    if not shadows:
+                        if not pending:
+                            break
+                        _dispatch_shadow(True)   # shadow miss: prefill exposed
+                        inline += 1
+                    sh = shadows.popleft()
+                    if sh.req.max_new <= 1:
+                        singles.append(sh)   # completes from its prefill logits
+                        continue
+                    sh, exposed = _localize(sh)
                     inline += exposed
                     _consume(sh)
-                    flushed.append(sh)
-                singles = flushed
-            if inline and live_before:
-                stalls += 1     # decode waited on an un-overlapped prefill
-            single_dev = None
-            if singles:
-                single_dev = torch.cat([sh.logits for sh in singles],
-                                       dim=0).argmax(dim=-1).to(torch.int32)
-            first_dev = None
-            if newly:
-                # one boundary pass for every admitted block, over vectors
-                # and blocks padded to the slot width; its wall lands in
-                # the splice bucket (disaggregated) or the slot-write one
-                tb0 = time.perf_counter()
-                ids, logits_cat, plens, mnews = self._pad_admit_args(newly)
-                blks = blocks + [blocks[-1]] * (self.slots - len(blocks))
-                cache, cur_tok, lengths, remaining, done, first_dev = \
-                    admit_boundary(self.cfg, cache, blks, ids, cur_tok,
-                                   lengths, remaining, done, logits_cat,
-                                   plens, mnews,
-                                   eos_id=-1 if eos is None else int(eos),
-                                   shard=self._shard)
-                if worker is not None:
-                    t_splice += time.perf_counter() - tb0
-                else:
-                    t_slot_write += time.perf_counter() - tb0
-                for slot, req, _ in newly:
-                    slot_states[slot] = _Slot(
-                        uid=req.uid, remaining=req.max_new - 1,
-                        tokens=[], admitted_step=step_no)
-            t_prefill += time.perf_counter() - t0
+                    newly.append((slot, sh.req, sh.logits))
+                    blocks.append(sh.cache)
+                    slot = next(free, None)
+                if singles:
+                    flushed = []
+                    for sh in singles:
+                        sh, exposed = _localize(sh)   # logits-only transfer
+                        inline += exposed
+                        _consume(sh)
+                        flushed.append(sh)
+                    singles = flushed
+                if inline and live_before:
+                    stalls += 1   # decode waited on an un-overlapped prefill
+                single_dev = None
+                if singles:
+                    single_dev = torch.cat(
+                        [sh.logits for sh in singles],
+                        dim=0).argmax(dim=-1).to(torch.int32)
+                first_dev = None
+                if newly:
+                    # one boundary pass for every admitted block, over
+                    # vectors and blocks padded to the slot width; its wall
+                    # lands in the splice bucket (disaggregated) or the
+                    # slot-write one
+                    with tracing.timed("engine.splice") as sp_s:
+                        ids, logits_cat, plens, mnews = \
+                            self._pad_admit_args(newly)
+                        blks = blocks + [blocks[-1]] * (self.slots
+                                                        - len(blocks))
+                        cache, cur_tok, lengths, remaining, done, first_dev = \
+                            admit_boundary(
+                                self.cfg, cache, blks, ids, cur_tok, lengths,
+                                remaining, done, logits_cat, plens, mnews,
+                                eos_id=-1 if eos is None else int(eos),
+                                shard=self._shard)
+                    if worker is not None:
+                        t_splice += sp_s.seconds
+                    else:
+                        t_slot_write += sp_s.seconds
+                    for slot, req, _ in newly:
+                        slot_states[slot] = _Slot(
+                            uid=req.uid, remaining=req.max_new - 1,
+                            tokens=[], admitted_step=step_no)
+            t_prefill += sp_b.seconds
 
             # --- 2. launch the macro-step (never waits on prefill) -----
             # the carried cache and state are handed to the launch and are
             # not touched until the rebind at step 4
-            t0 = time.perf_counter()
             launch = None
-            if any(s.busy and s.remaining > 0 and not _eos_done(s)
-                   for s in slot_states):
-                fn = self._get_wave(K, W) if W > 1 else self._get_loop(K)
-                args = (self.params, cache, cur_tok, lengths, remaining, done,
-                        self._shard)
-                launch = self._launcher.submit(fn, *args) \
-                    if self._launcher is not None else fn(*args)
-            t_dispatch += time.perf_counter() - t0
+            with tracing.timed("engine.dispatch") as sp_d:
+                if any(s.busy and s.remaining > 0 and not _eos_done(s)
+                       for s in slot_states):
+                    fn = self._get_wave(K, W) if W > 1 else self._get_loop(K)
+                    args = (self.params, cache, cur_tok, lengths, remaining,
+                            done, self._shard)
+                    launch = self._launcher.submit(fn, *args) \
+                        if self._launcher is not None \
+                        else _macro_step(fn, args)
+            t_dispatch += sp_d.seconds
 
             # --- 3. top up speculative shadow prefills -----------------
             # depth counts only slot-filling shadows (singles never take a
             # slot and are flushed every boundary)
-            t0o = time.perf_counter()
-            while pending and sum(1 for sh in shadows
-                                  if sh.req.max_new > 1) < self.slots:
-                _dispatch_shadow()
-                n_shadow += 1
-            t_overlap += time.perf_counter() - t0o
+            with tracing.timed("engine.topup") as sp_t:
+                while pending and sum(1 for sh in shadows
+                                      if sh.req.max_new > 1) < self.slots:
+                    _dispatch_shadow(False)
+                    n_shadow += 1
+            t_overlap += sp_t.seconds
 
             # --- 4. the one await: token block + the first tokens -------
-            t0a = time.perf_counter()
             block = None
-            if launch is not None:
-                res = launch.result() if hasattr(launch, "result") else launch
-                toks, cache, cur_tok, lengths, remaining, done = res
-                block = _fetch(toks).reshape(-1, self.slots)
-                host_syncs += 1
-                dispatches += W
-                wave_launches += 1
-            if first_dev is not None:
-                firsts = _fetch(first_dev)     # queued before the launch
-                host_syncs += 1
-                for (slot, req, _), first in zip(newly, firsts):
-                    slot_states[slot].tokens.append(int(first))
-                    self._emit_tokens(req.uid, 0, [int(first)])
-            if single_dev is not None:
-                host_syncs += 1
-                for sh, first in zip(singles, _fetch(single_dev)):
-                    outputs.append(RequestOutput(
-                        uid=sh.req.uid,
-                        tokens=np.asarray([int(first)], np.int32),
-                        admitted_step=boundary_step,
-                        finished_step=boundary_step))
-                    self._emit_tokens(sh.req.uid, 0, [int(first)])
-            t_await += time.perf_counter() - t0a
+            with tracing.timed("engine.await") as sp_a:
+                if launch is not None:
+                    res = launch.result() if hasattr(launch, "result") \
+                        else launch
+                    toks, cache, cur_tok, lengths, remaining, done = res
+                    block = _fetch(toks).reshape(-1, self.slots)
+                    host_syncs += 1
+                    dispatches += W
+                    wave_launches += 1
+                if first_dev is not None:
+                    firsts = _fetch(first_dev)     # queued before the launch
+                    host_syncs += 1
+                    for (slot, req, _), first in zip(newly, firsts):
+                        slot_states[slot].tokens.append(int(first))
+                        self._emit_tokens(req.uid, 0, [int(first)])
+                if single_dev is not None:
+                    host_syncs += 1
+                    for sh, first in zip(singles, _fetch(single_dev)):
+                        outputs.append(RequestOutput(
+                            uid=sh.req.uid,
+                            tokens=np.asarray([int(first)], np.int32),
+                            admitted_step=boundary_step,
+                            finished_step=boundary_step))
+                        self._emit_tokens(sh.req.uid, 0, [int(first)])
+            t_await += sp_a.seconds
 
             if block is not None:
-                steps_used, busy_inc = self._consume_block(
-                    block, slot_states, W * K, step_no)
+                with tracing.span("engine.consume"):
+                    steps_used, busy_inc = self._consume_block(
+                        block, slot_states, W * K, step_no)
                 busy_acc += busy_inc
                 step_no += steps_used
 
