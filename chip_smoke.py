@@ -33,6 +33,18 @@ each; any failure exits non-zero before the result line:
            and once more through the other base-finding branch; the
            decode_attention sweep also covers G 6 (nemotron), 7 (internvl2)
            and 16 (two head groups)
+  prefill_attention  no model held: the prefill-attention kernel against
+           chunked_attention on the card at the docqa cell's shape (B=1,
+           S=2048, 48/8 heads of 128, causal), dh 64 with G 4, dh 80, a
+           sliding window, a prefix resume (Sq 384, Sk 2048), non-causal
+           cross-attention, padded queries and keys, and rows that see no
+           key (exactly 0): its f32 result within 3e-5 of max|v| of the
+           plain version's, its bf16 output at most one bf16 ulp from the
+           plain bf16 output on all but 1e-3 of the elements, every call
+           twice, bit-equal; then its time and chunked_attention's at the
+           cell's shape beside the bound; the static slices (slice,
+           dense_slices, moe_slice, ssm_slice) check its launches ==
+           attention layers x prefills
   parity   a float32 copy of the same weights: kernel path vs plain path
            logits over 8 teacher-forced decode steps within 1e-3; greedy
            streams agree up to the plain path's first top-2 gap < 1e-3;
@@ -766,6 +778,20 @@ def _expected_launches(cfg, s, prompt_len):
             "ssm_scan_bwd": 0}
 
 
+def _prefill_attention_layers(cfg):
+    """Whole-sequence attention calls of one prefill that take the
+    prefill_attention kernel on the card (bf16, a head width it holds):
+    every attention layer (the hybrid's shared block once per block of
+    Mamba layers, the audio model's encoder layers and its decoder's self-
+    and cross-attention), none on the SSM."""
+    from repro_torch.kernels.prefill_attention import HEAD_DIMS
+    if cfg.dtype != "bfloat16" or cfg.head_dim not in HEAD_DIMS:
+        return 0
+    L = cfg.num_layers
+    return {"ssm": 0, "hybrid": L // max(cfg.hybrid_attn_every, 1),
+            "audio": cfg.encoder_layers + 2 * L}.get(cfg.family, L)
+
+
 def phase_slice(torch, arch=ARCH, *, phase="slice", split="auto",
                 requests=REQUESTS, max_new=MAX_NEW, extra=()):
     """The port's launcher in-process on ``arch`` (``extra``: more
@@ -794,6 +820,7 @@ def phase_slice(torch, arch=ARCH, *, phase="slice", split="auto",
     require(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
             "token ids out of range")
     want = _expected_launches(cfg, s, PROMPT_LEN)
+    want["prefill_attention"] = _prefill_attention_layers(cfg) * s["prefills"]
     for kname, n in want.items():
         require(counts[kname] == n,
                 f"{arch}: {kname} launched {counts[kname]} times, expected "
@@ -1472,6 +1499,181 @@ def phase_long_cache_timing(torch, dev, B, heads):
         emit({"phase": "long_cache_timing", **row,
               "share_of_bound": row["bound_ms"] / row["device_ms"]})
     return rows
+
+
+# ---------------------------------------------------------------------------
+# prefill attention: the kernel against chunked_attention, no model held
+# ---------------------------------------------------------------------------
+# the cell's shape (nemotron-4-15b's heads, a 2,048-token prompt, B=1)
+PREFILL_SHAPE = (1, 2048, 48, 8, 128)
+# tolerances against chunked_attention at the same bf16 inputs (both sum in
+# f32 and differ only in rounding order, exp2 for exp and the hi/lo P): the
+# f32 results within PREFILL_F32_TOL of max|v| (p's hi/lo pair keeps ~16
+# bits, 2^-17 of p; the rest is ~1e-6); the bf16 outputs, rounded once from
+# those, at most one bf16 ulp apart on all but PREFILL_ULP_SHARE of the
+# elements (a rounding boundary between the two f32 results) and never
+# further apart than PREFILL_BF16_TOL
+PREFILL_F32_TOL = 3e-5
+PREFILL_ULP_SHARE = 1e-3
+PREFILL_BF16_TOL = 2e-2
+
+
+def _prefill_cases():
+    """(name, B, Sq, Sk, H, Hkv, dh, causal, window, padded queries, padded
+    keys): the cell's shape, dh 64 with G 4 (llama3.2-1b), dh 80 (zamba2),
+    a sliding window, a prefix resume, non-causal cross-attention (the audio
+    decoder's over 1,500 encoder rows, G 1), padded queries and keys, ragged
+    ends (S not a multiple of either tile) and a call whose first query
+    rows see no key (their rows exactly 0)."""
+    B, S, H, Hkv, dh = PREFILL_SHAPE
+    return [("cell", B, S, S, H, Hkv, dh, True, 0, 0, 0),
+            ("dh64-G4", 2, 700, 700, 32, 8, 64, True, 0, 0, 0),
+            ("dh80", 1, 513, 513, 32, 32, 80, True, 0, 0, 0),
+            ("window", 1, 1500, 1500, H, Hkv, dh, True, 256, 0, 0),
+            ("resume", B, 384, S, H, Hkv, dh, True, 0, 0, 0),
+            ("cross", 2, 100, 1500, 16, 16, 64, False, 0, 0, 0),
+            ("padded", 2, 333, 333, H, Hkv, dh, True, 0, 45, 45),
+            ("no-key-rows", 1, 200, 200, H, Hkv, dh, True, 0, 0, 0)]
+
+
+def _prefill_positions(torch, dev, Sq, Sk, padq, padk, name):
+    """q and kv positions as the model hands them: a prompt (or a resumed
+    tail at Sk - Sq..), padded queries -1 and padded keys 2**30 at the end;
+    ``no-key-rows`` shifts the keys 64 past the queries' start, so the
+    first 64 queries attend nothing."""
+    qpos = torch.arange(Sk - Sq, Sk, device=dev)
+    kpos = torch.arange(Sk, device=dev)
+    if name == "no-key-rows":
+        kpos = kpos + 64
+    if padq:
+        qpos[-padq:] = -1
+    if padk:
+        kpos[-padk:] = 2 ** 30
+    return qpos, kpos
+
+
+def _bf16_ulps(torch, a, b):
+    """Elementwise distance of two bf16 tensors in units in the last place
+    (the order of their bit patterns; +0 and -0 are 0 apart)."""
+    def order(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (order(a) - order(b)).abs()
+
+
+def _check_prefill_attention(torch, dev, gen):
+    """The kernel against chunked_attention at every case of
+    ``_prefill_cases``: its f32 result (``out_dtype``) against the plain
+    version's f32, its bf16 output against the plain bf16 output by ulps,
+    every call twice, bit-equal, rows with no key exactly 0.  Returns the
+    cell's largest bf16 error."""
+    from repro_torch.kernels.prefill_attention import prefill_attention_cuda
+    from repro_torch.models.attention import chunked_attention
+
+    results, main_err = [], 0.0
+    for name, B, Sq, Sk, H, Hkv, dh, causal, win, padq, padk in _prefill_cases():
+        q = torch.randn((B, Sq, H, dh), generator=gen, device=dev).bfloat16()
+        k = torch.randn((B, Sk, Hkv, dh), generator=gen, device=dev).bfloat16()
+        v = torch.randn((B, Sk, Hkv, dh), generator=gen, device=dev).bfloat16()
+        qpos, kpos = _prefill_positions(torch, dev, Sq, Sk, padq, padk, name)
+        kw = dict(causal=causal, window=win, q_positions=qpos, kv_positions=kpos)
+        got = prefill_attention_cuda(q, k, v, **kw)
+        again = prefill_attention_cuda(q, k, v, **kw)
+        got32 = prefill_attention_cuda(q, k, v, out_dtype=torch.float32, **kw)
+        want = chunked_attention(q, k, v, **kw)
+        want32 = chunked_attention(q, k, v.float(), **kw)
+        torch.cuda.synchronize()
+        tag = (f"prefill_attention {name} B={B} Sq={Sq} Sk={Sk} H={H} "
+               f"Hkv={Hkv} dh={dh} causal={causal} window={win}")
+        require(got.dtype == torch.bfloat16 and got.shape == q.shape
+                and bool(torch.isfinite(got32).all()), f"{tag}: bad output")
+        require(torch.equal(got, again), f"{tag}: two calls differ")
+        vmax = float(v.float().abs().max())
+        err32 = float((got32 - want32).abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        ulps = _bf16_ulps(torch, got, want)
+        beyond = float((ulps > 1).float().mean())
+        require(err32 <= PREFILL_F32_TOL * vmax,
+                f"{tag}: f32 max_abs_err {err32} > {PREFILL_F32_TOL} x {vmax}")
+        require(beyond <= PREFILL_ULP_SHARE and err <= PREFILL_BF16_TOL,
+                f"{tag}: {beyond:.2e} of the elements more than one bf16 ulp "
+                f"apart, max_abs_err {err}")
+        empty = ~_prefill_mask(torch, qpos, kpos, causal, win).any(dim=1)
+        require(not bool(got[:, empty].any()) and not bool(got32[:, empty].any()),
+                f"{tag}: a row with no key is not 0")
+        if name == "cell":
+            main_err = err
+        results.append({"case": name, "B": B, "Sq": Sq, "Sk": Sk, "H": H,
+                        "Hkv": Hkv, "dh": dh, "causal": causal, "window": win,
+                        "padded_queries": padq, "padded_keys": padk,
+                        "rows_without_keys": int(empty.sum()),
+                        "max_abs_err_f32": err32, "max_abs_v": vmax,
+                        "max_abs_err": err, "max_ulps": int(ulps.max()),
+                        "share_beyond_one_ulp": beyond, "bit_equal_twice": True})
+        del q, k, v, got, again, got32, want, want32
+    emit({"phase": "kernels", "kernel": "prefill_attention",
+          "tolerance": {"f32_of_max_abs_v": PREFILL_F32_TOL,
+                        "share_beyond_one_bf16_ulp": PREFILL_ULP_SHARE,
+                        "bf16_max_abs": PREFILL_BF16_TOL},
+          "cases": results})
+    return main_err
+
+
+def _prefill_mask(torch, qpos, kpos, causal, window):
+    """chunked_attention's mask [Sq, Sk]."""
+    m = (kpos[None, :] < 2 ** 30).expand(qpos.shape[0], -1)
+    if causal:
+        m = m & (qpos[:, None] >= kpos[None, :])
+    if window:
+        m = m & ((qpos[:, None] - kpos[None, :]) < window)
+    return m
+
+
+def _time_prefill_attention(torch, dev, gen):
+    """The kernel and chunked_attention at the cell's shape (a causal
+    prompt), beside the bound from ``costs.prefill_attention``."""
+    from repro_torch.kernels import costs
+    from repro_torch.kernels.prefill_attention import prefill_attention_cuda
+    from repro_torch.models.attention import chunked_attention
+
+    B, S, H, Hkv, dh = PREFILL_SHAPE
+    pos = torch.arange(S, device=dev)
+    kw = dict(causal=True, window=0, q_positions=pos, kv_positions=pos)
+    cost = costs.prefill_attention(B, S, S, H, Hkv, dh, True, 0)
+    sets = [tuple(torch.randn(shape, generator=gen, device=dev).bfloat16()
+                  for shape in ((B, S, H, dh), (B, S, Hkv, dh), (B, S, Hkv, dh)))
+            for _ in range(_sets_for(cost["bytes"]))]
+    fns = {"": lambda q, k, v: prefill_attention_cuda(q, k, v, **kw),
+           "plain_": lambda q, k, v: chunked_attention(q, k, v, **kw)}
+    times = {f"{p}ms": _time_ms(torch, fn, sets, iters=50 if not p else 5,
+                                warmup=3)
+             for p, fn in fns.items()}
+    times.update({f"{p}device_ms": _device_ms(torch, fn, sets,
+                                              iters=50 if not p else 5,
+                                              need_ahead=not p)
+                  for p, fn in fns.items()})
+    bound_ms, bound_by = _bound(cost["bytes"], cost["flops"])
+    return {"kernel": "prefill_attention", "group": "cell", "B": B, "S": S,
+            "H": H, "Hkv": Hkv, "dh": dh, "G": H // Hkv, "causal": True,
+            "dtype": "bfloat16", **times, "library_ms": None,
+            "library": "none timed: no library attention is run beside the port",
+            "bytes": cost["bytes"], "operations": cost["flops"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / times["device_ms"],
+            "tflops": cost["flops"] / times["device_ms"] / 1e9,
+            "sets": len(sets)}
+
+
+def phase_prefill_attention(torch, dev):
+    """The kernel's checks and its timing at the cell's shape, no model
+    held.  Returns ({kernel: the cell's bf16 error}, timing rows)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    err = _check_prefill_attention(torch, dev, gen)
+    row = _time_prefill_attention(torch, dev, gen)
+    emit({"phase": "timing", **row})
+    torch.cuda.empty_cache()
+    return {"prefill_attention": err}, [row]
 
 
 # ---------------------------------------------------------------------------
@@ -5309,6 +5511,11 @@ KERNEL_META = {
         "replaces": "src/repro/models/ssm.py:145",
         "replaces_note": "no Pallas kernel: JAX differentiates this "
                          "associative scan in XLA (a reverse scan)"},
+    "prefill_attention": {
+        "route": "cuda", "source": "src/repro_torch/csrc/prefill_attention.cu",
+        "replaces": "src/repro/models/attention.py:55",
+        "replaces_note": "no Pallas kernel: JAX computes chunked_attention "
+                         "in XLA"},
 }
 
 
@@ -5391,6 +5598,8 @@ def main() -> None:
     # the dense path: llama3.2-1b, static then continuous
     slice_summary, counts = timed("slice", phase_slice, torch)
     errs = timed("kernels", phase_kernel_checks, torch, dev, slice_summary)
+    prefill_errs, prefill_rows = timed("prefill_attention",
+                                       phase_prefill_attention, torch, dev)
     cfg, params, prompts = timed("parity", phase_parity, torch, dev)
     groups = dict(zip(slice_summary["group_names"], slice_summary["n_group"]))
     timed("trace", phase_trace, torch, dev, cfg, params, prompts,
@@ -5535,7 +5744,8 @@ def main() -> None:
                          mesh_shapes)
 
     # the roofline on the card, the example twins, then the dry run's sweep
-    timing_rows = rows + moe_rows + ssm_rows + long_rows + fam_rows + train_rows
+    timing_rows = rows + moe_rows + ssm_rows + long_rows + fam_rows + train_rows \
+        + prefill_rows
     roof_decode, roof_train = timed(
         "roofline", phase_roofline, torch, dev,
         dict(zip(slice_summary["group_names"], slice_summary["n_group"]))
@@ -5566,7 +5776,8 @@ def main() -> None:
     by_path[f"{ARCH} roofline train"] = roof_train
     by_path["examples/serve_offload_torch.py"] = example_counts
     kernels = kernels_line(timing_rows, by_path,
-                           [errs, cont_errs, fleet_static_errs, fleet_errs,
+                           [errs, prefill_errs, cont_errs, fleet_static_errs,
+                            fleet_errs,
                             dense_errs, moe_errs, ssm_errs, hyb_errs, fam_errs,
                             train_errs, mesh_errs])
     print(json.dumps({"kernels": kernels}), flush=True)

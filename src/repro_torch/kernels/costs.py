@@ -64,6 +64,23 @@ def decode_attention(B: int, H: int, Hkv: int, dh: int, rows: int,
     return _cost(4 * H * rows * dh, n_bytes)
 
 
+def prefill_attention(B: int, Sq: int, Sk: int, H: int, Hkv: int, dh: int,
+                      causal: bool, window: int, esize: int = 2) -> Cost:
+    """One GQA prefill-attention call with a prefill's positions (query i
+    at ``Sk - Sq + i``, key j at j: a prompt, or its tail resumed after
+    ``Sk - Sq`` cached rows): q . k and p . v over the query-key pairs the
+    mask leaves (causal: keys at or before the query; with a window, less
+    than ``window`` before it), 2 flops a multiply-add, P . V counted once;
+    q, k and v read and the output written once."""
+    pairs = 0
+    for p in range(Sk - Sq, Sk):
+        hi = min(p, Sk - 1) if causal else Sk - 1
+        lo = max(p - window + 1, 0) if window else 0
+        pairs += max(hi - lo + 1, 0)
+    n_bytes = esize * (2 * B * Sq * H * dh + 2 * B * Sk * Hkv * dh)
+    return _cost(4 * B * H * dh * pairs, n_bytes)
+
+
 def masked_compact(B: int, S: int, D: int, K: int, esize: int,
                    kept: Optional[int] = None) -> Cost:
     """One compaction of ``tokens [B,S,D]`` into ``K`` slots: the mask read,

@@ -33,13 +33,15 @@ from repro_torch.kernels.autograd import GroupedFFN, SSMScan
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.grouped_ffn import check_counts, grouped_ffn_cuda
 from repro_torch.kernels.masked_compact import masked_compact_cuda
+from repro_torch.kernels.prefill_attention import prefill_attention_cuda
 from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda, ssm_scan_cuda
 
 _WRAPPERS = {"decode_attention": decode_attention_cuda,
              "masked_compact": masked_compact_cuda,
              "grouped_ffn": grouped_ffn_cuda,
              "ssm_scan": ssm_scan_cuda,
-             "ssm_scan_bwd": ssm_scan_bwd_cuda}
+             "ssm_scan_bwd": ssm_scan_bwd_cuda,
+             "prefill_attention": prefill_attention_cuda}
 
 
 def resolve_use_kernels(use_kernels: Union[bool, str],
@@ -104,6 +106,23 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
                 B, H, Hkv, dh,
                 attended_rows(cache_len, start, window, B, S, q.device),
                 k_cache.element_size(), start=start is not None, lse=lse))
+
+
+def prefill_attention(q, k, v, *, causal: bool, window: int, q_positions,
+                      kv_positions):
+    """The prefill-attention kernel on q [B,Sq,H,dh], k and v [B,Sk,Hkv,dh]
+    (``chunked_attention``'s arguments), for a call the kernel takes (no
+    ``prefill_attention.refusal``: the caller routes everything else to
+    ``models/attention.py:chunked_attention``, its plain version)."""
+    B, Sq, H, dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    return costs.counted(
+        "prefill_attention",
+        lambda: prefill_attention_cuda(q, k, v, causal=causal, window=window,
+                                       q_positions=q_positions,
+                                       kv_positions=kv_positions),
+        lambda _: costs.prefill_attention(B, Sq, Sk, H, Hkv, dh, causal,
+                                          window, q.element_size()))
 
 
 def masked_compact(tokens, mask, capacity: int, *, use_kernels: bool = True):

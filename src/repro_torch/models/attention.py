@@ -1,7 +1,13 @@
 """GQA self- and cross-attention with a KV cache (bf16/f32 or int8).
 
-Prefill uses the chunked online-softmax formulation of the JAX package
-(plain tensor code, the same masks and padding sentinels).  Decode is one
+Prefill ("full" mode, self- and cross-attention) goes, with kernels on,
+through the hand-written CUDA ``prefill_attention`` kernel wherever it
+takes the tensors (bf16 on the card, a head width it holds, no gradient
+wanted: ``kernels/prefill_attention.py:refusal``); everything else -- the
+CPU, f32, training's forward, the meta device's dry run -- takes
+:func:`chunked_attention`, the chunked online-softmax formulation of the
+JAX package (plain tensor code, the same masks and padding sentinels),
+which is also the kernel's plain version.  Decode is one
 query token against the cache: with kernels on it goes through the
 hand-written CUDA ``decode_attention`` kernel, else through its plain
 version.  That holds for every cache kind: the self cache, the audio
@@ -49,6 +55,7 @@ import torch
 from repro_torch import tracing
 from repro_torch.distributed import collectives as coll
 from repro_torch.kernels import costs, ops
+from repro_torch.kernels import prefill_attention as prefill_kernel
 from repro_torch.models.layers import (apply_rope, gather_cols, norm_apply,
                                        normal_stack)
 
@@ -387,6 +394,8 @@ def attn_apply(params, x, cfg, *, positions, mode: str, causal: bool = True,
             h0, H_loc = _rank_heads(cfg, mesh)
             k, v = (_kv_for_heads(t, cfg, h0, H_loc) for t in (k, v))
         with tracing.span("attention.full"):
+            if use_kernels and prefill_kernel.refusal(q, k, v) is None:
+                return ops.prefill_attention(q, k, v, **kw)
             return chunked_attention(q, k, v, **kw)
 
     if mode == "full":

@@ -216,7 +216,7 @@ def _embed_inputs(params, cfg, batch, shard=None):
 
 
 def _encode(params, cfg, batch, mode: str = "prefill", remat: bool = False,
-            shard=None, fsdp=None):
+            shard=None, fsdp=None, use_kernels: bool = False):
     """The audio encoder over the stubbed frame embeddings: (enc_out
     [B,F,D], positions [F]); ``shard``: this rank's block on a mesh;
     ``fsdp``: the encoder stack's FSDP dims (training on a mesh)."""
@@ -224,7 +224,8 @@ def _encode(params, cfg, batch, mode: str = "prefill", remat: bool = False,
     pos = torch.arange(fe.shape[1], device=fe.device)
     enc, _, _ = tfm.stack_apply(params["encoder"], fe, cfg, kind="encoder",
                                 mode=mode, positions=pos, causal=False,
-                                remat=remat, shard=shard, fsdp=fsdp)
+                                remat=remat, use_kernels=use_kernels,
+                                shard=shard, fsdp=fsdp)
     return norm_apply(params["enc_norm"], enc, cfg), pos
 
 
@@ -339,7 +340,8 @@ def forward(params, cfg, batch, *, mode: str = "prefill", remat: bool = False,
                                         on_mesh.get("shard"))
         enc = {}
         if kind == "decoder_x":
-            enc_out, enc_pos = _encode(params, cfg, batch, **on_mesh)
+            enc_out, enc_pos = _encode(params, cfg, batch,
+                                       use_kernels=use_kernels, **on_mesh)
             enc = {"enc_out": enc_out, "enc_positions": enc_pos}
         prefix = batch.get("prefix")
         if prefix is not None:

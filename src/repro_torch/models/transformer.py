@@ -150,7 +150,7 @@ def block_apply(params, x, cfg, *, kind: str, mode: str, positions,
             if mode == "resume" else None
         y, kv = attn.attn_apply(params["attn"], h, cfg, positions=positions,
                                 mode="full", causal=causal, prefix_kv=prefix,
-                                shard=shard)
+                                use_kernels=use_kernels, shard=shard)
         new_kv = {"k": kv[0], "v": kv[1]}
     x = x + y
     new_cache = None if kind == "encoder" or mode == "train" \
@@ -166,7 +166,8 @@ def block_apply(params, x, cfg, *, kind: str, mode: str, positions,
         else:
             y, xkv = attn.attn_apply(params["xattn"], h, cfg, positions=positions,
                                      mode="full", kv_x=enc_out,
-                                     kv_positions=enc_positions, shard=shard)
+                                     kv_positions=enc_positions,
+                                     use_kernels=use_kernels, shard=shard)
             if new_cache is not None:
                 new_cache["cross"] = {"k": xkv[0], "v": xkv[1]}
         x = x + y

@@ -61,9 +61,10 @@ SPANS = {
     "model.prefill": "serving/engine.py: make_prefill_step's step",
     "model.decode_step": "serving/engine.py: one decode step of the fused "
                          "loop or the per-step path",
-    "attention.full": "models/attention.py: chunked_attention over a "
-                      "whole sequence (prefill, training forward, "
-                      "cross-attention), a layer",
+    "attention.full": "models/attention.py: attention over a whole "
+                      "sequence (prefill, training forward, "
+                      "cross-attention), a layer: the prefill_attention "
+                      "kernel or chunked_attention",
     "kernels.decode_attention": "kernels/ops.py: decode_attention, a call",
 }
 

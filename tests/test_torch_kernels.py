@@ -1,6 +1,8 @@
 """The port's kernel entry points (CPU path) against the JAX package's
 Pallas kernels (interpret mode, as tests/test_kernels.py runs them) and its
 jnp oracles.  Inputs are drawn with numpy from the suite seed."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -10,12 +12,16 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
-from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.core.offload import tree_map  # noqa: E402
+from repro_torch.kernels import _build, costs, ops, ref  # noqa: E402
+from repro_torch.kernels import prefill_attention as pa  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     MIN_SPLIT_ROWS, SMEM_LIMIT, SPLIT_ROWS, TARGET_BLOCKS, TC_HEAD_DIMS, decode_attention_cuda,
     num_splits, smem_bytes, stages, tensor_core_path)
 from repro_torch.kernels.grouped_ffn import check_counts, grouped_ffn_cuda  # noqa: E402
 from repro_torch.kernels.masked_compact import masked_compact_cuda  # noqa: E402
+from repro_torch.kernels.prefill_attention import prefill_attention_cuda  # noqa: E402
+from repro_torch.models import attention  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan_cuda  # noqa: E402
 
 
@@ -129,7 +135,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                       torch.zeros(1, 8, 2))
     assert ops.launch_counts() == {"decode_attention": 0, "masked_compact": 0,
                                    "grouped_ffn": 0, "ssm_scan": 0,
-                                   "ssm_scan_bwd": 0}
+                                   "ssm_scan_bwd": 0, "prefill_attention": 0}
 
 
 def test_kernel_library_names_missing_card():
@@ -340,3 +346,211 @@ def test_decode_attention_smem_fits_a_block(dh):
         assert tensor_core_path(torch.bfloat16, dh)
         assert not tensor_core_path(torch.float32, dh)
         assert smem_bytes(dh, 2, most, tensor_cores=True) <= SMEM_LIMIT
+
+
+# ---------------------------------------------------------------------------
+# prefill attention: the routing, the launch plan, the block's shared memory
+# and the cost; the kernel itself runs only on the card (chip_smoke.py)
+def _prefill_qkv(B=1, Sq=8, Sk=8, H=4, Hkv=2, dh=64, dtype=torch.bfloat16,
+                 device="cpu", grad=False):
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=g).to(dtype).to(device)
+               for shape in ((B, Sq, H, dh), (B, Sk, Hkv, dh), (B, Sk, Hkv, dh)))
+    if grad:
+        q.requires_grad_(True)
+    return q, k, v
+
+
+@pytest.mark.parametrize("case,reason", [
+    ({}, pa.OFF_CARD),                                   # bf16 on the CPU
+    ({"device": "meta"}, pa.OFF_CARD),                   # the dry run
+    ({"grad": True}, "a gradient is wanted"),            # training's forward
+    ({"dtype": torch.float32}, "not bfloat16"),
+    ({"dtype": torch.float16}, "not bfloat16"),
+    ({"dh": 96}, "head_dim 96"),
+    ({"dh": 32}, "head_dim 32"),
+    ({"Sk": 0}, "no query or no key"),
+    ({"B": 0}, "no query or no key"),
+])
+def test_prefill_attention_refusal(case, reason):
+    """Each condition of the kernel's route is asked on its own: only a
+    bf16, grad-free call of a head width the kernel holds, on one CUDA
+    device, takes the kernel."""
+    why = pa.refusal(*_prefill_qkv(**case))
+    assert why is not None and reason in why
+
+
+def test_prefill_attention_wrapper_refuses_cpu_tensors():
+    """The wrapper launches its kernel or raises: never the plain version;
+    the launch count stays 0."""
+    ops.reset_launch_counts()
+    q, k, v = _prefill_qkv()
+    pos = torch.arange(8)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        prefill_attention_cuda(q, k, v, causal=True, window=0,
+                               q_positions=pos, kv_positions=pos)
+    assert ops.launch_counts()["prefill_attention"] == 0
+
+
+def _route_counting(monkeypatch):
+    """Make every call the kernel would take on the card count itself and
+    run the plain version, on the CPU: the route's other conditions hold."""
+    calls = []
+    refusal = pa.refusal
+    monkeypatch.setattr(pa, "refusal", lambda q, k, v: (
+        None if refusal(q, k, v) == pa.OFF_CARD else refusal(q, k, v)))
+
+    def counting(q, k, v, **kw):
+        calls.append((tuple(q.shape), tuple(k.shape), kw["causal"]))
+        return attention.chunked_attention(q, k, v, **kw)
+
+    monkeypatch.setattr(ops, "prefill_attention", counting)
+    return calls
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "seamless-m4t-medium"])
+def test_prefill_attention_route_through_the_model(arch, monkeypatch):
+    """A bf16 prefill with kernels on sends every self- and
+    cross-attention layer to the kernel's entry (the audio model: its
+    encoder's layers, then each decoder layer's self- and
+    cross-attention), and gives the logits the plain route gives; kernels
+    off, and a forward that wants gradients, send none."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(reduced(get_config(arch)), dtype="bfloat16")
+    assert cfg.head_dim in pa.HEAD_DIMS
+    params = M.init_params(cfg, 0, device=torch.device("cpu"))
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 12),
+                                     generator=torch.Generator().manual_seed(1))}
+    if cfg.frontend:
+        batch["frontend"] = torch.randn((2, cfg.frontend_tokens, cfg.frontend_dim),
+                                        generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        plain = M.forward(params, cfg, batch, mode="prefill", use_kernels=False)
+    calls = _route_counting(monkeypatch)
+    with torch.no_grad():
+        M.forward(params, cfg, batch, mode="prefill", use_kernels=False)
+        assert calls == []
+        routed = M.forward(params, cfg, batch, mode="prefill", use_kernels=True)
+    L, enc = cfg.num_layers, cfg.encoder_layers
+    want = L + (enc + L if enc else 0)
+    assert len(calls) == want
+    assert sum(not c for *_, c in calls) == (enc + L if enc else 0)
+    assert torch.equal(routed.logits, plain.logits)
+    calls.clear()
+    trained = tree_map(lambda t: t.detach().requires_grad_(True)
+                       if t.is_floating_point() else t, params)
+    M.forward(trained, cfg, batch, mode="train", use_kernels=True)
+    assert calls == []
+
+
+def _mask(qpos, kpos, causal, window):
+    """chunked_attention's mask, [Sq, Sk] bool."""
+    q, k = np.asarray(qpos)[:, None], np.asarray(kpos)[None, :]
+    m = np.broadcast_to(k < pa.SENTINEL, (q.shape[0], k.shape[1])).copy()
+    if causal:
+        m &= q >= k
+    if window:
+        m &= (q - k) < window
+    return m
+
+
+def _plan_cases():
+    """(name, q positions, kv positions, causal, window): the cell's
+    prefill, a ragged prompt, a prefix resume, a sliding window, a window
+    without the causal mask, cross-attention, padded queries and keys, a
+    short call and a row that sees no key."""
+    ar = np.arange
+    return [
+        ("prefill-2048", ar(2048), ar(2048), True, 0),
+        ("prefill-300", ar(300), ar(300), True, 0),
+        ("resume-384-of-2048", ar(1664, 2048), ar(2048), True, 0),
+        ("window-100", ar(700), ar(700), True, 100),
+        ("window-uncausal", ar(500), ar(500), False, 64),
+        ("cross", ar(77), ar(1500), False, 0),
+        ("padded", np.r_[ar(200), -np.ones(56, int)],
+         np.r_[ar(200), np.full(56, pa.SENTINEL)], True, 0),
+        ("short", ar(5), ar(5), True, 0),
+        ("no-key", ar(10), np.r_[ar(20, 30)], True, 0),
+    ]
+
+
+@pytest.mark.parametrize("name,qpos,kpos,causal,window", _plan_cases(),
+                         ids=[c[0] for c in _plan_cases()])
+def test_prefill_attention_tile_plan(name, qpos, kpos, causal, window):
+    """The kernel's launch plan: every query tile is issued once; a key
+    tile is skipped exactly where the mask hides it wholly from the query
+    tile's rows, taken whole only where it hides nothing, and masked
+    element-wise otherwise; the visited tiles come in key order."""
+    plan = pa.key_tiles(qpos, kpos, causal, window)
+    nqt, nkt = -(-len(qpos) // pa.BLOCK_Q), -(-len(kpos) // pa.BLOCK_K)
+    assert sorted(pa.launch_order(len(qpos))) == list(range(nqt)) == \
+        list(range(len(plan)))
+    mask = _mask(qpos, kpos, causal, window)
+    for qt, tiles in enumerate(plan):
+        rows = mask[qt * pa.BLOCK_Q:(qt + 1) * pa.BLOCK_Q]
+        visited = dict(tiles)
+        assert [t for t, _ in tiles] == sorted(visited)
+        for t in range(nkt):
+            block = rows[:, t * pa.BLOCK_K:(t + 1) * pa.BLOCK_K]
+            if t not in visited:
+                assert not block.any(), (qt, t)
+            elif not visited[t]:
+                assert block.all() and block.shape[1] == pa.BLOCK_K, (qt, t)
+            else:
+                assert not (block.all() and block.shape[1] == pa.BLOCK_K), (qt, t)
+        if causal and name.startswith(("prefill", "resume")):
+            # the causal triangle: the tiles up to the diagonal, no more
+            last = int(np.asarray(qpos)[qt * pa.BLOCK_Q:][:pa.BLOCK_Q].max())
+            assert sorted(visited) == list(range(last // pa.BLOCK_K + 1))
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window", [
+    (2048, 2048, True, 0), (384, 2048, True, 0), (1000, 1000, True, 128),
+    (300, 300, False, 0), (77, 1500, False, 0)])
+def test_prefill_attention_longest_first(Sq, Sk, causal, window):
+    """Along the launch order the query tiles' key tiles never grow: the
+    blocks with the most work start first (a prompt, a resumed tail at
+    positions Sk - Sq.., a window, no mask)."""
+    plan = pa.key_tiles(np.arange(Sk - Sq, Sk), np.arange(Sk), causal, window)
+    work = [len(plan[qt]) for qt in pa.launch_order(Sq)]
+    assert work == sorted(work, reverse=True)
+    assert causal or len(set(work)) == 1
+
+
+@pytest.mark.parametrize("dh", pa.HEAD_DIMS)
+def test_prefill_attention_smem_fits_a_block(dh):
+    """Every head width the kernel takes fits one block's shared memory up
+    to a 256k-token key range, and the refusal names the first key range
+    that does not fit."""
+    assert pa.smem_bytes(dh, 1) <= pa.SMEM_LIMIT
+    assert pa.smem_bytes(dh, 1 << 18) <= pa.SMEM_LIMIT
+    fits = (pa.SMEM_LIMIT - pa.smem_bytes(dh, 0)) // 4 * pa.BLOCK_K
+    assert pa.smem_bytes(dh, fits) <= pa.SMEM_LIMIT < pa.smem_bytes(dh, fits + 1)
+    q = torch.zeros(1, 1, 2, dh, dtype=torch.bfloat16)
+    k = torch.zeros(1, fits + 1, 1, dh, dtype=torch.bfloat16)
+    assert "shared memory" in pa.refusal(q, k, k)
+    # the q tile and two stages of K and V rows, 16 bytes of pad a row
+    assert pa.smem_bytes(dh, 64) == (64 + 4 * 64) * (2 * dh + 16) + 4
+    # two blocks an SM (the kernel's launch bound) at the cell's key range
+    assert 2 * pa.smem_bytes(dh, 2048) <= 228 * 1024
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,dh,causal,window,pairs", [
+    (1, 4, 4, 2, 1, 64, True, 0, 10),          # 1 + 2 + 3 + 4
+    (2, 2, 5, 4, 2, 128, True, 0, 9),          # resumed at 3: 4 + 5
+    (1, 4, 4, 1, 1, 64, True, 2, 7),           # 1 + 2 + 2 + 2
+    (1, 3, 5, 2, 2, 80, False, 0, 15),         # cross: 3 x 5
+    (1, 3, 3, 1, 1, 64, False, 2, 8),          # 3 + 3 + 2
+    (1, 2048, 2048, 48, 8, 128, True, 0, 2048 * 2049 // 2),   # the cell
+])
+def test_prefill_attention_cost(B, Sq, Sk, H, Hkv, dh, causal, window, pairs):
+    """costs.prefill_attention against hand counts: q . k and p . v over
+    the unmasked pairs (4 flops a pair and head dim, P . V once), q, k, v
+    read and the output written once."""
+    c = costs.prefill_attention(B, Sq, Sk, H, Hkv, dh, causal, window)
+    assert c["flops"] == 4 * B * H * dh * pairs
+    assert c["bytes"] == 2 * (B * Sq * H * dh * 2 + B * Sk * Hkv * dh * 2)
+    if Sq == 2048:      # 51.6 GFLOP a layer: 52 us at 989 TFLOP/s
+        assert c["flops"] == 51_564_773_376
