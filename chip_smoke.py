@@ -767,13 +767,24 @@ def _expected_launches(cfg, s, prompt_len):
     shared block once per block of Mamba layers, the audio decoder's self-
     and cross-attention both), grouped_ffn in every MoE layer of every
     prefill and decode step, ssm_scan in every Mamba-1 layer of every
-    prefill, once per 256-token chunk."""
+    prefill, once per 256-token chunk; an MLAConfig's latent attention in
+    every layer of every decode step."""
+    from repro_torch.configs.base import is_mla
+    from repro_torch.models.moe import DROPLESS_TOKENS
+
     L, steps, prefills = cfg.num_layers, s["decode_steps"], s["prefills"]
     attn_layers = {"ssm": 0, "hybrid": L // max(cfg.hybrid_attn_every, 1),
                    "audio": 2 * L}
     scan = cfg.family == "ssm" and cfg.mamba_version == 1
-    return {"decode_attention": attn_layers.get(cfg.family, L) * steps,
-            "grouped_ffn": L * (steps + prefills) if cfg.num_experts else 0,
+    mla = is_mla(cfg)
+    # an MLAConfig: latent decode attention, the dropless MoE's prefill in
+    # chunks of DROPLESS_TOKENS, no MoE in its first_k_dense layers
+    chunks = -(-prompt_len // DROPLESS_TOKENS) if mla else 1
+    moe_layers = L - cfg.first_k_dense if mla else L
+    return {"decode_attention": 0 if mla else attn_layers.get(cfg.family, L) * steps,
+            "mla_decode_attention": L * steps if mla else 0,
+            "grouped_ffn": moe_layers * (steps + prefills * chunks)
+            if cfg.num_experts else 0,
             "ssm_scan": L * prefills * -(-prompt_len // 256) if scan else 0,
             "ssm_scan_bwd": 0}
 
@@ -1674,6 +1685,247 @@ def phase_prefill_attention(torch, dev):
     emit({"phase": "timing", **row})
     torch.cuda.empty_cache()
     return {"prefill_attention": err}, [row]
+
+
+# ---------------------------------------------------------------------------
+# moonlight-16b-a3b: latent attention over the latent cache, the prefill
+# kernel's q/k 192 / v 128 instance and the dropless MoE
+# ---------------------------------------------------------------------------
+MLA_ARCH = "moonlight-16b-a3b"
+MLA_H, MLA_LATENT, MLA_ROPE, MLA_V = 16, 512, 64, 512   # V: a row's first 512
+MLA_DK, MLA_DV = 192, 128       # the expanded prefill's q/k and v widths
+MLA_PREFILL = "prefill_attention.qk192_v128"     # the instance's kernels row
+# the longdoc cell: slots a group, cache rows a slot, prompt tokens
+MLA_CELL_B, MLA_CELL_S, MLA_CELL_P = 64, 7272, 7168
+# the decode kernel's bf16 output against the plain version in f32, of
+# max|v|: one bf16 rounding of the output (2^-9 of it) and the f32 sums'
+# order over 16 heads' shared rows
+MLA_TOL = 8e-3
+
+
+def _mla_decode_cases(num_splits, more=False):
+    """(name, B, S, heads, lengths or an int): the cell's decode, with
+    lengths on each split's first and last row, 1 and S; with ``more``
+    also one split, 4 heads, an empty slot and one int length."""
+    B, S = MLA_CELL_B, MLA_CELL_S
+    splits, rows = num_splits(B, S)
+    edges = [1, S, rows, rows + 1, rows - 1, S - 1]
+    edges += [min(S, i * rows + d) for i in range(1, splits) for d in (0, 1)]
+    cases = [("cell", B, S, MLA_H, edges)]
+    if more:
+        cases += [("one-split", 3, 200, MLA_H, [200, 7, 1]),
+                  ("heads4", 5, 3000, 4, [2999, 1500, 64, 65, 3000]),
+                  ("empty-slot", 4, 1000, MLA_H, [0, 1000, 512, 33]),
+                  ("int-length", 2, 900, MLA_H, 700)]
+    return cases
+
+
+def _check_mla_decode(torch, dev, gen, more=False):
+    """mla_decode_attention against ``ref.mla_decode_attention_ref`` in f32
+    at ``_mla_decode_cases``, every call twice, bit-equal, an empty slot
+    exactly 0.  Returns the cell's largest error."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mla_decode_attention import (
+        mla_decode_attention_cuda, num_splits)
+    scale = 1.0 / math.sqrt(MLA_DK)
+    results, main_err = [], 0.0
+    for name, B, S, heads, lens in _mla_decode_cases(num_splits, more):
+        q = torch.randn((B, heads, MLA_LATENT + MLA_ROPE), generator=gen,
+                        device=dev).bfloat16()
+        lat = torch.randn((B, S, MLA_LATENT + MLA_ROPE), generator=gen,
+                          device=dev).bfloat16()
+        if isinstance(lens, int):
+            cl = lens
+        else:
+            pick = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
+            pick[:len(lens)] = torch.tensor(lens[:B], device=dev)
+            cl = pick.to(torch.int32)
+        got = mla_decode_attention_cuda(q, lat, cl, scale=scale)
+        again = mla_decode_attention_cuda(q, lat, cl, scale=scale)
+        want = ref.mla_decode_attention_ref(q, lat.float(), cl, scale=scale,
+                                            v_dim=MLA_V)
+        torch.cuda.synchronize()
+        tag = f"mla_decode_attention {name} B={B} S={S} H={heads}"
+        require(got.shape == (B, heads, MLA_V)
+                and bool(torch.isfinite(got.float()).all()), f"{tag}: bad output")
+        require(torch.equal(got, again), f"{tag}: two calls differ")
+        vmax = float(lat[..., :MLA_V].float().abs().max())
+        err = float((got.float() - want).abs().max())
+        ulps = _bf16_ulps(torch, got, want.bfloat16())
+        require(err <= MLA_TOL * vmax,
+                f"{tag}: max_abs_err {err} > {MLA_TOL} x {vmax}")
+        if not isinstance(cl, int):
+            require(not bool(got[cl == 0].any()), f"{tag}: an empty slot is not 0")
+        if name == "cell":
+            main_err = err
+        results.append({"case": name, "B": B, "S": S, "H": heads,
+                        "splits": num_splits(B, S)[0], "max_abs_err": err,
+                        "max_abs_v": vmax, "max_ulps": int(ulps.max()),
+                        "share_beyond_one_ulp": float((ulps > 1).float().mean()),
+                        "bit_equal_twice": True})
+        del q, lat, got, again, want
+    emit({"phase": "kernels", "kernel": "mla_decode_attention",
+          "tolerance": {"of_max_abs_v": MLA_TOL}, "cases": results})
+    return main_err
+
+
+def _time_mla_decode(torch, dev, gen):
+    """The kernel and its plain version at the cell's decode a third into
+    the answers, beside the bound from ``costs.mla_decode_attention``."""
+    from repro_torch.kernels import costs, ref
+    from repro_torch.kernels.mla_decode_attention import (
+        mla_decode_attention_cuda, num_splits)
+    B, S, W = MLA_CELL_B, MLA_CELL_S, MLA_LATENT + MLA_ROPE
+    lens = MLA_CELL_P + 32
+    cost = costs.mla_decode_attention(B, MLA_H, W, MLA_V, B * lens, 2)
+    cl = torch.full((B,), lens, dtype=torch.int32, device=dev)
+    scale = 1.0 / math.sqrt(MLA_DK)
+    sets = [(torch.randn((B, MLA_H, W), generator=gen, device=dev).bfloat16(),
+             torch.randn((B, S, W), generator=gen, device=dev).bfloat16())
+            for _ in range(_sets_for(cost["bytes"]))]
+    fns = {"": lambda q, lat: mla_decode_attention_cuda(q, lat, cl, scale=scale),
+           "plain_": lambda q, lat: ref.mla_decode_attention_ref(
+               q, lat, cl, scale=scale, v_dim=MLA_V)}
+    times = {f"{p}ms": _time_ms(torch, fn, sets, iters=100 if not p else 5,
+                                warmup=3) for p, fn in fns.items()}
+    times.update({f"{p}device_ms": _device_ms(torch, fn, sets,
+                                              iters=100 if not p else 5,
+                                              need_ahead=not p)
+                  for p, fn in fns.items()})
+    bound_ms, bound_by = _bound(cost["bytes"], cost["flops"])
+    row = {"kernel": "mla_decode_attention", "group": "cell", "B": B, "S": S,
+           "rows_a_slot": lens, "H": MLA_H, "splits": num_splits(B, S)[0],
+           "dtype": "bfloat16", **times, "library_ms": None,
+           "library": "none timed: no library latent attention is run "
+                      "beside the port",
+           "bytes": cost["bytes"], "operations": cost["flops"],
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "share_of_bound": bound_ms / times["device_ms"],
+           "tb_per_s": cost["bytes"] / times["device_ms"] / 1e9,
+           "sets": len(sets)}
+    del sets
+    return row
+
+
+def _check_mla_prefill(torch, dev, gen, more=False):
+    """The prefill kernel's q/k 192, v 128 instance against
+    chunked_attention at the cell's prompt (with ``more`` also a ragged and
+    a padded prompt), as ``_check_prefill_attention`` holds the others.
+    Returns the cell's largest bf16 error."""
+    from repro_torch.kernels.prefill_attention import prefill_attention_cuda
+    from repro_torch.models.attention import chunked_attention
+    cases = [("cell", MLA_CELL_P, 0)]
+    if more:
+        cases += [("ragged", 333, 0), ("padded", 500, 45)]
+    results, main_err = [], 0.0
+    for name, S, pad in cases:
+        q = torch.randn((1, S, MLA_H, MLA_DK), generator=gen, device=dev).bfloat16()
+        k = torch.randn((1, S, MLA_H, MLA_DK), generator=gen, device=dev).bfloat16()
+        v = torch.randn((1, S, MLA_H, MLA_DV), generator=gen, device=dev).bfloat16()
+        qpos, kpos = _prefill_positions(torch, dev, S, S, pad, pad, name)
+        kw = dict(causal=True, window=0, q_positions=qpos, kv_positions=kpos)
+        got = prefill_attention_cuda(q, k, v, **kw)
+        again = prefill_attention_cuda(q, k, v, **kw)
+        got32 = prefill_attention_cuda(q, k, v, out_dtype=torch.float32, **kw)
+        want = chunked_attention(q, k, v, **kw)
+        want32 = chunked_attention(q, k, v.float(), **kw)
+        torch.cuda.synchronize()
+        tag = f"prefill_attention dh={MLA_DK} dv={MLA_DV} {name} S={S}"
+        require(got.shape == (1, S, MLA_H, MLA_DV)
+                and bool(torch.isfinite(got32).all()), f"{tag}: bad output")
+        require(torch.equal(got, again), f"{tag}: two calls differ")
+        vmax = float(v.float().abs().max())
+        err32 = float((got32 - want32).abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        ulps = _bf16_ulps(torch, got, want)
+        beyond = float((ulps > 1).float().mean())
+        require(err32 <= PREFILL_F32_TOL * vmax,
+                f"{tag}: f32 max_abs_err {err32} > {PREFILL_F32_TOL} x {vmax}")
+        require(beyond <= PREFILL_ULP_SHARE and err <= PREFILL_BF16_TOL,
+                f"{tag}: {beyond:.2e} of the elements more than one bf16 ulp "
+                f"apart, max_abs_err {err}")
+        if name == "cell":
+            main_err = err
+        results.append({"case": name, "S": S, "padded": pad,
+                        "max_abs_err_f32": err32, "max_abs_v": vmax,
+                        "max_abs_err": err, "max_ulps": int(ulps.max()),
+                        "share_beyond_one_ulp": beyond, "bit_equal_twice": True})
+        del q, k, v, got, again, got32, want, want32
+    emit({"phase": "kernels", "kernel": MLA_PREFILL,
+          "tolerance": {"f32_of_max_abs_v": PREFILL_F32_TOL,
+                        "share_beyond_one_bf16_ulp": PREFILL_ULP_SHARE,
+                        "bf16_max_abs": PREFILL_BF16_TOL},
+          "cases": results})
+    return main_err
+
+
+def _time_mla_prefill(torch, dev, gen):
+    """The instance and chunked_attention at the cell's prompt, beside the
+    bound from ``costs.prefill_attention``."""
+    from repro_torch.kernels import costs
+    from repro_torch.kernels.prefill_attention import prefill_attention_cuda
+    from repro_torch.models.attention import chunked_attention
+    S = MLA_CELL_P
+    pos = torch.arange(S, device=dev)
+    kw = dict(causal=True, window=0, q_positions=pos, kv_positions=pos)
+    cost = costs.prefill_attention(1, S, S, MLA_H, MLA_H, MLA_DK, True, 0,
+                                   dv=MLA_DV)
+    shapes = ((1, S, MLA_H, MLA_DK), (1, S, MLA_H, MLA_DK), (1, S, MLA_H, MLA_DV))
+    sets = [tuple(torch.randn(sh, generator=gen, device=dev).bfloat16()
+                  for sh in shapes) for _ in range(_sets_for(cost["bytes"]))]
+    fns = {"": lambda q, k, v: prefill_attention_cuda(q, k, v, **kw),
+           "plain_": lambda q, k, v: chunked_attention(q, k, v, **kw)}
+    times = {f"{p}ms": _time_ms(torch, fn, sets, iters=20 if not p else 2,
+                                warmup=2) for p, fn in fns.items()}
+    times.update({f"{p}device_ms": _device_ms(torch, fn, sets,
+                                              iters=20 if not p else 2,
+                                              need_ahead=not p)
+                  for p, fn in fns.items()})
+    bound_ms, bound_by = _bound(cost["bytes"], cost["flops"])
+    row = {"kernel": MLA_PREFILL, "group": "cell", "B": 1, "S": S, "H": MLA_H,
+           "Hkv": MLA_H, "dh": MLA_DK, "dv": MLA_DV, "causal": True,
+           "dtype": "bfloat16", **times, "library_ms": None,
+           "library": "none timed: no library attention is run beside the port",
+           "bytes": cost["bytes"], "operations": cost["flops"],
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "share_of_bound": bound_ms / times["device_ms"],
+           "tflops": cost["flops"] / times["device_ms"] / 1e9,
+           "sets": len(sets)}
+    del sets
+    return row
+
+
+def phase_mla(torch, dev):
+    """moonlight-16b-a3b: with no model held, mla_decode_attention at the
+    longdoc cell's decode and the prefill kernel's 192/128 instance at its
+    prompt against their plain versions, and both timed; then the model at
+    full width and depth through ContinuousServingEngine
+    (``phase_side_continuous``), whose launches are held against its
+    layers: mla_decode_attention and the 192/128 instance in all 27,
+    grouped_ffn in the 26 MoE layers.  Returns ({kernel: the cell's
+    error}, timing rows, {mode: launch counts})."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    errs = {"mla_decode_attention": _check_mla_decode(torch, dev, gen),
+            MLA_PREFILL: _check_mla_prefill(torch, dev, gen)}
+    rows = [_time_mla_decode(torch, dev, gen), _time_mla_prefill(torch, dev, gen)]
+    for row in rows:
+        emit({"phase": "timing", **row})
+    torch.cuda.empty_cache()
+    cfg = get_config(MLA_ARCH)
+    params = M.init_params(cfg, 0, device=dev)
+    counts, _, _ = phase_side_continuous(torch, dev, cfg, params,
+                                         "mla_continuous")
+    for mode, c in counts.items():
+        n = cfg.num_layers * SIDE_REQUESTS
+        require(c["prefill_attention"] == n, f"mla_continuous {mode}: "
+                f"prefill_attention launched {c['prefill_attention']} times, "
+                f"expected {n} ({cfg.num_layers} layers, {SIDE_REQUESTS} "
+                "prefills)")
+    del params
+    return errs, rows, counts
 
 
 # ---------------------------------------------------------------------------
@@ -5255,10 +5507,10 @@ def _model_all_reduces(cfg, pl, m, B, S, es, remat, add):
 # ---------------------------------------------------------------------------
 DRYRUN_CHILD = """
 import sys
-from repro_torch.configs.base import get_config, list_configs
+from repro_torch.configs.base import get_config, mesh_configs
 from repro_torch.launch import dryrun
 out, jobs = sys.argv[1], int(sys.argv[2])
-todo = dryrun.combos(True) + [(a, "train_4k", True) for a in list_configs()]
+todo = dryrun.combos(True) + [(a, "train_4k", True) for a in mesh_configs()]
 order = {"train_4k": 0, "prefill_32k": 1, "decode_32k": 2, "long_500k": 3}
 todo.sort(key=lambda c: (order[c[1]], -get_config(c[0]).num_layers))
 dryrun.sweep(todo, jobs=jobs, out=out)
@@ -5303,7 +5555,7 @@ def phase_dryrun_finish(run):
     0 failures; one line a combo (flops, collective bytes, temp and
     argument GB, whether they fit the card's 80 GB, the roofline terms) and
     the phase's seconds (its own wall, beside the card's phases)."""
-    from repro_torch.configs.base import get_config, list_configs
+    from repro_torch.configs.base import get_config, mesh_configs
     from repro_torch.configs.shapes import INPUT_SHAPES
     from repro_torch.launch import roofline
     from repro_torch.launch.dryrun import fits
@@ -5319,7 +5571,7 @@ def phase_dryrun_finish(run):
     tail = (run["out"] / "sweep.log").read_text()[-3000:]
     require(rc == 0, f"dryrun: the sweep exited {rc}: {tail}")
     results = [json.loads(p.read_text()) for p in sorted(run["out"].glob("*.json"))]
-    want = len(list_configs()) * (len(INPUT_SHAPES) + 1)
+    want = len(mesh_configs()) * (len(INPUT_SHAPES) + 1)
     require(len(results) == want, f"dryrun: {len(results)} results of {want}")
     bad = [(r["arch"], r["shape"], r["error"]) for r in results if r.get("error")]
     require(not bad, f"dryrun: failures {bad}")
@@ -5516,6 +5768,18 @@ KERNEL_META = {
         "replaces": "src/repro/models/attention.py:55",
         "replaces_note": "no Pallas kernel: JAX computes chunked_attention "
                          "in XLA"},
+    "mla_decode_attention": {
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/mla_decode_attention.cu",
+        "replaces": None,
+        "replaces_note": "no Pallas kernel: the JAX package has no latent "
+                         "attention"},
+    MLA_PREFILL: {
+        "route": "cuda", "source": "src/repro_torch/csrc/prefill_attention.cu",
+        "replaces": None,
+        "replaces_note": "prefill_attention's q/k 192, v 128 instance; the "
+                         "JAX package has no latent attention",
+        "launches_of": "prefill_attention", "paths_of": MLA_ARCH},
 }
 
 
@@ -5538,12 +5802,17 @@ def kernels_line(rows, counts_by_path, errs):
     ssm_scan_bwd at falcon-mamba's train chunk; launches summed over every
     main path (and listed per path: each static slice, each continuous mode,
     each train path); max_abs_err the largest main-path error of any
-    path."""
+    path.  mla_decode_attention and prefill_attention's 192/128 instance
+    are timed at moonlight's longdoc cell; an instance's row counts its
+    kernel's launches (``launches_of``) on the paths whose name starts
+    with ``paths_of``."""
     pick = _picked_rows(rows)
     kernels = []
     for kname, meta in KERNEL_META.items():
         row = pick[kname]
-        by_path = {arch: c[kname] for arch, c in counts_by_path.items()}
+        key = meta.get("launches_of", kname)
+        by_path = {arch: c[key] for arch, c in counts_by_path.items()
+                   if arch.startswith(meta.get("paths_of", ""))}
         entry = {"name": kname, **meta, "launches": sum(by_path.values()),
                  "launches_by_path": by_path,
                  "max_abs_err": max(e.get(kname, 0.0) for e in errs),
@@ -5646,6 +5915,9 @@ def main() -> None:
                                   torch, dev, moe_cfg, params, "moe_continuous")
     del params
     _free(torch)
+    # the latent-attention path: moonlight-16b-a3b at full width and depth
+    mla_errs, mla_rows, mla_cont_counts = timed("mla", phase_mla, torch, dev)
+    _free(torch)
     # decode_attention at long caches, no weights held: llama's and moonshot's heads
     long_rows = timed("long_cache_timing", phase_long_cache_timing, torch, dev,
                       groups["auxiliary"] or REQUESTS,
@@ -5745,7 +6017,7 @@ def main() -> None:
 
     # the roofline on the card, the example twins, then the dry run's sweep
     timing_rows = rows + moe_rows + ssm_rows + long_rows + fam_rows + train_rows \
-        + prefill_rows
+        + prefill_rows + mla_rows
     roof_decode, roof_train = timed(
         "roofline", phase_roofline, torch, dev,
         dict(zip(slice_summary["group_names"], slice_summary["n_group"]))
@@ -5760,6 +6032,8 @@ def main() -> None:
     by_path[MOE_ARCH] = moe_counts
     by_path.update({f"{MOE_ARCH} continuous {m}": c
                     for m, c in moe_cont_counts.items()})
+    by_path.update({f"{MLA_ARCH} continuous {m}": c
+                    for m, c in mla_cont_counts.items()})
     by_path[SSM_ARCH] = ssm_counts
     by_path.update({f"{SSM_ARCH} continuous {m}": c
                     for m, c in ssm_cont_counts.items()})
@@ -5778,7 +6052,8 @@ def main() -> None:
     kernels = kernels_line(timing_rows, by_path,
                            [errs, prefill_errs, cont_errs, fleet_static_errs,
                             fleet_errs,
-                            dense_errs, moe_errs, ssm_errs, hyb_errs, fam_errs,
+                            dense_errs, moe_errs, mla_errs, ssm_errs, hyb_errs,
+                            fam_errs,
                             train_errs, mesh_errs])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

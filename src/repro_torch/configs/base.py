@@ -4,7 +4,8 @@ Every architecture gets a module ``repro_torch/configs/<id>.py`` that builds a
 :class:`ModelConfig` with the published numbers and registers it under its
 id.  ``get_config(name)`` / ``list_configs()`` are the public API;
 ``reduced(cfg)`` derives the CPU test variant (<=2 layers, d_model<=512,
-<=4 experts, float32).
+<=4 experts, float32).  :class:`MLAConfig` adds the fields of a
+DeepSeek-V3-style model, which the JAX package has no twin of.
 """
 from __future__ import annotations
 
@@ -36,6 +37,10 @@ class ModelConfig:
     num_shared_experts: int = 0
     moe_capacity_factor: float = 1.25
     router_aux_loss: float = 0.01
+    # the router (``models.moe``): "softmax" is top-k of softmax scores,
+    # each expert's buffer capped by ``moe_capacity_factor``.  A class
+    # attribute, not a field, so the JAX twins' fields stay theirs
+    routing = "softmax"
     # --- SSM (mamba) ---
     ssm_state: int = 0
     ssm_conv: int = 4
@@ -97,6 +102,42 @@ class ModelConfig:
         return count_params_analytic(self, active_only=True)
 
 
+@dataclass(frozen=True)
+class MLAConfig(ModelConfig):
+    """A DeepSeek-V3-style decoder (``model_type`` deepseek_v3): multi-head
+    latent attention over a cache of one latent row a token, the first
+    ``first_k_dense`` layers dense SwiGLU of width ``dense_d_ff``, the rest
+    MoE layers routed by sigmoid scores with a selection-only bias and
+    dropping no token.  The inherited fields keep their meaning:
+    ``num_heads`` query heads, ``d_ff`` a routed expert's width,
+    ``num_shared_experts`` shared experts merged into one SwiGLU of width
+    ``d_ff * num_shared_experts``; ``num_kv_heads`` and ``head_dim`` are
+    unused (``moe_capacity_factor`` too: nothing is dropped).  Its
+    ``routing`` "sigmoid_bias" is DeepSeek-V3's ``noaux_tc`` gate with one
+    group, dropless (``models.moe.moe_apply``)."""
+    kv_lora_rank: int = 0            # latent width r (RMS-normed)
+    qk_nope_head_dim: int = 0        # a head's q/k width without rope
+    qk_rope_head_dim: int = 0        # the rope width, k's shared by heads
+    v_head_dim: int = 0
+    first_k_dense: int = 0           # leading dense layers
+    dense_d_ff: int = 0              # their SwiGLU width
+    routed_scaling: float = 1.0      # the routed weights' factor
+    routing: str = "sigmoid_bias"
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def latent_dim(self) -> int:
+        """A latent cache row: the normed latent, then the rope'd k."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+
+def is_mla(cfg) -> bool:
+    return isinstance(cfg, MLAConfig)
+
+
 # ---------------------------------------------------------------------------
 _REGISTRY: Dict[str, ModelConfig] = {}
 
@@ -116,6 +157,13 @@ def get_config(name: str) -> ModelConfig:
 def list_configs():
     _ensure_loaded()
     return sorted(_REGISTRY)
+
+
+def mesh_configs():
+    """The registered configurations a mesh runs: all but an
+    ``MLAConfig``, which runs on one device.  They are the JAX package's
+    twins, which the dry run and the mesh paths cover."""
+    return [n for n in list_configs() if not is_mla(_REGISTRY[n])]
 
 
 def _ensure_loaded():
@@ -161,4 +209,8 @@ def reduced(cfg: ModelConfig, *, layers: int = 2, d_model: int = 256,
         frontend_dim=d_model if cfg.frontend else 0,
         dtype="float32",
     )
+    if is_mla(cfg):      # the latent path at widths a CPU test can run
+        upd.update(kv_lora_rank=64, qk_nope_head_dim=32, qk_rope_head_dim=16,
+                   v_head_dim=32, head_dim=48, dense_d_ff=d_model * 2,
+                   first_k_dense=min(cfg.first_k_dense, layers - 1))
     return dataclasses.replace(cfg, **upd)

@@ -4,15 +4,17 @@
 // Replaces no Pallas kernel: the JAX package computes this attention in XLA
 // (src/repro/models/attention.py:chunked_attention), and the port's plain
 // version is repro_torch/models/attention.py:chunked_attention, whose
-// function this kernel computes: q [B,Sq,H,dh], k and v [B,Sk,Hkv,dh] with
-// H % Hkv == 0, each query head reading kv head h / (H / Hkv) in place; the
+// function this kernel computes: q [B,Sq,H,dh], k [B,Sk,Hkv,dh] and v
+// [B,Sk,Hkv,dv] (dv = dh, but for multi-head latent attention's prefill:
+// dh 192, dv 128) with H % Hkv == 0, each query head reading kv head h /
+// (H / Hkv) in place; the
 // mask from int64 positions shared by the batch (a key attends only when
 // kv_pos < 2**30, and, causal, q_pos >= kv_pos; with a window, q_pos - kv_pos
 // < window), so padded queries (-1), padded keys (2**30), a prefix resumed
 // from a cache (Sk > Sq) and cross-attention (no causal mask) all come from
 // the positions; scale 1/sqrt(dh); a row with no key attended gives 0 (the
-// denominator is clamped at 1e-20); output rounded once to bf16, or f32 on
-// request for checks.
+// denominator is clamped at 1e-20); output [B,Sq,H,dv] rounded once to
+// bf16, or f32 on request for checks.
 //
 // Precision: the same work as the plain version, in other rounding orders.
 // S = q . K^T takes the bf16 operands with f32 accumulation (each product is
@@ -70,9 +72,11 @@ typedef __nv_bfloat16 bf16;
 
 __host__ __device__ constexpr int pitch_of(int dh) { return dh * 2 + 16; }
 
-// q tile, K ring, V ring, then the visit list (an int a key tile)
-__host__ __device__ inline size_t smem_bytes_of(int dh, int nkt) {
-  return (size_t)(kBM + 2 * kStages * kBN) * pitch_of(dh) + (size_t)nkt * 4;
+// q tile, K ring, V ring (rows dv wide), then the visit list (an int a key
+// tile)
+__host__ __device__ inline size_t smem_bytes_of(int dh, int dv, int nkt) {
+  return (size_t)(kBM + kStages * kBN) * pitch_of(dh) + (size_t)kStages * kBN * pitch_of(dv) +
+         (size_t)nkt * 4;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -133,22 +137,25 @@ __device__ __forceinline__ int warp_max(int x) {
   return x;
 }
 
-// KS = dh / 16; TO = bf16 (the path) or float (checks)
-template <int KS, typename TO>
+// KS = dh / 16, KV = dv / 16; TO = bf16 (the path) or float (checks)
+template <int KS, int KV, typename TO>
 __global__ void __launch_bounds__(kThreads, 2)
 prefill_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const long long* __restrict__ q_pos,
                      const long long* __restrict__ kv_pos, TO* __restrict__ out, int B, int Sq,
                      int Sk, int H, int Hkv, int causal, int window, float scale_log2) {
   constexpr int dh = 16 * KS;
+  constexpr int dv = 16 * KV;
   constexpr int kPitch = pitch_of(dh);
-  constexpr int kNC = dh / 8;  // 16-byte chunks of a row
-  constexpr int kND = dh / 8;  // 8-wide column tiles of the output
+  constexpr int kVPitch = pitch_of(dv);
+  constexpr int kNC = dh / 8;   // 16-byte chunks of a q or K row
+  constexpr int kVNC = dv / 8;  // of a V row
+  constexpr int kND = dv / 8;   // 8-wide column tiles of the output
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* q_s = smem;
   unsigned char* k_s = q_s + kBM * kPitch;
   unsigned char* v_s = k_s + kStages * kBN * kPitch;
-  int* list = reinterpret_cast<int*>(v_s + kStages * kBN * kPitch);
+  int* list = reinterpret_cast<int*>(v_s + kStages * kBN * kVPitch);
   __shared__ int q_lo, q_hi, n_visit;
 
   const int nqt = (Sq + kBM - 1) / kBM;
@@ -162,12 +169,14 @@ prefill_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
-  // rows of q [B,Sq,H,dh] and k, v [B,Sk,Hkv,dh] for this (b, head)
+  // rows of q [B,Sq,H,dh], k [B,Sk,Hkv,dh] and v [B,Sk,Hkv,dv] for this
+  // (b, head)
   const size_t q_stride = (size_t)H * dh;
   const size_t kv_stride = (size_t)Hkv * dh;
+  const size_t v_stride = (size_t)Hkv * dv;
   const bf16* qb = q + ((size_t)b * Sq * H + h) * dh;
   const bf16* kb = k + ((size_t)b * Sk * Hkv + hk) * dh;
-  const bf16* vb = v + ((size_t)b * Sk * Hkv + hk) * dh;
+  const bf16* vb = v + ((size_t)b * Sk * Hkv + hk) * dv;
 
   // the q tile, rows past Sq zero
   for (int c = threadIdx.x; c < kBM * kNC; c += kThreads) {
@@ -244,13 +253,28 @@ prefill_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (i < n) {
       const int k0 = (list[i] & (kPartial - 1)) * kBN;
       unsigned char* ks = k_s + (i % kStages) * kBN * kPitch;
-      unsigned char* vs = v_s + (i % kStages) * kBN * kPitch;
-      for (int c = threadIdx.x; c < kBN * kNC; c += kThreads) {
-        const int r = c / kNC, ch = c - (c / kNC) * kNC;
-        const bool ok = k0 + r < Sk;
-        const size_t off = (ok ? (size_t)(k0 + r) * kv_stride : 0) + ch * 8;
-        cp_async16(ks + r * kPitch + ch * 16, kb + off, ok);
-        cp_async16(vs + r * kPitch + ch * 16, vb + off, ok);
+      unsigned char* vs = v_s + (i % kStages) * kBN * kVPitch;
+      if constexpr (KS == KV) {  // K and V rows alike: one loop
+        for (int c = threadIdx.x; c < kBN * kNC; c += kThreads) {
+          const int r = c / kNC, ch = c - (c / kNC) * kNC;
+          const bool ok = k0 + r < Sk;
+          const size_t off = (ok ? (size_t)(k0 + r) * kv_stride : 0) + ch * 8;
+          cp_async16(ks + r * kPitch + ch * 16, kb + off, ok);
+          cp_async16(vs + r * kPitch + ch * 16, vb + off, ok);
+        }
+      } else {
+        for (int c = threadIdx.x; c < kBN * kNC; c += kThreads) {
+          const int r = c / kNC, ch = c - (c / kNC) * kNC;
+          const bool ok = k0 + r < Sk;
+          cp_async16(ks + r * kPitch + ch * 16,
+                     kb + (ok ? (size_t)(k0 + r) * kv_stride : 0) + ch * 8, ok);
+        }
+        for (int c = threadIdx.x; c < kBN * kVNC; c += kThreads) {
+          const int r = c / kVNC, ch = c - (c / kVNC) * kVNC;
+          const bool ok = k0 + r < Sk;
+          cp_async16(vs + r * kVPitch + ch * 16,
+                     vb + (ok ? (size_t)(k0 + r) * v_stride : 0) + ch * 8, ok);
+        }
       }
     }
     cp_async_commit();
@@ -285,7 +309,7 @@ prefill_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // tile i landed; every warp is done with slot i - 1
     fetch(i + kStages - 1);
     const unsigned char* ks = k_s + (i % kStages) * kBN * kPitch;
-    const unsigned char* vs = v_s + (i % kStages) * kBN * kPitch;
+    const unsigned char* vs = v_s + (i % kStages) * kBN * kVPitch;
     const int entry = list[i];
 
     // S = q . K^T: the warp's 16 rows x 64 keys as eight 8-key tiles
@@ -375,7 +399,7 @@ prefill_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int nd = 0; nd < kND; nd += 2) {
         uint32_t vf[4];  // (keys 0-7 | 8-15) x (dims nd | nd + 1) as B fragments
-        ldmatrix_x4_trans(vf, smem_u32(vs + (kk * 16 + (mi & 1) * 8 + mr) * kPitch +
+        ldmatrix_x4_trans(vf, smem_u32(vs + (kk * 16 + (mi & 1) * 8 + mr) * kVPitch +
                                        (nd + (mi >> 1)) * 16));
         mma_bf16(o[nd], ph, vf[0], vf[1]);
         mma_bf16(o[nd], pl, vf[0], vf[1]);
@@ -391,7 +415,8 @@ prefill_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float d0 = fmaxf(l0, 1e-20f), d1 = fmaxf(l1, 1e-20f);
-  TO* ob = out + ((size_t)b * Sq * H + h) * dh;
+  const size_t o_stride = (size_t)H * dv;
+  TO* ob = out + ((size_t)b * Sq * H + h) * dv;
   if constexpr (sizeof(TO) == 2) {
     // through the warp's own rows of the q tile, then 16-byte stores
     unsigned char* st = q_s + warp * 16 * kPitch;
@@ -403,11 +428,11 @@ prefill_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
           pack_bf16(o[nd][2] / d1, o[nd][3] / d1);
     }
     __syncwarp();
-    for (int c = lane; c < 16 * kNC; c += 32) {
-      const int r = c / kNC, ch = c - (c / kNC) * kNC;
+    for (int c = lane; c < 16 * kVNC; c += 32) {
+      const int r = c / kVNC, ch = c - (c / kVNC) * kVNC;
       const int row = q0 + warp * 16 + r;
       if (row < Sq)
-        *reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(ob + (size_t)row * q_stride) +
+        *reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(ob + (size_t)row * o_stride) +
                                   ch * 16) = *reinterpret_cast<const uint4*>(st + r * kPitch + ch * 16);
     }
   } else {
@@ -415,24 +440,24 @@ prefill_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int nd = 0; nd < kND; ++nd) {
       const int c = nd * 8 + 2 * tq;
       if (row0 < Sq)
-        *reinterpret_cast<float2*>(ob + (size_t)row0 * q_stride + c) =
+        *reinterpret_cast<float2*>(ob + (size_t)row0 * o_stride + c) =
             make_float2(o[nd][0] / d0, o[nd][1] / d0);
       if (row0 + 8 < Sq)
-        *reinterpret_cast<float2*>(ob + (size_t)(row0 + 8) * q_stride + c) =
+        *reinterpret_cast<float2*>(ob + (size_t)(row0 + 8) * o_stride + c) =
             make_float2(o[nd][2] / d1, o[nd][3] / d1);
     }
   }
 }
 
-template <int KS, typename TO>
+template <int KS, int KV, typename TO>
 int run(const void* q, const void* k, const void* v, const void* q_pos, const void* kv_pos,
         void* out, int B, int Sq, int Sk, int H, int Hkv, int causal, int window,
         cudaStream_t stream) {
   constexpr int dh = 16 * KS;
   const int nqt = (Sq + kBM - 1) / kBM;
   const int nkt = (Sk + kBN - 1) / kBN;
-  const size_t smem = smem_bytes_of(dh, nkt);
-  auto kernel = prefill_attention_tc<KS, TO>;
+  const size_t smem = smem_bytes_of(dh, 16 * KV, nkt);
+  auto kernel = prefill_attention_tc<KS, KV, TO>;
   if (smem > 48 * 1024) {  // per call: the attribute is the current device's
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -448,18 +473,23 @@ int run(const void* q, const void* k, const void* v, const void* q_pos, const vo
 
 template <typename TO>
 int launch(const void* q, const void* k, const void* v, const void* qp, const void* kp, void* out,
-           int B, int Sq, int Sk, int H, int Hkv, int dh, int causal, int window,
+           int B, int Sq, int Sk, int H, int Hkv, int dh, int dv, int causal, int window,
            cudaStream_t s) {
-  switch (dh) {
-    case 64:
-      return run<4, TO>(q, k, v, qp, kp, out, B, Sq, Sk, H, Hkv, causal, window, s);
-    case 80:
-      return run<5, TO>(q, k, v, qp, kp, out, B, Sq, Sk, H, Hkv, causal, window, s);
-    case 128:
-      return run<8, TO>(q, k, v, qp, kp, out, B, Sq, Sk, H, Hkv, causal, window, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+  if (dv == dh) {
+    switch (dh) {
+      case 64:
+        return run<4, 4, TO>(q, k, v, qp, kp, out, B, Sq, Sk, H, Hkv, causal, window, s);
+      case 80:
+        return run<5, 5, TO>(q, k, v, qp, kp, out, B, Sq, Sk, H, Hkv, causal, window, s);
+      case 128:
+        return run<8, 8, TO>(q, k, v, qp, kp, out, B, Sq, Sk, H, Hkv, causal, window, s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
   }
+  if (dh == 192 && dv == 128)  // multi-head latent attention's prefill
+    return run<12, 8, TO>(q, k, v, qp, kp, out, B, Sq, Sk, H, Hkv, causal, window, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -467,10 +497,11 @@ int launch(const void* q, const void* k, const void* v, const void* qp, const vo
 // q, k, v bf16; q_pos [Sq] and kv_pos [Sk] int64; out bf16, or f32 when out_f32
 extern "C" int repro_prefill_attention(const void* q, const void* k, const void* v,
                                        const void* q_pos, const void* kv_pos, void* out, int B,
-                                       int Sq, int Sk, int H, int Hkv, int dh, int causal,
+                                       int Sq, int Sk, int H, int Hkv, int dh, int dv, int causal,
                                        int window, int out_f32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_f32)
-    return launch<float>(q, k, v, q_pos, kv_pos, out, B, Sq, Sk, H, Hkv, dh, causal, window, s);
-  return launch<bf16>(q, k, v, q_pos, kv_pos, out, B, Sq, Sk, H, Hkv, dh, causal, window, s);
+    return launch<float>(q, k, v, q_pos, kv_pos, out, B, Sq, Sk, H, Hkv, dh, dv, causal, window,
+                         s);
+  return launch<bf16>(q, k, v, q_pos, kv_pos, out, B, Sq, Sk, H, Hkv, dh, dv, causal, window, s);
 }

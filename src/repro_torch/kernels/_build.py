@@ -46,9 +46,13 @@ SIGNATURES = {
     # decay, h_all, h0, G (or NULL), g (or NULL), d_decay, d_bx, d_h0, B, S,
     # channels, stream
     "repro_ssm_scan_bwd": ([_P] * 8 + [_I] * 3 + [_P], _I),
-    # q, k, v, q_pos, kv_pos, out, B, Sq, Sk, H, Hkv, dh, causal, window,
+    # q, k, v, q_pos, kv_pos, out, B, Sq, Sk, H, Hkv, dh, dv, causal, window,
     # out_f32, stream
-    "repro_prefill_attention": ([_P] * 6 + [_I] * 9 + [_P], _I),
+    "repro_prefill_attention": ([_P] * 6 + [_I] * 10 + [_P], _I),
+    # q, latent, cache_len, out, part (or NULL), tickets (or NULL), B, H, S,
+    # splits, rows_per_split, scale, stream
+    "repro_mla_decode_attention": ([_P] * 6 + [_I] * 5 + [ctypes.c_float, _P],
+                                   _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

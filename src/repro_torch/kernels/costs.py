@@ -65,20 +65,36 @@ def decode_attention(B: int, H: int, Hkv: int, dh: int, rows: int,
 
 
 def prefill_attention(B: int, Sq: int, Sk: int, H: int, Hkv: int, dh: int,
-                      causal: bool, window: int, esize: int = 2) -> Cost:
+                      causal: bool, window: int, esize: int = 2,
+                      dv: Optional[int] = None) -> Cost:
     """One GQA prefill-attention call with a prefill's positions (query i
     at ``Sk - Sq + i``, key j at j: a prompt, or its tail resumed after
-    ``Sk - Sq`` cached rows): q . k and p . v over the query-key pairs the
-    mask leaves (causal: keys at or before the query; with a window, less
-    than ``window`` before it), 2 flops a multiply-add, P . V counted once;
-    q, k and v read and the output written once."""
+    ``Sk - Sq`` cached rows): q . k (width ``dh``) and p . v (width ``dv``,
+    ``dh`` unless given: MLA's prefill) over the query-key pairs the mask
+    leaves (causal: keys at or before the query; with a window, less than
+    ``window`` before it), 2 flops a multiply-add, P . V counted once; q, k
+    and v read and the output written once."""
+    dv = dh if dv is None else dv
     pairs = 0
     for p in range(Sk - Sq, Sk):
         hi = min(p, Sk - 1) if causal else Sk - 1
         lo = max(p - window + 1, 0) if window else 0
         pairs += max(hi - lo + 1, 0)
-    n_bytes = esize * (2 * B * Sq * H * dh + 2 * B * Sk * Hkv * dh)
-    return _cost(4 * B * H * dh * pairs, n_bytes)
+    n_bytes = esize * (B * Sq * H * (dh + dv) + B * Sk * Hkv * (dh + dv))
+    return _cost(2 * B * H * (dh + dv) * pairs, n_bytes)
+
+
+def mla_decode_attention(B: int, H: int, width: int, v_dim: int, rows: int,
+                         esize: int = 2) -> Cost:
+    """One MLA decode call over ``rows`` latent rows in all, summed over
+    the ``B`` slots (each slot's rows below its length): each row read
+    once, whole (it is the key, its first ``v_dim`` values the value), the
+    absorbed q [B,H,width] read and the output [B,H,v_dim] written, the
+    int32 lengths read; q . row and p . v, 2 flops a multiply-add."""
+    n_bytes = (rows * width * esize
+               + B * H * (width + v_dim) * esize
+               + 4 * B)
+    return _cost(2 * H * rows * (width + v_dim), n_bytes)
 
 
 def masked_compact(B: int, S: int, D: int, K: int, esize: int,

@@ -33,6 +33,8 @@ from repro_torch.kernels.autograd import GroupedFFN, SSMScan
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.grouped_ffn import check_counts, grouped_ffn_cuda
 from repro_torch.kernels.masked_compact import masked_compact_cuda
+from repro_torch.kernels.mla_decode_attention import (
+    mla_decode_attention_cuda, refusal as mla_refusal)
 from repro_torch.kernels.prefill_attention import prefill_attention_cuda
 from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda, ssm_scan_cuda
 
@@ -41,7 +43,8 @@ _WRAPPERS = {"decode_attention": decode_attention_cuda,
              "grouped_ffn": grouped_ffn_cuda,
              "ssm_scan": ssm_scan_cuda,
              "ssm_scan_bwd": ssm_scan_bwd_cuda,
-             "prefill_attention": prefill_attention_cuda}
+             "prefill_attention": prefill_attention_cuda,
+             "mla_decode_attention": mla_decode_attention_cuda}
 
 
 def resolve_use_kernels(use_kernels: Union[bool, str],
@@ -110,19 +113,42 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
 
 def prefill_attention(q, k, v, *, causal: bool, window: int, q_positions,
                       kv_positions):
-    """The prefill-attention kernel on q [B,Sq,H,dh], k and v [B,Sk,Hkv,dh]
-    (``chunked_attention``'s arguments), for a call the kernel takes (no
-    ``prefill_attention.refusal``: the caller routes everything else to
-    ``models/attention.py:chunked_attention``, its plain version)."""
+    """The prefill-attention kernel on q [B,Sq,H,dh], k [B,Sk,Hkv,dh] and v
+    [B,Sk,Hkv,dv] (``chunked_attention``'s arguments), for a call the
+    kernel takes (no ``prefill_attention.refusal``: the caller routes
+    everything else to ``models/attention.py:chunked_attention``, its plain
+    version)."""
     B, Sq, H, dh = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     return costs.counted(
         "prefill_attention",
         lambda: prefill_attention_cuda(q, k, v, causal=causal, window=window,
                                        q_positions=q_positions,
                                        kv_positions=kv_positions),
         lambda _: costs.prefill_attention(B, Sq, Sk, H, Hkv, dh, causal,
-                                          window, q.element_size()))
+                                          window, q.element_size(), dv))
+
+
+def mla_decode_attention(q, latent, cache_len, *, scale: float, v_dim: int,
+                         use_kernels: bool = True):
+    """q: [B,H,W] (an MLA decode's absorbed query); latent: [B,S,W];
+    cache_len: [B] or scalar -> [B,H,v_dim]: each slot's valid rows as
+    keys, their first ``v_dim`` values as values, at ``scale``.  The
+    kernel where it takes the call (no ``mla_decode_attention.refusal``),
+    else the plain version; ``use_kernels=False`` takes the plain version
+    on any device."""
+    if not use_kernels or mla_refusal(q, latent, v_dim) is not None:
+        return ref.mla_decode_attention_ref(q, latent, cache_len, scale=scale,
+                                            v_dim=v_dim)
+    B, H, W = q.shape
+    return costs.counted(
+        "mla_decode_attention",
+        lambda: mla_decode_attention_cuda(q.contiguous(), latent, cache_len,
+                                          scale=scale),
+        lambda _: costs.mla_decode_attention(
+            B, H, W, v_dim, attended_rows(cache_len, None, 0, B,
+                                          latent.shape[1], q.device),
+            latent.element_size()))
 
 
 def masked_compact(tokens, mask, capacity: int, *, use_kernels: bool = True):

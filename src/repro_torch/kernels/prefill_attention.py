@@ -21,7 +21,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (64, 80, 128)   # head widths the kernel takes (16 k-steps each)
+HEAD_DIMS = (64, 80, 128)   # head widths the kernel takes (q, k and v alike)
+MLA_DIMS = (192, 128)       # and q/k 192 with v 128: MLA's expanded prefill
 BLOCK_Q = 64                # kBM in the CUDA source: query rows a block
 BLOCK_K = 64                # kBN: keys a tile
 STAGES = 2                  # kStages: K/V ring slots
@@ -34,31 +35,41 @@ OFF_CARD = "not on one CUDA device"
 
 def refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Optional[str]:
     """Why the kernel does not take a call's tensors, or None where it
-    does: bf16 all, a head width in :data:`HEAD_DIMS`, no gradient wanted,
-    a key range that fits a block's shared memory, all on one CUDA device
-    (:data:`OFF_CARD`, asked last).  Every call refused (training's forward,
-    the meta device's dry run, the CPU, f32) keeps the plain version."""
+    does: bf16 all, head widths it holds (:func:`takes_widths`), no
+    gradient wanted, a key range that fits a block's shared memory, all on
+    one CUDA device (:data:`OFF_CARD`, asked last).  Every call refused
+    (training's forward, the meta device's dry run, the CPU, f32) keeps the
+    plain version."""
     if q.requires_grad or k.requires_grad or v.requires_grad:
         return "a gradient is wanted"
     if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
         return f"dtypes {q.dtype}, {k.dtype}, {v.dtype}, not bfloat16"
-    if q.shape[-1] not in HEAD_DIMS:
-        return f"head_dim {q.shape[-1]} not in {HEAD_DIMS}"
+    if not takes_widths(q.shape[-1], v.shape[-1]):
+        return (f"head_dim {q.shape[-1]} (v {v.shape[-1]}) not in "
+                f"{HEAD_DIMS} alike or {MLA_DIMS}")
     if q.numel() == 0 or k.numel() == 0:
         return "no query or no key"
-    if smem_bytes(q.shape[-1], k.shape[1]) > SMEM_LIMIT:
+    if smem_bytes(q.shape[-1], k.shape[1], v.shape[-1]) > SMEM_LIMIT:
         return f"{k.shape[1]} keys overflow a block's shared memory"
     if not (q.is_cuda and k.device == q.device == v.device):
         return OFF_CARD
     return None
 
 
-def smem_bytes(dh: int, Sk: int) -> int:
+def takes_widths(dh: int, dv: int) -> bool:
+    """Whether the kernel has an instance for q/k width ``dh`` and v width
+    ``dv``."""
+    return (dh == dv and dh in HEAD_DIMS) or (dh, dv) == MLA_DIMS
+
+
+def smem_bytes(dh: int, Sk: int, dv: int = None) -> int:
     """Dynamic shared memory of one block (``smem_bytes_of`` in the CUDA
-    source): the q tile and the K and V rings, rows padded by 16 bytes off
+    source): the q tile and the K ring of ``dh``-wide rows and the V ring
+    of ``dv``-wide ones (``dh`` unless given), rows padded by 16 bytes off
     bank conflicts, then the visit list, an int a key tile."""
-    return (BLOCK_Q + 2 * STAGES * BLOCK_K) * (2 * dh + 16) \
-        + 4 * -(-Sk // BLOCK_K)
+    dv = dh if dv is None else dv
+    return (BLOCK_Q + STAGES * BLOCK_K) * (2 * dh + 16) \
+        + STAGES * BLOCK_K * (2 * dv + 16) + 4 * -(-Sk // BLOCK_K)
 
 
 def launch_order(Sq: int) -> List[int]:
@@ -103,10 +114,11 @@ def key_tiles(q_positions, kv_positions, causal: bool,
 def prefill_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, causal: bool, window: int, q_positions,
                            kv_positions, out_dtype=None) -> torch.Tensor:
-    """q: [B,Sq,H,dh]; k, v: [B,Sk,Hkv,dh] (bf16, on one CUDA device, H a
-    multiple of Hkv, dh in :data:`HEAD_DIMS`); q_positions [Sq] and
-    kv_positions [Sk] integer tensors on that device (padded queries -1,
-    padded keys 2**30).  Returns [B,Sq,H,dh] in bf16, or in ``out_dtype``
+    """q: [B,Sq,H,dh]; k: [B,Sk,Hkv,dh]; v: [B,Sk,Hkv,dv] (bf16, on one
+    CUDA device, H a multiple of Hkv, widths :func:`takes_widths` holds);
+    q_positions [Sq] and kv_positions [Sk] integer tensors on that device
+    (padded queries -1, padded keys 2**30).  Returns [B,Sq,H,dv] in bf16,
+    or in ``out_dtype``
     float32 (the f32 result before its one rounding, for checks).  Launches
     on the current stream without a host sync and counts the launch in
     ``prefill_attention_cuda.launches``."""
@@ -122,12 +134,14 @@ def prefill_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"({tuple(t.shape)})")
     B, Sq, H, dh = q.shape
     Bk, Sk, Hkv, dhk = k.shape
-    if v.shape != k.shape or Bk != B or dhk != dh or Hkv == 0 or H % Hkv:
+    dv = v.shape[-1]
+    if v.shape[:-1] != k.shape[:-1] or Bk != B or dhk != dh or Hkv == 0 \
+            or H % Hkv:
         raise ValueError(f"prefill_attention_cuda: q {tuple(q.shape)} does not "
                          f"match k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"prefill_attention_cuda: head_dim {dh} unsupported "
-                         f"(takes {HEAD_DIMS})")
+    if not takes_widths(dh, dv):
+        raise ValueError(f"prefill_attention_cuda: head_dim {dh} (v {dv}) "
+                         f"unsupported (takes {HEAD_DIMS} alike or {MLA_DIMS})")
     if B == 0 or Sq == 0 or Sk == 0:
         raise ValueError(f"prefill_attention_cuda: empty call (B={B}, Sq={Sq}, "
                          f"Sk={Sk})")
@@ -135,7 +149,7 @@ def prefill_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("prefill_attention_cuda: tensors on different devices")
     if window < 0:
         raise ValueError(f"prefill_attention_cuda: window {window} < 0")
-    need = smem_bytes(dh, Sk)
+    need = smem_bytes(dh, Sk, dv)
     if need > SMEM_LIMIT:
         raise ValueError(f"prefill_attention_cuda: Sk={Sk} needs {need} bytes "
                          "of shared memory")
@@ -155,13 +169,13 @@ def prefill_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.data_ptr() % 16:
             raise ValueError(f"prefill_attention_cuda: {name} is not 16-byte "
                              "aligned")
-    out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
+    out = torch.empty((B, Sq, H, dv), dtype=out_dtype, device=q.device)
     lib = _build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_prefill_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pos[0].data_ptr(),
-            pos[1].data_ptr(), out.data_ptr(), B, Sq, Sk, H, Hkv, dh,
+            pos[1].data_ptr(), out.data_ptr(), B, Sq, Sk, H, Hkv, dh, dv,
             int(bool(causal)), int(window), int(out_dtype == torch.float32),
             stream)
     _build.check(err, "prefill_attention")

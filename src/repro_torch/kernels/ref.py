@@ -93,6 +93,32 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# mla_decode_attention: the absorbed query over a latent cache
+# ---------------------------------------------------------------------------
+def mla_decode_attention_ref(q: torch.Tensor, latent: torch.Tensor, cache_len,
+                             *, scale: float, v_dim: int) -> torch.Tensor:
+    """q: [B,H,W] (an MLA decode's absorbed query); latent: [B,S,W];
+    cache_len: [B] or scalar int number of valid rows.  Each head attends
+    its slot's valid rows with keys the whole rows and values their first
+    ``v_dim`` values, at ``scale``, in f32.  Returns [B,H,v_dim] in the
+    latent's dtype; an empty slot gives 0."""
+    B, H, _ = q.shape
+    S = latent.shape[1]
+    cl = torch.as_tensor(cache_len, device=q.device).to(torch.int32)
+    cl = cl.reshape(-1).expand(B)
+    rows = latent.float()
+    s = torch.einsum("bhw,bsw->bhs", q.float(), rows) * scale
+    valid = (torch.arange(S, device=q.device)[None] < cl[:, None])[:, None]
+    s = s.masked_fill(~valid, -math.inf)
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
+    out = torch.einsum("bhs,bsd->bhd", p, rows[..., :v_dim])
+    out = out / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-20)
+    return out.to(latent.dtype)
+
+
+# ---------------------------------------------------------------------------
 # grouped_ffn: per-expert SwiGLU FFN over the MoE capacity buffer
 # ---------------------------------------------------------------------------
 def grouped_ffn_ref(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,

@@ -41,7 +41,8 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, get_config, list_configs
+from repro_torch.configs.base import (ModelConfig, get_config, list_configs,
+                                     mesh_configs)
 from repro_torch.configs.shapes import (INPUT_SHAPES, InputShape, applicable,
                                         get_shape)
 from repro_torch.core.profiler import H100_HBM_BYTES
@@ -208,7 +209,7 @@ def fits(res: Dict[str, Any]) -> bool:
 # ---------------------------------------------------------------------------
 def combos(all_: bool, arch=None, shape=None, multi_pod: bool = False):
     if all_:
-        return [(a, s, multi_pod) for a in list_configs()
+        return [(a, s, multi_pod) for a in mesh_configs()
                 for s in sorted(INPUT_SHAPES)]
     if not (arch and shape):
         raise SystemExit("--arch/--shape or --all required")

@@ -15,6 +15,15 @@ decoder's cross cache over the encoder's rows, and the int8 cache, whose
 rows are dequantized to f32 and attended with an f32 query.  A prefill can
 resume from cached post-RoPE prefix K/V.
 
+Multi-head latent attention (:func:`mla_apply`, an ``MLAConfig``'s layers)
+caches one row a token, the RMS-normed latent and the rope'd key part
+shared by the heads.  Its prefill expands the latent into per-head keys
+and values and attends as above (the kernel's qk 192 / v 128 instance);
+its decode absorbs the key expansion into the query and attends the
+latent rows themselves through the ``mla_decode_attention`` kernel (or
+its plain version), then expands the latent output through the value
+half.  It runs on one device: no mesh, prefix resume or int8 cache.
+
 On a mesh (``shard``, a :class:`~repro_torch.models.sharding.RankShard`)
 the projections are cut over "model" as ``launch.mesh.param_spec`` places
 them (``shard.cuts(cfg).attn``, one of ``launch.mesh.ATTN_CUTS``):
@@ -185,14 +194,14 @@ def _all_heads(q, mesh):
 def _query_chunk(qc, qpos, k, v, kv_positions, once: bool, kv_chunk: int,
                  causal: bool, window: int):
     """One query chunk's online softmax over every key chunk: qc [B,Cq,H,dh]
-    f32 at ``qpos`` [Cq] -> [B,Cq,H,dh] f32.  ``once``: two key chunks run
-    and count for all (``costs.trips``)."""
+    f32 at ``qpos`` [Cq] -> [B,Cq,H,dv] f32 (dv: v's width).  ``once``: two
+    key chunks run and count for all (``costs.trips``)."""
     B, Cq, H, dh = qc.shape
     nk = k.shape[1] // kv_chunk
     scale = 1.0 / math.sqrt(dh)
     m = torch.full((B, H, Cq), -math.inf, device=qc.device)
     l = torch.zeros((B, H, Cq), device=qc.device)
-    acc = torch.zeros((B, H, Cq, dh), device=qc.device)
+    acc = torch.zeros((B, H, Cq, v.shape[-1]), device=qc.device)
     for ki in costs.trips(nk, once):
         sl = slice(ki * kv_chunk, (ki + 1) * kv_chunk)
         kc, vc, kpos = k[:, sl].float(), v[:, sl].float(), kv_positions[sl]
@@ -220,9 +229,10 @@ def chunked_attention(q, k, v, *, causal: bool, window: int,
                       q_chunk: int = 512, kv_chunk: int = 1024):
     """Online-softmax attention.
 
-    q: [B,Sq,H,dh]; k,v: [B,Sk,Hkv,dh]; positions give global indices used
+    q: [B,Sq,H,dh]; k: [B,Sk,Hkv,dh]; v: [B,Sk,Hkv,dv] (dv = dh but for
+    MLA's prefill); scale 1/sqrt(dh); positions give global indices used
     for the causal / sliding-window mask (padded queries carry -1, padded
-    keys 2**30).  Returns [B,Sq,H,dh] in v's dtype.
+    keys 2**30).  Returns [B,Sq,H,dv] in v's dtype.
 
     Every (query chunk, key chunk) pair has the same shapes, so on the meta
     device with no gradient recorded (the dry run's prefill) two chunks of
@@ -248,7 +258,7 @@ def chunked_attention(q, k, v, *, causal: bool, window: int,
     nq, nk = q.shape[1] // q_chunk, k.shape[1] // kv_chunk
     once = costs.once(q, k, v)
     outs = [t.permute(0, 2, 1, 3) for t in costs.stand_ins(
-        nq - costs.ran(nq, once), (B, H, q_chunk, dh), torch.float32,
+        nq - costs.ran(nq, once), (B, H, q_chunk, v.shape[-1]), torch.float32,
         q.device)]
     for qi in costs.trips(nq, once):
         rows = slice(qi * q_chunk, (qi + 1) * q_chunk)
@@ -451,3 +461,104 @@ def attn_apply(params, x, cfg, *, positions, mode: str, causal: bool = True,
     out = attend(q, k_cache, v_cache, cache_index + 1, cfg.sliding_window,
                  shard)
     return project(out), {"k": k_cache, "v": v_cache}
+
+
+# ---------------------------------------------------------------------------
+# Multi-head latent attention (DeepSeek-V3; configs.base.MLAConfig)
+# ---------------------------------------------------------------------------
+LATENT_NORM_EPS = 1e-6   # kv_a_layernorm's eps in the modeling code
+
+
+def mla_init(gen: torch.Generator, cfg, dtype, device, n_layers: int) -> dict:
+    """L-stacked MLA weights: ``wq`` [L,D,H,dn+dr] (each head's q without
+    rope, then its rope part), ``wkv_a`` [L,D,r+dr] (the latent, then the
+    rope key shared by the heads), the latent's RMSNorm ``kv_norm``,
+    ``wkv_b`` [L,r,H,dn+dv] (each head's key without rope, then its value)
+    and ``wo`` [L,H,dv,D]."""
+    d, h, L = cfg.d_model, cfg.num_heads, n_layers
+    r, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_head_dim,
+                     cfg.qk_rope_head_dim, cfg.v_head_dim)
+
+    def normal(shape, scale):
+        return normal_stack(gen, shape, scale, dtype, device)
+
+    s = 1.0 / math.sqrt(d)
+    return {"wq": normal((L, d, h, dn + dr), s),
+            "wkv_a": normal((L, d, r + dr), s),
+            "kv_norm": {"scale": torch.ones((L, r), device=device)},
+            "wkv_b": normal((L, r, h, dn + dv), 1.0 / math.sqrt(r)),
+            "wo": normal((L, h, dv, d), 1.0 / math.sqrt(h * dv))}
+
+
+def _mla_rows(params, x, cfg, positions):
+    """x [B,S,D] -> (q_nope [B,S,H,dn], q_pe [B,S,H,dr] rope'd, the latent
+    cache rows [B,S,r+dr]: the RMS-normed latent, then the rope'd key
+    part)."""
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q_nope, q_pe = _proj(x, params["wq"]).split([dn, dr], dim=-1)
+    c, k_pe = (x @ params["wkv_a"]).split([cfg.kv_lora_rank, dr], dim=-1)
+    c = norm_apply(params["kv_norm"], c, _RMS, eps=LATENT_NORM_EPS)
+    k_pe = apply_rope(k_pe.unsqueeze(-2), positions, cfg.rope_theta)
+    return (q_nope, apply_rope(q_pe, positions, cfg.rope_theta),
+            torch.cat([c, k_pe.squeeze(-2)], dim=-1))
+
+
+def mla_prefill_attend(q, k, v, positions, *, use_kernels: bool):
+    """Causal attention of a whole prompt with the latent expanded: q, k
+    [B,S,H,dn+dr], v [B,S,H,dv] (contiguous) -> [B,S,H,dv]; the
+    prefill_attention kernel where it takes the call, else
+    :func:`chunked_attention`."""
+    with tracing.span("attention.mla_prefill"):
+        kw = dict(causal=True, window=0, q_positions=positions,
+                  kv_positions=positions)
+        if use_kernels and prefill_kernel.refusal(q, k, v) is None:
+            return ops.prefill_attention(q, k, v, **kw)
+        return chunked_attention(q, k, v, **kw)
+
+
+def mla_decode_attend(q, latent, cache_len, *, scale: float, v_dim: int,
+                      use_kernels: bool):
+    """``ops.mla_decode_attention``: q [B,H,r+dr] (the absorbed query)
+    over each slot's first ``cache_len`` latent rows [B,S,r+dr] ->
+    [B,H,v_dim], V a row's first ``v_dim`` = r values."""
+    with tracing.span("attention.mla_decode"):
+        return ops.mla_decode_attention(q, latent, cache_len, scale=scale,
+                                        v_dim=v_dim, use_kernels=use_kernels)
+
+
+def mla_apply(params, x, cfg, *, positions, mode: str, cache=None,
+              cache_index=None, use_kernels: bool = False):
+    """mode "full":   causal self-attention over x [B,S,D] (prefill and
+                   training); returns (out, {"latent": rows [B,S,r+dr]}).
+    mode "decode": x is [B,1,D]; ``cache`` = {"latent": [B,S,r+dr]}, its
+                   row at ``cache_index`` (scalar or [B]) written in place;
+                   returns (out, cache).
+    Scale 1/sqrt(dn + dr) in both."""
+    H, dn, r = cfg.num_heads, cfg.qk_nope_head_dim, cfg.kv_lora_rank
+    q_nope, q_pe, rows = _mla_rows(params, x, cfg, positions)
+    if mode == "full":
+        B, S = x.shape[:2]
+        c, k_pe = rows.split([r, cfg.qk_rope_head_dim], dim=-1)
+        k_nope, v = (c @ params["wkv_b"].reshape(r, -1)).unflatten(
+            -1, (H, -1)).split([dn, cfg.v_head_dim], dim=-1)
+        q = torch.cat([q_nope, q_pe], dim=-1)
+        k = torch.cat([k_nope, k_pe.unsqueeze(2).expand(B, S, H, -1)], dim=-1)
+        out = mla_prefill_attend(q, k, v.contiguous(), positions,
+                                 use_kernels=use_kernels)
+        return _out_proj(out, params["wo"]), {"latent": rows}
+    if mode != "decode":
+        raise ValueError(f"unknown attention mode {mode!r}")
+    latent = cache_update(cache["latent"].unsqueeze(2), rows.unsqueeze(2),
+                          cache_index).squeeze(2)
+    wk, wv = params["wkv_b"].split([dn, cfg.v_head_dim], dim=-1)
+    # the key expansion absorbed into the query: q_nope . (c W_k) = (q_nope
+    # W_k^T) . c, per head [B,dn] @ [dn,r]
+    q_lat = torch.matmul(q_nope[:, 0].transpose(0, 1), wk.permute(1, 2, 0))
+    q = torch.cat([q_lat.transpose(0, 1), q_pe[:, 0]], dim=-1)
+    o_lat = mla_decode_attend(q, latent, cache_index + 1,
+                              scale=1.0 / math.sqrt(cfg.qk_head_dim),
+                              v_dim=r, use_kernels=use_kernels)
+    # the value expansion after the attention: per head [B,r] @ [r,dv]
+    out = torch.matmul(o_lat.transpose(0, 1), wv.permute(1, 0, 2))
+    return _out_proj(out.transpose(0, 1).unsqueeze(1), params["wo"]), \
+        {"latent": latent}

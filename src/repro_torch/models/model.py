@@ -60,6 +60,7 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.configs.base import is_mla
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed import collectives as coll
 from repro_torch.models import sharding
@@ -82,6 +83,8 @@ class ModelOutputs:
 
 
 def _kind(cfg) -> str:
+    if is_mla(cfg):
+        return "mla"
     if cfg.family in ("ssm", "hybrid"):
         return cfg.family
     if cfg.family == "moe" or cfg.num_experts:
@@ -113,6 +116,13 @@ def init_params(cfg, seed: int = 0, *, device: DeviceLike = None) -> Dict[str, A
         params["blocks"] = {
             "backbone": tfm.init_stack(gen, cfg, dtype, dev, "ssm", cfg.num_layers),
             "shared": tfm.layer_slice(shared, 0)}
+    elif kind == "mla":     # the leading dense layers, then the MoE layers
+        k = cfg.first_k_dense
+        params["blocks"] = {
+            name: tfm.init_stack(gen, cfg, dtype, dev, block, n)
+            for name, block, n in (("dense", "mla_dense", k),
+                                   ("moe", "mla_moe", cfg.num_layers - k))
+            if n}
     else:
         params["blocks"] = tfm.init_stack(gen, cfg, dtype, dev, kind,
                                           cfg.num_layers)
@@ -139,7 +149,9 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=None, *, device) -> Any:
     {"backbone": that tuple, "shared": {"self": kv of nb layers}} (hybrid);
     the audio decoder adds {"cross": kv of F = frontend_tokens rows}.  With
     ``kv_quant="int8"`` every self K/V is int8 beside f32 ``k_scale`` /
-    ``v_scale`` [L,B,S,Hkv,1]; the cross cache is never quantized.
+    ``v_scale`` [L,B,S,Hkv,1]; the cross cache is never quantized.  An
+    ``MLAConfig`` caches one latent row a token: {"self": {"latent":
+    [L,B,S,r+dr]}}, no head axis (one device, never quantized).
 
     Under an active mesh only this rank's block is allocated: its batch
     rows, its kv heads (when they divide "model") and its sequence rows,
@@ -148,6 +160,10 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=None, *, device) -> Any:
     kind = _kind(cfg)
     dtype = dtype or cfg.torch_dtype
     L = cfg.num_layers
+    if kind == "mla":
+        _mla_one_device(cfg)
+        return {"self": {"latent": torch.zeros(
+            (L, batch, seq_len, cfg.latent_dim), dtype=dtype, device=device)}}
     hkv = cfg.num_kv_heads
     m = 1
     mesh = sharding.active_mesh()
@@ -193,9 +209,23 @@ def cache_shard(cfg, batch: int, seq_len: int):
     mesh = sharding.active_mesh()
     if mesh is None:
         return None
+    _mla_one_device(cfg)
     if _kind(cfg) == "ssm":
         return sharding.rank_shard(mesh, batch)
     return sharding.rank_shard(mesh, batch, Hkv=cfg.num_kv_heads, S=seq_len)
+
+
+def _mla_one_device(cfg) -> None:
+    """Refuse what latent attention does not support: a mesh, an int8
+    cache."""
+    if not is_mla(cfg):
+        return
+    if sharding.active_mesh() is not None:
+        raise ValueError(f"{cfg.name}: multi-head latent attention runs on "
+                         "one device; meshes are not supported")
+    if cfg.kv_quant:
+        raise ValueError(f"{cfg.name}: the latent cache is not quantized "
+                         f"(kv_quant={cfg.kv_quant!r})")
 
 
 def frontend_offset(cfg) -> int:
@@ -280,10 +310,12 @@ def _embed(params, cfg, tokens, shard):
 
 
 def _stack(kind: str):
-    """The stack function for ``kind``: the hybrid stack, or
+    """The stack function for ``kind``: the hybrid or MLA stack, or
     ``stack_apply`` with the block kind bound."""
     if kind == "hybrid":
         return tfm.hybrid_apply
+    if kind == "mla":
+        return tfm.mla_stack_apply
     return functools.partial(tfm.stack_apply, kind=kind)
 
 
@@ -300,6 +332,7 @@ def forward(params, cfg, batch, *, mode: str = "prefill", remat: bool = False,
     rows ``batch`` holds (required on a mesh), with ``fsdp`` the params'
     FSDP dims when they are FSDP-cut."""
     kind = _kind(cfg)
+    _mla_one_device(cfg)
     mesh = sharding.active_mesh()
     if mode == "train":
         on_mesh = {}
@@ -458,6 +491,8 @@ class _BlockTerms(torch.autograd.Function):
 def count_params_analytic(cfg, active_only: bool = False) -> int:
     """Parameter count from the config alone (the JAX package's formula);
     ``active_only`` counts the routed experts a token uses."""
+    if is_mla(cfg):
+        return _count_mla(cfg, active_only)
     d, f, dh = cfg.d_model, cfg.d_ff, cfg.head_dim
     h, hkv = cfg.num_heads, cfg.num_kv_heads
     attn_p = d * h * dh * 2 + d * hkv * dh * 2 if h else 0
@@ -493,4 +528,21 @@ def count_params_analytic(cfg, active_only: bool = False) -> int:
     total += cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
     if cfg.frontend:
         total += (cfg.frontend_dim or d) * d
+    return int(total)
+
+
+def _count_mla(cfg, active_only: bool) -> int:
+    """An ``MLAConfig``'s parameters, as ``init_params`` lays them out."""
+    d, h, r = cfg.d_model, cfg.num_heads, cfg.kv_lora_rank
+    dr, dv = cfg.qk_rope_head_dim, cfg.v_head_dim
+    attn = (d * h * cfg.qk_head_dim + d * (r + dr) + r
+            + r * h * (cfg.qk_nope_head_dim + dv) + h * dv * d)
+    norms = 2 * d
+    experts = cfg.experts_per_token if active_only else cfg.num_experts
+    moe = (d * cfg.num_experts + cfg.num_experts              # router, bias
+           + 3 * d * cfg.d_ff * (experts + cfg.num_shared_experts))
+    k = cfg.first_k_dense
+    total = (k * (attn + norms + 3 * d * cfg.dense_d_ff)
+             + (cfg.num_layers - k) * (attn + norms + moe))
+    total += cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2) + d
     return int(total)

@@ -28,6 +28,18 @@ output is ``reduce_partial``, so autograd sums their gradients over
 
 Returns the layer output plus the router aux (load-balance) loss term of
 Shazeer et al. / Switch.
+
+A config whose ``routing`` is "sigmoid_bias" (DeepSeek-V3's ``noaux_tc``
+gate with one group: an ``MLAConfig``) routes by :func:`route_biased`:
+sigmoid scores, the choice made on score + a per-expert bias, the weights
+the unbiased scores of the choices, normalised and scaled by
+``routed_scaling``, and no token dropped.  The same dispatch runs over the
+tokens in chunks of at most ``DROPLESS_TOKENS``, each expert's buffer
+holding all of a chunk's tokens (an expert takes a token at most once), so
+the buffers are sized from the shapes alone, with no host sync, and a
+7,168-token prefill's scratch stays that of 2,048 tokens; ``counts``
+tells ``grouped_ffn`` the rows in use.  No aux loss (the gate has none).
+One device only.
 """
 from __future__ import annotations
 
@@ -35,6 +47,7 @@ import math
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.distributed import collectives as coll
 from repro_torch.kernels import ops
 from repro_torch.models.layers import mlp_apply, normal_stack
@@ -47,6 +60,8 @@ def moe_init(gen: torch.Generator, cfg, dtype, device, n_layers: int) -> dict:
     d, f, e, L = cfg.d_model, cfg.d_ff, cfg.num_experts, n_layers
     s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
     p = {"router": normal_stack(gen, (L, d, e), s_in, torch.float32, device),
+         **({"router_bias": torch.zeros((L, e), device=device)}
+            if cfg.routing == "sigmoid_bias" else {}),
          "w_gate": normal_stack(gen, (L, e, d, f), s_in, dtype, device),
          "w_up": normal_stack(gen, (L, e, d, f), s_in, dtype, device),
          "w_down": normal_stack(gen, (L, e, f, d), s_out, dtype, device)}
@@ -58,6 +73,12 @@ def moe_init(gen: torch.Generator, cfg, dtype, device, n_layers: int) -> dict:
             "w_down": normal_stack(gen, (L, fs, d), 1.0 / math.sqrt(fs), dtype,
                                    device)}
     return p
+
+
+# a dropless layer's tokens a dispatch: its buffers [E, 2048, D] (537 MB in
+# bf16 at D 2048, E 64), the output alike and the 4-byte workspace
+# [E, 2048, F] (738 MB at F 1408)
+DROPLESS_TOKENS = 2048
 
 
 def _capacity(tokens: int, cfg) -> int:
@@ -110,6 +131,10 @@ def moe_apply(params, x: torch.Tensor, cfg, *, use_kernels: bool = False,
     (``shard``) x is this rank's batch rows and the experts are this rank's
     slice (``launch.mesh.shard_params``); ``train``: the aux stays this
     rank's own term (module docstring)."""
+    dropless = cfg.routing == "sigmoid_bias"
+    if dropless and shard is not None:
+        raise ValueError("the dropless sigmoid-routed MoE layer runs on one "
+                         "device, not on a mesh")
     if shard is not None:
         params = dict(params, router=_whole_router(params["router"], cfg,
                                                    shard.mesh))
@@ -123,17 +148,47 @@ def moe_apply(params, x: torch.Tensor, cfg, *, use_kernels: bool = False,
                                use_kernels=use_kernels,
                                train=train)              # TP within experts
     B, S, D = x.shape
-    E, K = cfg.num_experts, cfg.experts_per_token
     T = B * S
-    C = _capacity(T, cfg)
     xt = x.reshape(T, D)
-    gate_vals, expert_ids, aux, _ = route(xt, params["router"], cfg)
-    sort_idx, sorted_ids, pos, keep, src_token, counts = dispatch(expert_ids, E, C)
+    with tracing.span("moe.route"):
+        if dropless:
+            gate_vals, expert_ids = route_biased(xt, params["router"],
+                                                 params["router_bias"], cfg)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        else:
+            gate_vals, expert_ids, aux, _ = route(xt, params["router"], cfg)
+    with tracing.span("moe.experts"):
+        step = min(T, DROPLESS_TOKENS) if dropless else T
+        parts = [_routed_experts(params, xt[i:i + step],
+                                 gate_vals[i:i + step], expert_ids[i:i + step],
+                                 cfg, min(step, T - i) if dropless
+                                 else _capacity(T, cfg),
+                                 use_kernels=use_kernels)
+                 for i in range(0, T, step)]
+        y = parts[0] if len(parts) == 1 else torch.cat(parts)
+    if "shared" in params:
+        with tracing.span("moe.shared"):
+            y = y + mlp_apply(params["shared"], xt, cfg).to(x.dtype)
+    return y.reshape(B, S, D), aux
+
+
+def _routed_experts(params, xt: torch.Tensor, gate_vals: torch.Tensor,
+                   expert_ids: torch.Tensor, cfg, C: int, *,
+                   use_kernels: bool = False) -> torch.Tensor:
+    """The gate-weighted sum of the routed experts' outputs [T,D] for the
+    tokens xt [T,D] and their choices [T,K]: sorted by expert into an
+    ``[E, C, D]`` buffer, a choice past its expert's C rows dropped (none
+    when C >= T)."""
+    T, D = xt.shape
+    K = expert_ids.shape[1]
+    sort_idx, sorted_ids, pos, keep, src_token, counts = dispatch(
+        expert_ids, cfg.num_experts, C)
     slot = torch.where(keep, pos, 0)
 
     # a dropped choice adds zeros into slot 0 of its expert, as in JAX; rows
     # at or past min(count, C) stay zero, so the FFN may skip them
-    buf = torch.zeros((E, C, D), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((cfg.num_experts, C, D), dtype=xt.dtype,
+                      device=xt.device)
     buf.index_put_((sorted_ids, slot),
                    xt[src_token].masked_fill(~keep[:, None], 0),
                    accumulate=True)
@@ -145,14 +200,23 @@ def moe_apply(params, x: torch.Tensor, cfg, *, use_kernels: bool = False,
 
     # combine: gather back, unsort, weight by the gates, sum over K
     gathered = out_buf[sorted_ids, slot].masked_fill(~keep[:, None], 0)
-    unsorted = torch.zeros((T * K, D), dtype=x.dtype, device=x.device)
+    unsorted = torch.zeros((T * K, D), dtype=xt.dtype, device=xt.device)
     unsorted[sort_idx] = gathered
-    w = gate_vals.reshape(T * K)[:, None].to(x.dtype)
-    y = (unsorted * w).reshape(T, K, D).sum(dim=1)
+    w = gate_vals.reshape(T * K)[:, None].to(xt.dtype)
+    return (unsorted * w).reshape(T, K, D).sum(dim=1)
 
-    if "shared" in params:
-        y = y + mlp_apply(params["shared"], xt, cfg).to(x.dtype)
-    return y.reshape(B, S, D), aux
+
+def route_biased(xt: torch.Tensor, router: torch.Tensor, bias: torch.Tensor,
+                 cfg):
+    """xt: [T,D] -> (weights [T,K] f32, expert_ids [T,K]): the K experts
+    of highest sigmoid score + ``bias``, weighted by their unbiased
+    scores, normalised to sum 1 and scaled by ``routed_scaling``."""
+    scores = torch.sigmoid(xt.float() @ router)
+    expert_ids = torch.topk(scores + bias, cfg.experts_per_token, dim=-1,
+                            sorted=True).indices
+    w = scores.gather(-1, expert_ids)
+    w = w / (w.sum(-1, keepdim=True) + 1e-20) * cfg.routed_scaling
+    return w, expert_ids
 
 
 def _whole_router(router: torch.Tensor, cfg, mesh) -> torch.Tensor:

@@ -1,5 +1,7 @@
 """Decoder and encoder stacks: the dense, MoE, SSM, encoder and
-cross-attending decoder block kinds, and the hybrid stack.
+cross-attending decoder block kinds, the hybrid stack, and an
+``MLAConfig``'s stack (:func:`mla_stack_apply`: its leading dense layers,
+then its MoE layers, each with multi-head latent attention).
 
 Parameters are L-stacked like the JAX package's scanned stacks; a Python
 loop over the layer axis replaces ``lax.scan``.  Mode "train" runs the
@@ -44,6 +46,7 @@ from repro_torch.models.layers import (mlp_apply, norm_apply, norm_init,
 
 
 ATTENTION_KINDS = ("dense", "moe", "encoder", "decoder_x")
+MLA_KINDS = ("mla_dense", "mla_moe")    # an MLAConfig's layers
 
 
 def _stacked_norm(cfg, d: int, L: int, device) -> dict:
@@ -54,23 +57,35 @@ def init_stack(gen: torch.Generator, cfg, dtype, device, kind: str,
                n_layers: int) -> Dict[str, Any]:
     """L-stacked block params at the JAX package's init scales: kind
     ``"dense"`` or ``"encoder"`` (attention + MLP), ``"decoder_x"``
-    (attention + cross-attention + MLP), ``"moe"`` (attention + MoE) or
-    ``"ssm"`` (a Mamba mixer)."""
+    (attention + cross-attention + MLP), ``"moe"`` (attention + MoE),
+    ``"ssm"`` (a Mamba mixer), or an ``MLAConfig``'s ``"mla_dense"`` (latent
+    attention + a SwiGLU of width ``dense_d_ff``) and ``"mla_moe"`` (latent
+    attention + the dropless MoE)."""
     d, f, L = cfg.d_model, cfg.d_ff, n_layers
     if kind == "ssm":
         return {"ln1": _stacked_norm(cfg, d, L, device),
                 "mamba": ssm_mod.mamba_init(gen, cfg, dtype, device, L)}
-    if kind not in ATTENTION_KINDS:
-        raise ValueError(f"unknown block kind {kind!r}")
-    stack = {"ln1": _stacked_norm(cfg, d, L, device),
-             "attn": attn.attn_init(gen, cfg, dtype, device, L)}
-    if kind == "decoder_x":
-        stack["lnx"] = _stacked_norm(cfg, d, L, device)
-        stack["xattn"] = attn.attn_init(gen, cfg, dtype, device, L, cross=True)
-    stack["ln2"] = _stacked_norm(cfg, d, L, device)
-    if kind == "moe":
-        stack["moe"] = moe_mod.moe_init(gen, cfg, dtype, device, L)
-        return stack
+    if kind in MLA_KINDS:
+        stack = {"ln1": _stacked_norm(cfg, d, L, device),
+                 "attn": attn.mla_init(gen, cfg, dtype, device, L),
+                 "ln2": _stacked_norm(cfg, d, L, device)}
+        if kind == "mla_moe":
+            stack["moe"] = moe_mod.moe_init(gen, cfg, dtype, device, L)
+            return stack
+        f = cfg.dense_d_ff
+    else:
+        if kind not in ATTENTION_KINDS:
+            raise ValueError(f"unknown block kind {kind!r}")
+        stack = {"ln1": _stacked_norm(cfg, d, L, device),
+                 "attn": attn.attn_init(gen, cfg, dtype, device, L)}
+        if kind == "decoder_x":
+            stack["lnx"] = _stacked_norm(cfg, d, L, device)
+            stack["xattn"] = attn.attn_init(gen, cfg, dtype, device, L,
+                                            cross=True)
+        stack["ln2"] = _stacked_norm(cfg, d, L, device)
+        if kind == "moe":
+            stack["moe"] = moe_mod.moe_init(gen, cfg, dtype, device, L)
+            return stack
     mlp = {}                  # squared_relu / gelu: 2 matrices, no gate
     if cfg.mlp_type == "swiglu":
         mlp["w_gate"] = normal_stack(gen, (L, d, f), 1.0 / math.sqrt(d), dtype, device)
@@ -120,6 +135,10 @@ def block_apply(params, x, cfg, *, kind: str, mode: str, positions,
     other kinds, which spares the decode loop a launch per layer).  In
     decode the layer's cache slice is updated in place; the cross cache is
     only read.  Mode "train" returns no cache and writes nothing in place."""
+    if kind in MLA_KINDS:
+        return _mla_block(params, x, cfg, kind=kind, mode=mode,
+                          positions=positions, cache=cache,
+                          cache_index=cache_index, use_kernels=use_kernels)
     if kind == "ssm":
         if mode == "resume":
             raise ValueError("SSM states fold the whole prefix; resume is "
@@ -185,6 +204,27 @@ def block_apply(params, x, cfg, *, kind: str, mode: str, positions,
     else:
         y, aux = mlp_apply(params["mlp"], h, cfg), 0.0
     return x + y, new_cache, aux
+
+
+def _mla_block(params, x, cfg, *, kind: str, mode: str, positions, cache,
+               cache_index, use_kernels: bool):
+    """One layer of an ``MLAConfig``: latent attention (its cache
+    {"self": {"latent"}}), then the dense SwiGLU or the dropless MoE."""
+    h = norm_apply(params["ln1"], x, cfg)
+    y, new_rows = attn.mla_apply(
+        params["attn"], h, cfg, positions=positions,
+        mode="decode" if mode == "decode" else "full",
+        cache=cache["self"] if mode == "decode" else None,
+        cache_index=cache_index, use_kernels=use_kernels)
+    x = x + y
+    h = norm_apply(params["ln2"], x, cfg)
+    if kind == "mla_moe":
+        y, aux = moe_mod.moe_apply(params["moe"], h, cfg,
+                                   use_kernels=use_kernels,
+                                   train=mode == "train")
+    else:
+        y, aux = mlp_apply(params["mlp"], h, cfg), 0.0
+    return x + y, None if mode == "train" else {"self": new_rows}, aux
 
 
 def _gathered_block(lp, x, cfg, fsdp=None, **kw):
@@ -276,6 +316,36 @@ def hybrid_apply(params, x, cfg, *, mode: str, positions, caches=None,
         return x, None, aux
     return x, {"backbone": tree_map(lambda *ts: torch.cat(ts), *bb_new),
                "shared": tree_map(lambda *ts: torch.stack(ts), *sh_new)}, aux
+
+
+def mla_stack_apply(params, x, cfg, *, mode: str, positions, caches=None,
+                    cache_index=None, remat: bool = False,
+                    use_kernels: bool = False):
+    """An ``MLAConfig``'s stack: params {"dense": the first_k_dense layers,
+    "moe": the rest}, each L-stacked; caches {"self": {"latent": [L, B, S,
+    r + dr]}} over all L layers.  Returns (x, caches, aux) as
+    :func:`stack_apply` does: mode "decode" updates ``caches`` in place,
+    "prefill" returns fresh ones, "train" none."""
+    lat = caches["self"]["latent"] if mode == "decode" else None
+    k = cfg.first_k_dense
+    parts, aux = [], 0.0
+    for name, kind, layers in (("dense", "mla_dense", slice(0, k)),
+                               ("moe", "mla_moe", slice(k, None))):
+        if name not in params:
+            continue
+        sub = None if lat is None else {"self": {"latent": lat[layers]}}
+        x, c, a = stack_apply(params[name], x, cfg, kind=kind, mode=mode,
+                              positions=positions, caches=sub,
+                              cache_index=cache_index, remat=remat,
+                              use_kernels=use_kernels)
+        parts.append(c)
+        aux = aux + a
+    if mode == "decode":
+        return x, caches, aux
+    if mode == "train":
+        return x, None, aux
+    return x, {"self": {"latent": torch.cat(
+        [c["self"]["latent"] for c in parts])}}, aux
 
 
 def _num_layers(stacked) -> int:

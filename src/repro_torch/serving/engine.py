@@ -410,11 +410,19 @@ def stack_prefill_blocks(caches):
 
 def splice_slot_caches(cfg, big_cache, blocks, slot_ids, shard=None):
     """Write M B=1 prefill caches (a list, or a tree stacked on axis 1)
-    into slots ``slot_ids`` [M] of the big decode cache in one pass over
-    its leaves, in place: the cross-group splice of disaggregated
-    prefill (``shard``: the decode cache's on a mesh)."""
+    into slots ``slot_ids`` [M] of the big decode cache, in place: the
+    cross-group splice of disaggregated prefill (``shard``: the decode
+    cache's on a mesh).  A list goes in block by block, never stacked
+    into one more copy of all M blocks (13.3 GiB at 64 slots of
+    7,168-token latent rows); a stacked tree in one pass over its
+    leaves."""
     if isinstance(blocks, (list, tuple)):
-        blocks = stack_prefill_blocks(blocks)
+        for m, block in enumerate(blocks):
+            big_cache = _merge_cache(
+                cfg, big_cache, block,
+                lambda d, s, kv: ops.splice_blocks(d, s, slot_ids[m:m + 1],
+                                                   shard, kv=kv))
+        return big_cache
     return _merge_cache(cfg, big_cache, blocks,
                         lambda d, s, kv: ops.splice_blocks(d, s, slot_ids,
                                                            shard, kv=kv))

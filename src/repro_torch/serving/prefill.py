@@ -27,6 +27,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs.base import is_mla
 from repro_torch.core.network import offload_latency
 from repro_torch.core.offload import tree_leaves, tree_map
 from repro_torch.device import DeviceLike, resolve_device, upload
@@ -72,6 +73,10 @@ class PrefillWorker:
         of a resumed transfer's tail rows (None = lossless, the default).
         ``share_from``: another worker over the same cfg and device whose
         params and prefill function this one reuses (the pool idiom)."""
+        if is_mla(cfg):
+            raise ValueError(f"{cfg.name}: the KV hop does not carry a "
+                             "latent cache (multi-head latent attention "
+                             "prefills on its own group)")
         self.cfg = cfg
         self.name = name
         self.link = link

@@ -49,6 +49,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs.base import is_mla
 from repro_torch.core import masking
 from repro_torch.core.offload import tree_leaves, tree_map
 from repro_torch.device import DeviceLike, resolve_device
@@ -142,6 +143,10 @@ class PrefixCache:
                  device: DeviceLike = None):
         if block_size < 1 or budget_blocks < 1:
             raise ValueError("block_size and budget_blocks must be >= 1")
+        if is_mla(cfg):
+            raise ValueError(f"{cfg.name}: the prefix cache does not hold "
+                             "latent-cache blocks (multi-head latent "
+                             "attention)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.block_size = int(block_size)

@@ -66,6 +66,19 @@ SPANS = {
                       "cross-attention), a layer: the prefill_attention "
                       "kernel or chunked_attention",
     "kernels.decode_attention": "kernels/ops.py: decode_attention, a call",
+    "attention.mla_prefill": "models/attention.py: an MLA layer's attention "
+                             "over a whole sequence with the latent "
+                             "expanded: the prefill_attention kernel's qk "
+                             "192 / v 128 instance or chunked_attention",
+    "attention.mla_decode": "models/attention.py: an MLA layer's decode "
+                            "attention over the latent cache: the "
+                            "mla_decode_attention kernel or its plain "
+                            "version",
+    "moe.route": "models/moe.py: an MoE layer's router (an MLAConfig's "
+                 "sigmoid + bias one)",
+    "moe.experts": "models/moe.py: its dispatch, routed experts "
+                   "(grouped_ffn) and weighted combine",
+    "moe.shared": "models/moe.py: its shared experts' SwiGLU",
 }
 
 

@@ -49,7 +49,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs.base import get_config, list_configs, reduced  # noqa: E402
+from repro_torch.configs.base import get_config, mesh_configs, reduced  # noqa: E402
 from repro_torch.configs.shapes import (INPUT_SHAPES, InputShape,  # noqa: E402
                                         applicable)
 from repro_torch.distributed import collectives as coll  # noqa: E402
@@ -67,7 +67,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 
-ARCHS = list_configs()
+ARCHS = mesh_configs()          # the JAX package's twins
 META = torch.device("meta")
 JAX_TIMEOUT_S = 120
 TEMP_ROWS = 64          # temp < this x the rank's activation rows (below)

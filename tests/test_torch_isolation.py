@@ -121,4 +121,5 @@ def test_cpu_tensors_never_count_as_launches():
     ops.ssm_scan(torch.rand(1, 4, 8, 2), torch.randn(1, 4, 8, 2), torch.randn(1, 8, 2))
     assert ops.launch_counts() == {"decode_attention": 0, "masked_compact": 0,
                                    "grouped_ffn": 0, "ssm_scan": 0,
-                                   "ssm_scan_bwd": 0, "prefill_attention": 0}
+                                   "ssm_scan_bwd": 0, "prefill_attention": 0,
+                                   "mla_decode_attention": 0}

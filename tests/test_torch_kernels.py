@@ -135,7 +135,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                       torch.zeros(1, 8, 2))
     assert ops.launch_counts() == {"decode_attention": 0, "masked_compact": 0,
                                    "grouped_ffn": 0, "ssm_scan": 0,
-                                   "ssm_scan_bwd": 0, "prefill_attention": 0}
+                                   "ssm_scan_bwd": 0, "prefill_attention": 0,
+                                   "mla_decode_attention": 0}
 
 
 def test_kernel_library_names_missing_card():

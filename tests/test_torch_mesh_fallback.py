@@ -261,8 +261,8 @@ def test_production_meshes_never_raise():
     """At the 10 configs on (16, 16) and (2, 16, 16) (and reduced() on
     (2, 2)), with and without FSDP, every cut is one the layer code runs:
     ``model_cuts`` and ``train_layout`` raise nowhere."""
-    from repro_torch.configs.base import get_config, list_configs, reduced
-    for arch in list_configs():
+    from repro_torch.configs.base import get_config, mesh_configs, reduced
+    for arch in mesh_configs():
         for cfg, m in ((get_config(arch), 16), (reduced(get_config(arch)), 2)):
             cuts = tmesh.model_cuts(cfg, m)
             assert cuts.attn in (None, "heads", "q", "d"), (arch, cuts)

@@ -19,7 +19,8 @@ from repro.models import layers as jlayers  # noqa: E402
 from repro.models import model as jM  # noqa: E402
 from repro.serving.engine import seed_cache as jseed_cache  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.configs.base import get_config, list_configs, reduced  # noqa: E402
+from repro_torch.configs.base import (get_config, list_configs,  # noqa: E402
+                                     mesh_configs, reduced)
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -51,11 +52,14 @@ def test_configs_match_field_for_field(pair):
     assert full.torch_dtype == torch.bfloat16 and cfg.torch_dtype == torch.float32
 
 
-@pytest.mark.parametrize("arch", list_configs())
+@pytest.mark.parametrize("arch", mesh_configs())
 def test_param_counts_and_attention_free_match_jax(arch):
     """param_count / active_param_count equal JAX's as integers, and
-    is_attention_free agrees, at full width and on reduced() copies."""
-    assert list_configs() == jlist_configs()
+    is_attention_free agrees, at full width and on reduced() copies, for
+    every config the JAX package has: all but the port's one MLAConfig."""
+    assert mesh_configs() == jlist_configs()
+    assert sorted(set(list_configs()) - set(jlist_configs())) == [
+        "moonlight-16b-a3b"]
     for cfg, jcfg in ((get_config(arch), jget_config(arch)),
                       (reduced(get_config(arch)), jreduced(jget_config(arch)))):
         assert type(cfg.param_count()) is int
@@ -75,6 +79,7 @@ def test_param_counts_scale():
         "falcon-mamba-7b": (5e9, 9e9),
         "olmo-1b": (0.9e9, 1.6e9),
         "moonshot-v1-16b-a3b": (20e9, 32e9),
+        "moonlight-16b-a3b": (15.9e9, 16.0e9),
         "internvl2-1b": (0.4e9, 1.2e9),
         "zamba2-2.7b": (2e9, 4e9),
         "seamless-m4t-medium": (0.5e9, 2e9),

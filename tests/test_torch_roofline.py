@@ -12,7 +12,7 @@ torch = pytest.importorskip("torch")
 from repro.configs.base import get_config as jget_config  # noqa: E402
 from repro.configs.shapes import INPUT_SHAPES as JSHAPES  # noqa: E402
 from repro.launch import roofline as jroofline  # noqa: E402
-from repro_torch.configs.base import get_config, list_configs, reduced  # noqa: E402
+from repro_torch.configs.base import get_config, mesh_configs, reduced  # noqa: E402
 from repro_torch.configs.shapes import INPUT_SHAPES, InputShape  # noqa: E402
 from repro_torch.core import profiler  # noqa: E402
 from repro_torch.launch import dryrun, roofline  # noqa: E402
@@ -20,7 +20,7 @@ from repro_torch.launch.mesh import Mesh  # noqa: E402
 
 import numpy as np  # noqa: E402
 
-ARCHS = list_configs()
+ARCHS = mesh_configs()          # the JAX package's twins
 
 
 @pytest.mark.parametrize("arch", ARCHS)
