@@ -770,21 +770,28 @@ def _expected_launches(cfg, s, prompt_len):
     prefill, once per 256-token chunk; an MLAConfig's latent attention in
     every layer of every decode step."""
     from repro_torch.configs.base import is_mla
-    from repro_torch.models.moe import DROPLESS_TOKENS
+    from repro_torch.models.moe import DROPLESS_TOKENS, SORTED_ROWS_PER_EXPERT
 
     L, steps, prefills = cfg.num_layers, s["decode_steps"], s["prefills"]
     attn_layers = {"ssm": 0, "hybrid": L // max(cfg.hybrid_attn_every, 1),
                    "audio": 2 * L}
     scan = cfg.family == "ssm" and cfg.mamba_version == 1
     mla = is_mla(cfg)
-    # an MLAConfig: latent decode attention, the dropless MoE's prefill in
-    # chunks of DROPLESS_TOKENS, no MoE in its first_k_dense layers
-    chunks = -(-prompt_len // DROPLESS_TOKENS) if mla else 1
+    # an MLAConfig: latent decode attention, no MoE in its first_k_dense
+    # layers, the dropless MoE's B=1 prefill on the sorted route where its
+    # rows an expert reach SORTED_ROWS_PER_EXPERT (bf16), else in chunks of
+    # DROPLESS_TOKENS; its decode steps (a few rows an expert) never sorted
+    sorted_prefill = mla and cfg.dtype == "bfloat16" and \
+        prompt_len * cfg.experts_per_token \
+        >= SORTED_ROWS_PER_EXPERT * cfg.num_experts
+    chunks = 0 if sorted_prefill else -(-prompt_len // DROPLESS_TOKENS) \
+        if mla else 1
     moe_layers = L - cfg.first_k_dense if mla else L
     return {"decode_attention": 0 if mla else attn_layers.get(cfg.family, L) * steps,
             "mla_decode_attention": L * steps if mla else 0,
             "grouped_ffn": moe_layers * (steps + prefills * chunks)
             if cfg.num_experts else 0,
+            "grouped_ffn_sorted": moe_layers * prefills if sorted_prefill else 0,
             "ssm_scan": L * prefills * -(-prompt_len // 256) if scan else 0,
             "ssm_scan_bwd": 0}
 
@@ -1695,6 +1702,7 @@ MLA_ARCH = "moonlight-16b-a3b"
 MLA_H, MLA_LATENT, MLA_ROPE, MLA_V = 16, 512, 64, 512   # V: a row's first 512
 MLA_DK, MLA_DV = 192, 128       # the expanded prefill's q/k and v widths
 MLA_PREFILL = "prefill_attention.qk192_v128"     # the instance's kernels row
+MLA_SORTED = "grouped_ffn_sorted"       # the dropless MoE's prefill route
 # the longdoc cell: slots a group, cache rows a slot, prompt tokens
 MLA_CELL_B, MLA_CELL_S, MLA_CELL_P = 64, 7272, 7168
 # the decode kernel's bf16 output against the plain version in f32, of
@@ -1895,6 +1903,157 @@ def _time_mla_prefill(torch, dev, gen):
     return row
 
 
+def _sorted_prefill(torch, dev, cfg, params):
+    """Two requests of the longdoc cell's prompt (7,168 tokens, 4 new
+    tokens) through ContinuousServingEngine (2 slots, overlapped): every
+    MoE layer of each prefill on the sorted route, each decode step on the
+    capacity kernel (``_expected_launches``).  Returns (launch counts, the
+    first MoE layer's tokens xt [7168, D] and router choices [7168, 6] as
+    the prefill handed them to the sorted route)."""
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import ServeRequest
+    gen = torch.Generator()
+    gen.manual_seed(32)
+    reqs = [ServeRequest(uid=i, prompt=torch.randint(
+        0, cfg.vocab_size, (MLA_CELL_P,), generator=gen,
+        dtype=torch.int32).numpy(), max_new=4) for i in range(2)]
+    seen, real = [], moe._sorted_experts
+
+    def spy(p, xt, gate_vals, expert_ids, c):
+        if not seen:
+            seen.append((xt.clone(), expert_ids.clone()))
+        return real(p, xt, gate_vals, expert_ids, c)
+
+    moe._sorted_experts = spy
+    try:
+        outs, stats, counts, wall, peak = _run_engine(
+            torch, dev, cfg, params, reqs, slots=2, max_len=MLA_CELL_P + 16,
+            macro_steps=MACRO)
+    finally:
+        moe._sorted_experts = real
+    steps = _model_decode_steps(stats, MACRO)
+    want = _expected_launches(cfg, {"decode_steps": steps, "prefills": 2},
+                              MLA_CELL_P)
+    for kname, n in want.items():
+        require(counts[kname] == n, f"mla_longdoc: {kname} launched "
+                f"{counts[kname]} times, expected {n} ({steps} decode steps, "
+                "2 prefills of 7,168 tokens)")
+    require(stats.total_tokens == 8 and seen, "mla_longdoc: "
+            f"{stats.total_tokens} tokens, sorted route seen: {bool(seen)}")
+    emit({"phase": "mla_longdoc", "arch": cfg.name, "slots": 2,
+          "requests": 2, "prompt": MLA_CELL_P,
+          **_stats_row(stats, wall, peak, counts, MACRO),
+          "expected_launches": want})
+    return counts, seen[0]
+
+
+def _check_sorted_ffn(torch, dev, cfg, params, xt, ids):
+    """grouped_ffn_sorted at the cell's prefill (T·K = 43,008 rows, E 64, D
+    2,048, F 1,408), the rows and offsets the router gave the first MoE
+    layer in ``_sorted_prefill``, that layer's weights: against its plain
+    version within ``FFN_TOL`` (the capacity kernel's: both keep h at
+    about 16 bits and round the output once to bf16, the f32 sums in
+    another order), twice bit-equal; one MoE layer's prefill on the card
+    with no host sync (``torch.cuda.set_sync_debug_mode("error")``); its
+    time beside ``costs.grouped_ffn_sorted``'s bound and beside the
+    capacity kernel's over the same tokens in the capacity route's chunks
+    of 2,048.  Returns (max_abs_err, timing row)."""
+    from repro_torch.kernels import costs, ref
+    from repro_torch.kernels.grouped_ffn import (grouped_ffn_cuda,
+                                                 grouped_ffn_sorted_cuda)
+    from repro_torch.models import moe
+    E, K, D, F = (cfg.num_experts, cfg.experts_per_token, cfg.d_model,
+                  cfg.d_ff)
+    T = xt.shape[0]
+    blocks = params["blocks"]["moe"]["moe"]
+
+    def layer(i):
+        return {k: (v[i] if torch.is_tensor(v) else
+                    {n: t[i] for n, t in v.items()}) for k, v in blocks.items()}
+
+    def sorted_set(i, x, choice):
+        sort_idx, _, cnt = moe.sort_choices(choice, E)
+        offsets = torch.zeros((E + 1,), dtype=torch.int32, device=dev)
+        offsets[1:] = torch.cumsum(cnt, 0)
+        p = layer(i)
+        return (x[sort_idx // K].contiguous(), p["w_gate"], p["w_up"],
+                p["w_down"], offsets)
+
+    sets = [sorted_set(0, xt, ids)]
+    got = grouped_ffn_sorted_cuda(*sets[0])
+    again = grouped_ffn_sorted_cuda(*sets[0])
+    want = ref.grouped_ffn_sorted_ref(*sets[0])
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    require(got.shape == (T * K, D) and bool(torch.isfinite(got.float()).all()),
+            "grouped_ffn_sorted: bad output")
+    require(err <= FFN_TOL["bfloat16"], f"grouped_ffn_sorted at the cell's "
+            f"prefill: max_abs_err {err} > {FFN_TOL['bfloat16']}")
+    require(torch.equal(got, again), "grouped_ffn_sorted: two calls differ")
+    counts = sets[0][4].diff()
+    used = int((counts > 0).sum())
+    emit({"phase": "kernels", "kernel": MLA_SORTED, "tolerance": FFN_TOL,
+          "cases": [{"case": "cell", "rows": T * K, "E": E, "D": D, "F": F,
+                     "experts_used": used, "rows_min": int(counts.min()),
+                     "rows_max": int(counts.max()), "max_abs_err": err,
+                     "out_max_abs": float(want.float().abs().max()),
+                     "bit_equal_twice": True}]})
+    del got, again, want
+
+    with torch.no_grad():       # one MoE layer's prefill: no host sync
+        x = xt[None]
+        moe.moe_apply(layer(0), x, cfg, use_kernels=True)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            moe.moe_apply(layer(0), x, cfg, use_kernels=True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+    # timing: three more MoE layers' weights (cold in L2), the same tokens
+    n_layers = blocks["w_gate"].shape[0]
+    sets += [sorted_set(i, xt, ids) for i in range(1, min(4, n_layers))]
+    cost = costs.grouped_ffn_sorted(T * K, E, D, F, 2, experts_used=used)
+    bound_ms, bound_by = _bound(cost["bytes"], cost["flops"])
+    row = {"kernel": MLA_SORTED, "group": "cell", "rows": T * K, "E": E,
+           "D": D, "F": F, "dtype": "bfloat16", "experts_used": used,
+           "ms": _time_ms(torch, grouped_ffn_sorted_cuda, sets, iters=40,
+                          warmup=4),
+           "device_ms": _device_ms(torch, grouped_ffn_sorted_cuda, sets,
+                                   iters=40),
+           "plain_ms": _time_ms(torch, ref.grouped_ffn_sorted_ref, sets[:1],
+                                iters=2, warmup=1),
+           "library_ms": None,
+           "library": "none: no single PyTorch call computes this function",
+           "bytes": cost["bytes"], "operations": cost["flops"],
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    row["share_of_bound"] = bound_ms / row["device_ms"]
+    row["tflops"] = cost["flops"] / row["device_ms"] / 1e9
+    row["tflops_with_h_lo"] = row["tflops"] * 4 / 3   # the down pass twice
+    del sets
+    # the capacity kernel over the same tokens, chunk by chunk
+    chunk_ms = []
+    for i in range(0, T, moe.DROPLESS_TOKENS):
+        c = min(moe.DROPLESS_TOKENS, T - i)
+        chunk = []
+        for j in range(min(4, n_layers)):
+            sort_idx, sorted_ids, pos, keep, src, cnt = moe.dispatch(
+                ids[i:i + c], E, c)
+            buf = torch.zeros((E, c, D), dtype=xt.dtype, device=dev)
+            buf[sorted_ids, pos] = xt[i:i + c][src]
+            p = layer(j)
+            chunk.append((buf, p["w_gate"], p["w_up"], p["w_down"],
+                          cnt.to(torch.int32)))
+        chunk_ms.append(_device_ms(torch, grouped_ffn_cuda, chunk, iters=16))
+        del chunk
+    row.update(capacity_chunks=len(chunk_ms), capacity_chunk_device_ms=chunk_ms,
+               capacity_device_ms=sum(chunk_ms))
+    emit({"phase": "timing", **row})
+    torch.cuda.empty_cache()
+    return err, row
+
+
 def phase_mla(torch, dev):
     """moonlight-16b-a3b: with no model held, mla_decode_attention at the
     longdoc cell's decode and the prefill kernel's 192/128 instance at its
@@ -1902,8 +2061,13 @@ def phase_mla(torch, dev):
     full width and depth through ContinuousServingEngine
     (``phase_side_continuous``), whose launches are held against its
     layers: mla_decode_attention and the 192/128 instance in all 27,
-    grouped_ffn in the 26 MoE layers.  Returns ({kernel: the cell's
-    error}, timing rows, {mode: launch counts})."""
+    grouped_ffn in the 26 MoE layers of each decode step and
+    grouped_ffn_sorted in those of each prefill; then two prompts of the cell's
+    7,168 tokens (``_sorted_prefill``: grouped_ffn_sorted in the 26 MoE
+    layers of each prefill, grouped_ffn in those of each decode step) and
+    grouped_ffn_sorted on the first MoE layer's routed rows
+    (``_check_sorted_ffn``).  Returns ({kernel: the cell's error}, timing
+    rows, {mode: launch counts})."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M
     gen = torch.Generator(device=dev)
@@ -1924,7 +2088,10 @@ def phase_mla(torch, dev):
                 f"prefill_attention launched {c['prefill_attention']} times, "
                 f"expected {n} ({cfg.num_layers} layers, {SIDE_REQUESTS} "
                 "prefills)")
-    del params
+    counts["longdoc"], (xt, ids) = _sorted_prefill(torch, dev, cfg, params)
+    errs[MLA_SORTED], row = _check_sorted_ffn(torch, dev, cfg, params, xt, ids)
+    rows.append(row)
+    del params, xt, ids
     return errs, rows, counts
 
 
@@ -5780,6 +5947,12 @@ KERNEL_META = {
         "replaces_note": "prefill_attention's q/k 192, v 128 instance; the "
                          "JAX package has no latent attention",
         "launches_of": "prefill_attention", "paths_of": MLA_ARCH},
+    MLA_SORTED: {
+        "route": "cuda", "source": "src/repro_torch/csrc/grouped_ffn_sorted.cu",
+        "replaces": None,
+        "replaces_note": "no Pallas kernel: the JAX package runs every MoE "
+                         "layer over [E, C, D] buffers (grouped_ffn_pallas); "
+                         "this serves the dropless layer's prefill"},
 }
 
 
@@ -5802,8 +5975,10 @@ def kernels_line(rows, counts_by_path, errs):
     ssm_scan_bwd at falcon-mamba's train chunk; launches summed over every
     main path (and listed per path: each static slice, each continuous mode,
     each train path); max_abs_err the largest main-path error of any
-    path.  mla_decode_attention and prefill_attention's 192/128 instance
-    are timed at moonlight's longdoc cell; an instance's row counts its
+    path.  mla_decode_attention, prefill_attention's 192/128 instance and
+    grouped_ffn_sorted are timed at moonlight's longdoc cell (the last
+    also beside the capacity kernel's time over the same tokens,
+    ``capacity_device_ms``); an instance's row counts its
     kernel's launches (``launches_of``) on the paths whose name starts
     with ``paths_of``."""
     pick = _picked_rows(rows)
@@ -5819,7 +5994,8 @@ def kernels_line(rows, counts_by_path, errs):
                  "ms": row["ms"], "device_ms": row["device_ms"],
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
-        for key in ("composition_ms", "bound_counts", "bound_all_experts_ms"):
+        for key in ("composition_ms", "bound_counts", "bound_all_experts_ms",
+                    "capacity_device_ms"):
             if key in row:
                 entry[key] = row[key]
         kernels.append(entry)

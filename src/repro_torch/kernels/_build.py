@@ -41,6 +41,9 @@ SIGNATURES = {
     # buf, wg, wu, wd, h (4-byte workspace [E,C,F]), out, counts (or NULL),
     # E, C, D, F, is_bf16, stream
     "repro_grouped_ffn": ([_P] * 7 + [_I] * 5 + [_P], _I),
+    # xs, wg, wu, wd, offsets, h (4-byte workspace [2,R,F]), ys, R, E, D,
+    # F, stream
+    "repro_grouped_ffn_sorted": ([_P] * 7 + [_I] * 4 + [_P], _I),
     # decay, bx, h0, h_all, h_last, B, S, channels (= di * N), stream
     "repro_ssm_scan": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
     # decay, h_all, h0, G (or NULL), g (or NULL), d_decay, d_bx, d_h0, B, S,

@@ -8,9 +8,9 @@ card's memory rate, flops over its peak), and what the dry run and the
 roofline (``launch/dryrun.py``, ``launch/roofline.py``) count for a call.
 Where the work depends on the data -- the K/V rows a decode reads, the rows
 ``masked_compact`` keeps, the rows and experts ``grouped_ffn`` is handed
-through ``counts`` -- the caller passes what this call's data needs; left
-out, the most the shapes allow is counted (what a meta tensor, which holds
-no data, can say).
+through ``counts`` (``grouped_ffn_sorted`` through its offsets) -- the
+caller passes what this call's data needs; left out, the most the shapes
+allow is counted (what a meta tensor, which holds no data, can say).
 
 A kernel is launched through its ``ctypes`` binding, not as a PyTorch
 operator, so no dispatch mode sees it.  Instead each launch on the card,
@@ -120,6 +120,17 @@ def grouped_ffn(E: int, C: int, D: int, F: int, esize: int, *,
     used = E if experts_used is None else experts_used
     n_bytes = esize * (rows * D + E * C * D + used * 3 * D * F) \
         + (4 * E if counts else 0)
+    return _cost(6 * rows * D * F, n_bytes)
+
+
+def grouped_ffn_sorted(rows: int, E: int, D: int, F: int, esize: int, *,
+                       experts_used: Optional[float] = None) -> Cost:
+    """One per-expert SwiGLU over ``rows`` expert-sorted rows ``[rows, D]``:
+    the rows read and the output ``[rows, D]`` written once, the weights of
+    the experts used (default all ``E``) read once, the int32 offsets
+    ``[E+1]``; three products over the rows."""
+    used = E if experts_used is None else experts_used
+    n_bytes = esize * (2 * rows * D + used * 3 * D * F) + 4 * (E + 1)
     return _cost(6 * rows * D * F, n_bytes)
 
 

@@ -1,10 +1,16 @@
-"""Wrapper of the hand-written CUDA grouped-FFN kernel.
+"""Wrappers of the hand-written CUDA grouped-FFN kernels.
 
-The kernel (``csrc/grouped_ffn.cu``) replaces the Pallas TPU kernel
-``repro/kernels/grouped_ffn.py:grouped_ffn_pallas``: the per-expert SwiGLU
-FFN over the MoE capacity buffer, ``(silu(buf·wg) ⊙ buf·wu)·wd`` in f32,
-output in buf's dtype, over the rows below ``counts[e]`` of each expert.
-Its plain version is :func:`repro_torch.kernels.ref.grouped_ffn_ref`.
+The capacity kernel (``csrc/grouped_ffn.cu``) replaces the Pallas TPU
+kernel ``repro/kernels/grouped_ffn.py:grouped_ffn_pallas``: the per-expert
+SwiGLU FFN over the MoE capacity buffer, ``(silu(buf·wg) ⊙ buf·wu)·wd`` in
+f32, output in buf's dtype, over the rows below ``counts[e]`` of each
+expert.  Its plain version is :func:`repro_torch.kernels.ref.grouped_ffn_ref`.
+
+The sorted kernel (``csrc/grouped_ffn_sorted.cu``) computes the same FFN
+over rows sorted by expert, each expert's rows ``offsets[e] <= r <
+offsets[e + 1]``: the dropless MoE's prefill, with each expert's weights
+read once a layer.  Its plain version is
+:func:`repro_torch.kernels.ref.grouped_ffn_sorted_ref`.
 """
 from __future__ import annotations
 
@@ -102,3 +108,88 @@ def grouped_ffn_cuda(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
 
 
 grouped_ffn_cuda.launches = 0
+
+
+OFF_CARD = "not on one CUDA device"
+
+
+def sorted_refusal(xs: torch.Tensor, wg: torch.Tensor) -> Optional[str]:
+    """Why ``grouped_ffn_sorted_cuda`` does not take rows ``xs`` [R,D] and
+    weights ``wg`` [E,D,F] (and ``wu``, ``wd`` alike), or None where it
+    does: no gradient wanted, bf16, D and F multiples of 8 (16-byte rows,
+    as TMA reads them), on one CUDA device (:data:`OFF_CARD`, asked
+    last)."""
+    if torch.is_grad_enabled() and (xs.requires_grad or wg.requires_grad):
+        return "a gradient is wanted"
+    if not xs.dtype == wg.dtype == torch.bfloat16:
+        return f"dtypes {xs.dtype}, {wg.dtype}, not bfloat16"
+    D, F = wg.shape[-2], wg.shape[-1]
+    if D % 8 or F % 8:
+        return f"D={D}, F={F}: not multiples of 8"
+    if not (xs.is_cuda and wg.device == xs.device):
+        return OFF_CARD
+    return None
+
+
+def grouped_ffn_sorted_cuda(xs: torch.Tensor, wg: torch.Tensor,
+                            wu: torch.Tensor, wd: torch.Tensor,
+                            offsets: torch.Tensor) -> torch.Tensor:
+    """xs: [R,D] rows sorted by expert; wg/wu: [E,D,F]; wd: [E,F,D] (bf16,
+    one CUDA device, contiguous, 16-byte aligned, D and F multiples of 8);
+    offsets: int32 [E+1] on the same device, expert e's rows ``offsets[e]
+    <= r < offsets[e+1]`` (non-decreasing, ``offsets[E] <= R``).  Returns
+    ys [R,D] bf16: each row's SwiGLU through its expert, rows past
+    ``offsets[E]`` left unwritten.  Two launches on the current stream
+    (gate_up into a 4-byte [2,R,F] workspace, then down) without a host
+    sync, counted as one in ``grouped_ffn_sorted_cuda.launches``."""
+    named = (("xs", xs), ("wg", wg), ("wu", wu), ("wd", wd))
+    for name, t in named:
+        if not t.is_cuda:
+            raise ValueError(f"grouped_ffn_sorted_cuda: {name} is on "
+                             f"{t.device}, not a CUDA device")
+        if t.device != xs.device:
+            raise ValueError("grouped_ffn_sorted_cuda: tensors on different "
+                             "devices")
+        if not t.is_contiguous():
+            raise ValueError(f"grouped_ffn_sorted_cuda: {name} is not "
+                             "contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"grouped_ffn_sorted_cuda: {name} is not 16-byte"
+                             " aligned")
+    if xs.dim() != 2 or wg.dim() != 3:
+        raise ValueError(f"grouped_ffn_sorted_cuda: xs {tuple(xs.shape)} and "
+                         f"wg {tuple(wg.shape)}: expected [R,D] and [E,D,F]")
+    R, D = xs.shape
+    E, F = wg.shape[0], wg.shape[2]
+    if tuple(wg.shape) != (E, D, F) or tuple(wu.shape) != (E, D, F) \
+            or tuple(wd.shape) != (E, F, D):
+        raise ValueError(f"grouped_ffn_sorted_cuda: bad shapes xs "
+                         f"{tuple(xs.shape)}, wg {tuple(wg.shape)}, wu "
+                         f"{tuple(wu.shape)}, wd {tuple(wd.shape)}")
+    if min(R, E, D, F) == 0:
+        raise ValueError(f"grouped_ffn_sorted_cuda: empty dimension in R={R}, "
+                         f"E={E}, D={D}, F={F}")
+    if {t.dtype for _, t in named} != {torch.bfloat16} or D % 8 or F % 8:
+        raise TypeError(f"grouped_ffn_sorted_cuda: dtypes "
+                        f"{[t.dtype for _, t in named]}, D={D}, F={F}: the "
+                        "kernel takes bfloat16 with D and F multiples of 8")
+    if not isinstance(offsets, torch.Tensor) or offsets.dtype != torch.int32 \
+            or tuple(offsets.shape) != (E + 1,) or offsets.device != xs.device:
+        raise ValueError(f"grouped_ffn_sorted_cuda: offsets must be an int32 "
+                         f"[{E + 1}] tensor on {xs.device}")
+    offsets = offsets.contiguous()
+    h = torch.empty((2, R, F), dtype=torch.bfloat16, device=xs.device)
+    ys = torch.empty_like(xs)
+    lib = _build.load()
+    with torch.cuda.device(xs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_grouped_ffn_sorted(
+            xs.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
+            offsets.data_ptr(), h.data_ptr(), ys.data_ptr(), R, E, D, F,
+            stream)
+    _build.check(err, "grouped_ffn_sorted")
+    grouped_ffn_sorted_cuda.launches += 1
+    return ys
+
+
+grouped_ffn_sorted_cuda.launches = 0

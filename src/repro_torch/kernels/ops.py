@@ -31,7 +31,8 @@ from repro_torch import tracing
 from repro_torch.kernels import costs, ref
 from repro_torch.kernels.autograd import GroupedFFN, SSMScan
 from repro_torch.kernels.decode_attention import decode_attention_cuda
-from repro_torch.kernels.grouped_ffn import check_counts, grouped_ffn_cuda
+from repro_torch.kernels.grouped_ffn import (check_counts, grouped_ffn_cuda,
+                                             grouped_ffn_sorted_cuda)
 from repro_torch.kernels.masked_compact import masked_compact_cuda
 from repro_torch.kernels.mla_decode_attention import (
     mla_decode_attention_cuda, refusal as mla_refusal)
@@ -41,6 +42,7 @@ from repro_torch.kernels.ssm_scan import ssm_scan_bwd_cuda, ssm_scan_cuda
 _WRAPPERS = {"decode_attention": decode_attention_cuda,
              "masked_compact": masked_compact_cuda,
              "grouped_ffn": grouped_ffn_cuda,
+             "grouped_ffn_sorted": grouped_ffn_sorted_cuda,
              "ssm_scan": ssm_scan_cuda,
              "ssm_scan_bwd": ssm_scan_bwd_cuda,
              "prefill_attention": prefill_attention_cuda,
@@ -181,6 +183,26 @@ def grouped_ffn(buf, wg, wu, wd, *, counts=None, use_kernels: bool = True):
     Differentiable in buf and the weights."""
     check_counts(counts, buf.shape[0], buf.device)
     return GroupedFFN.apply(buf, wg, wu, wd, counts, bool(use_kernels))
+
+
+def grouped_ffn_sorted(xs, wg, wu, wd, offsets):
+    """xs: [R,D] rows sorted by expert; wg/wu: [E,D,F]; wd: [E,F,D];
+    offsets: int32 [E+1], expert e's rows ``offsets[e] <= r < offsets[e+1]``
+    -> ys [R,D] in xs' dtype.  The kernel for CUDA tensors (the caller,
+    ``models/moe.py:sorted_route``, sends only calls it takes), the plain
+    version elsewhere.  Not differentiable."""
+    if not xs.is_cuda:
+        return ref.grouped_ffn_sorted_ref(xs, wg, wu, wd, offsets)
+    E, D, F = wg.shape
+
+    def cost(_):     # the experts with a row: read back while counting
+        used = int((offsets[1:] > offsets[:-1]).sum())
+        return costs.grouped_ffn_sorted(xs.shape[0], E, D, F,
+                                        xs.element_size(), experts_used=used)
+
+    return costs.counted(
+        "grouped_ffn_sorted",
+        lambda: grouped_ffn_sorted_cuda(xs, wg, wu, wd, offsets), cost)
 
 
 def ssm_scan(decay, bx, h0, *, use_kernels: bool = True):

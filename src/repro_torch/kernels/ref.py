@@ -139,6 +139,26 @@ def grouped_ffn_ref(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     return torch.bmm(h, wd.to(acc)).to(buf.dtype)
 
 
+def grouped_ffn_sorted_ref(xs: torch.Tensor, wg: torch.Tensor,
+                           wu: torch.Tensor, wd: torch.Tensor,
+                           offsets: torch.Tensor) -> torch.Tensor:
+    """xs: [R,D] rows sorted by expert; wg/wu: [E,D,F]; wd: [E,F,D];
+    offsets: [E+1] ints, expert e's rows ``offsets[e] <= r < offsets[e+1]``.
+    Returns [R,D] in xs' dtype: each row through its expert's SwiGLU in f32
+    (f64 inputs in f64), as :func:`grouped_ffn_ref` computes a buffer row;
+    rows past ``offsets[E]`` are zero.  Reads the offsets on the host."""
+    acc = torch.promote_types(xs.dtype, torch.float32)
+    out = torch.zeros(xs.shape, dtype=acc, device=xs.device)
+    bounds = offsets.tolist()
+    for e in range(wg.shape[0]):
+        lo, hi = bounds[e], bounds[e + 1]
+        if hi > lo:
+            x = xs[lo:hi].to(acc)
+            h = torch.nn.functional.silu(x @ wg[e].to(acc)) * (x @ wu[e].to(acc))
+            out[lo:hi] = h @ wd[e].to(acc)
+    return out.to(xs.dtype)
+
+
 # ---------------------------------------------------------------------------
 # ssm_scan: the Mamba-1 diagonal recurrence over the sequence axis
 # ---------------------------------------------------------------------------

@@ -33,13 +33,18 @@ A config whose ``routing`` is "sigmoid_bias" (DeepSeek-V3's ``noaux_tc``
 gate with one group: an ``MLAConfig``) routes by :func:`route_biased`:
 sigmoid scores, the choice made on score + a per-expert bias, the weights
 the unbiased scores of the choices, normalised and scaled by
-``routed_scaling``, and no token dropped.  The same dispatch runs over the
-tokens in chunks of at most ``DROPLESS_TOKENS``, each expert's buffer
-holding all of a chunk's tokens (an expert takes a token at most once), so
-the buffers are sized from the shapes alone, with no host sync, and a
-7,168-token prefill's scratch stays that of 2,048 tokens; ``counts``
-tells ``grouped_ffn`` the rows in use.  No aux loss (the gate has none).
-One device only.
+``routed_scaling``, and no token dropped.  Where :func:`sorted_route`
+takes the call (a prefill on the card: bf16, no gradient, at least
+``SORTED_ROWS_PER_EXPERT`` routed rows an expert on average), the layer's
+T·K choices, sorted by expert, run as one ``ops.grouped_ffn_sorted`` over
+the ``[T·K, D]`` rows and per-expert offsets: each expert's weights read
+once, nothing zero-filled.  Elsewhere (decode, a gradient, f32, the CPU)
+the capacity dispatch runs over the tokens in chunks of at most
+``DROPLESS_TOKENS``, each expert's buffer holding all of a chunk's tokens
+(an expert takes a token at most once), so the buffers are sized from the
+shapes alone; ``counts`` tells ``grouped_ffn`` the rows in use.  The
+sorted route builds its offsets on the device and adds no host sync.  No
+aux loss (the gate has none).  One device only.
 """
 from __future__ import annotations
 
@@ -50,6 +55,7 @@ import torch
 from repro_torch import tracing
 from repro_torch.distributed import collectives as coll
 from repro_torch.kernels import ops
+from repro_torch.kernels.grouped_ffn import sorted_refusal
 from repro_torch.models.layers import mlp_apply, normal_stack
 
 
@@ -79,6 +85,12 @@ def moe_init(gen: torch.Generator, cfg, dtype, device, n_layers: int) -> dict:
 # bf16 at D 2048, E 64), the output alike and the 4-byte workspace
 # [E, 2048, F] (738 MB at F 1408)
 DROPLESS_TOKENS = 2048
+# routed rows an expert (T·K / E) from which a dropless layer takes the
+# sorted route.  On the card it read faster than the capacity route at
+# every size swept, 1.5 to 672 rows an expert (PERF.md §6); the decode step,
+# at most 64 slots (6 rows an expert at E 64, K 6), keeps the capacity
+# kernel, and 12 is the first swept size above it (a 128-token prefill)
+SORTED_ROWS_PER_EXPERT = 12
 
 
 def _capacity(tokens: int, cfg) -> int:
@@ -105,24 +117,45 @@ def route(xt: torch.Tensor, router: torch.Tensor, cfg):
     return gate_vals, expert_ids, aux, probs
 
 
+def sort_choices(expert_ids: torch.Tensor, E: int):
+    """The [T,K] choices flattened and sorted by expert, stably: (sort_idx
+    [T*K], sorted_ids [T*K], counts [E], the choices of each expert)."""
+    flat_ids = expert_ids.reshape(-1)
+    # jnp.argsort is stable; torch.argsort is not unless asked.  The order
+    # decides which tokens overflow the capacity (keep = pos < C).
+    sort_idx = torch.argsort(flat_ids, stable=True)
+    # bincount(minlength=E) without bincount's host sync on the card
+    counts = torch.zeros((E,), dtype=torch.long, device=flat_ids.device) \
+        .index_add_(0, flat_ids, torch.ones_like(flat_ids))
+    return sort_idx, flat_ids[sort_idx], counts
+
+
 def dispatch(expert_ids: torch.Tensor, E: int, C: int):
     """Sort-based dispatch of the [T,K] choices into E buckets of capacity C.
     Returns (sort_idx, sorted_ids, pos, keep, src_token), each [T*K], and
     the per-expert choice counts [E] (kept or not)."""
     K = expert_ids.shape[1]
-    flat_ids = expert_ids.reshape(-1)
-    # jnp.argsort is stable; torch.argsort is not unless asked.  The order
-    # decides which tokens overflow the capacity (keep = pos < C).
-    sort_idx = torch.argsort(flat_ids, stable=True)
-    sorted_ids = flat_ids[sort_idx]
-    # bincount(minlength=E) without bincount's host sync on the card
-    counts = torch.zeros((E,), dtype=torch.long, device=flat_ids.device) \
-        .index_add_(0, flat_ids, torch.ones_like(flat_ids))
+    sort_idx, sorted_ids, counts = sort_choices(expert_ids, E)
     offsets = torch.cumsum(counts, 0) - counts
-    pos = torch.arange(flat_ids.numel(), device=flat_ids.device) - offsets[sorted_ids]
+    pos = torch.arange(sorted_ids.numel(), device=sorted_ids.device) \
+        - offsets[sorted_ids]
     keep = pos < C
     src_token = sort_idx // K
     return sort_idx, sorted_ids, pos, keep, src_token, counts
+
+
+def sorted_route(xt: torch.Tensor, w_gate: torch.Tensor, cfg,
+                 use_kernels: bool) -> bool:
+    """Whether a layer's tokens xt [T,D] take the sorted route: a dropless
+    layer with kernels on, ``grouped_ffn_sorted``'s kernel taking the call
+    (bf16, no gradient, on the card: ``sorted_refusal``), and at least
+    ``SORTED_ROWS_PER_EXPERT`` routed rows an expert on average: a
+    prefill, while a decode step's few rows an expert keep the capacity
+    kernel."""
+    return (cfg.routing == "sigmoid_bias" and bool(use_kernels)
+            and xt.shape[0] * cfg.experts_per_token
+            >= SORTED_ROWS_PER_EXPERT * cfg.num_experts
+            and sorted_refusal(xt, w_gate) is None)
 
 
 def moe_apply(params, x: torch.Tensor, cfg, *, use_kernels: bool = False,
@@ -158,18 +191,50 @@ def moe_apply(params, x: torch.Tensor, cfg, *, use_kernels: bool = False,
         else:
             gate_vals, expert_ids, aux, _ = route(xt, params["router"], cfg)
     with tracing.span("moe.experts"):
-        step = min(T, DROPLESS_TOKENS) if dropless else T
-        parts = [_routed_experts(params, xt[i:i + step],
-                                 gate_vals[i:i + step], expert_ids[i:i + step],
-                                 cfg, min(step, T - i) if dropless
-                                 else _capacity(T, cfg),
-                                 use_kernels=use_kernels)
-                 for i in range(0, T, step)]
-        y = parts[0] if len(parts) == 1 else torch.cat(parts)
+        if sorted_route(xt, params["w_gate"], cfg, use_kernels):
+            y = _sorted_experts(params, xt, gate_vals, expert_ids, cfg)
+        else:
+            y = _capacity_experts(params, xt, gate_vals, expert_ids, cfg,
+                                  T, dropless, use_kernels)
     if "shared" in params:
         with tracing.span("moe.shared"):
             y = y + mlp_apply(params["shared"], xt, cfg).to(x.dtype)
     return y.reshape(B, S, D), aux
+
+
+def _capacity_experts(params, xt, gate_vals, expert_ids, cfg, T: int,
+                      dropless: bool, use_kernels: bool) -> torch.Tensor:
+    """The routed experts through ``[E, C, D]`` capacity buffers: the whole
+    batch at the capacity factor's C, or a dropless layer's tokens in
+    chunks of ``DROPLESS_TOKENS``, each chunk's C its own token count."""
+    step = min(T, DROPLESS_TOKENS) if dropless else T
+    parts = [_routed_experts(params, xt[i:i + step], gate_vals[i:i + step],
+                             expert_ids[i:i + step], cfg,
+                             min(step, T - i) if dropless
+                             else _capacity(T, cfg), use_kernels=use_kernels)
+             for i in range(0, T, step)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _sorted_experts(params, xt: torch.Tensor, gate_vals: torch.Tensor,
+                    expert_ids: torch.Tensor, cfg) -> torch.Tensor:
+    """The gate-weighted sum of the routed experts' outputs [T,D]: the T·K
+    choices sorted by expert into rows xs [T·K, D] with per-expert offsets
+    [E+1] (built on the device), one ``grouped_ffn_sorted`` over them, then
+    the rows un-sorted, weighted by the gates in xt's dtype and summed over
+    K, as ``_routed_experts`` combines."""
+    T, D = xt.shape
+    K = expert_ids.shape[1]
+    sort_idx, _, counts = sort_choices(expert_ids, cfg.num_experts)
+    offsets = torch.zeros((cfg.num_experts + 1,), dtype=torch.int32,
+                          device=xt.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    ys = ops.grouped_ffn_sorted(xt[sort_idx // K], params["w_gate"],
+                                params["w_up"], params["w_down"], offsets)
+    unsorted = torch.empty_like(ys)
+    unsorted[sort_idx] = ys            # sort_idx is a permutation
+    unsorted.mul_(gate_vals.reshape(T * K)[:, None].to(xt.dtype))
+    return unsorted.reshape(T, K, D).sum(dim=1)
 
 
 def _routed_experts(params, xt: torch.Tensor, gate_vals: torch.Tensor,

@@ -446,7 +446,8 @@ def test_launcher_static_matches_jax_engine(arch, monkeypatch, capsys):
     assert ops.launch_counts() == {"decode_attention": 0, "masked_compact": 0,
                                    "grouped_ffn": 0, "ssm_scan": 0,
                                    "ssm_scan_bwd": 0, "prefill_attention": 0,
-                                   "mla_decode_attention": 0}
+                                   "mla_decode_attention": 0,
+                                   "grouped_ffn_sorted": 0}
     reqs = request_stream(p.cfg.vocab_size, n=n, mean_prompt=P, seed=0,
                           frontend_tokens=p.cfg.frontend_tokens,
                           frontend_dim=p.cfg.frontend_dim)

@@ -122,4 +122,5 @@ def test_cpu_tensors_never_count_as_launches():
     assert ops.launch_counts() == {"decode_attention": 0, "masked_compact": 0,
                                    "grouped_ffn": 0, "ssm_scan": 0,
                                    "ssm_scan_bwd": 0, "prefill_attention": 0,
-                                   "mla_decode_attention": 0}
+                                   "mla_decode_attention": 0,
+                                   "grouped_ffn_sorted": 0}

@@ -136,7 +136,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     assert ops.launch_counts() == {"decode_attention": 0, "masked_compact": 0,
                                    "grouped_ffn": 0, "ssm_scan": 0,
                                    "ssm_scan_bwd": 0, "prefill_attention": 0,
-                                   "mla_decode_attention": 0}
+                                   "mla_decode_attention": 0,
+                                   "grouped_ffn_sorted": 0}
 
 
 def test_kernel_library_names_missing_card():

@@ -231,6 +231,125 @@ def test_bias_changes_the_choices_not_the_weights(small):
                           atol=1e-5)
 
 
+def _sorted_case(kind, E=8, D=32, F=16, seed=5):
+    """Rows sorted by expert and their offsets for a routing ``kind``:
+    random counts, some experts empty, every row on one expert, or a row
+    count that is no multiple of the kernel's 128-row tile."""
+    g = torch.Generator().manual_seed(seed)
+    counts = {"random": torch.randint(1, 40, (E,), generator=g),
+              "empty": torch.tensor([0, 37, 0, 0, 129, 5, 0, 1]),
+              "one": torch.tensor([0, 0, 0, 300, 0, 0, 0, 0]),
+              "ragged": torch.tensor([128, 3, 0, 131, 1, 0, 0, 64])}[kind]
+    offsets = torch.zeros(E + 1, dtype=torch.int32)
+    offsets[1:] = torch.cumsum(counts, 0)
+    R = int(offsets[-1])
+    xs = torch.randn((R, D), generator=g)
+    w = [torch.randn(shape, generator=g) / math.sqrt(shape[1])
+         for shape in ((E, D, F), (E, D, F), (E, F, D))]
+    return xs, w, offsets, counts
+
+
+@pytest.mark.parametrize("kind", ["random", "empty", "one", "ragged"])
+def test_sorted_plain_version_equals_the_capacity_buffer(kind):
+    """ref.grouped_ffn_sorted_ref over sorted rows equals grouped_ffn_ref
+    over the [E, C, D] buffer that holds the same rows, expert by expert."""
+    xs, w, offsets, counts = _sorted_case(kind)
+    E, C = len(counts), max(int(counts.max()), 1)
+    buf = torch.zeros((E, C, xs.shape[1]))
+    for e in range(E):
+        buf[e, :counts[e]] = xs[offsets[e]:offsets[e + 1]]
+    want = ref.grouped_ffn_ref(buf, *w, counts.to(torch.int32))
+    got = ref.grouped_ffn_sorted_ref(xs, *w, offsets)
+    assert got.shape == xs.shape and got.dtype == xs.dtype
+    for e in range(E):
+        assert torch.allclose(got[offsets[e]:offsets[e + 1]],
+                              want[e, :counts[e]], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("forced", [False, True])
+def test_dropless_sorted_route_equals_the_loop_and_the_chunks(
+        small, monkeypatch, forced):
+    """With the sorted route taken (on the CPU its kernel's plain version
+    runs), the dropless layer is one grouped_ffn_sorted over the T·K rows
+    and no capacity buffer, and its output is the loop reference's and the
+    chunked route's, also with every token forced onto expert 0."""
+    cfg, p = _moe_layer(small, bias=torch.tensor([100.0] + [0.0] * 7)
+                        if forced else None)
+    g = torch.Generator().manual_seed(23)
+    x = torch.randn((3, 17, cfg.d_model), generator=g)
+    chunked, _ = moe.moe_apply(p, x, cfg)
+    calls = []
+    for name in ("grouped_ffn", "grouped_ffn_sorted"):
+        fn = getattr(ops, name)
+        monkeypatch.setattr(ops, name, lambda *a, _n=name, _f=fn, **k: (
+            calls.append((_n, a[0].shape)), _f(*a, **k))[1])
+    monkeypatch.setattr(moe, "sorted_route", lambda *a: True)
+    y, aux = moe.moe_apply(p, x, cfg)
+    want = _loop_reference(p, x.reshape(-1, cfg.d_model), cfg)
+    assert calls == [("grouped_ffn_sorted",
+                      (51 * cfg.experts_per_token, cfg.d_model))]
+    assert float(aux) == 0.0
+    for other in (want, chunked.reshape(-1, cfg.d_model)):
+        assert float((y.reshape(-1, cfg.d_model) - other).abs().max()) <= \
+            OUT_TOL * float(other.abs().max())
+
+
+def test_sorted_route_rule(small, monkeypatch):
+    """The sorted route takes a dropless layer's prefill-sized bf16 call
+    with kernels on and no gradient (on the card: here the device check is
+    set aside), and sends decode-sized T, a gradient, f32, kernels off and
+    the softmax router to the capacity kernel."""
+    from repro_torch.kernels import grouped_ffn as gf
+    cfg, p = _moe_layer(small)
+    real = gf.sorted_refusal
+    assert real(torch.zeros(4, 8, dtype=torch.bfloat16),
+                torch.zeros(2, 8, 16, dtype=torch.bfloat16)) == gf.OFF_CARD
+    monkeypatch.setattr(moe, "sorted_refusal", lambda xs, wg: (
+        None if real(xs, wg) == gf.OFF_CARD else real(xs, wg)))
+    wg = p["w_gate"].bfloat16()
+    E, K = cfg.num_experts, cfg.experts_per_token
+    T_min = -(-moe.SORTED_ROWS_PER_EXPERT * E // K)   # the fewest it takes
+
+    def takes(T, dtype=torch.bfloat16, grad=False, c=cfg, kernels=True):
+        xt = torch.zeros((T, cfg.d_model), dtype=dtype, requires_grad=grad)
+        return moe.sorted_route(xt, wg.to(dtype), c, kernels)
+
+    assert takes(T_min) and takes(7168)
+    assert not takes(T_min - 1)                    # decode-sized
+    assert not takes(7168, grad=True)
+    with torch.no_grad():
+        assert takes(7168, grad=True)              # no gradient recorded
+    assert not takes(7168, dtype=torch.float32)
+    assert not takes(7168, kernels=False)
+    assert not takes(7168, c=dataclasses.replace(cfg, routing="softmax"))
+    # the cell's decode (64 slots: 6 rows an expert) stays off the route,
+    # its 7,168-token prefill (672) takes it
+    full = get_config(ARCH)
+    decode, prefill = (T * full.experts_per_token / full.num_experts
+                       for T in (64, 7168))
+    assert decode < moe.SORTED_ROWS_PER_EXPERT <= prefill
+
+
+def test_sorted_wrapper_refuses_cpu_tensors():
+    from repro_torch.kernels.grouped_ffn import grouped_ffn_sorted_cuda
+    xs, w, offsets, _ = _sorted_case("random")
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        grouped_ffn_sorted_cuda(xs.bfloat16(), *(t.bfloat16() for t in w),
+                                offsets)
+    ops.grouped_ffn_sorted(xs, *w, offsets)       # the plain version
+    assert ops.launch_counts()["grouped_ffn_sorted"] == 0
+
+
+def test_sorted_cost_counts_the_rows_and_the_experts_used():
+    c = costs.grouped_ffn_sorted(43008, 64, 2048, 1408, 2, experts_used=60)
+    assert c["flops"] == 6 * 43008 * 2048 * 1408
+    assert c["bytes"] == 2 * (2 * 43008 * 2048 + 60 * 3 * 2048 * 1408) \
+        + 4 * 65
+    assert costs.grouped_ffn_sorted(10, 4, 8, 8, 2)["bytes"] == \
+        2 * (2 * 10 * 8 + 4 * 3 * 8 * 8) + 4 * 5
+
+
 def _decode_inputs(B=3, H=16, S=70, W=576, dtype=torch.bfloat16):
     g = torch.Generator().manual_seed(21)
     return (torch.randn((B, H, W), generator=g).to(dtype),
@@ -458,18 +577,22 @@ def test_mla_spans_nest_in_the_model_steps(small):
 def test_chip_smoke_counts_the_latent_path():
     """chip_smoke's launch expectation for moonlight: latent decode
     attention in all 27 layers, no decode_attention, grouped_ffn in the 26
-    MoE layers of each decode step and of each prefill's 2,048-token
-    chunks; its kernels line counts the 192/128 instance's launches on
-    moonlight's paths alone."""
+    MoE layers of each decode step, grouped_ffn_sorted in those of each
+    7,168-token prefill (a prompt too short for the sorted route takes
+    grouped_ffn in 2,048-token chunks); its kernels line counts the 192/128
+    instance's launches on moonlight's paths alone."""
     import sys
     from pathlib import Path
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import chip_smoke as cs
-    want = cs._expected_launches(get_config("moonlight-16b-a3b"),
-                                 {"decode_steps": 5, "prefills": 2}, 7168)
+    cfg = get_config("moonlight-16b-a3b")
+    want = cs._expected_launches(cfg, {"decode_steps": 5, "prefills": 2}, 7168)
     assert want == {"decode_attention": 0, "mla_decode_attention": 27 * 5,
-                    "grouped_ffn": 26 * (5 + 2 * 4), "ssm_scan": 0,
-                    "ssm_scan_bwd": 0}
+                    "grouped_ffn": 26 * 5, "grouped_ffn_sorted": 26 * 2,
+                    "ssm_scan": 0, "ssm_scan_bwd": 0}
+    short = cs._expected_launches(cfg, {"decode_steps": 5, "prefills": 2}, 64)
+    assert (short["grouped_ffn"], short["grouped_ffn_sorted"]) == \
+        (26 * (5 + 2), 0)
     row = {"ms": 1.0, "device_ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.5,
            "bound_by": "memory", "library_ms": None, "group": "cell"}
     rows = [dict(row, kernel=k) for k in cs.KERNEL_META]

@@ -112,7 +112,8 @@ def test_launcher_static_split_on_cpu(capsys):
     assert ops.launch_counts() == {"decode_attention": 0, "masked_compact": 0,
                                    "grouped_ffn": 0, "ssm_scan": 0,
                                    "ssm_scan_bwd": 0, "prefill_attention": 0,
-                                   "mla_decode_attention": 0}
+                                   "mla_decode_attention": 0,
+                                   "grouped_ffn_sorted": 0}
     assert "solver: r* =" in capsys.readouterr().out
     s8 = serve.main(["--reduced", "--device", "cpu", "--kv-int8", "--requests",
                      "5", "--prompt-len", "12", "--max-new", "5",
