@@ -23,11 +23,12 @@ generalization:
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import time
 from dataclasses import dataclass, field
-from typing import (TYPE_CHECKING, Any, Callable, Dict, List, Optional,
-                    Sequence, Tuple, Union)
+from typing import (TYPE_CHECKING, Any, Callable, Dict, List, NamedTuple,
+                    Optional, Sequence, Tuple, Union)
 
 import numpy as np
 import torch
@@ -252,6 +253,62 @@ class ServeResult:
         return json.dumps(self.telemetry, **kw)
 
 
+# ---------------------------------------------------------------------------
+# The additive serving counters, each with its zero (its telemetry type) and
+# the levels that publish it: "g" per_group, "w" the wave, "t" the totals.
+# A group sums its engine runs' ContinuousStats, a wave its groups, the
+# totals the waves.  The unpublished ones feed derived fields and the router.
+_COUNTERS = (
+    ("tokens", 0, "gwt"), ("host_syncs", 0, "gwt"),
+    ("admission_stalls", 0, "gwt"), ("prefill_offloaded", 0, "gwt"),
+    ("prefill_fallbacks", 0, "gwt"), ("t_kv_transfer_s", 0.0, "gwt"),
+    ("prefix_hits", 0, "gwt"), ("prefix_blocks_reused", 0, "gwt"),
+    ("prefill_flops_avoided", 0.0, "gwt"), ("prefill_flops_total", 0.0, "t"),
+    ("kv_hop_bytes_raw", 0.0, "gwt"), ("kv_hop_bytes_wire", 0.0, "gwt"),
+    ("wave_launches", 0, "gt"), ("t_prefill_overlap_s", 0.0, "gt"),
+    ("t_splice_s", 0.0, "gt"), ("t_slot_write_s", 0.0, "gt"),
+    ("t_dispatch_s", 0.0, "gt"), ("t_await_s", 0.0, "gt"),
+    ("decode_s", 0.0, ""), ("macro_dispatches", 0, ""),
+    ("shadow_prefills", 0, ""),
+)
+_ZEROS = {name: zero for name, zero, _ in _COUNTERS}
+_LEVELS = {name: levels for name, _, levels in _COUNTERS}
+
+
+def _fold(records) -> Dict[str, Any]:
+    """Sum serving records counter by counter, each from its own zero, so
+    that no records (a dead group, an empty share) still give the
+    telemetry's types."""
+    out = dict(_ZEROS)
+    for r in records:
+        for name in out:
+            out[name] += r[name]
+    return out
+
+
+def _published(rec: dict, level: str) -> dict:
+    """``rec`` less the counters that ``level`` does not publish."""
+    return {k: v for k, v in rec.items() if level in _LEVELS.get(k, level)}
+
+
+def _per_macro_step(rec: dict) -> float:
+    """Decode wall a fused macro-step (0.0 where none was dispatched)."""
+    n = rec["macro_dispatches"]
+    return rec["decode_s"] / n if n else 0.0
+
+
+class _WavePlan(NamedTuple):
+    """What the fault domain decided for one wave."""
+    sv: SplitVector
+    counts: Tuple[int, ...]           # per decode group, hub first
+    n_latched: int                    # edges the β latch forced local
+    rerouted: int                     # requests the hot mask moved
+    link_bw: Dict[str, float]         # live rate per group (hub 0.0)
+    links: Dict[int, Tuple[LinkModel, float]]   # traced edges' link, distance
+    adm: list                         # per decode group admission assessment
+    route: Any                        # prefill route (None without a spoke)
+
+
 class HeteroRuntime:
     """Session facade over the whole HeteroEdge pipeline.
 
@@ -405,20 +462,12 @@ class HeteroRuntime:
         if pg is not None:
             from repro_torch.serving.prefill import (PrefillWorker,
                                                      PrefillWorkerPool)
-            if self.prefill_pool > 1:
-                worker = PrefillWorkerPool(cfg, params,
-                                           size=self.prefill_pool,
-                                           device=pg.devices[0],
-                                           link=self.topology.prefill_link,
-                                           distance=self.link_distance,
-                                           name=pg.name,
-                                           kv_keep_rate=self.kv_keep_rate)
-            else:
-                worker = PrefillWorker(cfg, params, device=pg.devices[0],
-                                       link=self.topology.prefill_link,
-                                       distance=self.link_distance,
-                                       name=pg.name,
-                                       kv_keep_rate=self.kv_keep_rate)
+            kw = dict(device=pg.devices[0], link=self.topology.prefill_link,
+                      distance=self.link_distance, name=pg.name,
+                      kv_keep_rate=self.kv_keep_rate)
+            worker = (PrefillWorkerPool(cfg, params, size=self.prefill_pool,
+                                        **kw) if self.prefill_pool > 1
+                      else PrefillWorker(cfg, params, **kw))
         pcache = None
         if self.prefix_cache_blocks > 0:
             from repro_torch.serving.prefix_cache import PrefixCache
@@ -541,6 +590,165 @@ class HeteroRuntime:
                 eng.run(self._capped(spec, [req]))
 
     # ------------------------------------------------------------------
+    def _plan_wave(self, wave_idx: int, n: int, split,
+                   dead: Dict[int, Backoff]) -> _WavePlan:
+        """The fleet's fault domain for one wave of ``n`` requests: re-probe
+        the dead decode groups (``dead`` is updated in place), carry the
+        prefill spoke's health to its workers, replay the link traces, mask
+        the split onto the live, unlatched, cold groups and pick the
+        prefill route."""
+        topo = self.topology
+        decode = self._decode
+        workers = [spec.prefill_worker for spec in self.tasks.values()
+                   if spec.prefill_worker is not None]
+        # 1) bounded-backoff re-probe of dead decode groups: a restored
+        # group rejoins on the wave clock, a still-dead probe doubles the
+        # wait (the PrefillRouter's Backoff)
+        for gi, bo in list(dead.items()):
+            if bo.tick():
+                if topo.groups[gi].health.alive:
+                    del dead[gi]
+                else:
+                    bo.fail()
+
+        # 2) the prefill spoke's NodeGroup health runs on the same wave
+        # clock: a group-level kill (or armed fault firing now) propagates
+        # to its workers so the router latches local this wave; a
+        # group-level restore revives exactly the workers this path killed,
+        # and the router's own backoff re-probes
+        pfg = topo.prefill_group
+        if pfg is not None:
+            try:
+                pfg.health.check("dispatch", pfg.name)
+            except GroupUnavailableError:
+                pass
+            if not pfg.health.alive and not self._pf_group_killed:
+                for w in workers:
+                    w.kill()
+                self._pf_group_killed = True
+            elif pfg.health.alive and self._pf_group_killed:
+                for w in workers:
+                    w.restore()
+                self._pf_group_killed = False
+
+        # 3) mobility-driven link churn (paper §V-A.5): replay every traced
+        # edge at this wave — live LinkModel, β latch, and the traced
+        # bandwidth the telemetry and hop prices follow
+        latched: Dict[int, bool] = {}
+        links: Dict[int, Tuple[LinkModel, float]] = {}
+        link_bw = {g.name: 0.0 for g in topo.groups}
+        for gi in range(1, len(topo.groups)):
+            name = topo.groups[gi].name
+            tr = self.link_traces.get(gi)
+            if tr is None:
+                link_bw[name] = float(data_rate(topo.links[gi],
+                                                self.link_distance))
+                continue
+            eff = tr.link_at(topo.links[gi], wave_idx)
+            d_m = tr.distance_at(wave_idx)
+            feasible = tr.feasible(wave_idx)
+            links[gi] = (eff, d_m)
+            link_bw[name] = float(data_rate(eff, d_m))
+            if gi == topo.prefill_spoke:
+                self.prefill_router.link = eff
+                self.prefill_router.distance = d_m
+                self.prefill_router.mobility_latched = not feasible
+                for w in workers:
+                    w.set_link(eff, d_m)
+            else:
+                latched[gi] = not feasible
+        n_latched = sum(latched.values()) + (
+            1 if self.prefill_router is not None
+            and self.prefill_router.mobility_latched else 0)
+
+        # 4) surviving simplex: dead groups mask to exactly 0; the β latch
+        # additionally zeroes priced-out edges while at least one unlatched
+        # live group remains (death is hard, the latch is advisory — an
+        # all-latched fleet still has to decode)
+        alive_mask = tuple(gi not in dead for gi in decode)
+        if not any(alive_mask):
+            raise GroupUnavailableError(
+                "all", "every decode group is dead — restore one before "
+                "serving")
+        eff_mask = tuple(a and not latched.get(gi, False)
+                         for a, gi in zip(alive_mask, decode))
+        if not any(eff_mask):
+            eff_mask = alive_mask
+
+        # 5) power/memory/busy-factor admission: groups whose budget runs
+        # hot mask out of the split — the same masked-simplex path that
+        # removes dead groups — and their share re-routes to the cold
+        # survivors.  Like the β latch, hotness is advisory: an all-hot
+        # fleet still decodes (the frontend sheds in that regime instead)
+        adm = self.admission.assess()
+        adm_mask = tuple(e and not a.hot for e, a in zip(eff_mask, adm))
+        rerouted = 0
+        if any(adm_mask) and adm_mask != eff_mask:
+            _, counts_base = self._split_for(n, split, eff_mask)
+            rerouted = sum(c for c, keep in zip(counts_base, adm_mask)
+                           if not keep)
+            eff_mask = adm_mask
+        sv, counts = self._split_for(n, split, eff_mask)
+
+        # 6) the prefill route
+        route = None
+        if self.prefill_router is not None:
+            # a worker that died outside a counted wave (warmup, or a direct
+            # engine run) must still flip the route to local
+            alive = any(w.healthy for w in workers)
+            if not alive:
+                self.prefill_router.healthy = False
+            # bounded-backoff auto re-probe: a latched-local router flips
+            # back on its own once a probe wave finds the prefill group
+            # restored — no operator revive()
+            self.prefill_router.maybe_revive(alive)
+            route = self.prefill_router.route()
+            for spec in self.tasks.values():
+                for eng in spec.engines.values():
+                    eng.prefill_remote = route.remote
+        return _WavePlan(sv, tuple(counts), n_latched, rerouted, link_bw,
+                         links, adm, route)
+
+    def _run_group(self, gi: int, share: List[ServeRequest],
+                   links: Dict[int, Tuple[LinkModel, float]],
+                   on_tokens) -> Tuple[Optional[list], dict]:
+        """Run decode group ``gi``'s share of a wave, task by task: its runs
+        ``(task, outputs, stats)`` and its record, the runs' stats folded
+        with its wall, link latency and requests by task.  A group that
+        dies mid-wave gives no runs (None) and a record of zeros."""
+        grp = self.topology.groups[gi]
+        by_task: Dict[str, List[ServeRequest]] = {}
+        for req in share:
+            by_task.setdefault(self._task_of(req), []).append(req)
+        runs = []
+        payload = 0.0
+        with tracing.timed("runtime.group", group=grp.name) as sp_g:
+            try:
+                if share:
+                    grp.health.check("dispatch", grp.name)
+                for task, reqs_t in by_task.items():
+                    spec = self.tasks[task]
+                    outs, st = spec.engines[grp.name].run(
+                        self._capped(spec, reqs_t), on_tokens=on_tokens)
+                    runs.append((task, outs, st))
+                    payload += len(reqs_t) * spec.payload_bytes_per_item
+                if share:
+                    grp.health.check("await", grp.name)
+            except GroupUnavailableError:
+                return None, {"n": 0, "wall_s": 0.0, "link_s": 0.0, **_ZEROS,
+                              "t_per_macro_step_s": 0.0, "tasks": {}}
+        link_s = 0.0
+        if gi > 0 and share:
+            eff_link, eff_dist = links.get(
+                gi, (self.topology.links[gi], self.link_distance))
+            link_s = float(offload_latency(eff_link, payload, eff_dist))
+        rec = _fold(dict(vars(st), tokens=st.total_tokens)
+                    for _, _, st in runs)
+        return runs, {"n": len(share), "wall_s": sp_g.seconds,
+                      "link_s": link_s, **rec,
+                      "t_per_macro_step_s": _per_macro_step(rec),
+                      "tasks": {t: len(r) for t, r in by_task.items()}}
+
     def serve(self, requests: Sequence[ServeRequest], *, split=None,
               wave: Optional[int] = None, warm: bool = True,
               verbose: bool = False,
@@ -548,6 +756,11 @@ class HeteroRuntime:
                                            None]] = None) -> ServeResult:
         """Drain a (possibly mixed-task) request stream through the
         topology.  Returns outputs per task + structured telemetry.
+
+        A wave takes the queue's next chunk, decides its split
+        (:meth:`_plan_wave`), runs each decode group (:meth:`_run_group`),
+        folds their records, feeds the controller and the prefill router,
+        and requeues the share of a group that died mid-wave.
 
         With a dedicated prefill spoke, every wave first consults the
         :class:`PrefillRouter`: shadow prefills are shipped to the prefill
@@ -565,303 +778,61 @@ class HeteroRuntime:
         with tracing.span("runtime.serve"):
             if not self.tasks:
                 raise RuntimeError("no tasks registered — call add_task first")
+            topo = self.topology
             decode = self._decode
-            D = len(decode)
-            wave = wave or 2 * self.slots * max(D - 1, 1)
+            wave = wave or 2 * self.slots * max(len(decode) - 1, 1)
             requests = list(requests)
             if warm and requests:
                 self.warmup(requests[:max(len(self.tasks) * 2, 4)])
 
             outputs: Dict[str, List[RequestOutput]] = {t: [] for t in self.tasks}
             waves_tel: List[dict] = []
-            total_tokens = 0
-            total_syncs = 0
-            total_decode_s = 0.0
-            total_dispatches = 0
-            total_wave_launches = 0
-            total_stalls = 0
-            total_overlap_s = 0.0
-            total_offloaded = 0
-            total_kv_s = 0.0
-            total_fallbacks = 0
-            total_prefix_hits = 0
-            total_prefix_blocks = 0
-            total_flops_avoided = 0.0
-            total_flops = 0.0
-            total_kv_raw = 0.0
-            total_kv_wire = 0.0
-            total_buckets = {"t_splice_s": 0.0, "t_slot_write_s": 0.0,
-                             "t_dispatch_s": 0.0, "t_await_s": 0.0}
-            total_requeued = 0
-            total_retries = 0
-            total_latched = 0
-            total_rerouted = 0
-            adm_tel: List = []           # last wave's per-group assessment
+            wave_recs: List[dict] = []
             retried_uids: set = set()
             dead: Dict[int, Backoff] = {}     # topology group index → re-probe
-            group_alive_tel: Dict[str, bool] = {}
-            link_bw: Dict[str, float] = {}
+            names = tuple(topo.groups[gi].name for gi in decode)
             queue: List[ServeRequest] = list(requests)
             t_start = time.perf_counter()
             while queue:
                 wave_idx = len(waves_tel)
-                chunk = queue[:wave]
-                queue = queue[wave:]
-
-                # --- fleet fault domain ------------------------------------
-                # 1) bounded-backoff re-probe of dead decode groups: a
-                # restored group rejoins on the wave clock, a still-dead
-                # probe doubles the wait (the PrefillRouter's Backoff)
-                for gi, bo in list(dead.items()):
-                    if bo.tick():
-                        if self.topology.groups[gi].health.alive:
-                            del dead[gi]
-                        else:
-                            bo.fail()
-
-                # 2) the prefill spoke's NodeGroup health runs on the same
-                # wave clock: a group-level kill (or armed fault firing now)
-                # propagates to its workers so the router latches local this
-                # wave; a group-level restore revives exactly the workers
-                # this path killed, and the router's own backoff re-probes
-                pfg = self.topology.prefill_group
-                if pfg is not None:
-                    try:
-                        pfg.health.check("dispatch", pfg.name)
-                    except GroupUnavailableError:
-                        pass
-                    workers = [spec.prefill_worker
-                               for spec in self.tasks.values()
-                               if spec.prefill_worker is not None]
-                    if not pfg.health.alive and not self._pf_group_killed:
-                        for w in workers:
-                            w.kill()
-                        self._pf_group_killed = True
-                    elif pfg.health.alive and self._pf_group_killed:
-                        for w in workers:
-                            w.restore()
-                        self._pf_group_killed = False
-
-                # 3) mobility-driven link churn (paper §V-A.5): replay every
-                # traced edge at this wave — live LinkModel, β latch, and the
-                # traced bandwidth the telemetry and hop prices follow
-                latched: Dict[int, bool] = {}
-                wave_links: Dict[int, Tuple[LinkModel, float]] = {}
-                link_bw = {g.name: 0.0 for g in self.topology.groups}
-                for gi in range(1, len(self.topology.groups)):
-                    name = self.topology.groups[gi].name
-                    tr = self.link_traces.get(gi)
-                    if tr is None:
-                        link_bw[name] = float(data_rate(
-                            self.topology.links[gi], self.link_distance))
-                        continue
-                    eff = tr.link_at(self.topology.links[gi], wave_idx)
-                    d_m = tr.distance_at(wave_idx)
-                    feasible = tr.feasible(wave_idx)
-                    wave_links[gi] = (eff, d_m)
-                    link_bw[name] = float(data_rate(eff, d_m))
-                    if gi == self.topology.prefill_spoke:
-                        if self.prefill_router is not None:
-                            self.prefill_router.link = eff
-                            self.prefill_router.distance = d_m
-                            self.prefill_router.mobility_latched = not feasible
-                        for spec in self.tasks.values():
-                            if spec.prefill_worker is not None:
-                                spec.prefill_worker.set_link(eff, d_m)
-                    else:
-                        latched[gi] = not feasible
-                n_latched = sum(latched.values()) + (
-                    1 if self.prefill_router is not None
-                    and self.prefill_router.mobility_latched else 0)
-                total_latched += n_latched
-
-                # 4) surviving simplex: dead groups mask to exactly 0; the β
-                # latch additionally zeroes priced-out edges while at least
-                # one unlatched live group remains (death is hard, the latch
-                # is advisory — an all-latched fleet still has to decode)
-                alive_mask = tuple(gi not in dead for gi in decode)
-                if not any(alive_mask):
-                    raise GroupUnavailableError(
-                        "all", "every decode group is dead — restore one "
-                        "before serving")
-                eff_mask = tuple(a and not latched.get(gi, False)
-                                 for a, gi in zip(alive_mask, decode))
-                if not any(eff_mask):
-                    eff_mask = alive_mask
-
-                # 5) power/memory/busy-factor admission: groups whose
-                # budget runs hot mask out of the split — the same masked-
-                # simplex path that removes dead groups — and their share
-                # re-routes to the cold survivors.  Like the β latch, hotness
-                # is advisory: an all-hot fleet still decodes (the frontend
-                # sheds in that regime instead)
-                adm = self.admission.assess()
-                adm_mask = tuple(e and not a.hot
-                                 for e, a in zip(eff_mask, adm))
-                wave_rerouted = 0
-                if any(adm_mask) and adm_mask != eff_mask:
-                    _, counts_base = self._split_for(len(chunk), split,
-                                                     eff_mask)
-                    eff_mask = adm_mask
-                    sv, counts = self._split_for(len(chunk), split, eff_mask)
-                    wave_rerouted = sum(c for c, keep
-                                        in zip(counts_base, eff_mask)
-                                        if not keep)
-                else:
-                    sv, counts = self._split_for(len(chunk), split, eff_mask)
-                total_rerouted += wave_rerouted
-                counts = list(counts)
-
-                route = None
-                if self.prefill_router is not None:
-                    # a worker that died outside a counted wave (warmup, or a
-                    # direct engine run) must still flip the route to local
-                    alive = any(spec.prefill_worker is not None
-                                and spec.prefill_worker.healthy
-                                for spec in self.tasks.values())
-                    if not alive:
-                        self.prefill_router.healthy = False
-                    # bounded-backoff auto re-probe: a latched-local
-                    # router flips back on its own once a probe wave finds
-                    # the prefill group restored — no operator revive()
-                    self.prefill_router.maybe_revive(alive)
-                    route = self.prefill_router.route()
-                    for spec in self.tasks.values():
-                        for eng in spec.engines.values():
-                            eng.prefill_remote = route.remote
+                chunk, queue = queue[:wave], queue[wave:]
+                plan = self._plan_wave(wave_idx, len(chunk), split, dead)
+                counts = list(plan.counts)
 
                 # partition: decode spokes take the front of the wave in
                 # topology order, the hub keeps the tail (the [aux; pri]
-                # layout of OffloadEngine); the prefill spoke takes no decode
-                # share
-                shares: List[List[ServeRequest]] = [None] * D
-                lo = 0
-                for d in range(1, D):
-                    shares[d] = chunk[lo:lo + counts[d]]
-                    lo += counts[d]
-                shares[0] = chunk[lo:]
+                # layout of OffloadEngine); the prefill spoke takes no
+                # decode share
+                cuts = list(itertools.accumulate(counts[1:], initial=0))
+                shares = [chunk[cuts[-1]:]] + [
+                    chunk[a:b] for a, b in zip(cuts, cuts[1:])]
 
-                per_group: Dict[str, dict] = {}
-                t_group = [0.0] * D
-                t_link = [0.0] * D
-                toks_group = [0] * D
-                syncs_group = [0] * D
-                decode_s_group = [0.0] * D
-                dispatches_group = [0] * D
-                launches_group = [0] * D
-                stalls_group = [0] * D
-                overlap_s_group = [0.0] * D
-                offloaded_group = [0] * D
-                kv_s_group = [0.0] * D
-                fallback_group = [0] * D
-                shadow_group = [0] * D
-                hits_group = [0] * D
-                pblocks_group = [0] * D
-                favoid_group = [0.0] * D
-                ftotal_group = [0.0] * D
-                kv_raw_group = [0.0] * D
-                kv_wire_group = [0.0] * D
-                splice_s_group = [0.0] * D
-                slot_write_s_group = [0.0] * D
-                dispatch_s_group = [0.0] * D
-                await_s_group = [0.0] * D
+                recs: List[dict] = []
                 requeue: List[ServeRequest] = []
                 with tracing.timed("runtime.wave", wave=wave_idx) as sp_w:
                     for d, gi in enumerate(decode):
-                        grp = self.topology.groups[gi]
-                        share = shares[d]
-                        by_task: Dict[str, List[ServeRequest]] = {}
-                        for req in share:
-                            by_task.setdefault(self._task_of(req), []).append(req)
-                        payload = 0.0
-                        # outputs are STAGED until the group's await-side health
-                        # check passes: a mid-wave death discards the stage, so a
-                        # re-queued request's tokens are only ever emitted once
-                        staged: List[Tuple[str, List[RequestOutput], Any]] = []
-                        failed = False
-                        with tracing.timed("runtime.group",
-                                           group=grp.name) as sp_g:
-                            try:
-                                if share:
-                                    grp.health.check("dispatch", grp.name)
-                                for task, reqs_t in by_task.items():
-                                    spec = self.tasks[task]
-                                    outs, st = spec.engines[grp.name].run(
-                                        self._capped(spec, reqs_t),
-                                        on_tokens=on_tokens)
-                                    staged.append((task, outs, st))
-                                    payload += len(reqs_t) \
-                                        * spec.payload_bytes_per_item
-                                if share:
-                                    grp.health.check("await", grp.name)
-                            except GroupUnavailableError:
-                                # the group died mid-wave: its slice re-queues
-                                # onto the survivors and its re-probe clock starts
-                                dead[gi] = Backoff(self.reprobe_after,
-                                                   self.reprobe_max)
-                                requeue.extend(share)
-                                counts[d] = 0
-                                staged = []
-                                by_task = {}
-                                failed = True
-                        t_group[d] = 0.0 if failed else sp_g.seconds
-                        for task, outs, st in staged:
-                            outputs[task].extend(outs)
-                            toks_group[d] += sum(len(o.tokens) for o in outs)
-                            syncs_group[d] += st.host_syncs
-                            decode_s_group[d] += st.decode_s
-                            dispatches_group[d] += st.macro_dispatches
-                            launches_group[d] += st.wave_launches
-                            stalls_group[d] += st.admission_stalls
-                            overlap_s_group[d] += st.t_prefill_overlap_s
-                            offloaded_group[d] += st.prefill_offloaded
-                            kv_s_group[d] += st.t_kv_transfer_s
-                            fallback_group[d] += st.prefill_fallbacks
-                            shadow_group[d] += st.shadow_prefills
-                            hits_group[d] += st.prefix_hits
-                            pblocks_group[d] += st.prefix_blocks_reused
-                            favoid_group[d] += st.prefill_flops_avoided
-                            ftotal_group[d] += st.prefill_flops_total
-                            kv_raw_group[d] += st.kv_hop_bytes_raw
-                            kv_wire_group[d] += st.kv_hop_bytes_wire
-                            splice_s_group[d] += st.t_splice_s
-                            slot_write_s_group[d] += st.t_slot_write_s
-                            dispatch_s_group[d] += st.t_dispatch_s
-                            await_s_group[d] += st.t_await_s
-                        if gi > 0 and share and not failed:
-                            eff_link, eff_dist = wave_links.get(
-                                gi, (self.topology.links[gi], self.link_distance))
-                            t_link[d] = float(offload_latency(
-                                eff_link, payload, eff_dist))
-                        per_group[grp.name] = {
-                            "n": 0 if failed else len(share), "wall_s": t_group[d],
-                            "link_s": t_link[d], "tokens": toks_group[d],
-                            "host_syncs": syncs_group[d],
-                            "wave_launches": launches_group[d],
-                            "t_per_macro_step_s": decode_s_group[d]
-                            / dispatches_group[d] if dispatches_group[d] else 0.0,
-                            "t_prefill_overlap_s": overlap_s_group[d],
-                            "admission_stalls": stalls_group[d],
-                            "prefill_offloaded": offloaded_group[d],
-                            "t_kv_transfer_s": kv_s_group[d],
-                            "prefill_fallbacks": fallback_group[d],
-                            "prefix_hits": hits_group[d],
-                            "prefix_blocks_reused": pblocks_group[d],
-                            "prefill_flops_avoided": favoid_group[d],
-                            "kv_hop_bytes_raw": kv_raw_group[d],
-                            "kv_hop_bytes_wire": kv_wire_group[d],
-                            "t_splice_s": splice_s_group[d],
-                            "t_slot_write_s": slot_write_s_group[d],
-                            "t_dispatch_s": dispatch_s_group[d],
-                            "t_await_s": await_s_group[d],
-                            "tasks": {t: len(r) for t, r in by_task.items()}}
+                        runs, rec = self._run_group(gi, shares[d], plan.links,
+                                                    on_tokens)
+                        if runs is None:
+                            # the group died mid-wave: its slice re-queues
+                            # onto the survivors and its re-probe clock starts
+                            dead[gi] = Backoff(self.reprobe_after,
+                                               self.reprobe_max)
+                            requeue.extend(shares[d])
+                            counts[d] = 0
+                        else:
+                            for task, outs, _ in runs:
+                                outputs[task].extend(outs)
+                        recs.append(rec)
                 wall = sp_w.seconds
+                t_group = [g["wall_s"] for g in recs]
+                t_link = [g["link_s"] for g in recs]
+                wave_rec = _fold(recs)
+                wave_recs.append(wave_rec)
                 # the measured group walls drain the admission controller's
                 # battery clocks (Eq. 5's t_dnn) for the NEXT wave's headroom
-                for d, gi in enumerate(decode):
-                    self.admission.charge(self.topology.groups[gi].name,
-                                          t_group[d])
-                adm_tel = adm
+                for name, t in zip(names, t_group):
+                    self.admission.charge(name, t)
                 # commit the wave's failures: requests from dead groups go
                 # back to the FRONT of the queue (same serve call, next wave)
                 requeue_uids = {r.uid for r in requeue}
@@ -869,80 +840,35 @@ class HeteroRuntime:
                                    if r.uid in retried_uids
                                    and r.uid not in requeue_uids)
                 retried_uids.update(requeue_uids)
-                total_requeued += len(requeue)
-                total_retries += wave_retries
                 queue = requeue + queue
-                alive_after = tuple(gi not in dead for gi in decode)
-                group_alive_tel = {}
-                for gi, g in enumerate(self.topology.groups):
-                    if gi == self.topology.prefill_spoke:
-                        # the routing-effective liveness: group health AND
-                        # worker health, as the router saw it this wave
-                        group_alive_tel[g.name] = bool(
-                            self.prefill_router is not None
-                            and self.prefill_router.healthy)
-                    else:
-                        group_alive_tel[g.name] = bool(
-                            alive_after[decode.index(gi)])
-                total_tokens += sum(toks_group)
-                total_syncs += sum(syncs_group)
-                total_decode_s += sum(decode_s_group)
-                total_dispatches += sum(dispatches_group)
-                total_wave_launches += sum(launches_group)
-                total_stalls += sum(stalls_group)
-                total_overlap_s += sum(overlap_s_group)
-                total_offloaded += sum(offloaded_group)
-                total_kv_s += sum(kv_s_group)
-                total_fallbacks += sum(fallback_group)
-                total_prefix_hits += sum(hits_group)
-                total_prefix_blocks += sum(pblocks_group)
-                total_flops_avoided += sum(favoid_group)
-                total_flops += sum(ftotal_group)
-                total_kv_raw += sum(kv_raw_group)
-                total_kv_wire += sum(kv_wire_group)
-                total_buckets["t_splice_s"] += sum(splice_s_group)
-                total_buckets["t_slot_write_s"] += sum(slot_write_s_group)
-                total_buckets["t_dispatch_s"] += sum(dispatch_s_group)
-                total_buckets["t_await_s"] += sum(await_s_group)
-
-                rep = OffloadReport(
-                    r=sv.r, n_local=counts[0],
-                    n_offloaded=sum(counts[1:]),
-                    t_local_s=t_group[0],
-                    t_remote_s=max(t_group[1:], default=0.0),
-                    t_offload_s=max(t_link[1:], default=0.0),
-                    payload_bytes=0.0, e_offload_j=0.0,
-                    group_names=tuple(self.topology.groups[gi].name
-                                      for gi in decode),
-                    n_group=tuple(counts), t_group_s=tuple(t_group),
-                    t_link_s=tuple(t_link), host_syncs=sum(syncs_group),
-                    admission_stalls=sum(stalls_group),
-                    t_prefill_overlap_s=sum(overlap_s_group),
-                    prefill_offloaded=sum(offloaded_group),
-                    t_kv_transfer_s=sum(kv_s_group),
-                    prefill_fallbacks=sum(fallback_group),
-                    prefix_hits=sum(hits_group),
-                    prefix_blocks_reused=sum(pblocks_group),
-                    prefill_flops_avoided=sum(favoid_group),
-                    prefill_flops_total=sum(ftotal_group),
-                    kv_hop_bytes_raw=sum(kv_raw_group),
-                    kv_hop_bytes_wire=sum(kv_wire_group),
-                    t_splice_s=sum(splice_s_group),
-                    t_slot_write_s=sum(slot_write_s_group),
-                    t_dispatch_s=sum(dispatch_s_group),
-                    t_await_s=sum(await_s_group),
-                    group_alive=alive_after,
-                    wave_requeued=len(requeue),
-                    wave_retries=wave_retries,
-                    link_bw_hz=tuple(link_bw[self.topology.groups[gi].name]
-                                     for gi in decode),
-                    mobility_latched=n_latched,
-                    admission_hot=tuple(a.hot for a in adm),
-                    admission_rerouted=wave_rerouted,
-                    power_headroom_w=tuple(a.power_headroom_w for a in adm),
-                    mem_headroom_frac=tuple(a.mem_headroom_frac for a in adm))
+                # the prefill spoke's is the routing-effective liveness:
+                # group health AND worker health, as the router saw it
+                group_alive = {g.name: gi not in dead
+                               if gi != topo.prefill_spoke
+                               else bool(self.prefill_router.healthy)
+                               for gi, g in enumerate(topo.groups)}
+                alive_after = tuple(group_alive[n] for n in names)
                 if split is None and self.controller is not None:
-                    self.controller.observe(rep)
+                    self.controller.observe(OffloadReport(
+                        r=plan.sv.r, n_local=counts[0],
+                        n_offloaded=sum(counts[1:]), t_local_s=t_group[0],
+                        t_remote_s=max(t_group[1:], default=0.0),
+                        t_offload_s=max(t_link[1:], default=0.0),
+                        payload_bytes=0.0, e_offload_j=0.0,
+                        group_names=names, n_group=tuple(counts),
+                        t_group_s=tuple(t_group), t_link_s=tuple(t_link),
+                        group_alive=alive_after, wave_requeued=len(requeue),
+                        wave_retries=wave_retries,
+                        link_bw_hz=tuple(plan.link_bw[n] for n in names),
+                        mobility_latched=plan.n_latched,
+                        admission_hot=tuple(a.hot for a in plan.adm),
+                        admission_rerouted=plan.rerouted,
+                        power_headroom_w=tuple(a.power_headroom_w
+                                               for a in plan.adm),
+                        mem_headroom_frac=tuple(a.mem_headroom_frac
+                                                for a in plan.adm),
+                        **{k: v for k, v in wave_rec.items()
+                           if k in OffloadReport.__dataclass_fields__}))
                 if self.prefill_router is not None:
                     # feed the router the wave's live prices.  The engines'
                     # t_prefill_overlap_s wall covers exactly the TOP-UP
@@ -951,108 +877,81 @@ class HeteroRuntime:
                     # count; inline boundary dispatches are excluded from
                     # both sides.  KV hops are per TRANSFERRED block
                     # (prefill_offloaded, inline offloads included).
-                    n_off = sum(offloaded_group)
-                    n_topup = sum(shadow_group)
-                    wave_ftotal = sum(ftotal_group)
+                    n_off = wave_rec["prefill_offloaded"]
+                    n_topup = wave_rec["shadow_prefills"]
+                    overlap_s = wave_rec["t_prefill_overlap_s"]
+                    ftotal = wave_rec["prefill_flops_total"]
                     self.prefill_router.observe(
-                        local_s=sum(overlap_s_group) if n_off == 0 else 0.0,
+                        local_s=overlap_s if n_off == 0 else 0.0,
                         n_local=n_topup if n_off == 0 else 0,
-                        remote_s=sum(overlap_s_group) if n_off else 0.0,
+                        remote_s=overlap_s if n_off else 0.0,
                         n_remote=n_topup if n_off else 0,
-                        transfer_s=sum(kv_s_group), n_transfers=n_off,
+                        transfer_s=wave_rec["t_kv_transfer_s"], n_transfers=n_off,
                         # price hops on WIRE bytes — what the link carried —
                         # and the residual prefill fraction the cache left
-                        payload_bytes=sum(kv_wire_group),
-                        prefix_residual=(1.0 - sum(favoid_group) / wave_ftotal)
-                        if wave_ftotal > 0 else None,
-                        fallbacks=sum(fallback_group))
+                        payload_bytes=wave_rec["kv_hop_bytes_wire"],
+                        prefix_residual=(1.0 - wave_rec["prefill_flops_avoided"]
+                                         / ftotal) if ftotal > 0 else None,
+                        fallbacks=wave_rec["prefill_fallbacks"])
                 waves_tel.append({
-                    "wave": len(waves_tel), "n": len(chunk),
-                    "split": [round(float(f), 4) for f in sv.fractions],
+                    "wave": wave_idx, "n": len(chunk),
+                    "split": [round(float(f), 4) for f in plan.sv.fractions],
                     "counts": [int(c) for c in counts], "wall_s": wall,
-                    "tokens": sum(toks_group),
-                    "host_syncs": sum(syncs_group),
-                    "admission_stalls": sum(stalls_group),
-                    "prefill_route": ("remote" if route is not None
-                                      and route.remote else "local"),
-                    "prefill_offloaded": sum(offloaded_group),
-                    "t_kv_transfer_s": sum(kv_s_group),
-                    "prefill_fallbacks": sum(fallback_group),
-                    "prefix_hits": sum(hits_group),
-                    "prefix_blocks_reused": sum(pblocks_group),
-                    "prefill_flops_avoided": sum(favoid_group),
-                    "kv_hop_bytes_raw": sum(kv_raw_group),
-                    "kv_hop_bytes_wire": sum(kv_wire_group),
-                    "group_alive": group_alive_tel,
+                    **_published(wave_rec, "w"),
+                    "prefill_route": ("remote" if plan.route is not None
+                                      and plan.route.remote else "local"),
+                    "group_alive": group_alive,
                     "wave_requeued": len(requeue),
                     "wave_retries": wave_retries,
-                    "link_bw_hz": dict(link_bw),
-                    "mobility_latched": n_latched,
-                    "admission_hot": {a.name: a.hot for a in adm},
-                    "admission_rerouted": wave_rerouted,
+                    "link_bw_hz": dict(plan.link_bw),
+                    "mobility_latched": plan.n_latched,
+                    "admission_hot": {a.name: a.hot for a in plan.adm},
+                    "admission_rerouted": plan.rerouted,
                     "power_headroom_w": {a.name: round(a.power_headroom_w, 6)
-                                         for a in adm},
+                                         for a in plan.adm},
                     "mem_headroom_frac": {a.name: round(a.mem_headroom_frac, 6)
-                                          for a in adm},
-                    "per_group": per_group})
+                                          for a in plan.adm},
+                    "per_group": {n: _published(g, "g")
+                                  for n, g in zip(names, recs)}})
                 if verbose:
-                    counts_str = "/".join(str(c) for c in counts)
-                    print(f"wave {len(waves_tel) - 1}: {len(chunk):2d} reqs "
-                          f"split={counts_str} {sum(toks_group)} toks in "
-                          f"{wall:.2f}s "
-                          f"({sum(toks_group) / max(wall, 1e-9):.1f} tok/s)")
+                    print(f"wave {wave_idx}: {len(chunk):2d} reqs split="
+                          f"{'/'.join(str(c) for c in counts)} {wave_rec['tokens']}"
+                          f" toks in {wall:.2f}s "
+                          f"({wave_rec['tokens'] / max(wall, 1e-9):.1f} tok/s)")
 
             wall_total = time.perf_counter() - t_start
             for outs in outputs.values():
                 outs.sort(key=lambda o: o.uid)
-            pg = self.topology.prefill_group
+            run = _fold(wave_recs)
+            last = waves_tel[-1] if waves_tel else {}
+            pg = topo.prefill_group
             telemetry = {
-                "topology": self.topology.kind,
-                "groups": [g.name for g in self.topology.groups],
+                "topology": topo.kind,
+                "groups": [g.name for g in topo.groups],
                 "prefill_group": pg.name if pg is not None else "",
-                "slots": self.slots,
-                "macro_steps": self.macro_steps,
-                "wave_steps": self.wave_steps,
-                "overlap_admission": self.overlap_admission,
+                **{k: getattr(self, k) for k in (
+                    "slots", "macro_steps", "wave_steps", "overlap_admission")},
                 "tasks": sorted(self.tasks),
                 "waves": waves_tel,
                 "totals": {
-                    "requests": len(requests), "tokens": total_tokens,
-                    "wall_s": wall_total,
-                    "tok_per_s": total_tokens / max(wall_total, 1e-9),
-                    "host_syncs": total_syncs,
-                    "host_syncs_per_token": total_syncs / max(total_tokens, 1),
-                    "wave_launches": total_wave_launches,
-                    "t_per_macro_step_s": total_decode_s / total_dispatches
-                    if total_dispatches else 0.0,
-                    "t_prefill_overlap_s": total_overlap_s,
-                    "admission_stalls": total_stalls,
-                    "prefill_offloaded": total_offloaded,
-                    "t_kv_transfer_s": total_kv_s,
-                    "prefill_fallbacks": total_fallbacks,
-                    "prefix_hits": total_prefix_hits,
-                    "prefix_blocks_reused": total_prefix_blocks,
-                    "prefill_flops_avoided": total_flops_avoided,
-                    "prefill_flops_total": total_flops,
-                    "prefill_flops_avoided_frac": total_flops_avoided
-                    / total_flops if total_flops else 0.0,
-                    "kv_hop_bytes_raw": total_kv_raw,
-                    "kv_hop_bytes_wire": total_kv_wire,
-                    "t_splice_s": total_buckets["t_splice_s"],
-                    "t_slot_write_s": total_buckets["t_slot_write_s"],
-                    "t_dispatch_s": total_buckets["t_dispatch_s"],
-                    "t_await_s": total_buckets["t_await_s"],
-                    "wave_requeued": total_requeued,
-                    "wave_retries": total_retries,
-                    "mobility_latched": total_latched,
-                    "admission_rerouted": total_rerouted,
-                    "admission_hot": {a.name: a.hot for a in adm_tel},
-                    "power_headroom_w": {a.name: round(a.power_headroom_w, 6)
-                                         for a in adm_tel},
-                    "mem_headroom_frac": {a.name: round(a.mem_headroom_frac, 6)
-                                          for a in adm_tel},
-                    "group_alive": group_alive_tel,
-                    "link_bw_hz": dict(link_bw),
+                    "requests": len(requests), "wall_s": wall_total,
+                    **_published(run, "t"),
+                    "tok_per_s": run["tokens"] / max(wall_total, 1e-9),
+                    "host_syncs_per_token": run["host_syncs"]
+                    / max(run["tokens"], 1),
+                    "t_per_macro_step_s": _per_macro_step(run),
+                    "prefill_flops_avoided_frac":
+                    run["prefill_flops_avoided"] / run["prefill_flops_total"]
+                    if run["prefill_flops_total"] else 0.0,
+                    # the waves' own counters, summed
+                    **{k: sum(w[k] for w in waves_tel)
+                       for k in ("wave_requeued", "wave_retries",
+                                 "mobility_latched", "admission_rerouted")},
+                    # the fleet as the last wave left it
+                    **{k: dict(last.get(k, {}))
+                       for k in ("admission_hot", "power_headroom_w",
+                                 "mem_headroom_frac", "group_alive",
+                                 "link_bw_hz")},
                     "final_split": [round(float(f), 4) for f in (
                         self.controller.fractions
                         if split is None and self.controller is not None

@@ -15,11 +15,15 @@ continuous, star, prefill-group, link-trace, power-budget and frontend
 paths run, and its flag errors read as the reference's.
 
 Streams and integer telemetry are compared exactly (float32 on both sides,
-greedy, the same schedule); float telemetry (walls, headrooms) is not."""
+greedy, the same schedule); float telemetry (walls, headrooms) is not
+compared with JAX's, but every additive counter, floats included, must add
+up from the groups to the waves to the totals in every session."""
 import contextlib
+import copy
 import dataclasses
 import io
 import json
+import math
 import sys
 from contextlib import redirect_stderr, redirect_stdout
 from pathlib import Path
@@ -314,26 +318,49 @@ def _serve_budget(mod, model, sched, reqs):
     return [(streams, res.telemetry, [], [g.alive for g in topo.groups])]
 
 
-def test_telemetry_schema_equals_golden():
+@pytest.mark.parametrize("case", ["golden-session", "empty-share",
+                                  "killed-group"])
+def test_telemetry_schema_equals_golden(case):
     """The golden schema's session (star with a prefill spoke 'prefill',
     slots 2, K=4, six requests at split 0.5) through the port: the same
     keys and value types, and OffloadReport / ContinuousStats carry the
-    golden's field names."""
+    golden's field names.  The same session with an empty share for aux
+    (split 0.0), and with aux killed at its first dispatch, gives every
+    wave the golden's keys and types; a group handed no requests lists no
+    tasks."""
     from test_telemetry_schema import _schema
     from repro_torch.serving.engine import ContinuousStats
     golden = json.loads(GOLDEN.read_text())
     m = _model()
     topo = C.Topology.star(*_split(_groups(C, TDEV, ("pri", "aux", "prefill"))),
                            C.WIFI_5GHZ, prefill_spoke="prefill")
+    if case == "killed-group":
+        topo.groups[1].inject_fault("dispatch", after=0)
     rt = C.HeteroRuntime(topo, slots=2, max_len=32, macro_steps=4)
     rt.add_task(m.cfg.name, m.cfg, m.params)
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, m.cfg.vocab_size, (6, 8)).astype(np.int32)
     reqs = [ServeRequest(uid=i, prompt=prompts[i], max_new=1 + i % 4,
                          task=m.cfg.name) for i in range(6)]
-    result = rt.serve(reqs, split=0.5)
-    got = _schema(json.loads(result.to_json()))
-    assert got == golden["serve_result_telemetry"]
+    result = rt.serve(reqs, split=0.0 if case == "empty-share" else 0.5)
+    tel = json.loads(result.to_json())
+    if case == "golden-session":
+        got = _schema(tel)
+        assert got == golden["serve_result_telemetry"]
+    else:
+        want = golden["serve_result_telemetry"]
+        assert _schema({**tel, "waves": []}) == {**want, "waves": []}
+        aux = [w["per_group"]["aux"] for w in tel["waves"]]
+        assert aux[0]["n"] == 0 and aux[0]["tasks"] == {}
+        if case == "killed-group":
+            assert tel["waves"][0]["wave_requeued"] >= 1
+            assert aux[0]["wall_s"] == 0.0
+        for w in tel["waves"]:
+            want_w = copy.deepcopy(want["waves"][0])
+            for name, g in w["per_group"].items():
+                if not g["tasks"]:
+                    want_w["per_group"][name]["tasks"] = {}
+            assert _schema(w) == want_w, w["wave"]
     assert [f.name for f in dataclasses.fields(C.OffloadReport)] == \
         list(golden["offload_report"])
     assert [f.name for f in dataclasses.fields(ContinuousStats)] == \
@@ -342,6 +369,48 @@ def test_telemetry_schema_equals_golden():
 
 def _split(groups):
     return groups[0], groups[1:]
+
+
+# --- the telemetry's levels, floats included -----------------------------------------
+def _additive_keys():
+    """(counters of a group and its wave, counters of a group and the
+    totals only, the wave's own counters), read from the golden schema."""
+    tel = json.loads(GOLDEN.read_text())["serve_result_telemetry"]
+    wave, tot = tel["waves"][0], tel["totals"]
+    group = set(wave["per_group"]["pri"]) - {"n", "wall_s", "link_s",
+                                            "t_per_macro_step_s", "tasks"}
+    own = {"wave_requeued", "wave_retries", "mobility_latched",
+           "admission_rerouted"}
+    assert group <= set(tot) and own <= set(wave) & set(tot)
+    return group & set(wave), group - set(wave), own
+
+
+def _sums_hold(tel):
+    """Each wave's counters are the sums of its groups', the totals the
+    sums over the waves (over the waves' groups where the wave carries
+    none), within 1e-9 relative; the totals' rates follow from them."""
+    in_wave, group_only, own = _additive_keys()
+    waves, tot = tel["waves"], tel["totals"]
+
+    def close(got, want, what):
+        assert math.isclose(got, want, rel_tol=1e-9), (what, got, want)
+
+    for w in waves:
+        for k in in_wave:
+            close(w[k], sum(g[k] for g in w["per_group"].values()),
+                  (w["wave"], k))
+    for k in in_wave | own:
+        close(tot[k], sum(w[k] for w in waves), k)
+    for k in group_only:
+        close(tot[k], sum(g[k] for w in waves for g in w["per_group"].values()),
+              k)
+    close(tot["host_syncs_per_token"],
+          tot["host_syncs"] / max(tot["tokens"], 1), "host_syncs_per_token")
+    close(tot["tok_per_s"], tot["tokens"] / max(tot["wall_s"], 1e-9),
+          "tok_per_s")
+    frac = (tot["prefill_flops_avoided"] / tot["prefill_flops_total"]
+            if tot["prefill_flops_total"] else 0.0)
+    close(tot["prefill_flops_avoided_frac"], frac, "prefill_flops_avoided_frac")
 
 
 # --- chaos schedules (the reference's group-fault tier) ---------------------------------
@@ -402,6 +471,27 @@ def test_chaos_schedule_equal_to_jax(name):
     if name == "prefill-group-killed-then-restored":
         assert got[0][2] == [False] and got[1][2] == [True]
         assert got[1][1]["waves"][-1]["prefill_route"] == "remote"
+
+
+SESSIONS = {**{f"fixed-{k}": (v, dict(n=10, seed=3)) for k, v in FIXED.items()},
+            **{f"chaos-{k}": (v, dict(n=v.get("n", len(MAX_NEWS))))
+               for k, v in CHAOS.items()}}
+
+
+@pytest.mark.parametrize("name", sorted(SESSIONS))
+def test_additive_telemetry_sums_over_levels(name):
+    """Every fixed-split and chaos session through the port alone: the
+    float telemetry JAX's comparison leaves out (walls, FLOPs, bytes) adds
+    up from the groups to the waves to the totals, as the integers do."""
+    sched, req_kw = SESSIONS[name]
+    m = _model()
+    serve_fn = _serve_budget if sched.get("budget") else _serve
+    runs = serve_fn(C, m, sched, m.requests(**req_kw))
+    served = [run for run in runs if run[0] != "raised"]
+    assert served or name == "chaos-all-decode-dead"
+    for _, tel, _, _ in served:
+        assert tel["waves"]
+        _sums_hold(tel)
 
 
 # --- per cache family ----------------------------------------------------------------
