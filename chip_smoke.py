@@ -485,6 +485,11 @@ ROOFLINE_REPS = {"decode": 20, "train": 5}
 SECTION6_BOUNDS = {"decode_attention": 0.00100, "masked_compact": 0.00298,
                    "grouped_ffn": 0.218, "ssm_scan": 0.665,
                    "ssm_scan_bwd": 0.401}
+# The timing phases' groups: the slice's requests at the split its solver
+# gave when PERF.md §6's rows were timed (11 to the auxiliary group), fixed
+# there, so the rows keep §6's shapes whatever split the solver now reads
+# from its timed probe.
+TIMED_GROUPS = {"primary": REQUESTS - 11, "auxiliary": 11}
 BOUND_RTOL = 5e-3        # three figures
 GRAD_TOL = {"bfloat16": 3e-2, "float32": 1e-5}
 
@@ -1216,14 +1221,13 @@ def _time_masked_compact(torch, dev, gen, gname, B, S, D, kind):
             "sets": len(sets)}
 
 
-def phase_timing(torch, dev, slice_summary):
+def phase_timing(torch, dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    groups = dict(zip(slice_summary["group_names"], slice_summary["n_group"]))
     rows = [_time_decode_attention(torch, dev, gen, gname, B, 32, 8, 64)
-            for gname, B in groups.items() if B]
+            for gname, B in TIMED_GROUPS.items()]
 
-    B = groups.get("auxiliary") or max(groups.values())
+    B = TIMED_GROUPS["auxiliary"]
     rows.append(_time_masked_compact(torch, dev, gen, "auxiliary", B,
                                      PROMPT_LEN, 2048, "keep72"))
     for gname, kind in (("kv_hop_lossless", "all"), ("kv_hop_lossy", "make_mask")):
@@ -1426,7 +1430,7 @@ def _routed_buffer(torch, moe_mod, cfg, router, T, C, gen, dev, dtype):
     return buf, counts.clamp(max=C).to(torch.int32)
 
 
-def phase_moe_timing(torch, dev, cfg, params, slice_summary):
+def phase_moe_timing(torch, dev, cfg, params):
     """grouped_ffn at decode (B tokens) and at the auxiliary group's prefill
     (B x 128 tokens), each layer's buffer and counts made by routing random
     tokens through that layer's router, cycling through the slice's 48
@@ -1443,8 +1447,7 @@ def phase_moe_timing(torch, dev, cfg, params, slice_summary):
     gen.manual_seed(3)
     E, D, Fd = cfg.num_experts, cfg.d_model, cfg.d_ff
     experts = params["blocks"]["moe"]
-    groups = dict(zip(slice_summary["group_names"], slice_summary["n_group"]))
-    B = groups.get("auxiliary") or max(groups.values())
+    B = TIMED_GROUPS["auxiliary"]
 
     def composition(buf, wg, wu, wd, counts=None):
         return torch.bmm(F.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu), wd)
@@ -2212,7 +2215,7 @@ def phase_ssm_parity(torch, dev, cfg, params, prompts):
           "macro_check_layers": cfg.num_layers})
 
 
-def phase_ssm_timing(torch, dev, cfg, slice_summary):
+def phase_ssm_timing(torch, dev, cfg):
     """ssm_scan and its plain version at the auxiliary group's prefill
     shape (B=11: [11,128,8192,16] f32, 1.48 GB of inputs a call), cycling
     through more input sets than L2 holds; ``device_ms`` from ``_device_ms``
@@ -2222,8 +2225,7 @@ def phase_ssm_timing(torch, dev, cfg, slice_summary):
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
-    groups = dict(zip(slice_summary["group_names"], slice_summary["n_group"]))
-    B = groups.get("auxiliary") or max(groups.values())
+    B = TIMED_GROUPS["auxiliary"]
     S, di, N = PROMPT_LEN, cfg.d_inner, cfg.ssm_state
     C = di * N
     sets = [_scan_case(torch, gen, B, S, di, N, dev)
@@ -6049,7 +6051,7 @@ def main() -> None:
     groups = dict(zip(slice_summary["group_names"], slice_summary["n_group"]))
     timed("trace", phase_trace, torch, dev, cfg, params, prompts,
           groups["auxiliary"] or REQUESTS)
-    rows = timed("timing", phase_timing, torch, dev, slice_summary)
+    rows = timed("timing", phase_timing, torch, dev)
     cont_counts, cont_streams, cont_rows = timed("continuous", phase_continuous,
                                                  torch, dev, cfg, params)
     cont_errs = timed("continuous_checks", phase_continuous_checks, torch, dev,
@@ -6086,7 +6088,7 @@ def main() -> None:
     timed("moe_trace", phase_trace, torch, dev, moe_cfg, params, prompts,
           groups["auxiliary"] or REQUESTS, max_new=MOE_TRACE_NEW)
     moe_rows = timed("moe_timing", phase_moe_timing, torch, dev, moe_cfg,
-                     params, moe_summary)
+                     params)
     moe_cont_counts, _, _ = timed("moe_continuous", phase_side_continuous,
                                   torch, dev, moe_cfg, params, "moe_continuous")
     del params
@@ -6120,8 +6122,7 @@ def main() -> None:
         "ssm_continuous")
     del params
     _free(torch)
-    ssm_rows = timed("ssm_timing", phase_ssm_timing, torch, dev, ssm_cfg,
-                     ssm_summary)
+    ssm_rows = timed("ssm_timing", phase_ssm_timing, torch, dev, ssm_cfg)
     torch.cuda.empty_cache()
 
     # the hybrid path: zamba2-2.7b at full width, decode_attention at dh=80

@@ -270,6 +270,9 @@ _COUNTERS = (
     ("t_dispatch_s", 0.0, "gt"), ("t_await_s", 0.0, "gt"),
     ("decode_s", 0.0, ""), ("macro_dispatches", 0, ""),
     ("shadow_prefills", 0, ""),
+    ("decode_graph_steps", 0, "gwt"),
+    ("decode_eager_steps", 0, "gwt"),
+    ("decode_graph_captures", 0, "gwt"),
 )
 _ZEROS = {name: zero for name, zero, _ in _COUNTERS}
 _LEVELS = {name: levels for name, _, levels in _COUNTERS}

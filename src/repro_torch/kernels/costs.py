@@ -36,6 +36,7 @@ ran).
 """
 from __future__ import annotations
 
+import threading
 from contextlib import contextmanager
 from typing import Callable, Dict, Optional
 
@@ -192,6 +193,11 @@ class KernelCounter:
 _ACTIVE: list = []     # counters: KernelCounter and the profiling modes
 
 
+def counting_active() -> bool:
+    """Whether a counter records the kernels called now."""
+    return bool(_ACTIVE)
+
+
 @contextmanager
 def counting(counter=None):
     """Make ``counter`` (default: a new :class:`KernelCounter`) record the
@@ -206,12 +212,32 @@ def counting(counter=None):
         _ACTIVE.remove(counter)
 
 
+_TALLY = threading.local()   # this thread's calls by name (:func:`tallying`)
+
+
+@contextmanager
+def tallying():
+    """Count the kernel calls this thread makes inside the block, by name;
+    yields the dict.  Another thread's calls meanwhile are not counted
+    (``serving/decode_graph.py`` captures a decode step while the
+    engine's prefill thread launches)."""
+    outer = getattr(_TALLY, "counts", None)
+    _TALLY.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _TALLY.counts = outer
+
+
 def counted(name: str, run: Callable, cost: Callable[..., Cost]):
     """``run()``, a kernel call on the card or its meta stand-in, recorded
-    as ``name`` with ``cost(outputs)`` in every active counter.  While a
-    counter is active the call runs with the dispatch modes suspended, so
-    its own allocations and reads (and the cost's) are not counted as
-    operators."""
+    as ``name`` with ``cost(outputs)`` in every active counter, and in this
+    thread's tally (:func:`tallying`).  While a counter is active the call
+    runs with the dispatch modes suspended, so its own allocations and
+    reads (and the cost's) are not counted as operators."""
+    tally = getattr(_TALLY, "counts", None)
+    if tally is not None:
+        tally[name] = tally.get(name, 0) + 1
     if not _ACTIVE:
         return run()
     with _disable_current_modes():

@@ -294,3 +294,11 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS.values():
         fn.launches = 0
+
+
+def count_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (kernel name -> launches, negative to take some back)
+    to the wrappers' counts: the launches of a replayed CUDA graph, which
+    runs no wrapper (``serving/decode_graph.py``)."""
+    for name, n in counts.items():
+        _WRAPPERS[name].launches += n

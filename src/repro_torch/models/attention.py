@@ -24,6 +24,14 @@ latent rows themselves through the ``mla_decode_attention`` kernel (or
 its plain version), then expands the latent output through the value
 half.  It runs on one device: no mesh, prefix resume or int8 cache.
 
+Both decode call sites, :func:`decode_attend` in :func:`attn_apply` (self
+and cross decode; :func:`decode_attend_int8` over an int8 cache) and
+:func:`mla_decode_attend` in :func:`mla_apply`, go through
+:func:`decode_break`: it calls the module's function by name, or, while
+``serving/decode_graph.py`` records or captures a decode step on this
+thread, hands the call to that recorder, which ends one CUDA graph there
+and begins the next.
+
 On a mesh (``shard``, a :class:`~repro_torch.models.sharding.RankShard`)
 the projections are cut over "model" as ``launch.mesh.param_spec`` places
 them (``shard.cuts(cfg).attn``, one of ``launch.mesh.ATTN_CUTS``):
@@ -58,6 +66,7 @@ log-sum-exps (``merge_shards``).
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 
@@ -341,6 +350,32 @@ def decode_attend(q, k_cache, v_cache, cache_len, *, window: int,
     return merge_shards(out, lse, shard.mesh, shard.seq.s_axes)
 
 
+def decode_attend_int8(q, k8, k_scale, v8, v_scale, cache_len, *,
+                       window: int, use_kernels: bool, shard=None):
+    """:func:`decode_attend` in f32 over an int8 cache (values [...,Hkv,dh]
+    int8 and their f32 scales [...,Hkv,1]), dequantized here: a decode
+    graph's break keeps the int8 leaves, and the f32 copies live only for
+    the call."""
+    return decode_attend(q.float(), k8.float() * k_scale,
+                         v8.float() * v_scale, cache_len, window=window,
+                         use_kernels=use_kernels, shard=shard)
+
+
+# the decode-step recorder on this thread (``serving/decode_graph.py``);
+# None while no decode step is recorded or captured
+_breaks = threading.local()
+
+
+def decode_break(name: str, *args, **kw):
+    """``<name>(*args, **kw)``, a decode-attention function of this module
+    looked up at the call (so a wrapper put in its place sees the call), or,
+    while a recorder is set on this thread, ``recorder(name, args, kw)``."""
+    rec = getattr(_breaks, "recorder", None)
+    if rec is None:
+        return globals()[name](*args, **kw)
+    return rec(name, args, kw)
+
+
 def quantize_kv(t: torch.Tensor):
     """Absmax int8 per (batch, position, head): t [..., Hkv, dh] -> (int8
     values, f32 scale [..., Hkv, 1]).  Rounds half to even, as JAX does."""
@@ -392,11 +427,12 @@ def attn_apply(params, x, cfg, *, positions, mode: str, causal: bool = True,
             return gather_cols(y, mesh)
         return coll.reduce_partial(y, mesh, ("model",)) if cut else y
 
-    def attend(q, k_cache, v_cache, cache_len, window, seq_shard):
-        """Decode over a cache; under "q" ``q`` holds every query head and
+    def attend(name, q, *caches, window, seq_shard):
+        """Decode over a cache through ``name`` (``decode_attend`` or
+        ``decode_attend_int8``); under "q" ``q`` holds every query head and
         the rank keeps its own."""
-        out = decode_attend(q, k_cache, v_cache, cache_len, window=window,
-                            use_kernels=use_kernels, shard=seq_shard)
+        out = decode_break(name, q, *caches, window=window,
+                           use_kernels=use_kernels, shard=seq_shard)
         return out.narrow(2, *_rank_heads(cfg, mesh)) if cut == "q" else out
 
     def full(q, k, v, **kw):
@@ -437,7 +473,8 @@ def attn_apply(params, x, cfg, *, positions, mode: str, causal: bool = True,
             q = _proj(x, params["wq"])
             if cut == "q":
                 q = _all_heads(q, mesh)
-        out = attend(q, cache["k"], cache["v"], cache["k"].shape[1], 0, None)
+        out = attend("decode_attend", q, cache["k"], cache["v"],
+                     cache["k"].shape[1], window=0, seq_shard=None)
         return project(out), cache
     if cut == "q":
         q, k, v = _decode_qkv_q(params, x, cfg, positions, mesh)
@@ -451,15 +488,15 @@ def attn_apply(params, x, cfg, *, positions, mode: str, causal: bool = True,
             new_cache[name] = cache_update(cache[name], qt, cache_index, shard)
             new_cache[name + "_scale"] = cache_update(cache[name + "_scale"], sc,
                                                       cache_index, shard)
-        k_f32 = new_cache["k"].float() * new_cache["k_scale"]
-        v_f32 = new_cache["v"].float() * new_cache["v_scale"]
-        out = attend(q.float(), k_f32, v_f32, cache_index + 1,
-                     cfg.sliding_window, shard)
+        out = attend("decode_attend_int8", q, new_cache["k"],
+                     new_cache["k_scale"], new_cache["v"],
+                     new_cache["v_scale"], cache_index + 1,
+                     window=cfg.sliding_window, seq_shard=shard)
         return project(out), new_cache
     k_cache = cache_update(cache["k"], k, cache_index, shard)
     v_cache = cache_update(cache["v"], v, cache_index, shard)
-    out = attend(q, k_cache, v_cache, cache_index + 1, cfg.sliding_window,
-                 shard)
+    out = attend("decode_attend", q, k_cache, v_cache, cache_index + 1,
+                 window=cfg.sliding_window, seq_shard=shard)
     return project(out), {"k": k_cache, "v": v_cache}
 
 
@@ -555,9 +592,9 @@ def mla_apply(params, x, cfg, *, positions, mode: str, cache=None,
     # W_k^T) . c, per head [B,dn] @ [dn,r]
     q_lat = torch.matmul(q_nope[:, 0].transpose(0, 1), wk.permute(1, 2, 0))
     q = torch.cat([q_lat.transpose(0, 1), q_pe[:, 0]], dim=-1)
-    o_lat = mla_decode_attend(q, latent, cache_index + 1,
-                              scale=1.0 / math.sqrt(cfg.qk_head_dim),
-                              v_dim=r, use_kernels=use_kernels)
+    o_lat = decode_break("mla_decode_attend", q, latent, cache_index + 1,
+                         scale=1.0 / math.sqrt(cfg.qk_head_dim), v_dim=r,
+                         use_kernels=use_kernels)
     # the value expansion after the attention: per head [B,r] @ [r,dv]
     out = torch.matmul(o_lat.transpose(0, 1), wv.permute(1, 0, 2))
     return _out_proj(out.transpose(0, 1).unsqueeze(1), params["wo"]), \

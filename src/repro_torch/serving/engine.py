@@ -3,9 +3,11 @@
 The JAX package's ``repro/serving/engine.py`` on PyTorch.
 ``make_decode_loop`` is the fused hot path: K decode steps per dispatch with
 greedy sampling, per-slot lengths and eos detection all on the device; the
-host fetches one ``[K, B]`` token block per macro-step.  The loop runs
-eagerly: where JAX donates the cache and the decode-state vectors, the port
-updates those tensors in place.  The per-slot ``lengths`` are the decode
+host fetches one ``[K, B]`` token block per macro-step.  On one CUDA
+device with kernels on, its steps replay CUDA graphs that break at the
+decode-attention calls (``serving/decode_graph.py``); elsewhere they run
+eagerly.  Where JAX donates the cache and the decode-state vectors, the
+port updates those tensors in place.  The per-slot ``lengths`` are the decode
 ``cache_index``, so on the fused path the decode-attention kernel is always
 fed per-slot lengths.
 
@@ -37,7 +39,7 @@ from __future__ import annotations
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
                     Union)
 
@@ -52,6 +54,7 @@ from repro_torch.kernels.ops import resolve_use_kernels
 from repro_torch.models import model as M
 from repro_torch.models import sharding
 from repro_torch.models.attention import quantize_kv
+from repro_torch.serving import decode_graph
 
 
 def _use(use_kernels: Union[bool, str], t: torch.Tensor) -> bool:
@@ -97,30 +100,46 @@ def make_decode_loop(cfg, *, macro_steps: int, eos_id: Optional[int] = None,
     ``eos_id``.  Frozen slots keep executing with junk inputs; the per-slot
     length masks isolate their cache rows.  The cache and the four state
     vectors are updated in place (the JAX loop donates them) and returned.
+    Where ``decode_graph.decode_graph_refusal`` names no reason the steps
+    replay CUDA graphs of one step (``serving/decode_graph.py``), else they
+    run eagerly; the loop's ``graphs`` counts both.
     """
     eos = -1 if eos_id is None else int(eos_id)
+
+    def step(params, cache, cur_tok, lengths, remaining, done, shard=None,
+             kern=True):
+        out = M.forward(params, cfg,
+                        {"token": cur_tok[:, None], "cache": cache,
+                         "cache_index": lengths},
+                        mode="decode", use_kernels=kern, shard=shard)
+        new_tok = out.logits[:, 0].argmax(dim=-1).to(torch.int32)
+        active = ~done
+        adv = active.to(torch.int32)
+        cur_tok.copy_(torch.where(active, new_tok, cur_tok))
+        lengths += adv
+        remaining -= adv
+        done |= active & ((remaining <= 0) | (cur_tok == eos))
+
+    graphs = decode_graph.DecodeGraphs(step)
 
     def decode_loop(params, cache, cur_tok, lengths, remaining, done,
                     shard=None):
         kern = _use(use_kernels, cur_tok)
+        if decode_graph.decode_graph_refusal(cur_tok, kern) is None:
+            toks = graphs.run(macro_steps, params, cache, cur_tok, lengths,
+                              remaining, done)
+            return toks, cache, cur_tok, lengths, remaining, done
         toks = torch.empty((macro_steps, cur_tok.shape[0]), dtype=torch.int32,
                            device=cur_tok.device)
         for i in range(macro_steps):
             with tracing.span("model.decode_step"):
-                out = M.forward(params, cfg,
-                                {"token": cur_tok[:, None], "cache": cache,
-                                 "cache_index": lengths},
-                                mode="decode", use_kernels=kern, shard=shard)
-                new_tok = out.logits[:, 0].argmax(dim=-1).to(torch.int32)
-                active = ~done
-                step = active.to(torch.int32)
-                cur_tok.copy_(torch.where(active, new_tok, cur_tok))
-                lengths += step
-                remaining -= step
-                done |= active & ((remaining <= 0) | (cur_tok == eos))
+                step(params, cache, cur_tok, lengths, remaining, done, shard,
+                     kern)
                 toks[i] = cur_tok
+        graphs.eager_steps += macro_steps
         return toks, cache, cur_tok, lengths, remaining, done
 
+    decode_loop.graphs = graphs
     return decode_loop
 
 
@@ -147,6 +166,7 @@ def make_wave_driver(cfg, *, macro_steps: int, wave_steps: int,
                 params, cache, cur_tok, lengths, remaining, done, shard)
         return toks, cache, cur_tok, lengths, remaining, done
 
+    wave_driver.graphs = loop.graphs
     return wave_driver
 
 
@@ -260,6 +280,10 @@ class ServingEngine:
         self._use_kernels = resolve_use_kernels(use_kernels, self.device)
         self.prefill = make_prefill_step(cfg, use_kernels=self._use_kernels)
         self.step = make_serve_step(cfg, use_kernels=self._use_kernels)
+        # one fused loop for every generate call: its graphs outlive a call
+        self._loop = make_decode_loop(cfg, macro_steps=self.macro_steps,
+                                      use_kernels=self._use_kernels) \
+            if self.macro_steps > 0 else None
         self.decode_steps = 0
 
     @torch.no_grad()
@@ -290,8 +314,7 @@ class ServingEngine:
             return self._generate_per_step(last_logits, cache, rows, max_new,
                                            t_prefill, shard)
 
-        K = self.macro_steps
-        loop = make_decode_loop(cfg, macro_steps=K, use_kernels=self._use_kernels)
+        K, loop = self.macro_steps, self._loop
         tok = last_logits.argmax(dim=-1).to(torch.int32)
         lengths = torch.full((B,), rows, dtype=torch.int32, device=dev)
         remaining = torch.full((B,), max_new - 1, dtype=torch.int32, device=dev)
@@ -504,6 +527,12 @@ class ContinuousStats:
     kv_hop_bytes_raw: float = 0.0      # prefill->decode KV bytes before
                                        # sender-side compaction
     kv_hop_bytes_wire: float = 0.0     # ... and what crossed the link
+    # model decode steps of the fused loop (K a macro-step), replayed as
+    # CUDA graphs or run eagerly (refused, or the eager step before a
+    # capture), and the captures made (serving/decode_graph.py)
+    decode_graph_steps: int = 0
+    decode_eager_steps: int = 0
+    decode_graph_captures: int = 0
 
 
 @dataclass
@@ -640,6 +669,11 @@ class ContinuousServingEngine:
                 self.cfg, macro_steps=K, wave_steps=W, eos_id=self.eos_id,
                 use_kernels=self._use_kernels)
         return self._waves[key]
+
+    def _fused(self):
+        """The fused decode program of this engine's K and W."""
+        K, W = self.macro_steps, self.wave_steps
+        return self._get_wave(K, W) if W > 1 else self._get_loop(K)
 
     # ------------------------------------------------------------------
     def _make_batch(self, req: ServeRequest):
@@ -784,14 +818,24 @@ class ContinuousServingEngine:
     def _init_state(self):
         """Fresh decode state (``done`` marks free slots) and big cache (on
         a mesh: the rank's block, and the state replicated from the mesh's
-        first rank)."""
+        first rank).  Where the fused loop replays graphs the cache is the
+        loop's own, zeroed (``DecodeGraphs.cache``): the engines sharing
+        the loop run in turn on one cache at the graphs' addresses."""
         dev, n = self.device, self.slots
         zeros = lambda: torch.zeros((n,), dtype=torch.int32, device=dev)  # noqa: E731
         lengths, cur_tok, remaining = zeros(), zeros(), zeros()
         done = torch.ones((n,), dtype=torch.bool, device=dev)
         sharding.replicate((cur_tok, lengths, remaining, done))
-        cache = M.init_cache(self.cfg, n, self.max_len,
-                             dtype=self.cfg.torch_dtype, device=dev)
+
+        def make():
+            return M.init_cache(self.cfg, n, self.max_len,
+                                dtype=self.cfg.torch_dtype, device=dev)
+
+        if self.macro_steps > 0 and decode_graph.decode_graph_refusal(
+                cur_tok, self._use_kernels) is None:
+            cache = self._fused().graphs.cache((n, self.max_len), make)
+        else:
+            cache = make()
         return cache, cur_tok, lengths, remaining, done
 
     # ------------------------------------------------------------------
@@ -814,10 +858,17 @@ class ContinuousServingEngine:
         self._pc_hits = self._pc_blocks = 0
         self._pc_flops_avoided = self._pc_flops_total = 0.0
         self._kv_raw = self._kv_wire = 0.0
+        graphs = self._fused().graphs if self.macro_steps > 0 else None
+        mark = graphs.counts() if graphs is not None else {}
         with tracing.span("engine.run"):
             if self.macro_steps > 0 and self.overlap_admission:
-                return self._run_overlapped(requests)
-            return self._run_boundary(requests)
+                outputs, stats = self._run_overlapped(requests)
+            else:
+                outputs, stats = self._run_boundary(requests)
+        if graphs is not None:
+            stats = replace(stats, **{
+                k: n - mark[k] for k, n in graphs.counts().items()})
+        return outputs, stats
 
     def _stats(self, outputs, step_no, busy_acc, t_prefill, t_decode,
                wall, **kw) -> ContinuousStats:
@@ -909,7 +960,7 @@ class ContinuousServingEngine:
 
             # --- one fused macro-step (or wave of W) over all slots ----
             W = self.wave_steps
-            fn = self._get_wave(K, W) if W > 1 else self._get_loop(K)
+            fn = self._fused()
             with tracing.timed("engine.dispatch") as sp_d:
                 toks, cache, cur_tok, lengths, remaining, done = _macro_step(
                     fn, (self.params, cache, cur_tok, lengths, remaining,
@@ -1178,7 +1229,7 @@ class ContinuousServingEngine:
             with tracing.timed("engine.dispatch") as sp_d:
                 if any(s.busy and s.remaining > 0 and not _eos_done(s)
                        for s in slot_states):
-                    fn = self._get_wave(K, W) if W > 1 else self._get_loop(K)
+                    fn = self._fused()
                     args = (self.params, cache, cur_tok, lengths, remaining,
                             done, self._shard)
                     launch = self._launcher.submit(fn, *args) \

@@ -125,8 +125,13 @@ def _same_stats(got, want):
 
 # ---------------------------------------------------------------------------
 def test_dataclasses_match_jax():
-    for ours, theirs in ((engine.ContinuousStats, jengine.ContinuousStats),
-                         (engine.ServeRequest, jengine.ServeRequest),
+    # the port's stats add the decode-graph counters, and nothing else
+    graph_counts = [(n, 0) for n in engine.decode_graph.DecodeGraphs.COUNTS]
+    assert [(f.name, f.default) for f in dataclasses.fields(
+        engine.ContinuousStats)] == [
+        (f.name, f.default) for f in dataclasses.fields(
+            jengine.ContinuousStats)] + graph_counts
+    for ours, theirs in ((engine.ServeRequest, jengine.ServeRequest),
                          (engine.RequestOutput, jengine.RequestOutput),
                          (engine._Slot, jengine._Slot)):
         assert [(f.name, f.default) for f in dataclasses.fields(ours)] == \
@@ -138,7 +143,8 @@ def test_dataclasses_match_jax():
     golden = json.loads((Path(__file__).parent / "golden" /
                          "telemetry_schema.json").read_text())
     assert {f.name: str(f.type) for f in dataclasses.fields(
-        engine.ContinuousStats)} == golden["continuous_stats"]
+        engine.ContinuousStats)} == dict(golden["continuous_stats"], **{
+            name: "int" for name, _ in graph_counts})
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
